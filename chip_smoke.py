@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""On-card smoke check of the PyTorch/CUDA port (`kagnn_tpu_torch`).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero):
+  1. device: requires CUDA, prints the card's name and power limit, turns
+     TF32 off for matmul and cuDNN;
+  2. build: compiles every CUDA kernel from `kagnn_tpu_torch/csrc/` (one
+     nvcc per source, all at once) and prints the build time;
+  3. kernels: each kernel against its plain PyTorch version on the card, at
+     a small shape and at the main path's shapes, in f32 and bf16, with
+     times (CUDA events) for the kernel, the plain version and, for the
+     segment sum, `torch.sparse.mm` on the CSR adjacency as the library
+     yardstick (the port never calls it);
+  4. whole step, small graph: the kernel path (fused=True) and the plain
+     path (fused=False) agree on logits and every parameter gradient;
+  5. main path: the KAGIN bf16 train step at full width on the
+     arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), 2
+     warm-up + 10 timed steps, with the launch counters checked;
+  6. prints the kernel list as one JSON line, then the result line.
+
+It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 / f32 non-tensor
+NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
+               num_classes=40, grid_size=4, spline_order=3, skip=False,
+               hidden_layers=2, heads=4, dropout=0.0)  # bench.py _NODE_KW
+BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device and found none")
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip()
+    log(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    return card
+
+
+def phase_build():
+    from kagnn_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    secs = time.perf_counter() - t0
+    log(f"build: {len(_build.SOURCES)} sources in {secs:.1f} s")
+    (_build.BUILD / "ptxas.txt").write_text(
+        "\n".join(f"== {n}\n{r}" for n, r in reports.items()))
+    for name, rep in reports.items():
+        spills = [ln for ln in rep.splitlines()
+                  if "spill" in ln and not ln.strip().endswith(
+                      "0 bytes spill stores, 0 bytes spill loads")]
+        log(f"ptxas {name}: {len(spills)} functions with spills")
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(torch, name, got, want, dtype):
+    """Elementwise |got - want| <= c * max(|want|, mean |want|). f32:
+    c = 1e-4, since the kernel and its plain version only sum in different
+    orders; bf16: c = 4 bf16 ulps, since both round the same f32 sums to
+    bf16 once and a flipped rounding costs one ulp on top of the order.
+    The mean floors the scale of values near zero. Returns max |got - want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    c = 1e-4 if dtype == "float32" else 4 * BF16_ULP
+    scale = torch.clamp(want.abs(), min=max(want.abs().mean().item(), 1e-30))
+    ratio = (diff / (c * scale)).max().item()
+    ok = ratio <= 1.0 and math.isfinite(err)
+    log(f"  {name} {dtype}: max_abs_err={err:.3e} worst err/tol={ratio:.3f} "
+        f"(tol {c:.1e} x scale) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: err/tol {ratio}")
+    return err
+
+
+def kernel_row(name, source, replaces):
+    """One entry of the kernel list printed before the result line."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
+                bound_ms=None, bound_by=None, library_ms=None)
+
+
+def phase_kernels(torch, big):
+    """Each kernel against its plain version; `big` is the main path's graph."""
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kan.bspline import make_grid
+    from kagnn_tpu_torch.kernels import bspline_fused as bf
+    from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels import spmm
+
+    rows = {
+        "spmm": kernel_row("spmm", "kagnn_tpu_torch/csrc/spmm.cu",
+                           "kagnn_tpu/pallas/spmm.py:88"),
+        "bspline_fwd": kernel_row("bspline_fwd",
+                                  "kagnn_tpu_torch/csrc/bspline_fused.cu",
+                                  "kagnn_tpu/pallas/bspline_fused.py:66"),
+        "bspline_bwd": kernel_row("bspline_bwd",
+                                  "kagnn_tpu_torch/csrc/bspline_fused.cu",
+                                  "kagnn_tpu/pallas/bspline_fused.py:86"),
+        "gin_fused": kernel_row("gin_fused", "kagnn_tpu_torch/csrc/gin_fused.cu",
+                                "kagnn_tpu/pallas/gin_fused.py:51"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    small = single_graph(rng.integers(0, 100, 700), rng.integers(0, 100, 700),
+                         n_node=100, device="cuda")
+    k, grid_size = 3, 4
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def layer(D, O, dtype):
+        knots = make_grid(D, grid_size, k, device="cuda").t().contiguous().to(dtype)
+        wb = rand((D, O), dtype, 0.3)
+        ws = rand(((grid_size + k) * D, O), dtype, 0.3)
+        return knots, wb, ws
+
+    def record(row, err, main, ms=None, plain_ms=None, bound_ms=None,
+               bound_by=None, library_ms=None):
+        r = rows[row]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        s = torch.tensor([], dtype=dtype).element_size()
+        for gname, g, timed in (("small", small, False), ("main", big, True)):
+            N, E = g.n_node_pad, g.n_edge_pad
+            # the main path's shapes: A^T dz over the sender CSR (D = 64)
+            dz = rand((N, 64), dtype)
+            args = (dz, g.send_row_ptr, g.receivers_by_sender)
+            err = compare(torch, f"spmm {gname} ({N},64)",
+                          spmm.sorted_segment_sum(*args),
+                          spmm.sorted_segment_sum_plain(*args), dn)
+            main = timed and dtype == torch.bfloat16
+            if timed:
+                ms = time_ms(torch, lambda: spmm.sorted_segment_sum(*args))
+                pms = time_ms(torch, lambda: spmm.sorted_segment_sum_plain(*args))
+                adj = torch.sparse_csr_tensor(
+                    g.send_row_ptr.long(), g.receivers_by_sender.long(),
+                    torch.ones(E, dtype=dtype, device="cuda"), size=(N, N),
+                    check_invariants=False)
+                lib = spmm.sorted_segment_sum_plain(*args)
+                torch.testing.assert_close(torch.sparse.mm(adj, dz).float(),
+                                           lib.float(), rtol=0.02, atol=0.1)
+                lms = time_ms(torch, lambda: torch.sparse.mm(adj, dz))
+                bms, by = bound(2 * N * 64 * s + 4 * (E + N + 1), E * 64, dn)
+                log(f"  spmm main {dn}: ms={ms:.4f} plain_ms={pms:.4f} "
+                    f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
+                record("spmm", err, main, ms, pms, bms, by, lms)
+            else:
+                record("spmm", err, False)
+
+            # (64, 64): second update layers and the GIN backward of convs 1-2;
+            # (64, 40): the head; (128, 64): the GIN backward of conv 0
+            for D, O in ((64, 64), (64, 40), (128, 64)):
+                knots, wb, ws = layer(D, O, dtype)
+                x = rand((N, D), dtype)
+                dout = rand((N, O), dtype, 0.1)
+                fa = (x, knots, wb, ws, k)
+                err = compare(torch, f"bspline_fwd {gname} D={D} O={O}",
+                              bf.kan_linear_fwd(*fa), bf.kan_linear_fwd_plain(*fa), dn)
+                got = bf.kan_linear_bwd(*fa[:4], dout, k)
+                want = bf.kan_linear_bwd_plain(*fa[:4], dout, k)
+                errb = max(compare(torch, f"bspline_bwd {gname} D={D} O={O} {w}",
+                                   a, b, dn)
+                           for w, a, b in zip(("dx", "dwb", "dws"), got, want))
+                nb1 = grid_size + k + 1
+                if timed:
+                    ms = time_ms(torch, lambda: bf.kan_linear_fwd(*fa))
+                    pms = time_ms(torch, lambda: bf.kan_linear_fwd_plain(*fa))
+                    bms, by = bound((N * D + knots.numel() + nb1 * D * O + N * O) * s,
+                                    2 * N * nb1 * D * O, dn)
+                    log(f"  bspline_fwd main {dn} D={D} O={O}: ms={ms:.4f} "
+                        f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    record("bspline_fwd", err, main and (D, O) == (64, 64), ms, pms, bms, by)
+                    ms = time_ms(torch, lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
+                    pms = time_ms(torch, lambda: bf.kan_linear_bwd_plain(*fa[:4], dout, k))
+                    bms, by = bound((2 * N * D + knots.numel() + 2 * nb1 * D * O
+                                     + N * O) * s, 4 * N * nb1 * D * O, dn)
+                    log(f"  bspline_bwd main {dn} D={D} O={O}: ms={ms:.4f} "
+                        f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    record("bspline_bwd", errb, main and (D, O) == (64, 64), ms, pms,
+                           bms, by)
+                else:
+                    record("bspline_fwd", err, False)
+                    record("bspline_bwd", errb, False)
+
+            for D, O in ((128, 64), (64, 64)):
+                knots, wb, ws = layer(D, O, dtype)
+                x = rand((N, D), dtype)
+                ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.0)
+                got, want = gf.gin_kan_fwd(*ga), gf.gin_kan_fwd_plain(*ga)
+                nm = g.node_mask  # rows past the graph are unspecified
+                err = max(compare(torch, f"gin_fused {gname} D={D} O={O} {w}",
+                                  a[nm], b[nm], dn)
+                          for w, a, b in zip(("out", "z"), got, want))
+                if timed:
+                    ms = time_ms(torch, lambda: gf.gin_kan_fwd(*ga))
+                    pms = time_ms(torch, lambda: gf.gin_kan_fwd_plain(*ga))
+                    nb1 = grid_size + k + 1
+                    bms, by = bound((2 * N * D + knots.numel() + nb1 * D * O + N * O) * s
+                                    + 4 * (E + N + 1),
+                                    E * D + 2 * N * nb1 * D * O, dn)
+                    log(f"  gin_fused main {dn} D={D} O={O}: ms={ms:.4f} "
+                        f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    record("gin_fused", err, main and D == 64, ms, pms, bms, by)
+                else:
+                    record("gin_fused", err, False)
+    return rows
+
+
+def phase_small_step(torch):
+    """Kernel path against the plain path on the card, f32 and bf16."""
+    from kagnn_tpu_torch.data import community_node_graph
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.models import NodeClassifier
+    from kagnn_tpu_torch.train import masked_softmax_cross_entropy
+
+    d = community_node_graph(n_nodes=300, n_classes=4, num_features=16, seed=0)
+    g = single_graph(d["senders"], d["receivers"], nodes=d["nodes"], y=d["y"],
+                     device="cuda")
+    kw = dict(conv_type="gin", architecture="kan", mp_layers=3,
+              num_features=16, hidden_channels=16, num_classes=4,
+              grid_size=4, spline_order=3, skip=False)
+
+    def run(fused, cd):
+        m = NodeClassifier(fused=fused, compute_dtype=cd, device="cuda", **kw)
+        m.train()
+        logits = m(g)
+        loss = masked_softmax_cross_entropy(logits, g.y, g.node_mask)
+        loss.backward()
+        return logits.detach(), {n: p.grad for n, p in m.named_parameters()}
+
+    nm = g.node_mask
+    lk, gk = run(True, None)
+    lp, gp = run(False, None)
+    # f32: same tolerances as the CPU parity tests (values rtol 1e-4 /
+    # atol 1e-5, grads rtol 1e-3 / atol 1e-5): only summation order differs
+    torch.testing.assert_close(lk[nm], lp[nm], rtol=1e-4, atol=1e-5)
+    worst = 0.0
+    for n in gp:
+        torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
+        worst = max(worst, (gk[n] - gp[n]).abs().max().item())
+    log(f"small step f32: logits max_abs_err="
+        f"{(lk[nm] - lp[nm]).abs().max().item():.3e}, "
+        f"{len(gp)} grads agree (worst {worst:.3e})")
+    # bf16 kernel path against the f32 plain path: the test_bf16.py bar
+    lb, _ = run(True, torch.bfloat16)
+    rel = ((lb[nm] - lp[nm]).abs().mean() / (lp[nm].abs().mean() + 1e-6)).item()
+    log(f"small step bf16 vs f32: mean relative error {rel:.4f} (bar 0.1)")
+    if not rel < 0.1:
+        raise AssertionError(f"bf16 kernel path too far from f32: {rel}")
+
+
+def main_graph(torch):
+    from kagnn_tpu_torch.data import arxiv_scale_graph
+    from kagnn_tpu_torch.graphs import single_graph
+
+    t0 = time.perf_counter()
+    d = arxiv_scale_graph()
+    g = single_graph(d["senders"], d["receivers"], nodes=d["nodes"], y=d["y"],
+                     edge_pad_multiple=1024, device="cuda")
+    log(f"arxiv-sized graph: {g.n_node} nodes ({g.n_node_pad} padded), "
+        f"{g.n_edge} edges ({g.n_edge_pad} padded), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return g
+
+
+def phase_main_path(torch, g):
+    from kagnn_tpu_torch.kernels import bspline_fused as bf
+    from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels import spmm
+    from kagnn_tpu_torch.models import NodeClassifier
+    from kagnn_tpu_torch.train import make_node_steps
+
+    model = NodeClassifier(conv_type="gin", architecture="kan", fused=True,
+                           compute_dtype=torch.bfloat16, seed=0,
+                           device="cuda", **NODE_KW)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    train_step, evaluate = make_node_steps(model, opt)
+    mask = g.node_mask
+    counters = {"gin_fused": gf.gin_kan_fwd, "bspline_fwd": bf.kan_linear_fwd,
+                "bspline_bwd": bf.kan_linear_bwd, "spmm": spmm.sorted_segment_sum}
+    per_step = {"gin_fused": 3, "bspline_fwd": 4, "bspline_bwd": 7, "spmm": 2}
+    warmup, timed = 2, 10
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    losses = [train_step(g, mask) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [train_step(g, mask) for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    vals = [float(v) for v in losses]
+    log(f"main path: {warmup}+{timed} steps, ms/step={ms:.3f}, "
+        f"peak_mem={peak:.3f} GiB, losses {vals[0]:.5f} -> {vals[-1]:.5f}")
+    log(f"main path launches: {launches}")
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite loss on the main path: {vals}")
+    steps = warmup + timed
+    for k, n in per_step.items():
+        if launches[k] != n * steps:
+            raise AssertionError(f"{k}: {launches[k]} launches in {steps} "
+                                 f"steps, expected {n} per step")
+    logits = evaluate(g)
+    if logits.shape != (g.n_node_pad, NODE_KW["num_classes"]) or \
+            not torch.isfinite(logits[mask]).all():
+        raise AssertionError("evaluate gave non-finite or misshapen logits")
+    profile_steps(torch, lambda: train_step(g, mask), ms)
+    return launches, ms
+
+
+def profile_steps(torch, step, step_ms, steps=3):
+    """Device time per step by kernel, from torch.profiler over a few main
+    path steps (after the counted run, so its launches are not counted).
+    The busy share compares the summed kernel time with the timed run's
+    ms/step; the profiler's own overhead is outside both."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if total == 0.0:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    log(f"profile: {total:.3f} ms of kernels per step, busy share "
+        f"{total / step_ms:.3f} of the timed {step_ms:.3f} ms/step")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:15]:
+        t = e.self_device_time_total / 1e3 / steps
+        log(f"  {t:8.4f} ms/step {e.count // steps:4d} calls/step "
+            f"{t / total:6.3f}  {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    card = phase_device(torch)
+    phase_build()
+    g = main_graph(torch)
+    log("kernels against their plain versions:")
+    rows = phase_kernels(torch, g)
+    phase_small_step(torch)
+    launches, step_ms = phase_main_path(torch, g)
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    log(f"card: {card}; main path ms/step={step_ms:.3f}")
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,181 @@
+// Shared device code of the KANLinear kernels (bspline_fused.cu,
+// gin_fused.cu): element conversions, SiLU, the Cox-de Boor ladder and the
+// dispatch over (dtype, spline order, grid size).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace kan {
+
+// dtype codes passed from Python
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// round an f32 value to T and back: where the JAX kernel casts an operand
+// to the compute dtype before a matrix product
+template <typename T> __device__ __forceinline__ float round_t(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Cox-de Boor recursion for one (row, feature) value in f32, the same
+// arithmetic as kagnn_tpu/pallas/bspline_fused.py::_basis_ladder: order-0
+// indicators of the half-open knot spans, then ORDER levels of
+//   b_j <- (x - t_j) / (t_{j+kk} - t_j) * b_j
+//          - (x - t_{j+kk+1}) / (t_{j+kk+1} - t_{j+1}) * b_{j+1}
+// with the divisions as multiplications by reciprocals. Writes the NB =
+// NK-1-ORDER final bases and, when pen != nullptr, the NB+1 bases of order
+// ORDER-1 that the analytic derivative needs. Every index is a compile-time
+// constant after unrolling, so the arrays live in registers.
+template <int ORDER, int NK>
+__device__ __forceinline__ void ladder(float x, const float (&t)[NK],
+                                       float (&b)[NK - 1], float* pen) {
+  float xt[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) xt[j] = x - t[j];
+#pragma unroll
+  for (int j = 0; j < NK - 1; ++j) b[j] = (xt[j] >= 0.f && xt[j + 1] < 0.f) ? 1.f : 0.f;
+#pragma unroll
+  for (int kk = 1; kk <= ORDER; ++kk) {
+    if (kk == ORDER && pen != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NK - ORDER; ++j) pen[j] = b[j];
+    }
+#pragma unroll
+    for (int j = 0; j < NK - 1 - kk; ++j) {
+      b[j] = xt[j] * (1.f / (t[j + kk] - t[j])) * b[j] -
+             xt[j + kk + 1] * (1.f / (t[j + kk + 1] - t[j + 1])) * b[j + 1];
+    }
+  }
+}
+
+// d silu / dx with s = sigmoid(x)
+__device__ __forceinline__ float dsilu(float x, float s) { return s * (1.f + x * (1.f - s)); }
+
+constexpr int kThreads = 256;  // threads per block of every KAN kernel
+constexpr int kFwdRows = 32;   // rows per forward tile: 4 row groups of 8
+constexpr int kDC = 32;        // features per chunk of the basis matrix
+constexpr int kOT = 64;        // output columns per block (blockIdx.y tiles O)
+
+// Columns of one feature chunk of the basis matrix A = [SiLU(x) | B_0 .. B_NB-1]:
+// column g*kDC + j holds feature d0 + j of group g (g = 0 is SiLU).
+template <int ORDER, int GRID> struct Shape {
+  static constexpr int NK = GRID + 2 * ORDER + 1;  // knots per feature
+  static constexpr int NB = GRID + ORDER;          // bases per feature
+  static constexpr int NG = NB + 1;                // groups: SiLU + bases
+  static constexpr int AC = NG * kDC;              // columns of a chunk
+};
+
+// Row g*D + d of the stacked weight [Wb; Ws] (D*NG, O): group 0 is the base
+// weight (D, O), group g >= 1 the spline weight laid out as (NB*D, O).
+template <typename T>
+__device__ __forceinline__ const T* weight_row(const T* wb, const T* ws, int g, int d, int D,
+                                               int O) {
+  return g == 0 ? wb + (size_t)d * O : ws + ((size_t)(g - 1) * D + d) * O;
+}
+
+// Fill the basis chunk A_s (rows x AC floats) for features d0..d0+kDC-1 of
+// `rows` rows. load(rr, row, d) returns the f32 input of local row rr; rows
+// at or past `row_end` and features past D give zeros. Each value is rounded
+// to T, as the JAX kernel casts SiLU(x) and the bases before its products.
+template <typename T, int ORDER, int GRID, typename Load>
+__device__ __forceinline__ void build_basis_chunk(Load load, float* A_s, int rows, int row0,
+                                                  int row_end, int d0, int D, const T* knots) {
+  using S = Shape<ORDER, GRID>;
+  const int dd = threadIdx.x % kDC;
+  const int d = d0 + dd;
+  float t[S::NK];
+#pragma unroll
+  for (int j = 0; j < S::NK; ++j) t[j] = d < D ? to_f(knots[(size_t)j * D + d]) : 0.f;
+  for (int rr = threadIdx.x / kDC; rr < rows; rr += kThreads / kDC) {
+    const int row = row0 + rr;
+    float* a = A_s + rr * S::AC + dd;
+    if (d < D && row < row_end) {
+      const float xv = load(rr, row, d);
+      a[0] = round_t<T>(xv * sigmoid(xv));
+      float b[S::NK - 1];
+      ladder<ORDER, S::NK>(xv, t, b, nullptr);
+#pragma unroll
+      for (int g = 0; g < S::NB; ++g) a[(g + 1) * kDC] = round_t<T>(b[g]);
+    } else {
+#pragma unroll
+      for (int g = 0; g < S::NG; ++g) a[g * kDC] = 0.f;
+    }
+  }
+}
+
+// The whole KANLinear forward of one tile of kFwdRows rows starting at row0:
+//   out[row, o] = sum_{g, d} A[row, g*D + d] * W[g*D + d, o]
+// accumulated in f32 over feature chunks and written in T. Thread t owns
+// output column o = blockIdx.y*kOT + t % kOT for 8 rows (row group t / kOT).
+// A_s needs kFwdRows * AC floats of shared memory.
+template <typename T, int ORDER, int GRID, typename Load>
+__device__ __forceinline__ void kan_forward_tile(Load load, float* A_s, int row0, int n, int D,
+                                                 int O, const T* __restrict__ knots,
+                                                 const T* __restrict__ wb,
+                                                 const T* __restrict__ ws, T* __restrict__ out) {
+  using S = Shape<ORDER, GRID>;
+  const int o = blockIdx.y * kOT + threadIdx.x % kOT;
+  const int rg = threadIdx.x / kOT;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += kDC) {
+    __syncthreads();  // the previous chunk's products are done with A_s
+    build_basis_chunk<T, ORDER, GRID>(load, A_s, kFwdRows, row0, n, d0, D, knots);
+    __syncthreads();
+    const int dn = min(kDC, D - d0);
+    if (o < O) {
+      const float* a0 = A_s + rg * 8 * S::AC;
+#pragma unroll
+      for (int g = 0; g < S::NG; ++g) {
+        const T* wrow = weight_row(wb, ws, g, d0, D, O) + o;
+        for (int j = 0; j < dn; ++j) {
+          const float w = to_f(wrow[(size_t)j * O]);
+          const float* a = a0 + g * kDC + j;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] += a[i * S::AC] * w;
+        }
+      }
+    }
+  }
+  if (o < O) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + rg * 8 + i;
+      if (row < n) out[(size_t)row * O + o] = from_f<T>(acc[i]);
+    }
+  }
+}
+
+}  // namespace kan
+
+// Calls FN<T, ORDER, GRID>(args...) for the supported combinations and
+// returns cudaErrorInvalidValue for any other. The main path uses order 3,
+// grid 4; grids 3 and 5 are the neighbouring configurations.
+#define KAN_DISPATCH(dtype, order, grid, FN, ...)                              \
+  do {                                                                         \
+    if (order != 3) return (int)cudaErrorInvalidValue;                         \
+    if (dtype == kan::kF32) {                                                  \
+      if (grid == 3) return FN<float, 3, 3>(__VA_ARGS__);                      \
+      if (grid == 4) return FN<float, 3, 4>(__VA_ARGS__);                      \
+      if (grid == 5) return FN<float, 3, 5>(__VA_ARGS__);                      \
+    } else if (dtype == kan::kBF16) {                                          \
+      if (grid == 3) return FN<__nv_bfloat16, 3, 3>(__VA_ARGS__);              \
+      if (grid == 4) return FN<__nv_bfloat16, 3, 4>(__VA_ARGS__);              \
+      if (grid == 5) return FN<__nv_bfloat16, 3, 5>(__VA_ARGS__);              \
+    }                                                                          \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)

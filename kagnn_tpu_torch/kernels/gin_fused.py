@@ -1,0 +1,115 @@
+"""Fused GIN aggregate + B-spline KANLinear: the port of
+`kagnn_tpu/pallas/gin_fused.py::_kernel` (forward) and `_gk_bwd`.
+
+    z   = (1 + eps) * x_i + sum_{j in N(i)} x_j
+    out = KANLinear(z)
+
+in one launch, which also emits z (in x's dtype) for the backward. As in the
+JAX kernel the ladder runs on the unrounded f32 z, the backward rebuilds it
+from the stored z, and padded edges are not masked: they point at the masked
+last row, whose output every consumer masks.
+
+The backward (`_gk_bwd`) is the KANLinear backward kernel on z
+(kernels/bspline_fused.py), then the segment-sum kernel over the sender CSR
+with the gather index `receivers_by_sender` (kernels/spmm.py), then
+dx = (1 + eps) * dz + A^T dz. When x needs no gradient (the node features of
+the first conv) the dz and A^T dz work is skipped.
+
+CUDA kernel: `csrc/gin_fused.cu` (see its header for the bound on the H100
+and the design). On a CPU tensor the wrapper runs the plain version below;
+on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from kagnn_tpu_torch.kernels import _build
+from kagnn_tpu_torch.kernels._common import (check_cuda, dtype_code,
+                                             segment_ids, stream_of)
+from kagnn_tpu_torch.kernels.bspline_fused import (_check_layer,
+                                                   kan_forward_f32,
+                                                   kan_linear_bwd,
+                                                   weight_layouts)
+from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum
+
+
+def gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k, eps):
+    """The plain version: gather + index_add_ into f32, then the plain
+    KANLinear on the f32 aggregate. Returns (out, z)."""
+    agg = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    agg.index_add_(0, segment_ids(recv_row_ptr),
+                   x.index_select(0, senders.long()).float())
+    z32 = agg + (1.0 + eps) * x.float()
+    return kan_forward_f32(z32, knots, wb, ws, k, x.dtype), z32.to(x.dtype)
+
+
+@functools.cache
+def _fn():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("gin_fused", "gin_fwd",
+                       [P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P])
+
+
+def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float):
+    """x (N, D), senders (E,) int32 in receiver-sorted order, recv_row_ptr
+    (N+1,) int32, knots (K, D), wb (D, O), ws (n_basis*D, O) -> (out (N, O),
+    z (N, D))."""
+    if x.device.type == "cpu":
+        return gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k,
+                                 eps)
+    code = dtype_code(x)
+    n, D, O, grid = _check_layer(x, knots, wb, ws, k)
+    check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
+    check_cuda("senders", senders, torch.int32, (None,))
+    out = torch.empty((n, O), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(x)
+    err = _fn()(x.data_ptr(), senders.data_ptr(), recv_row_ptr.data_ptr(),
+                knots.data_ptr(), wb.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), z.data_ptr(), n, D, O, float(eps), grid, k,
+                code, stream_of(x))
+    _build.check(err, "gin_fwd")
+    gin_kan_fwd.launches += 1
+    return out, z
+
+
+gin_kan_fwd.launches = 0
+
+
+class GinKan(torch.autograd.Function):
+    """The JAX `_gin_kan` custom VJP: forward through the fused GIN kernel,
+    backward through the KANLinear backward kernel and the segment sum."""
+
+    @staticmethod
+    def forward(ctx, x, g, knots, wb, ws, eps, k):
+        out, z = gin_kan_fwd(x, g.senders, g.recv_row_ptr, knots, wb, ws, k,
+                             eps)
+        ctx.save_for_backward(z, knots, wb, ws)
+        ctx.g, ctx.eps, ctx.k = g, eps, k
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        z, knots, wb, ws = ctx.saved_tensors
+        need_x = ctx.needs_input_grad[0]
+        dz, dwb, dws = kan_linear_bwd(z, knots, wb, ws, dout.contiguous(),
+                                      ctx.k, need_dx=need_x)
+        dx = None
+        if need_x:
+            g = ctx.g
+            dx_a = sorted_segment_sum(dz, g.send_row_ptr, g.receivers_by_sender)
+            dx = (1.0 + ctx.eps) * dz + dx_a
+        return dx, None, None, dwb, dws, None, None
+
+
+def gin_kan_fused(x: torch.Tensor, g, eps: float, grid: torch.Tensor,
+                  base_weight: torch.Tensor,
+                  scaled_spline_weight: torch.Tensor,
+                  spline_order: int) -> torch.Tensor:
+    """Fused GINConv aggregate + KANLinear over a GraphBatch, from the
+    module's layouts: base_weight (O, D), scaled_spline_weight
+    (O, D, n_basis), grid (D, K)."""
+    knots, wb, ws = weight_layouts(grid, base_weight, scaled_spline_weight)
+    return GinKan.apply(x.contiguous(), g, knots, wb, ws, float(eps),
+                        int(spline_order))

@@ -1,0 +1,85 @@
+"""Node-classification model, the counterpart of
+`kagnn_tpu/models/node.py::NodeClassifier` on the gin/kan path.
+
+Per message-passing layer: conv -> MaskedBatchNorm -> dropout; the head is
+a KANLinear; with `skip` the head reads the concatenation [x0, h1, ..., hL].
+Under a compute dtype the node features are cast on entry and the logits
+come back in f32, as in the JAX model.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from kagnn_tpu_torch.kan.layers import KAN, KANLinear
+from kagnn_tpu_torch.nn.convs import GINConv
+from kagnn_tpu_torch.ops.norm import MaskedBatchNorm
+from kagnn_tpu_torch.utils.device import resolve_device
+
+_LATER = {"gcn": "the GCN slice", "gat": "the GAT slice",
+          "fastkan": "the FastKAN slice", "mlp": "the graph-task slice"}
+
+
+class NodeClassifier(nn.Module):
+    def __init__(self, conv_type: str, architecture: str, mp_layers: int,
+                 num_features: int, hidden_channels: int, num_classes: int,
+                 skip: bool = True, grid_size: int = 4, spline_order: int = 3,
+                 hidden_layers: int = 2, dropout: float = 0.0, heads: int = 4,
+                 fused: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None, seed: int = 0,
+                 device=None):
+        super().__init__()
+        for name, value in (("conv_type", conv_type),
+                            ("architecture", architecture)):
+            if value in _LATER:
+                raise NotImplementedError(
+                    f"{name}={value!r} is ported with {_LATER[value]}; this "
+                    f"port runs conv_type='gin', architecture='kan'")
+        if conv_type != "gin" or architecture != "kan":
+            raise ValueError(f"unknown conv_type/architecture "
+                             f"{conv_type!r}/{architecture!r}")
+        del heads  # GAT only
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        H = hidden_channels
+        kw = dict(grid_size=grid_size, spline_order=spline_order, fused=fused,
+                  compute_dtype=compute_dtype, generator=gen, device=dev)
+        self.convs = nn.ModuleList()
+        self.norms = nn.ModuleList()
+        for i in range(mp_layers):
+            fin = num_features if i == 0 else H
+            sizes = [fin] + [H] * (hidden_layers - 1) + [H]
+            self.convs.append(GINConv(KAN(sizes, **kw)))
+            self.norms.append(MaskedBatchNorm(H, device=dev))
+        self.skip, self.dropout = skip, dropout
+        self.compute_dtype, self.seed = compute_dtype, seed
+        dim_head = num_features + mp_layers * H if skip else H
+        self.head = KANLinear(dim_head, num_classes, **kw)
+        self._dropout_gen = None
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.dropout == 0.0:
+            return x
+        if self._dropout_gen is None:
+            self._dropout_gen = torch.Generator(device=x.device).manual_seed(
+                self.seed + 1)
+        keep = torch.rand(x.shape, generator=self._dropout_gen,
+                          device=x.device) >= self.dropout
+        return x * keep.to(x.dtype) / (1.0 - self.dropout)
+
+    def forward(self, g, x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x is None:
+            x = g.nodes
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        collected = [x]
+        for conv, norm in zip(self.convs, self.norms):
+            x = conv(g, x)
+            x = norm(x, mask=g.node_mask)
+            x = self._drop(x)
+            collected.append(x)
+        if self.skip:
+            x = torch.cat(collected, dim=1)
+        return self.head(x).float()

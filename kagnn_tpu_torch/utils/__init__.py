@@ -1,0 +1,1 @@
+from kagnn_tpu_torch.utils.device import resolve_device  # noqa: F401
