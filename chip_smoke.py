@@ -10,16 +10,21 @@ Phases (any failure raises, and the script exits non-zero):
      TF32 off for matmul and cuDNN;
   2. build: compiles every CUDA kernel from `kagnn_tpu_torch/csrc/` (one
      nvcc per source, all at once) and prints the build time;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     a small shape and at the main path's shapes, in f32 and bf16, with
-     times (CUDA events) for the kernel, the plain version and, for the
-     segment sum, `torch.sparse.mm` on the CSR adjacency as the library
-     yardstick (the port never calls it);
-  4. whole step, small graph: the kernel path (fused=True) and the plain
+  3. kernels: each of the 8 kernels against its plain PyTorch version on
+     the card, at small shapes, ragged shapes (N off every tile, isolated
+     nodes, a node of in-degree 301: the new kernels) and the main paths'
+     shapes, in f32 and bf16, with times (CUDA events) for the kernel, the
+     plain version and, where one PyTorch call computes the same function,
+     that call as the library yardstick (`torch.sparse.mm` on a CSR
+     matrix; the port never calls it); then the forward and backward of
+     the new autograd Functions against the plain path;
+  4. whole step, small graph, per node path (gin/kan, gcn/kan,
+     gcn/fastkan, gin/fastkan): the kernel path (fused=True) and the plain
      path (fused=False) agree on logits and every parameter gradient;
-  5. main path: the KAGIN bf16 train step at full width on the
-     arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), 2
-     warm-up + 10 timed steps, with the launch counters checked;
+  5. main paths: the bf16 train step of each node path at full width on
+     the arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), 2
+     warm-up + 10 timed steps each, with the launch counters set to 0
+     before and checked after each path, and a profiler breakdown;
   6. prints the kernel list as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -130,6 +135,14 @@ def kernel_row(name, source, replaces):
                 bound_ms=None, bound_by=None, library_ms=None)
 
 
+def record_row(r, err, main, **times):
+    """Keep the worst error of every comparison; the times of the one
+    comparison at the main path's representative shape."""
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if main:
+        r.update(times)
+
+
 def phase_kernels(torch, big):
     """Each kernel against its plain version; `big` is the main path's graph."""
     from kagnn_tpu_torch.graphs import single_graph
@@ -149,6 +162,17 @@ def phase_kernels(torch, big):
                                   "kagnn_tpu/pallas/bspline_fused.py:86"),
         "gin_fused": kernel_row("gin_fused", "kagnn_tpu_torch/csrc/gin_fused.cu",
                                 "kagnn_tpu/pallas/gin_fused.py:51"),
+        "gcn_agg": kernel_row("gcn_agg", "kagnn_tpu_torch/csrc/gcn_agg.cu",
+                              "kagnn_tpu/pallas/gcn_agg.py:49"),
+        "fastkan_fwd": kernel_row("fastkan_fwd",
+                                  "kagnn_tpu_torch/csrc/fastkan_layer.cu",
+                                  "kagnn_tpu/pallas/fastkan_layer.py:48"),
+        "fastkan_bwd": kernel_row("fastkan_bwd",
+                                  "kagnn_tpu_torch/csrc/fastkan_layer.cu",
+                                  "kagnn_tpu/pallas/fastkan_layer.py:62"),
+        "gin_fastkan": kernel_row("gin_fastkan",
+                                  "kagnn_tpu_torch/csrc/gin_fastkan.cu",
+                                  "kagnn_tpu/pallas/gin_fastkan.py:42"),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -167,11 +191,8 @@ def phase_kernels(torch, big):
 
     def record(row, err, main, ms=None, plain_ms=None, bound_ms=None,
                bound_by=None, library_ms=None):
-        r = rows[row]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
-            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=library_ms)
+        record_row(rows[row], err, main, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -259,10 +280,168 @@ def phase_kernels(torch, big):
                     record("gin_fused", err, main and D == 64, ms, pms, bms, by)
                 else:
                     record("gin_fused", err, False)
+    phase_new_kernels(torch, big, rows)
     return rows
 
 
-def phase_small_step(torch):
+def ragged_graph(torch):
+    """301 nodes (N off every tile), isolated nodes, and node 0 with an
+    in-degree of 301 (above 256: its degree rounds under bf16)."""
+    from kagnn_tpu_torch.graphs import single_graph
+
+    rng = np.random.default_rng(4)
+    snd = np.concatenate([rng.integers(0, 301, 900), np.arange(301)])
+    rcv = np.concatenate([rng.integers(0, 301, 900), np.zeros(301, np.int64)])
+    g = single_graph(snd, rcv, n_node=301, device="cuda")
+    deg = g.in_degrees[:g.n_node]
+    assert int(deg.max()) > 256 and int((deg == 0).sum()) > 0
+    return g
+
+
+def csr_gcn_matrix(torch, g, dinv, dtype):
+    """diag(dinv) (A + I) as a CSR matrix: row i holds dinv_i at the
+    senders of its edges and at i itself (the library yardstick of
+    gcn_agg; the port never builds it)."""
+    from kagnn_tpu_torch.kernels._common import segment_ids
+
+    N = g.n_node_pad
+    ar = torch.arange(N, device="cuda")
+    rows = torch.cat([segment_ids(g.recv_row_ptr), ar])
+    cols = torch.cat([g.senders.long(), ar])
+    order = torch.argsort(rows, stable=True)
+    crow = g.recv_row_ptr.long() + torch.arange(N + 1, device="cuda")
+    return torch.sparse_csr_tensor(crow, cols[order], dinv[rows[order]].to(dtype),
+                                   size=(N, N), check_invariants=False)
+
+
+def phase_new_kernels(torch, big, rows):
+    """gcn_agg, the FastKANLayer forward and backward and gin_fastkan
+    against their plain versions (`big` is the main paths' graph)."""
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kernels import fastkan_layer as fk
+    from kagnn_tpu_torch.kernels import gcn_agg as ga
+    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
+    small = single_graph(rng.integers(0, 100, 700), rng.integers(0, 100, 700),
+                         n_node=100, device="cuda")
+    G = NODE_KW["grid_size"]
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def layer(D, O, dtype):
+        """lng, lnb, w (G*D, O), wb (D, O), bb (O,) in the kernel layouts."""
+        return (1.0 + rand((D,), dtype, 0.2), rand((D,), dtype, 0.1),
+                rand((G * D, O), dtype, 0.3), rand((D, O), dtype, 0.3),
+                rand((O,), dtype, 0.1))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        s = torch.tensor([], dtype=dtype).element_size()
+        for gname, g in (("small", small), ("ragged", ragged_graph(torch)),
+                         ("main", big)):
+            N, E = g.n_node_pad, g.n_edge_pad
+            timed = gname == "main"
+            main = timed and dtype == torch.bfloat16
+            nm = g.node_mask  # GIN rows past the graph are unspecified
+
+            # gcn_agg at the main paths' width (hidden 64), dinv as the GCN
+            # conv computes it (degrees in the compute dtype before the +1)
+            hs = rand((N, 64), dtype)
+            dinv = torch.rsqrt(g.in_degrees.to(dtype) + 1.0).float()
+            args = (hs, dinv, g.senders, g.recv_row_ptr)
+            err = compare(torch, f"gcn_agg {gname} ({N},64)", ga.gcn_agg_fwd(*args),
+                          ga.gcn_agg_plain(*args), dn)
+            times = {}
+            if timed:
+                ms = time_ms(torch, lambda: ga.gcn_agg_fwd(*args))
+                pms = time_ms(torch, lambda: ga.gcn_agg_plain(*args))
+                mat = csr_gcn_matrix(torch, g, dinv, dtype)
+                torch.testing.assert_close(torch.sparse.mm(mat, hs).float(),
+                                           ga.gcn_agg_plain(*args).float(),
+                                           rtol=0.02, atol=0.1)
+                lms = time_ms(torch, lambda: torch.sparse.mm(mat, hs))
+                bms, by = bound(2 * N * 64 * s + 4 * (N + E + N + 1),
+                                E * 64 + 2 * N * 64, dn)
+                log(f"  gcn_agg main {dn}: ms={ms:.4f} plain_ms={pms:.4f} "
+                    f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
+                times = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                             library_ms=lms)
+            record_row(rows["gcn_agg"], err, main, **times)
+
+            # (64, 64): hidden layers; (64, 40): the head; (128, 64): conv 0
+            for D, O in ((64, 64), (64, 40), (128, 64)):
+                lw = layer(D, O, dtype)
+                x = rand((N, D), dtype)
+                x[N - 1] = 0.0  # a row of zeros, as pad rows after BatchNorm
+                dout = rand((N, O), dtype, 0.1)
+                fa = (x, *lw, -2.0, 2.0)
+                ba = (x, *lw[:4], dout, -2.0, 2.0)
+                err = compare(torch, f"fastkan_fwd {gname} D={D} O={O}",
+                              fk.fastkan_layer_fwd(*fa),
+                              fk.fastkan_layer_fwd_plain(*fa), dn)
+                errb = max(compare(torch, f"fastkan_bwd {gname} D={D} O={O} {w}",
+                                   a, b, dn)
+                           for w, a, b in zip(
+                               ("dx", "dlng", "dlnb", "dw", "dwb", "dbb"),
+                               fk.fastkan_layer_bwd(*ba),
+                               fk.fastkan_layer_bwd_plain(*ba)))
+                ga_args = (x, g.senders, g.recv_row_ptr, *lw, 0.0, -2.0, 2.0)
+                errg = max(compare(torch, f"gin_fastkan {gname} D={D} O={O} {w}",
+                                   a[nm], b[nm], dn)
+                           for w, a, b in zip(("out", "z"),
+                                              gfk.gin_fastkan_fwd(*ga_args),
+                                              gfk.gin_fastkan_fwd_plain(*ga_args)))
+                rep = main and (D, O) == (64, 64)
+                if not timed:
+                    for name, e in (("fastkan_fwd", err), ("fastkan_bwd", errb),
+                                    ("gin_fastkan", errg)):
+                        record_row(rows[name], e, False)
+                    continue
+                wbytes = (2 * D + G * D * O + D * O + O) * s
+                prods = 2 * N * (G + 1) * D * O
+                for name, e, fn, plain, nbytes, ops in (
+                        ("fastkan_fwd", err,
+                         lambda: fk.fastkan_layer_fwd(*fa),
+                         lambda: fk.fastkan_layer_fwd_plain(*fa),
+                         (N * D + N * O) * s + wbytes, prods),
+                        ("fastkan_bwd", errb,
+                         lambda: fk.fastkan_layer_bwd(*ba),
+                         lambda: fk.fastkan_layer_bwd_plain(*ba),
+                         (2 * N * D + N * O) * s + 2 * wbytes, 2 * prods),
+                        ("gin_fastkan", errg,
+                         lambda: gfk.gin_fastkan_fwd(*ga_args),
+                         lambda: gfk.gin_fastkan_fwd_plain(*ga_args),
+                         (2 * N * D + N * O) * s + wbytes + 4 * (E + N + 1),
+                         E * D + prods)):
+                    ms = time_ms(torch, fn)
+                    pms = time_ms(torch, plain, iters=5)
+                    bms, by = bound(nbytes, ops, dn)
+                    log(f"  {name} main {dn} D={D} O={O}: ms={ms:.4f} "
+                        f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
+                               bound_ms=bms, bound_by=by)
+    phase_autograd_functions(torch)
+
+
+def phase_autograd_functions(torch):
+    """FastKANLayerFn -> GcnAggregate -> GinFastKan chained on a small
+    graph (kernels/selfcheck.py, shared with tests/test_torch_cuda.py)."""
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kernels.selfcheck import fastkan_gcn_chain
+
+    rng = np.random.default_rng(5)
+    g = single_graph(rng.integers(0, 300, 2000), rng.integers(0, 300, 2000),
+                     n_node=300, device="cuda")
+    worst = fastkan_gcn_chain(g, num_grids=NODE_KW["grid_size"])
+    log(f"autograd Functions (FastKANLayerFn, GcnAggregate, GinFastKan): "
+        f"forward and 11 gradients agree with the plain path on the CPU "
+        f"(worst {worst:.3e}); no A^T dz for an input without a gradient")
+
+
+def phase_small_step(torch, conv, arch):
     """Kernel path against the plain path on the card, f32 and bf16."""
     from kagnn_tpu_torch.data import community_node_graph
     from kagnn_tpu_torch.graphs import single_graph
@@ -272,7 +451,7 @@ def phase_small_step(torch):
     d = community_node_graph(n_nodes=300, n_classes=4, num_features=16, seed=0)
     g = single_graph(d["senders"], d["receivers"], nodes=d["nodes"], y=d["y"],
                      device="cuda")
-    kw = dict(conv_type="gin", architecture="kan", mp_layers=3,
+    kw = dict(conv_type=conv, architecture=arch, mp_layers=3,
               num_features=16, hidden_channels=16, num_classes=4,
               grid_size=4, spline_order=3, skip=False)
 
@@ -294,13 +473,14 @@ def phase_small_step(torch):
     for n in gp:
         torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
         worst = max(worst, (gk[n] - gp[n]).abs().max().item())
-    log(f"small step f32: logits max_abs_err="
+    log(f"small step {conv}/{arch} f32: logits max_abs_err="
         f"{(lk[nm] - lp[nm]).abs().max().item():.3e}, "
         f"{len(gp)} grads agree (worst {worst:.3e})")
     # bf16 kernel path against the f32 plain path: the test_bf16.py bar
     lb, _ = run(True, torch.bfloat16)
     rel = ((lb[nm] - lp[nm]).abs().mean() / (lp[nm].abs().mean() + 1e-6)).item()
-    log(f"small step bf16 vs f32: mean relative error {rel:.4f} (bar 0.1)")
+    log(f"small step {conv}/{arch} bf16 vs f32: mean relative error "
+        f"{rel:.4f} (bar 0.1)")
     if not rel < 0.1:
         raise AssertionError(f"bf16 kernel path too far from f32: {rel}")
 
@@ -319,27 +499,55 @@ def main_graph(torch):
     return g
 
 
-def phase_main_path(torch, g):
+# The main paths: (conv, architecture) -> launches per train step of each
+# kernel on the path (the others must stay at 0). GIN: conv 0's input needs
+# no gradient, so no A^T dz there; GCN: every conv's aggregate backward
+# runs the segment sum, since dhs feeds the transform's weights.
+MAIN_PATHS = {
+    ("gin", "kan"): {"gin_fused": 3, "bspline_fwd": 4, "bspline_bwd": 7,
+                     "spmm": 2},
+    ("gcn", "kan"): {"gcn_agg": 3, "bspline_fwd": 4, "bspline_bwd": 4,
+                     "spmm": 3},
+    ("gcn", "fastkan"): {"gcn_agg": 3, "fastkan_fwd": 4, "fastkan_bwd": 4,
+                         "spmm": 3},
+    ("gin", "fastkan"): {"gin_fastkan": 3, "fastkan_fwd": 4,
+                         "fastkan_bwd": 7, "spmm": 2},
+}
+
+
+def counters():
+    """Every kernel wrapper with its launch counter, by kernel name."""
     from kagnn_tpu_torch.kernels import bspline_fused as bf
+    from kagnn_tpu_torch.kernels import fastkan_layer as fk
+    from kagnn_tpu_torch.kernels import gcn_agg as ga
+    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
     from kagnn_tpu_torch.kernels import gin_fused as gf
     from kagnn_tpu_torch.kernels import spmm
+
+    return {"spmm": spmm.sorted_segment_sum, "bspline_fwd": bf.kan_linear_fwd,
+            "bspline_bwd": bf.kan_linear_bwd, "gin_fused": gf.gin_kan_fwd,
+            "gcn_agg": ga.gcn_agg_fwd, "fastkan_fwd": fk.fastkan_layer_fwd,
+            "fastkan_bwd": fk.fastkan_layer_bwd,
+            "gin_fastkan": gfk.gin_fastkan_fwd}
+
+
+def phase_main_path(torch, g, conv, arch):
     from kagnn_tpu_torch.models import NodeClassifier
     from kagnn_tpu_torch.train import make_node_steps
 
-    model = NodeClassifier(conv_type="gin", architecture="kan", fused=True,
+    model = NodeClassifier(conv_type=conv, architecture=arch, fused=True,
                            compute_dtype=torch.bfloat16, seed=0,
                            device="cuda", **NODE_KW)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     train_step, evaluate = make_node_steps(model, opt)
     mask = g.node_mask
-    counters = {"gin_fused": gf.gin_kan_fwd, "bspline_fwd": bf.kan_linear_fwd,
-                "bspline_bwd": bf.kan_linear_bwd, "spmm": spmm.sorted_segment_sum}
-    per_step = {"gin_fused": 3, "bspline_fwd": 4, "bspline_bwd": 7, "spmm": 2}
+    fns = counters()
+    per_step = MAIN_PATHS[(conv, arch)]
     warmup, timed = 2, 10
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
+    for f in fns.values():
         f.launches = 0
     losses = [train_step(g, mask) for _ in range(warmup)]
     torch.cuda.synchronize()
@@ -347,24 +555,33 @@ def phase_main_path(torch, g):
     losses += [train_step(g, mask) for _ in range(timed)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / timed
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = {k: f.launches for k, f in fns.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     vals = [float(v) for v in losses]
-    log(f"main path: {warmup}+{timed} steps, ms/step={ms:.3f}, "
+    name = f"{conv}/{arch}"
+    log(f"main path {name}: {warmup}+{timed} steps, ms/step={ms:.3f}, "
         f"peak_mem={peak:.3f} GiB, losses {vals[0]:.5f} -> {vals[-1]:.5f}")
-    log(f"main path launches: {launches}")
+    log(f"main path {name} launches: {launches}")
     if not all(math.isfinite(v) for v in vals):
-        raise AssertionError(f"non-finite loss on the main path: {vals}")
+        raise AssertionError(f"non-finite loss on {name}: {vals}")
     steps = warmup + timed
-    for k, n in per_step.items():
-        if launches[k] != n * steps:
-            raise AssertionError(f"{k}: {launches[k]} launches in {steps} "
-                                 f"steps, expected {n} per step")
+    for k, n in launches.items():
+        if n != per_step.get(k, 0) * steps:
+            raise AssertionError(f"{name}: {k} launched {n} times in {steps} "
+                                 f"steps, expected {per_step.get(k, 0)} per step")
+    # host cost of one step: the time to enqueue it on an idle card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step(g, mask)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"main path {name}: host enqueue {host_ms:.3f} ms for one step")
     logits = evaluate(g)
     if logits.shape != (g.n_node_pad, NODE_KW["num_classes"]) or \
             not torch.isfinite(logits[mask]).all():
-        raise AssertionError("evaluate gave non-finite or misshapen logits")
+        raise AssertionError(f"{name}: evaluate gave non-finite or misshapen "
+                             f"logits")
     profile_steps(torch, lambda: train_step(g, mask), ms)
     return launches, ms
 
@@ -395,6 +612,15 @@ def profile_steps(torch, step, step_ms, steps=3):
         t = e.self_device_time_total / 1e3 / steps
         log(f"  {t:8.4f} ms/step {e.count // steps:4d} calls/step "
             f"{t / total:6.3f}  {e.key[:90]}")
+    # the host side: self CPU time by operator (inflated by the profiler's
+    # own cost, so only the order is read)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    log(f"  host: {sum(e.self_cpu_time_total for e in host) / 1e3 / steps:.3f} "
+        f"ms of self CPU time per step under the profiler; the largest:")
+    for e in host[:8]:
+        log(f"  {e.self_cpu_time_total / 1e3 / steps:8.4f} ms/step "
+            f"{e.count // steps:4d} calls/step  {e.key[:70]}")
 
 
 def main() -> int:
@@ -405,11 +631,18 @@ def main() -> int:
     g = main_graph(torch)
     log("kernels against their plain versions:")
     rows = phase_kernels(torch, g)
-    phase_small_step(torch)
-    launches, step_ms = phase_main_path(torch, g)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-    log(f"card: {card}; main path ms/step={step_ms:.3f}")
+    for conv, arch in MAIN_PATHS:
+        phase_small_step(torch, conv, arch)
+    step_ms = {}
+    for conv, arch in MAIN_PATHS:
+        launches, step_ms[f"{conv}/{arch}"] = phase_main_path(torch, g, conv, arch)
+        for name, n in launches.items():
+            rows[name]["launches"] += n
+    unused = [n for n, r in rows.items() if r["launches"] == 0]
+    if unused:
+        raise AssertionError(f"kernels no main path launched: {unused}")
+    log(f"card: {card}; main paths ms/step: "
+        + ", ".join(f"{k}={v:.3f}" for k, v in step_ms.items()))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -178,17 +178,6 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ knots,
   }
 }
 
-template <typename T>
-__global__ void reduce_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                              int splits, size_t m) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += partial[k * m + i];
-    out[i] = from_f<T>(s);
-  }
-}
-
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -233,11 +222,8 @@ int launch_bwd(const void* x, const void* knots, const void* wb, const void* ws,
   dw_partial_kernel<T, ORDER, GRID><<<grid, kThreads, smem, stream>>>(
       xt, kt, gt, partial, n, D, O, rows_per_split);
   if (int e = (int)cudaGetLastError()) return e;
-  const size_t m = (size_t)S::NG * D * O;
-  const size_t need = (m + kThreads - 1) / kThreads;
-  const int blocks = need < 4096 ? (int)need : 4096;
-  reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(partial, static_cast<T*>(dw), splits, m);
-  return (int)cudaGetLastError();
+  return reduce_partials<T>(partial, static_cast<T*>(dw), splits, (size_t)S::NG * D * O,
+                            stream);
 }
 
 }  // namespace

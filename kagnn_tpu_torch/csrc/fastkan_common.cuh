@@ -1,0 +1,212 @@
+// Shared device code of the FastKANLayer kernels (fastkan_layer.cu,
+// gin_fastkan.cu): LayerNorm statistics, the [SiLU | RBF] basis chunk and
+// the whole layer's forward on a row tile held in shared memory, plus the
+// dispatch over (dtype, number of centers).
+//
+// The layer, as kagnn_tpu/pallas/fastkan_layer.py::_fwd_kernel computes it:
+//   xhat = (x - mean) * rsqrt(var + eps)          (f32 statistics over D)
+//   xs   = xhat * lng + lnb
+//   B_g  = exp(-((xs - c_g) * inv_h)^2)           g = 0..G-1
+//   out  = sum_g B_g @ W_g + SiLU(x) @ Wb + bb
+// Basis and SiLU(x) stay in f32 before the products (the JAX kernel takes
+// jnp.dot(f32 basis, W) with W in the compute dtype, a product in f32).
+#pragma once
+
+#include "kan_common.cuh"
+
+namespace fkan {
+
+using kan::from_f;
+using kan::kDC;
+using kan::kFwdRows;
+using kan::kOT;
+using kan::kThreads;
+using kan::sigmoid;
+using kan::to_f;
+
+constexpr int kMaxG = 8;  // centers supported: 2..kMaxG
+constexpr float kLnEps = 1e-5f;
+
+// The RBF centers c_0..c_{G-1}, computed on the host exactly as the JAX
+// kernel builds them (c_0 + g * step in f32), passed by value.
+struct Centers {
+  float c[kMaxG];
+};
+
+// Columns of one feature chunk of the basis matrix A = [SiLU(x) | B_0..B_G-1]:
+// column g*kDC + j holds feature d0 + j of group g (g = 0 is SiLU).
+template <int G> struct Shape {
+  static constexpr int NG = G + 1;       // groups: SiLU + centers
+  static constexpr int AC = NG * kDC;    // columns of a chunk
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Mean and 1/sqrt(var + eps) of each of `rows` rows of x_s (rows x D, f32),
+// two passes as the JAX kernel's _ln_stats. One warp per row; every lane
+// ends with the same values, in a fixed summation order.
+__device__ __forceinline__ void ln_stats(const float* x_s, int rows, int D, float* mu_s,
+                                         float* rstd_s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int rr = warp; rr < rows; rr += kThreads / 32) {
+    const float* xr = x_s + (size_t)rr * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += xr[c];
+    const float mu = warp_sum(s) / (float)D;
+    float q = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float xc = xr[c] - mu;
+      q += xc * xc;
+    }
+    const float var = warp_sum(q) / (float)D;
+    if (lane == 0) {
+      mu_s[rr] = mu;
+      rstd_s[rr] = 1.f / sqrtf(var + kLnEps);
+    }
+  }
+}
+
+// xs = xhat * lng + lnb, then the G basis values and their scaled distances
+// d_g = (xs - c_g) * inv_h (needed by the backward).
+template <int G>
+__device__ __forceinline__ void rbf(float xs, const Centers& cs, float inv_h, float (&b)[G],
+                                    float (&dist)[G]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float d = (xs - cs.c[g]) * inv_h;
+    dist[g] = d;
+    b[g] = expf(-(d * d));
+  }
+}
+
+// Fill the basis chunk A_s (rows x AC floats) for features d0..d0+kDC-1.
+// load_x(rr, row, d) gives the layer input, stats(rr, row, &mu, &rstd) its
+// row statistics; rows at or past row_end and features past D give zeros.
+template <typename T, int G, typename LoadX, typename Stats>
+__device__ __forceinline__ void build_chunk(LoadX load_x, Stats stats, float* A_s, int rows,
+                                            int row0, int row_end, int d0, int D,
+                                            const T* __restrict__ lng,
+                                            const T* __restrict__ lnb, const Centers& cs,
+                                            float inv_h) {
+  using S = Shape<G>;
+  const int dd = threadIdx.x % kDC;
+  const int d = d0 + dd;
+  const float gam = d < D ? to_f(lng[d]) : 0.f;
+  const float bet = d < D ? to_f(lnb[d]) : 0.f;
+  for (int rr = threadIdx.x / kDC; rr < rows; rr += kThreads / kDC) {
+    const int row = row0 + rr;
+    float* a = A_s + rr * S::AC + dd;
+    if (d < D && row < row_end) {
+      const float xv = load_x(rr, row, d);
+      float mu, rstd;
+      stats(rr, row, mu, rstd);
+      const float xs = ((xv - mu) * rstd) * gam + bet;
+      a[0] = xv * sigmoid(xv);
+      float b[G], dist[G];
+      rbf<G>(xs, cs, inv_h, b, dist);
+#pragma unroll
+      for (int g = 0; g < G; ++g) a[(g + 1) * kDC] = b[g];
+    } else {
+#pragma unroll
+      for (int g = 0; g < S::NG; ++g) a[g * kDC] = 0.f;
+    }
+  }
+}
+
+// Row d of group g of the stacked weight [Wb; W] (NG*D, O): group 0 is the
+// base weight (D, O), group g >= 1 the spline weight laid out g-major as
+// (G*D, O) with row (g-1)*D + d.
+template <typename T>
+__device__ __forceinline__ const T* weight_row(const T* wb, const T* w, int g, int d, int D,
+                                               int O) {
+  return g == 0 ? wb + (size_t)d * O : w + ((size_t)(g - 1) * D + d) * O;
+}
+
+// The whole FastKANLayer forward of one tile of kFwdRows rows starting at
+// row0, whose f32 input x_s (kFwdRows x D) is already in shared memory:
+// statistics into mu_s/rstd_s, then per 32-feature chunk the basis matrix
+// in A_s (kFwdRows x AC floats) and its products with [Wb; W] in f32.
+// Thread t owns output column blockIdx.y*kOT + t % kOT for 8 rows.
+template <typename T, int G>
+__device__ __forceinline__ void forward_tile(const float* x_s, float* A_s, float* mu_s,
+                                             float* rstd_s, int row0, int n, int D, int O,
+                                             const T* __restrict__ lng,
+                                             const T* __restrict__ lnb, const Centers& cs,
+                                             float inv_h, const T* __restrict__ w,
+                                             const T* __restrict__ wb,
+                                             const T* __restrict__ bb, T* __restrict__ out) {
+  using S = Shape<G>;
+  __syncthreads();  // x_s is complete
+  ln_stats(x_s, kFwdRows, D, mu_s, rstd_s);
+  const int o = blockIdx.y * kOT + threadIdx.x % kOT;
+  const int rg = threadIdx.x / kOT;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  auto load_x = [&](int rr, int, int d) { return x_s[(size_t)rr * D + d]; };
+  auto stats = [&](int rr, int, float& mu, float& rstd) {
+    mu = mu_s[rr];
+    rstd = rstd_s[rr];
+  };
+  for (int d0 = 0; d0 < D; d0 += kDC) {
+    __syncthreads();  // statistics written; the previous chunk is consumed
+    build_chunk<T, G>(load_x, stats, A_s, kFwdRows, row0, n, d0, D, lng, lnb, cs, inv_h);
+    __syncthreads();
+    const int dn = min(kDC, D - d0);
+    if (o < O) {
+      const float* a0 = A_s + rg * 8 * S::AC;
+#pragma unroll
+      for (int g = 0; g < S::NG; ++g) {
+        const T* wrow = weight_row(wb, w, g, d0, D, O) + o;
+        for (int j = 0; j < dn; ++j) {
+          const float wv = to_f(wrow[(size_t)j * O]);
+          const float* a = a0 + g * kDC + j;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] += a[i * S::AC] * wv;
+        }
+      }
+    }
+  }
+  if (o < O) {
+    const float bias = to_f(bb[o]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + rg * 8 + i;
+      if (row < n) out[(size_t)row * O + o] = from_f<T>(acc[i] + bias);
+    }
+  }
+}
+
+// Shared memory of forward_tile's caller: x_s, A_s, mu_s, rstd_s.
+template <int G> constexpr size_t forward_smem(int D) {
+  return sizeof(float) * ((size_t)kFwdRows * D + (size_t)kFwdRows * Shape<G>::AC + 2 * kFwdRows);
+}
+
+}  // namespace fkan
+
+// Calls FN<T, G>(args...) for G in 2..8 and f32/bf16, and returns
+// cudaErrorInvalidValue for anything else.
+#define FASTKAN_DISPATCH_G(T, G_, FN, ...)                  \
+  switch (G_) {                                             \
+    case 2: return FN<T, 2>(__VA_ARGS__);                   \
+    case 3: return FN<T, 3>(__VA_ARGS__);                   \
+    case 4: return FN<T, 4>(__VA_ARGS__);                   \
+    case 5: return FN<T, 5>(__VA_ARGS__);                   \
+    case 6: return FN<T, 6>(__VA_ARGS__);                   \
+    case 7: return FN<T, 7>(__VA_ARGS__);                   \
+    case 8: return FN<T, 8>(__VA_ARGS__);                   \
+    default: return (int)cudaErrorInvalidValue;             \
+  }
+
+#define FASTKAN_DISPATCH(dtype, G_, FN, ...)                                   \
+  do {                                                                         \
+    if (dtype == kan::kF32) { FASTKAN_DISPATCH_G(float, G_, FN, __VA_ARGS__) } \
+    if (dtype == kan::kBF16) {                                                 \
+      FASTKAN_DISPATCH_G(__nv_bfloat16, G_, FN, __VA_ARGS__)                   \
+    }                                                                          \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)

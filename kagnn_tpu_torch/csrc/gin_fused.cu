@@ -23,7 +23,7 @@ namespace {
 
 using namespace kan;
 
-constexpr int kCpl = 4;  // columns per lane per pass of the gather
+using kan::kCpl;
 
 template <typename T, int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
@@ -48,36 +48,7 @@ gin_fwd_kernel(const T* __restrict__ x, const int* __restrict__ senders,
     const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
     for (int c0 = 0; c0 < D; c0 += 32 * kCpl) {
       float acc[kCpl];
-#pragma unroll
-      for (int j = 0; j < kCpl; ++j) acc[j] = 0.f;
-      int e = e0;
-      for (; e + 4 <= e1; e += 4) {
-        int src[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) src[u] = __ldg(senders + e + u);
-        float v[4][kCpl];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const T* xr = x + (size_t)src[u] * D;
-#pragma unroll
-          for (int j = 0; j < kCpl; ++j) {
-            const int c = c0 + lane + 32 * j;
-            v[u][j] = c < D ? to_f(xr[c]) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int j = 0; j < kCpl; ++j) acc[j] += v[u][j];
-      }
-      for (; e < e1; ++e) {
-        const T* xr = x + (size_t)__ldg(senders + e) * D;
-#pragma unroll
-        for (int j = 0; j < kCpl; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < D) acc[j] += to_f(xr[c]);
-        }
-      }
+      kan::csr_row_sum(x, senders, e0, e1, c0, lane, D, acc);
 #pragma unroll
       for (int j = 0; j < kCpl; ++j) {
         const int c = c0 + lane + 32 * j;

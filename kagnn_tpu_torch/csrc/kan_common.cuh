@@ -1,6 +1,8 @@
-// Shared device code of the KANLinear kernels (bspline_fused.cu,
-// gin_fused.cu): element conversions, SiLU, the Cox-de Boor ladder and the
-// dispatch over (dtype, spline order, grid size).
+// Shared device code of the port's kernels: element conversions, SiLU, the
+// warp-per-row CSR gather (spmm.cu, gcn_agg.cu, gin_fused.cu,
+// gin_fastkan.cu), the fixed-order reduce of f32 weight-gradient partials
+// (bspline_fused.cu, fastkan_layer.cu), and for the KANLinear kernels the
+// Cox-de Boor ladder and the dispatch over (dtype, spline order, grid size).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,6 +65,49 @@ __device__ __forceinline__ void ladder(float x, const float (&t)[NK],
 
 // d silu / dx with s = sigmoid(x)
 __device__ __forceinline__ float dsilu(float x, float s) { return s * (1.f + x * (1.f - s)); }
+
+constexpr int kCpl = 4;  // columns per lane per pass of a CSR gather: 128 a pass
+
+// The CSR gather of one output row by one warp: acc[j] = the f32 sum, in edge
+// order, of column c0 + lane + 32*j of row (idx ? idx[e] : e) of src (rows of
+// d values) over e in [e0, e1); columns at or past d stay 0. Edges are
+// unrolled by four so that four rows are in flight per warp. The fixed order
+// makes the sum deterministic without atomics.
+template <typename T>
+__device__ __forceinline__ void csr_row_sum(const T* __restrict__ src,
+                                            const int* __restrict__ idx, int e0, int e1,
+                                            int c0, int lane, int d, float (&acc)[kCpl]) {
+#pragma unroll
+  for (int j = 0; j < kCpl; ++j) acc[j] = 0.f;
+  int e = e0;
+  for (; e + 4 <= e1; e += 4) {
+    int row[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) row[u] = idx ? __ldg(idx + e + u) : e + u;
+    float v[4][kCpl];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T* rowp = src + (size_t)row[u] * d;
+#pragma unroll
+      for (int j = 0; j < kCpl; ++j) {
+        const int c = c0 + lane + 32 * j;
+        v[u][j] = c < d ? to_f(rowp[c]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int j = 0; j < kCpl; ++j) acc[j] += v[u][j];
+  }
+  for (; e < e1; ++e) {
+    const T* rowp = src + (size_t)(idx ? __ldg(idx + e) : e) * d;
+#pragma unroll
+    for (int j = 0; j < kCpl; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < d) acc[j] += to_f(rowp[c]);
+    }
+  }
+}
 
 constexpr int kThreads = 256;  // threads per block of every KAN kernel
 constexpr int kFwdRows = 32;   // rows per forward tile: 4 row groups of 8
@@ -158,6 +203,28 @@ __device__ __forceinline__ void kan_forward_tile(Load load, float* A_s, int row0
       if (row < n) out[(size_t)row * O + o] = from_f<T>(acc[i]);
     }
   }
+}
+
+// out[i] = sum over k = 0..splits-1, in that order, of partial[k*m + i],
+// cast once to T: the weight gradients' per-block f32 partials added in a
+// fixed order, so the result is deterministic without atomics.
+template <typename T>
+__global__ void reduce_kernel(const float* __restrict__ partial, T* __restrict__ out,
+                              int splits, size_t m) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < splits; ++k) s += partial[k * m + i];
+    out[i] = from_f<T>(s);
+  }
+}
+
+template <typename T>
+int reduce_partials(const float* partial, T* out, int splits, size_t m, cudaStream_t stream) {
+  const size_t need = (m + kThreads - 1) / kThreads;
+  const int blocks = need < 4096 ? (int)need : 4096;
+  if (blocks > 0) reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(partial, out, splits, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace kan

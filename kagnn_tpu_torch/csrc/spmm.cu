@@ -11,15 +11,15 @@
 // f32 sum in registers, edges walked in order, so the result is
 // deterministic and needs no atomics. The optional gather index lets the
 // GIN backward read dz[receivers_by_sender[e]] inside the kernel, so the
-// (E, D) cotangent tensor never reaches device memory. Edges are unrolled
-// by four so that four rows are in flight per warp.
+// (E, D) cotangent tensor never reaches device memory. The row walk is
+// kan::csr_row_sum (kan_common.cuh), shared with the other CSR kernels.
 
 #include "kan_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;   // warps (rows) per block
-constexpr int kCpl = 4;     // columns per lane per pass: 128 columns a pass
+constexpr int kWarps = 8;  // warps (rows) per block
+using kan::kCpl;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -31,37 +31,7 @@ spmm_csr_kernel(const T* __restrict__ msgs, const int* __restrict__ row_ptr,
   const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
   for (int c0 = 0; c0 < d; c0 += 32 * kCpl) {
     float acc[kCpl];
-#pragma unroll
-    for (int j = 0; j < kCpl; ++j) acc[j] = 0.f;
-    int e = e0;
-    for (; e + 4 <= e1; e += 4) {
-      int src[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) src[u] = idx ? __ldg(idx + e + u) : e + u;
-      float v[4][kCpl];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const T* rowp = msgs + (size_t)src[u] * d;
-#pragma unroll
-        for (int j = 0; j < kCpl; ++j) {
-          const int c = c0 + lane + 32 * j;
-          v[u][j] = c < d ? kan::to_f(rowp[c]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int j = 0; j < kCpl; ++j) acc[j] += v[u][j];
-    }
-    for (; e < e1; ++e) {
-      const int src = idx ? __ldg(idx + e) : e;
-      const T* rowp = msgs + (size_t)src * d;
-#pragma unroll
-      for (int j = 0; j < kCpl; ++j) {
-        const int c = c0 + lane + 32 * j;
-        if (c < d) acc[j] += kan::to_f(rowp[c]);
-      }
-    }
+    kan::csr_row_sum(msgs, idx, e0, e1, c0, lane, d, acc);
 #pragma unroll
     for (int j = 0; j < kCpl; ++j) {
       const int c = c0 + lane + 32 * j;

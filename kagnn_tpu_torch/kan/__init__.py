@@ -1,1 +1,2 @@
-from kagnn_tpu_torch.kan.layers import KAN, KANLinear  # noqa: F401
+from kagnn_tpu_torch.kan.layers import (KAN, FastKAN, FastKANLayer,  # noqa: F401
+                                     KANLinear)

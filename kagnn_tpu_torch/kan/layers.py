@@ -1,13 +1,17 @@
-"""B-spline Kolmogorov–Arnold layers, the counterparts of
-`kagnn_tpu/kan/layers.py::KANLinear` and `KAN` (efficient-kan semantics).
+"""Kolmogorov–Arnold layers, the counterparts of `kagnn_tpu/kan/layers.py`:
+the B-spline `KANLinear` and `KAN` (efficient-kan semantics) and the RBF
+`FastKANLayer` and `FastKAN` (fastkan semantics).
 
 Parameters keep the reference torch names and layouts: `base_weight`
 (out, in), `spline_weight` (out, in, grid+order), `spline_scaler`
-(out, in) and the knot buffer `grid` (in, grid + 2*order + 1).
+(out, in) and the knot buffer `grid` (in, grid + 2*order + 1) for
+KANLinear; `spline_linear.weight` (out, in*num_grids, column d*G + g),
+`layernorm.{weight,bias}` (in,) and `base_linear.{weight,bias}` for
+FastKANLayer.
 
-Under a compute dtype the input, the knot grid and both weights are cast to
-it where the JAX layer casts them (`layers.py:121-123`); the parameters stay
-f32 master weights.
+Under a compute dtype the input and the weights are cast to it where the
+JAX layers cast them (`layers.py:121-123`, `:276-301`, `:319-323`); the
+parameters stay f32 master weights.
 """
 from __future__ import annotations
 
@@ -18,11 +22,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kagnn_tpu_torch.kan import bspline
+from kagnn_tpu_torch.kan import bspline, rbf
 from kagnn_tpu_torch.kernels.bspline_fused import kan_linear_fused
+from kagnn_tpu_torch.kernels.fastkan_layer import fastkan_layer_fused
+from kagnn_tpu_torch.kernels.gin_fastkan import gin_fastkan_fused
 from kagnn_tpu_torch.kernels.gin_fused import gin_kan_fused
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
+
+# the RBF centers' range of every FastKANLayer (the JAX layer's default)
+GRID_MIN, GRID_MAX = -2.0, 2.0
 
 
 def kaiming_uniform(shape, a: float, generator: torch.Generator) -> torch.Tensor:
@@ -83,7 +92,7 @@ class KANLinear(nn.Module):
             x, grid, wb, ws = x.to(cd), grid.to(cd), wb.to(cd), ws.to(cd)
         if gin_graph is not None:
             g, eps = gin_graph
-            if self.fused and x.dtype in (torch.float32, torch.bfloat16):
+            if self.fused:
                 out = gin_kan_fused(x, g, eps, grid, wb, ws, self.spline_order)
                 return out.reshape(*orig_shape[:-1], self.out_features)
             agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
@@ -127,6 +136,104 @@ class KAN(nn.Module):
                 gin_graph=None) -> torch.Tensor:
         # mask/train are accepted for the update-net calling convention;
         # gin_graph fuses the GIN aggregation into the FIRST layer
+        del mask, train
+        for i, layer in enumerate(self.layers):
+            x = layer(x, gin_graph=gin_graph if i == 0 else None)
+        return x
+
+
+class FastKANLayer(nn.Module):
+    """RBF KAN layer (reference fastkan.py:49-85):
+        spline_linear(rbf(layernorm(x))) + base_linear(silu(x))
+    with centers linspace(-2, 2, num_grids) and width 4 / (num_grids - 1).
+    LayerNorm and the base update are always on and the spline weight's init
+    scale is 0.1, the JAX layer's defaults and all that its models use."""
+
+    def __init__(self, input_dim: int, output_dim: int, num_grids: int = 8,
+                 fused: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        if input_dim <= 1:
+            raise ValueError("Do not use layernorms on 1D inputs: a "
+                             "FastKANLayer needs more than one input feature")
+        self.input_dim, self.output_dim = input_dim, output_dim
+        self.num_grids = num_grids
+        self.fused, self.compute_dtype = fused, compute_dtype
+        self.denominator = (GRID_MAX - GRID_MIN) / (num_grids - 1)
+        self.layernorm = nn.LayerNorm(input_dim, eps=1e-5)
+        # the holders are made uninitialised and filled from `gen` (on the
+        # CPU), as the JAX layer draws them: a truncated normal on [-2, 2]
+        # times 0.1 for the spline weight, U(-1/sqrt(in), 1/sqrt(in)) for the
+        # base weight and bias (torch nn.Linear's)
+        self.spline_linear = nn.utils.skip_init(
+            nn.Linear, input_dim * num_grids, output_dim, bias=False)
+        self.base_linear = nn.utils.skip_init(nn.Linear, input_dim, output_dim)
+        bound = 1.0 / math.sqrt(input_dim)
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.spline_linear.weight, 0.0, 1.0, -2.0,
+                                  2.0, generator=gen)
+            self.spline_linear.weight.mul_(0.1)
+            for p in (self.base_linear.weight, self.base_linear.bias):
+                p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * bound)
+        self.to(dev)
+
+    def _cast(self, *ts):
+        cd = self.compute_dtype
+        return ts if cd is None else tuple(t.to(cd) for t in ts)
+
+    def forward(self, x: torch.Tensor, gin_graph=None) -> torch.Tensor:
+        """With `gin_graph=(g, eps)` the layer computes
+        FastKAN((1+eps)·x_i + Σ_j x_j) over the GraphBatch, the GIN conv
+        fusion point (kernels/gin_fastkan.py runs it in one launch)."""
+        orig_shape = x.shape
+        x = x.reshape(-1, self.input_dim)
+        x, sw, lng, lnb, wb, bb = self._cast(
+            x, self.spline_linear.weight, self.layernorm.weight,
+            self.layernorm.bias, self.base_linear.weight, self.base_linear.bias)
+        grid = (GRID_MIN, GRID_MAX, self.num_grids)
+        if gin_graph is not None:
+            g, eps = gin_graph
+            if self.fused:
+                out = gin_fastkan_fused(x, g, eps, lng, lnb, sw, wb, bb, *grid)
+                return out.reshape(*orig_shape[:-1], self.output_dim)
+            agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
+            x = (1.0 + eps) * x + agg
+        if self.fused:
+            out = fastkan_layer_fused(x, lng, lnb, sw, wb, bb, *grid)
+            return out.reshape(*orig_shape[:-1], self.output_dim)
+        # the JAX LayerNorm computes in f32 and returns f32 (its f32 scale
+        # promotes a bf16 input); the basis then meets the cast spline weight
+        # in f32, as jnp's type promotion has it
+        xs = F.layer_norm(x.float(), (self.input_dim,), self.layernorm.weight,
+                          self.layernorm.bias, 1e-5)
+        centers = rbf.make_rbf_grid(*grid, device=x.device).to(xs.dtype)
+        basis = rbf.rbf_basis(xs, centers, self.denominator)
+        ret = basis.reshape(x.shape[0], -1) @ sw.to(basis.dtype).T
+        ret = ret + F.silu(x) @ wb.T + bb
+        return ret.reshape(*orig_shape[:-1], self.output_dim)
+
+
+class FastKAN(nn.Module):
+    """Stack of FastKANLayer (reference fastkan.py:118-145)."""
+
+    def __init__(self, layers_hidden: Sequence[int], num_grids: int = 8,
+                 fused: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            FastKANLayer(fin, fout, num_grids=num_grids, fused=fused,
+                         compute_dtype=compute_dtype, generator=generator,
+                         device=device)
+            for fin, fout in zip(layers_hidden[:-1], layers_hidden[1:]))
+
+    def forward(self, x: torch.Tensor, mask=None, train: bool = False,
+                gin_graph=None) -> torch.Tensor:
+        # the update-net calling convention of KAN; gin_graph fuses the GIN
+        # aggregation into the FIRST layer
         del mask, train
         for i, layer in enumerate(self.layers):
             x = layer(x, gin_graph=gin_graph if i == 0 else None)

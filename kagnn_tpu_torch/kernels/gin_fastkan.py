@@ -1,0 +1,123 @@
+"""Fused GIN aggregate + FastKANLayer: the port of
+`kagnn_tpu/pallas/gin_fastkan.py::_kernel` (forward) and `_gf_bwd`.
+
+    z   = (1 + eps) * x_i + sum_{j in N(i)} x_j
+    out = FastKANLayer(z)
+
+in one launch, which also emits z (in x's dtype) for the backward. As in the
+JAX kernel the layer runs on the unrounded f32 z, the backward rebuilds it
+from the stored z, and padded edges are not masked: they point at the masked
+last row, whose output every consumer masks.
+
+The backward (`_gf_bwd`) is the FastKANLayer backward kernel on z
+(kernels/fastkan_layer.py), then the segment-sum kernel over the sender CSR
+with the gather index `receivers_by_sender` (kernels/spmm.py), then
+dx = (1 + eps) * dz + A^T dz. When x needs no gradient (the node features of
+the first conv) the dz and A^T dz work is skipped.
+
+CUDA kernel: `csrc/gin_fastkan.cu` (see its header for the bound on the H100
+and the design). On a CPU tensor the wrapper runs the plain version below;
+on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from kagnn_tpu_torch.kernels import _build
+from kagnn_tpu_torch.kernels._common import (check_cuda, dtype_code,
+                                             segment_ids, stream_of)
+from kagnn_tpu_torch.kernels.fastkan_layer import (c_centers, check_layer,
+                                                   fastkan_forward_f32,
+                                                   fastkan_layer_bwd, inv_h,
+                                                   weight_layouts)
+from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum
+
+
+def gin_fastkan_fwd_plain(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
+                          eps, grid_min, grid_max):
+    """The plain version: gather + index_add_ into f32, then the plain
+    FastKANLayer on the f32 aggregate. Returns (out, z)."""
+    agg = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    agg.index_add_(0, segment_ids(recv_row_ptr),
+                   x.index_select(0, senders.long()).float())
+    z32 = agg + (1.0 + eps) * x.float()
+    out = fastkan_forward_f32(z32, lng, lnb, w, wb, bb, grid_min, grid_max,
+                              x.dtype)
+    return out, z32.to(x.dtype)
+
+
+@functools.cache
+def _fn():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("gin_fastkan", "gin_fastkan_fwd",
+                       [P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P, F, I,
+                        P])
+
+
+def gin_fastkan_fwd(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
+                    eps: float, grid_min: float, grid_max: float):
+    """x (N, D), senders (E,) int32 in receiver-sorted order, recv_row_ptr
+    (N+1,) int32, lng/lnb (D,), w (G*D, O), wb (D, O), bb (O,) ->
+    (out (N, O), z (N, D))."""
+    if x.device.type == "cpu":
+        return gin_fastkan_fwd_plain(x, senders, recv_row_ptr, lng, lnb, w,
+                                     wb, bb, eps, grid_min, grid_max)
+    code = dtype_code(x)
+    n, D, O, G = check_layer(x, lng, lnb, w, wb, bb)
+    check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
+    check_cuda("senders", senders, torch.int32, (None,))
+    out = torch.empty((n, O), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(x)
+    err = _fn()(x.data_ptr(), senders.data_ptr(), recv_row_ptr.data_ptr(),
+                lng.data_ptr(), lnb.data_ptr(), w.data_ptr(), wb.data_ptr(),
+                bb.data_ptr(), out.data_ptr(), z.data_ptr(), n, D, O,
+                float(eps), G, c_centers(grid_min, grid_max, G),
+                inv_h(grid_min, grid_max, G), code, stream_of(x))
+    _build.check(err, "gin_fastkan_fwd")
+    gin_fastkan_fwd.launches += 1
+    return out, z
+
+
+gin_fastkan_fwd.launches = 0
+
+
+class GinFastKan(torch.autograd.Function):
+    """The JAX `_gin_fastkan` custom VJP: forward through the fused kernel,
+    backward through the FastKANLayer backward kernel and the segment
+    sum."""
+
+    @staticmethod
+    def forward(ctx, x, g, lng, lnb, w, wb, bb, eps, grid_min, grid_max):
+        out, z = gin_fastkan_fwd(x, g.senders, g.recv_row_ptr, lng, lnb, w,
+                                 wb, bb, eps, grid_min, grid_max)
+        ctx.save_for_backward(z, lng, lnb, w, wb)
+        ctx.g, ctx.eps, ctx.grid = g, eps, (grid_min, grid_max)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        z, lng, lnb, w, wb = ctx.saved_tensors
+        need_x = ctx.needs_input_grad[0]
+        dz, *dparams = fastkan_layer_bwd(z, lng, lnb, w, wb,
+                                         dout.contiguous(), *ctx.grid,
+                                         need_dx=need_x)
+        dx = None
+        if need_x:
+            g = ctx.g
+            dx_a = sorted_segment_sum(dz, g.send_row_ptr, g.receivers_by_sender)
+            dx = (1.0 + ctx.eps) * dz + dx_a
+        return (dx, None, *dparams, None, None, None)
+
+
+def gin_fastkan_fused(x: torch.Tensor, g, eps: float, ln_scale, ln_bias,
+                      spline_weight, base_weight, base_bias, grid_min: float,
+                      grid_max: float, num_grids: int) -> torch.Tensor:
+    """Fused GINConv aggregate + FastKANLayer over a GraphBatch, from the
+    module's layouts: spline_weight (O, D*G), base_weight (O, D),
+    base_bias (O,), ln_scale/ln_bias (D,)."""
+    lng, lnb, w, wb, bb = weight_layouts(ln_scale, ln_bias, spline_weight,
+                                         base_weight, base_bias, num_grids)
+    return GinFastKan.apply(x.contiguous(), g, lng, lnb, w, wb, bb,
+                            float(eps), float(grid_min), float(grid_max))

@@ -1,0 +1,59 @@
+"""On-card checks of the autograd Functions of the FastKAN and GCN kernels,
+shared by `chip_smoke.py` and `tests/test_torch_cuda.py`."""
+from __future__ import annotations
+
+import torch
+
+from kagnn_tpu_torch.kernels import fastkan_layer as fk
+from kagnn_tpu_torch.kernels import gcn_agg as ga
+from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+from kagnn_tpu_torch.kernels import spmm
+
+
+def fastkan_gcn_chain(g, d: int = 16, o: int = 8, num_grids: int = 4) -> float:
+    """FastKANLayerFn -> GcnAggregate -> GinFastKan chained over the CUDA
+    GraphBatch `g`, in f32 with TF32 off (the flag is restored after):
+    the values and every gradient through the kernels against the same
+    chain through the plain versions on the CPU (rtol 1e-3 / atol 1e-5, the
+    gradients' bar); then no segment sum in the GIN backward when its input
+    needs no gradient. Raises AssertionError on a disagreement and returns
+    the worst max-abs error."""
+    gen = torch.Generator().manual_seed(2)
+    G = num_grids
+
+    def weights(fin, fout):
+        return [torch.randn(s, generator=gen) * 0.3
+                for s in ((fin,), (fin,), (fout, fin * G), (fout, fin), (fout,))]
+
+    w1, w2 = weights(d, o), weights(o, o)
+    x = torch.randn(g.n_node_pad, d, generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for dev, graph in (("cuda", g), ("cpu", g.to("cpu"))):
+            xs = x.to(dev, copy=True).requires_grad_(True)
+            wt = [w.to(dev, copy=True).requires_grad_(True) for w in w1 + w2]
+            dinv = torch.rsqrt(graph.in_degrees.float() + 1.0)
+            h = fk.fastkan_layer_fused(xs, *wt[:5], -2.0, 2.0, G)
+            h = ga.gcn_aggregate_fused(h * dinv[:, None], graph, dinv)
+            out = gfk.gin_fastkan_fused(h, graph, 0.1, *wt[5:], -2.0, 2.0, G)
+            out[graph.node_mask].sum().backward()
+            res[dev] = [out.detach()[graph.node_mask], xs.grad] + [w.grad for w in wt]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    worst = 0.0
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5)
+        worst = max(worst, (a.cpu() - b).abs().max().item())
+    before = spmm.sorted_segment_sum.launches
+    wt = [w.to("cuda", copy=True).requires_grad_(True) for w in w2]
+    gfk.gin_fastkan_fused(torch.randn(g.n_node_pad, o, device="cuda"), g, 0.0,
+                          *wt, -2.0, 2.0, G).sum().backward()
+    torch.cuda.synchronize()
+    if spmm.sorted_segment_sum.launches != before:
+        raise AssertionError("GinFastKan ran A^T dz for an input that needs "
+                             "no gradient")
+    if not all(w.grad is not None for w in wt):
+        raise AssertionError("GinFastKan left a weight without a gradient")
+    return worst

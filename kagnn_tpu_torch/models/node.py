@@ -1,8 +1,11 @@
 """Node-classification model, the counterpart of
-`kagnn_tpu/models/node.py::NodeClassifier` on the gin/kan path.
+`kagnn_tpu/models/node.py::NodeClassifier` for conv_type in {"gin", "gcn"}
+and architecture in {"kan", "fastkan"} (the reference's GKAN_Nodes and
+GFASTKAN_Nodes with GIN or GCN convs).
 
 Per message-passing layer: conv -> MaskedBatchNorm -> dropout; the head is
-a KANLinear; with `skip` the head reads the concatenation [x0, h1, ..., hL].
+a KANLinear (kan) or a FastKANLayer (fastkan, with num_grids = grid_size);
+with `skip` the head reads the concatenation [x0, h1, ..., hL].
 Under a compute dtype the node features are cast on entry and the logits
 come back in f32, as in the JAX model.
 """
@@ -13,13 +16,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from kagnn_tpu_torch.kan.layers import KAN, KANLinear
-from kagnn_tpu_torch.nn.convs import GINConv
+from kagnn_tpu_torch.kan.layers import KAN, FastKAN, FastKANLayer, KANLinear
+from kagnn_tpu_torch.nn.convs import (GCNConv, GINConv, fastkan_transform,
+                                      kan_transform)
 from kagnn_tpu_torch.ops.norm import MaskedBatchNorm
 from kagnn_tpu_torch.utils.device import resolve_device
 
-_LATER = {"gcn": "the GCN slice", "gat": "the GAT slice",
-          "fastkan": "the FastKAN slice", "mlp": "the graph-task slice"}
+_LATER = {"gat": "the GAT slice", "mlp": "the graph-task slice"}
 
 
 class NodeClassifier(nn.Module):
@@ -36,27 +39,39 @@ class NodeClassifier(nn.Module):
             if value in _LATER:
                 raise NotImplementedError(
                     f"{name}={value!r} is ported with {_LATER[value]}; this "
-                    f"port runs conv_type='gin', architecture='kan'")
-        if conv_type != "gin" or architecture != "kan":
+                    f"port runs conv_type 'gin' or 'gcn' with architecture "
+                    f"'kan' or 'fastkan'")
+        if (conv_type not in ("gin", "gcn")
+                or architecture not in ("kan", "fastkan")):
             raise ValueError(f"unknown conv_type/architecture "
                              f"{conv_type!r}/{architecture!r}")
         del heads  # GAT only
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         H = hidden_channels
-        kw = dict(grid_size=grid_size, spline_order=spline_order, fused=fused,
-                  compute_dtype=compute_dtype, generator=gen, device=dev)
+        kw = dict(fused=fused, compute_dtype=compute_dtype, generator=gen,
+                  device=dev)
+        if architecture == "kan":
+            basis = dict(grid_size=grid_size, spline_order=spline_order, **kw)
+            make, net, layer = kan_transform(**basis), KAN, KANLinear
+        else:
+            basis = dict(num_grids=grid_size, **kw)
+            make = fastkan_transform(**basis)
+            net, layer = FastKAN, FastKANLayer
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
         for i in range(mp_layers):
             fin = num_features if i == 0 else H
-            sizes = [fin] + [H] * (hidden_layers - 1) + [H]
-            self.convs.append(GINConv(KAN(sizes, **kw)))
+            if conv_type == "gcn":
+                self.convs.append(GCNConv(fin, H, make, fused=fused, device=dev))
+            else:
+                sizes = [fin] + [H] * (hidden_layers - 1) + [H]
+                self.convs.append(GINConv(net(sizes, **basis)))
             self.norms.append(MaskedBatchNorm(H, device=dev))
         self.skip, self.dropout = skip, dropout
         self.compute_dtype, self.seed = compute_dtype, seed
         dim_head = num_features + mp_layers * H if skip else H
-        self.head = KANLinear(dim_head, num_classes, **kw)
+        self.head = layer(dim_head, num_classes, **basis)
         self._dropout_gen = None
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,21 @@
 """Weight carrier between the JAX `NodeClassifier` variable tree and the
-port's `NodeClassifier` state_dict (gin/kan path). Works on numpy arrays:
-the JAX tree's leaves come in as numpy (`jax.tree.map(np.asarray, v)`),
-and nothing here imports jax.
+port's `NodeClassifier` state_dict (gin and gcn convs, kan and fastkan
+architectures). Works on numpy arrays: the JAX tree's leaves come in as
+numpy (`jax.tree.map(np.asarray, v)`), and nothing here imports jax.
 
-    params/KAN_{i}/layers_{j}/{base_weight,spline_weight,spline_scaler}
-        <-> convs.{i}.update.layers.{j}.{same names}
-    buffers/KAN_{i}/layers_{j}/grid   <-> convs.{i}.update.layers.{j}.grid
-    params/MaskedBatchNorm_{i}/{scale,bias}  <-> norms.{i}.{weight,bias}
-    batch_stats/MaskedBatchNorm_{i}/{mean,var}
-        <-> norms.{i}.{running_mean,running_var}
-    params/head/..., buffers/head/grid <-> head.{same names}
+Modules:
+    {params,buffers}/KAN_{i}/layers_{j}/...      <-> convs.{i}.update.layers.{j}....
+    params/FastKAN_{i}/layers_{j}/...            <-> convs.{i}.update.layers.{j}....
+    {params,buffers}/GCNConv_{i}/KANLinear_0/... <-> convs.{i}.transform....
+    params/GCNConv_{i}/FastKANLayer_0/...        <-> convs.{i}.transform....
+    params/GCNConv_{i}/bias                      <-> convs.{i}.bias
+    params/MaskedBatchNorm_{i}/{scale,bias}      <-> norms.{i}.{weight,bias}
+    batch_stats/MaskedBatchNorm_{i}/{mean,var}   <-> norms.{i}.{running_mean,running_var}
+    {params,buffers}/head/...                    <-> head....
+Leaves of a KANLinear keep their names (base_weight, spline_weight,
+spline_scaler, the buffer grid); those of a FastKANLayer map as
+    spline_weight <-> spline_linear.weight, base_weight <-> base_linear.weight,
+    base_bias <-> base_linear.bias, layernorm/{scale,bias} <-> layernorm.{weight,bias}.
 
 The layouts are the same on both sides (the JAX layers keep the torch
 layouts), so every array passes through unchanged.
@@ -25,6 +31,12 @@ import torch
 _BN = {("params", "scale"): "weight", ("params", "bias"): "bias",
        ("batch_stats", "mean"): "running_mean",
        ("batch_stats", "var"): "running_var"}
+_FAST = {("spline_weight",): "spline_linear.weight",
+         ("base_weight",): "base_linear.weight",
+         ("base_bias",): "base_linear.bias",
+         ("layernorm", "scale"): "layernorm.weight",
+         ("layernorm", "bias"): "layernorm.bias"}
+_FAST_INV = {v: k for k, v in _FAST.items()}
 
 
 def _np(v: Any) -> np.ndarray:
@@ -39,18 +51,37 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+def _module(mod: str, rest: tuple, head_is_fast: bool):
+    """JAX module name and the path below it -> (torch prefix, path below
+    the layer, whether the layer is a FastKANLayer)."""
+    if mod == "head":
+        return "head", rest, head_is_fast
+    if m := re.fullmatch(r"(Fast)?KAN_(\d+)", mod):
+        layer = re.fullmatch(r"layers_(\d+)", rest[0]).group(1)
+        return (f"convs.{m.group(2)}.update.layers.{layer}", rest[1:],
+                m.group(1) is not None)
+    if m := re.fullmatch(r"GCNConv_(\d+)", mod):
+        if rest == ("bias",):
+            return f"convs.{m.group(1)}", rest, False
+        t = re.fullmatch(r"(FastKANLayer|KANLinear)_0", rest[0])
+        if t is not None:
+            return (f"convs.{m.group(1)}.transform", rest[1:],
+                    t.group(1) == "FastKANLayer")
+    return None
+
+
 def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX NodeClassifier variables -> the port's state_dict."""
+    head_is_fast = any("base_bias" in c.get("head", {})
+                       for c in variables.values())
     sd = {}
     for path, v in _leaves(variables):
-        coll, mod, name = path[0], path[1], path[-1]
-        if mod == "head":
-            key = f"head.{name}"
-        elif m := re.fullmatch(r"KAN_(\d+)", mod):
-            layer = re.fullmatch(r"layers_(\d+)", path[2]).group(1)
-            key = f"convs.{m.group(1)}.update.layers.{layer}.{name}"
-        elif m := re.fullmatch(r"MaskedBatchNorm_(\d+)", mod):
-            key = f"norms.{m.group(1)}.{_BN[(coll, name)]}"
+        coll, mod, rest = path[0], path[1], path[2:]
+        if m := re.fullmatch(r"MaskedBatchNorm_(\d+)", mod):
+            key = f"norms.{m.group(1)}.{_BN[(coll, rest[0])]}"
+        elif (found := _module(mod, rest, head_is_fast)) is not None:
+            prefix, leaf, fast = found
+            key = f"{prefix}.{_FAST[leaf] if fast else '.'.join(leaf)}"
         else:
             raise KeyError(f"no port counterpart for {'/'.join(path)}")
         sd[key] = torch.from_numpy(np.array(_np(v), dtype=np.float32))
@@ -68,17 +99,34 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
             d = d.setdefault(p, {})
         d[path[-1]] = _np(value)
 
+    def leaf(rest: str):
+        """Torch name below a layer -> (collection, fastkan?, JAX path)."""
+        if rest in _FAST_INV:
+            return "params", True, _FAST_INV[rest]
+        return ("buffers" if rest == "grid" else "params"), False, (rest,)
+
     for key, v in state_dict.items():
         parts = key.split(".")
-        if parts[0] == "head":
-            coll = "buffers" if parts[1] == "grid" else "params"
-            put((coll, "head", parts[1]), v)
-        elif parts[0] == "convs":
-            coll = "buffers" if parts[-1] == "grid" else "params"
-            put((coll, f"KAN_{parts[1]}", f"layers_{parts[4]}", parts[-1]), v)
-        elif parts[0] == "norms":
+        if parts[0] == "norms":
             coll, name = inv_bn[parts[2]]
             put((coll, f"MaskedBatchNorm_{parts[1]}", name), v)
-        else:
-            raise KeyError(f"no JAX counterpart for {key}")
+            continue
+        if parts[0] == "head":
+            coll, _, path = leaf(".".join(parts[1:]))
+            put((coll, "head", *path), v)
+            continue
+        if parts[0] == "convs" and parts[2:] == ["bias"]:
+            put(("params", f"GCNConv_{parts[1]}", "bias"), v)
+            continue
+        if parts[0] == "convs" and parts[2] == "update":
+            coll, fast, path = leaf(".".join(parts[5:]))
+            mod = f"{'FastKAN' if fast else 'KAN'}_{parts[1]}"
+            put((coll, mod, f"layers_{parts[4]}", *path), v)
+            continue
+        if parts[0] == "convs" and parts[2] == "transform":
+            coll, fast, path = leaf(".".join(parts[3:]))
+            layer = "FastKANLayer_0" if fast else "KANLinear_0"
+            put((coll, f"GCNConv_{parts[1]}", layer, *path), v)
+            continue
+        raise KeyError(f"no JAX counterpart for {key}")
     return out

@@ -58,18 +58,22 @@ def test_entry_points_need_a_device():
     """Without device="cpu" the entry points run on CUDA; on a machine with
     no CUDA device they raise instead of falling back to the CPU."""
     from kagnn_tpu_torch.graphs import single_graph
-    from kagnn_tpu_torch.kan import KANLinear
+    from kagnn_tpu_torch.kan import FastKANLayer, KANLinear
     from kagnn_tpu_torch.models import NodeClassifier
 
     snd, rcv = np.array([0, 1]), np.array([1, 0])
     kw = dict(conv_type="gin", architecture="kan", mp_layers=1,
               num_features=4, hidden_channels=4, num_classes=2)
+    gcn = dict(kw, conv_type="gcn", architecture="fastkan")
     if torch.cuda.is_available():
         assert single_graph(snd, rcv).device.type == "cuda"
-        assert next(NodeClassifier(**kw).parameters()).device.type == "cuda"
+        for m in (NodeClassifier(**kw), NodeClassifier(**gcn),
+                  FastKANLayer(4, 2)):
+            assert next(m.parameters()).device.type == "cuda"
         return
     for make in (lambda: single_graph(snd, rcv), lambda: KANLinear(4, 2),
-                 lambda: NodeClassifier(**kw)):
+                 lambda: FastKANLayer(4, 2), lambda: NodeClassifier(**kw),
+                 lambda: NodeClassifier(**gcn)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     g = single_graph(snd, rcv, device="cpu")
