@@ -10,21 +10,28 @@ Phases (any failure raises, and the script exits non-zero):
      TF32 off for matmul and cuDNN;
   2. build: compiles every CUDA kernel from `kagnn_tpu_torch/csrc/` (one
      nvcc per source, all at once) and prints the build time;
-  3. kernels: each of the 8 kernels against its plain PyTorch version on
+  3. kernels: each of the 11 kernels against its plain PyTorch version on
      the card, at small shapes, ragged shapes (N off every tile, isolated
-     nodes, a node of in-degree 301: the new kernels) and the main paths'
-     shapes, in f32 and bf16, with times (CUDA events) for the kernel, the
-     plain version and, where one PyTorch call computes the same function,
-     that call as the library yardstick (`torch.sparse.mm` on a CSR
-     matrix; the port never calls it); then the forward and backward of
-     the new autograd Functions against the plain path;
+     nodes, a node of in-degree 301) and the main paths' shapes (the layer
+     kernels also at the GAT transform's widths, 256 = 4 heads x 64), in
+     f32 and bf16, with times (CUDA events) for the kernel, the plain
+     version and, where one PyTorch call computes the same function, that
+     call as the library yardstick (`torch.sparse.mm` on a CSR matrix; the
+     port never calls it; there is none for GAT attention); then the
+     forward and backward of the autograd Functions against the plain path;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
-     gcn/fastkan, gin/fastkan): the kernel path (fused=True) and the plain
-     path (fused=False) agree on logits and every parameter gradient;
+     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan): the kernel path
+     (fused=True) and the plain path (fused=False) agree on logits and
+     every parameter gradient;
   5. main paths: the bf16 train step of each node path at full width on
      the arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), 2
      warm-up + 10 timed steps each, with the launch counters set to 0
-     before and checked after each path, and a profiler breakdown;
+     before and checked after each path, and a profiler breakdown; then
+     the GIN+FastKAN fusion point, `FastKAN(x, gin_graph=(g, 0))` at the
+     main shapes, forward and backward once with its counts checked the
+     same way: the GIN conv sums z itself for a FastKAN net, as the JAX
+     model does, so no node path launches the gin_fastkan kernel and this
+     drive is the run that does;
   6. prints the kernel list as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -47,6 +54,10 @@ NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
                num_classes=40, grid_size=4, spline_order=3, skip=False,
                hidden_layers=2, heads=4, dropout=0.0)  # bench.py _NODE_KW
 BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
+# (D, O) of the layer kernels: GIN/GCN hidden (64, 64), head (64, 40), conv 0
+# (128, 64); GAT transforms (128, 256) and (256, 256), GAT head (256, 40)
+LAYER_SHAPES = ((64, 64), (64, 40), (128, 64), (128, 256), (256, 256), (256, 40))
+GIN_FASTKAN_SHAPES = ((64, 64), (64, 40), (128, 64))
 
 
 def log(*a):
@@ -173,6 +184,12 @@ def phase_kernels(torch, big):
         "gin_fastkan": kernel_row("gin_fastkan",
                                   "kagnn_tpu_torch/csrc/gin_fastkan.cu",
                                   "kagnn_tpu/pallas/gin_fastkan.py:42"),
+        "gat_fwd": kernel_row("gat_fwd", "kagnn_tpu_torch/csrc/gat_fused.cu",
+                              "kagnn_tpu/pallas/gat_fused.py:103"),
+        "gat_dadst": kernel_row("gat_dadst", "kagnn_tpu_torch/csrc/gat_bwd.cu",
+                                "kagnn_tpu/pallas/gat_bwd.py:138"),
+        "gat_sender": kernel_row("gat_sender", "kagnn_tpu_torch/csrc/gat_bwd.cu",
+                                 "kagnn_tpu/pallas/gat_bwd.py:282"),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -225,8 +242,9 @@ def phase_kernels(torch, big):
                 record("spmm", err, False)
 
             # (64, 64): second update layers and the GIN backward of convs 1-2;
-            # (64, 40): the head; (128, 64): the GIN backward of conv 0
-            for D, O in ((64, 64), (64, 40), (128, 64)):
+            # (64, 40): the head; (128, 64): the GIN backward of conv 0; the
+            # GAT transforms (128, 256), (256, 256) and head (256, 40)
+            for D, O in LAYER_SHAPES:
                 knots, wb, ws = layer(D, O, dtype)
                 x = rand((N, D), dtype)
                 dout = rand((N, O), dtype, 0.1)
@@ -371,8 +389,10 @@ def phase_new_kernels(torch, big, rows):
                              library_ms=lms)
             record_row(rows["gcn_agg"], err, main, **times)
 
-            # (64, 64): hidden layers; (64, 40): the head; (128, 64): conv 0
-            for D, O in ((64, 64), (64, 40), (128, 64)):
+            # (64, 64): hidden layers; (64, 40): the head; (128, 64): conv 0;
+            # then the GAT transforms and head (the layer kernels only)
+            for D, O in LAYER_SHAPES:
+                gin = (D, O) in GIN_FASTKAN_SHAPES
                 lw = layer(D, O, dtype)
                 x = rand((N, D), dtype)
                 x[N - 1] = 0.0  # a row of zeros, as pad rows after BatchNorm
@@ -389,11 +409,12 @@ def phase_new_kernels(torch, big, rows):
                                fk.fastkan_layer_bwd(*ba),
                                fk.fastkan_layer_bwd_plain(*ba)))
                 ga_args = (x, g.senders, g.recv_row_ptr, *lw, 0.0, -2.0, 2.0)
-                errg = max(compare(torch, f"gin_fastkan {gname} D={D} O={O} {w}",
-                                   a[nm], b[nm], dn)
-                           for w, a, b in zip(("out", "z"),
-                                              gfk.gin_fastkan_fwd(*ga_args),
-                                              gfk.gin_fastkan_fwd_plain(*ga_args)))
+                errg = max((compare(torch, f"gin_fastkan {gname} D={D} O={O} {w}",
+                                    a[nm], b[nm], dn)
+                            for w, a, b in zip(("out", "z"),
+                                               gfk.gin_fastkan_fwd(*ga_args),
+                                               gfk.gin_fastkan_fwd_plain(*ga_args))),
+                           default=0.0) if gin else 0.0
                 rep = main and (D, O) == (64, 64)
                 if not timed:
                     for name, e in (("fastkan_fwd", err), ("fastkan_bwd", errb),
@@ -416,6 +437,8 @@ def phase_new_kernels(torch, big, rows):
                          lambda: gfk.gin_fastkan_fwd_plain(*ga_args),
                          (2 * N * D + N * O) * s + wbytes + 4 * (E + N + 1),
                          E * D + prods)):
+                    if name == "gin_fastkan" and not gin:
+                        continue
                     ms = time_ms(torch, fn)
                     pms = time_ms(torch, plain, iters=5)
                     bms, by = bound(nbytes, ops, dn)
@@ -423,14 +446,106 @@ def phase_new_kernels(torch, big, rows):
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
                                bound_ms=bms, bound_by=by)
+    phase_gat_kernels(torch, big, rows)
     phase_autograd_functions(torch)
+
+
+def phase_gat_kernels(torch, big, rows):
+    """The three GAT kernels against their plain versions at the main
+    paths' heads and width (H 4, C 64), f32 and bf16, on a small graph, the
+    ragged one and the main paths' graph (`big`), timed on the latter.
+    Bytes of the bound: h and dout read once, out or dh written once, the
+    (N, H) f32 arrays, and the indices of the valid edges; operations: the
+    products of the valid edges. No PyTorch call computes GAT attention, so
+    there is no library time."""
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kernels import gat_bwd as gbw
+    from kagnn_tpu_torch.kernels import gat_fused as gfu
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    small = single_graph(rng.integers(0, 100, 700), rng.integers(0, 90, 700),
+                         n_node=100, device="cuda")
+    H, C = NODE_KW["heads"], NODE_KW["hidden_channels"]
+    slope = 0.2
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        s = torch.tensor([], dtype=dtype).element_size()
+        for gname, g in (("small", small), ("ragged", ragged_graph(torch)),
+                         ("main", big)):
+            N, nv = g.n_node_pad, g.n_edge
+            h = rand((N, H * C), dtype)
+            asrc, adst = rand((N, H), torch.float32, 2.0), rand((N, H), torch.float32, 2.0)
+            dout = rand((N, H * C), dtype, 0.1)
+            fa = (h, asrc, adst, g.senders, g.recv_row_ptr, nv, slope)
+            out, alpha = gfu.gat_fwd(*fa)
+            want = gfu.gat_fwd_plain(*fa)
+            err = max(compare(torch, f"gat_fwd {gname} out", out, want[0], dn),
+                      compare(torch, f"gat_fwd {gname} alpha", alpha, want[1],
+                              "float32"))
+            S = (dout * out).float().reshape(N, H, C).sum(2).contiguous()
+            da = (h, asrc, adst, alpha, S, dout, g.senders, g.recv_row_ptr, nv,
+                  slope)
+            errd = compare(torch, f"gat_dadst {gname}", gbw.gat_dadst(*da),
+                           gbw.gat_dadst_plain(*da), "float32")
+            sa = (*da[:6], g.receivers_by_sender, g.send_row_ptr, nv, slope)
+            errs = max(compare(torch, f"gat_sender {gname} {w}", a, b, "float32")
+                       for w, a, b in zip(("dh", "dasrc"), gbw.gat_sender(*sa),
+                                          gbw.gat_sender_plain(*sa)))
+            main = gname == "main" and dtype == torch.bfloat16
+            if gname != "main":
+                for name, e in (("gat_fwd", err), ("gat_dadst", errd),
+                                ("gat_sender", errs)):
+                    record_row(rows[name], e, False)
+                continue
+            wide, narrow = N * H * C * s, 4 * N * H
+            idx = 4 * nv + 4 * (N + 1)
+            ops = 2 * nv * H * C
+            for name, e, fn, plain, nbytes, n_ops in (
+                    ("gat_fwd", err, lambda: gfu.gat_fwd(*fa),
+                     lambda: gfu.gat_fwd_plain(*fa),
+                     2 * wide + 3 * narrow + idx, ops),
+                    ("gat_dadst", errd, lambda: gbw.gat_dadst(*da),
+                     lambda: gbw.gat_dadst_plain(*da),
+                     2 * wide + 5 * narrow + idx, ops),
+                    ("gat_sender", errs, lambda: gbw.gat_sender(*sa),
+                     lambda: gbw.gat_sender_plain(*sa),
+                     2 * wide + 4 * N * H * C + 5 * narrow + idx, 2 * ops)):
+                ms = time_ms(torch, fn)
+                pms = time_ms(torch, plain, iters=5)
+                bms, by = bound(nbytes, n_ops, dn)
+                log(f"  {name} main {dn} H={H} C={C}: ms={ms:.4f} "
+                    f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms=none")
+                record_row(rows[name], e, main, ms=ms, plain_ms=pms,
+                           bound_ms=bms, bound_by=by, library_ms=None)
+            # the longest receiver row alone (every other row empty): the
+            # time its one warp needs, a floor under the launches above
+            deg = g.recv_row_ptr[1:] - g.recv_row_ptr[:-1]
+            hub = int(deg[:g.n_node].argmax())
+            d_hub = int(deg[hub])
+            e0 = int(g.recv_row_ptr[hub])
+            snd = g.senders[e0:e0 + d_hub].contiguous()
+            rp = torch.zeros_like(g.recv_row_ptr)
+            rp[hub + 1:] = d_hub
+            hub_fwd = time_ms(torch, lambda: gfu.gat_fwd(h, asrc, adst, snd, rp,
+                                                         d_hub, slope))
+            hub_dadst = time_ms(torch, lambda: gbw.gat_dadst(
+                h, asrc, adst, alpha, S, dout, snd, rp, d_hub, slope))
+            log(f"  GAT hub row alone {dn} (node {hub}, in-degree {d_hub}): "
+                f"gat_fwd {hub_fwd:.4f} ms, gat_dadst {hub_dadst:.4f} ms")
 
 
 def phase_autograd_functions(torch):
     """FastKANLayerFn -> GcnAggregate -> GinFastKan chained on a small
-    graph (kernels/selfcheck.py, shared with tests/test_torch_cuda.py)."""
+    graph, then GatAttention twice in a row (kernels/selfcheck.py, shared
+    with tests/test_torch_cuda.py)."""
     from kagnn_tpu_torch.graphs import single_graph
-    from kagnn_tpu_torch.kernels.selfcheck import fastkan_gcn_chain
+    from kagnn_tpu_torch.kernels.selfcheck import (fastkan_gcn_chain,
+                                                   gat_attention_chain)
 
     rng = np.random.default_rng(5)
     g = single_graph(rng.integers(0, 300, 2000), rng.integers(0, 300, 2000),
@@ -439,6 +554,10 @@ def phase_autograd_functions(torch):
     log(f"autograd Functions (FastKANLayerFn, GcnAggregate, GinFastKan): "
         f"forward and 11 gradients agree with the plain path on the CPU "
         f"(worst {worst:.3e}); no A^T dz for an input without a gradient")
+    worst = gat_attention_chain(g, heads=NODE_KW["heads"], c=16)
+    log(f"autograd Function GatAttention (two layers): forward and 5 "
+        f"gradients agree with the plain path on the CPU (worst "
+        f"{worst:.3e}); each GAT kernel launched once per layer")
 
 
 def phase_small_step(torch, conv, arch):
@@ -510,15 +629,24 @@ MAIN_PATHS = {
                      "spmm": 3},
     ("gcn", "fastkan"): {"gcn_agg": 3, "fastkan_fwd": 4, "fastkan_bwd": 4,
                          "spmm": 3},
-    ("gin", "fastkan"): {"gin_fastkan": 3, "fastkan_fwd": 4,
-                         "fastkan_bwd": 7, "spmm": 2},
+    ("gin", "fastkan"): {"spmm": 5, "fastkan_fwd": 7, "fastkan_bwd": 7},
+    ("gat", "kan"): {"bspline_fwd": 4, "bspline_bwd": 4, "gat_fwd": 3,
+                     "gat_dadst": 3, "gat_sender": 3},
+    ("gat", "fastkan"): {"fastkan_fwd": 4, "fastkan_bwd": 4, "gat_fwd": 3,
+                         "gat_dadst": 3, "gat_sender": 3},
 }
+# the fusion point FastKAN([128, 64, 64])(x, gin_graph=(g, 0)), forward and
+# backward once: the fused GIN+FastKAN layer, the second layer, both layer
+# backwards and A^T dz (x needs a gradient)
+FUSION_POINT = {"gin_fastkan": 1, "fastkan_fwd": 1, "fastkan_bwd": 2, "spmm": 1}
 
 
 def counters():
     """Every kernel wrapper with its launch counter, by kernel name."""
     from kagnn_tpu_torch.kernels import bspline_fused as bf
     from kagnn_tpu_torch.kernels import fastkan_layer as fk
+    from kagnn_tpu_torch.kernels import gat_bwd as gbw
+    from kagnn_tpu_torch.kernels import gat_fused as gfu
     from kagnn_tpu_torch.kernels import gcn_agg as ga
     from kagnn_tpu_torch.kernels import gin_fastkan as gfk
     from kagnn_tpu_torch.kernels import gin_fused as gf
@@ -528,7 +656,16 @@ def counters():
             "bspline_bwd": bf.kan_linear_bwd, "gin_fused": gf.gin_kan_fwd,
             "gcn_agg": ga.gcn_agg_fwd, "fastkan_fwd": fk.fastkan_layer_fwd,
             "fastkan_bwd": fk.fastkan_layer_bwd,
-            "gin_fastkan": gfk.gin_fastkan_fwd}
+            "gin_fastkan": gfk.gin_fastkan_fwd, "gat_fwd": gfu.gat_fwd,
+            "gat_dadst": gbw.gat_dadst, "gat_sender": gbw.gat_sender}
+
+
+def check_launches(name, launches, per_run, runs=1):
+    """Every kernel launched exactly per_run[k] * runs times (0 if absent)."""
+    for k, n in launches.items():
+        if n != per_run.get(k, 0) * runs:
+            raise AssertionError(f"{name}: {k} launched {n} times in {runs} "
+                                 f"runs, expected {per_run.get(k, 0)} per run")
 
 
 def phase_main_path(torch, g, conv, arch):
@@ -565,11 +702,7 @@ def phase_main_path(torch, g, conv, arch):
     log(f"main path {name} launches: {launches}")
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"non-finite loss on {name}: {vals}")
-    steps = warmup + timed
-    for k, n in launches.items():
-        if n != per_step.get(k, 0) * steps:
-            raise AssertionError(f"{name}: {k} launched {n} times in {steps} "
-                                 f"steps, expected {per_step.get(k, 0)} per step")
+    check_launches(name, launches, per_step, warmup + timed)
     # host cost of one step: the time to enqueue it on an idle card
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -623,6 +756,32 @@ def profile_steps(torch, step, step_ms, steps=3):
             f"{e.count // steps:4d} calls/step  {e.key[:70]}")
 
 
+def phase_fusion_point(torch, g):
+    """FastKAN([128, 64, 64], fused, bf16)(x, gin_graph=(g, 0.0)) on the
+    main graph, forward and backward once, with the counters set to 0
+    before and read after (FUSION_POINT). Returns the launches."""
+    from kagnn_tpu_torch.kan import FastKAN
+
+    net = FastKAN([NODE_KW["num_features"], NODE_KW["hidden_channels"],
+                   NODE_KW["hidden_channels"]], num_grids=NODE_KW["grid_size"],
+                  fused=True, compute_dtype=torch.bfloat16, device="cuda")
+    x = g.nodes.detach().clone().requires_grad_(True)
+    fns = counters()
+    torch.cuda.synchronize()
+    for f in fns.values():
+        f.launches = 0
+    out = net(x, gin_graph=(g, 0.0))
+    out[g.node_mask].float().sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in fns.items()}
+    log(f"fusion point FastKAN(x, gin_graph=(g, 0)) launches: {launches}")
+    check_launches("fusion point", launches, FUSION_POINT)
+    if not (torch.isfinite(out[g.node_mask]).all()
+            and torch.isfinite(x.grad).all()):
+        raise AssertionError("fusion point: non-finite output or gradient")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -638,6 +797,8 @@ def main() -> int:
         launches, step_ms[f"{conv}/{arch}"] = phase_main_path(torch, g, conv, arch)
         for name, n in launches.items():
             rows[name]["launches"] += n
+    for name, n in phase_fusion_point(torch, g).items():
+        rows[name]["launches"] += n
     unused = [n for n, r in rows.items() if r["launches"] == 0]
     if unused:
         raise AssertionError(f"kernels no main path launched: {unused}")

@@ -18,8 +18,9 @@
 //
 // The backward runs as three launches, all on the caller's stream:
 //   1. dx: a tile of 64 rows computes dout @ [Wb; Ws]^T per 32-feature chunk
-//      (the chunk's weights staged in shared memory), rebuilds the ladder
-//      from x and applies the analytic derivative;
+//      (the chunk's weights staged in shared memory one 64-wide tile of
+//      outputs at a time, so any O fits: 131 KB at O = 256), rebuilds the
+//      ladder from x and applies the analytic derivative;
 //   2. dW partials: the TPU kernel accumulates dWb/dWs across its sequential
 //      grid; Hopper blocks run in parallel, so a fixed number of blocks
 //      (about two per SM) each sum a contiguous range of rows into an f32
@@ -58,7 +59,7 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T* __restr
   constexpr int pitch = S::AC + 1;  // odd pitch: conflict-free staging stores
   extern __shared__ __align__(16) float smem[];
   float* dout_s = smem;                 // kDxRows x O
-  float* w_s = smem + kDxRows * O;      // O x pitch, [o][g*kDC + j]
+  float* w_s = smem + kDxRows * O;      // kOT x pitch, [o - o0][g*kDC + j]
   const int row0 = blockIdx.x * kDxRows;
   const int dd = threadIdx.x % kDC;
   const int rg = threadIdx.x / kDC;  // 8 row groups of 8 rows
@@ -68,28 +69,34 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T* __restr
     dout_s[i] = row < n ? to_f(dout[(size_t)row0 * O + i]) : 0.f;
   }
   for (int d0 = 0; d0 < D; d0 += kDC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < O * S::AC; i += kThreads) {
-      const int o = i % O, rest = i / O;
-      const int j = rest % kDC, g = rest / kDC;
-      const int d = d0 + j;
-      w_s[o * pitch + g * kDC + j] = d < D ? to_f(weight_row(wb, ws, g, d, D, O)[o]) : 0.f;
-    }
-    __syncthreads();
     float acc[8][S::NG];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int g = 0; g < S::NG; ++g) acc[i][g] = 0.f;
-    for (int o = 0; o < O; ++o) {
-      float w[S::NG];
+    // the chunk's weights one kOT-wide tile of outputs at a time, so that
+    // shared memory does not grow with O; acc sums over o in order
+    for (int o0 = 0; o0 < O; o0 += kOT) {
+      const int on = min(kOT, O - o0);
+      __syncthreads();  // dout_s is complete; the previous tile is consumed
+      for (int i = threadIdx.x; i < on * S::AC; i += kThreads) {
+        const int o = i % on, rest = i / on;
+        const int j = rest % kDC, g = rest / kDC;
+        const int d = d0 + j;
+        w_s[o * pitch + g * kDC + j] =
+            d < D ? to_f(weight_row(wb, ws, g, d, D, O)[o0 + o]) : 0.f;
+      }
+      __syncthreads();
+      for (int o = 0; o < on; ++o) {
+        float w[S::NG];
 #pragma unroll
-      for (int g = 0; g < S::NG; ++g) w[g] = w_s[o * pitch + g * kDC + dd];
+        for (int g = 0; g < S::NG; ++g) w[g] = w_s[o * pitch + g * kDC + dd];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float dv = dout_s[(rg * 8 + i) * O + o];
+        for (int i = 0; i < 8; ++i) {
+          const float dv = dout_s[(rg * 8 + i) * O + o0 + o];
 #pragma unroll
-        for (int g = 0; g < S::NG; ++g) acc[i][g] += dv * w[g];
+          for (int g = 0; g < S::NG; ++g) acc[i][g] += dv * w[g];
+        }
       }
     }
     const int d = d0 + dd;
@@ -207,7 +214,7 @@ int launch_bwd(const void* x, const void* knots, const void* wb, const void* ws,
   const T* kt = static_cast<const T*>(knots);
   const T* gt = static_cast<const T*>(dout);
   if (dx != nullptr && n > 0) {
-    const size_t smem = sizeof(float) * ((size_t)kDxRows * O + (size_t)O * (S::AC + 1));
+    const size_t smem = sizeof(float) * ((size_t)kDxRows * O + (size_t)kOT * (S::AC + 1));
     if (int e = set_smem(dx_kernel<T, ORDER, GRID>, smem)) return e;
     dx_kernel<T, ORDER, GRID><<<(n + kDxRows - 1) / kDxRows, kThreads, smem, stream>>>(
         xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt,

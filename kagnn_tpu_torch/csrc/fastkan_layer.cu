@@ -19,7 +19,8 @@
 //   1. dx_kernel: about two blocks per SM each walk a contiguous range of
 //      32-row tiles. Per tile: LayerNorm statistics (written to a scratch
 //      (N, 2) buffer for launch 2), then per 32-feature chunk
-//      dout @ [Wb; W]^T with the chunk's weights staged in shared memory,
+//      dout @ [Wb; W]^T with the chunk's weights staged in shared memory
+//      one 64-wide tile of outputs at a time (175 KB at D = O = 256),
 //      the RBF derivative into dxs and the SiLU' term, and last the
 //      LayerNorm VJP per row. dlng/dlnb add up in shared memory over the
 //      block's rows (one thread per feature, rows in order) and leave as
@@ -78,8 +79,8 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
   float* dxs_s = x_s + (size_t)R * D;          // R x D: dL/dxs
   float* st_s = dxs_s + (size_t)R * D;         // R x D: SiLU' term of dx
   float* dout_s = st_s + (size_t)R * D;        // R x O
-  float* w_s = dout_s + (size_t)R * O;         // O x pitch, [o][g*kDC + j]
-  float* mu_s = w_s + (size_t)O * pitch;       // R
+  float* w_s = dout_s + (size_t)R * O;         // kOT x pitch, [o - o0][g*kDC + j]
+  float* mu_s = w_s + (size_t)kOT * pitch;     // R
   float* rstd_s = mu_s + R;                    // R
   float* dlng_s = rstd_s + R;                  // D
   float* dlnb_s = dlng_s + D;                  // D
@@ -109,28 +110,34 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
       stats[2 * (size_t)(r0 + threadIdx.x) + 1] = rstd_s[threadIdx.x];
     }
     for (int d0 = 0; d0 < D; d0 += kDC) {
-      __syncthreads();  // the previous chunk's products are done with w_s
-      for (int i = threadIdx.x; i < O * S::AC; i += kThreads) {
-        const int o = i % O, rest = i / O;
-        const int j = rest % kDC, g = rest / kDC;
-        const int d = d0 + j;
-        w_s[o * pitch + g * kDC + j] = d < D ? to_f(weight_row(wb, w, g, d, D, O)[o]) : 0.f;
-      }
-      __syncthreads();
       float acc[4][S::NG];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int g = 0; g < S::NG; ++g) acc[i][g] = 0.f;
-      for (int o = 0; o < O; ++o) {
-        float wv[S::NG];
+      // the chunk's weights one kOT-wide tile of outputs at a time, so that
+      // shared memory does not grow with O; acc sums over o in order
+      for (int o0 = 0; o0 < O; o0 += kOT) {
+        const int on = min(kOT, O - o0);
+        __syncthreads();  // the previous tile's products are done with w_s
+        for (int i = threadIdx.x; i < on * S::AC; i += kThreads) {
+          const int o = i % on, rest = i / on;
+          const int j = rest % kDC, g = rest / kDC;
+          const int d = d0 + j;
+          w_s[o * pitch + g * kDC + j] =
+              d < D ? to_f(weight_row(wb, w, g, d, D, O)[o0 + o]) : 0.f;
+        }
+        __syncthreads();
+        for (int o = 0; o < on; ++o) {
+          float wv[S::NG];
 #pragma unroll
-        for (int g = 0; g < S::NG; ++g) wv[g] = w_s[o * pitch + g * kDC + dd];
+          for (int g = 0; g < S::NG; ++g) wv[g] = w_s[o * pitch + g * kDC + dd];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float dv = dout_s[(rg * 4 + i) * O + o];
+          for (int i = 0; i < 4; ++i) {
+            const float dv = dout_s[(rg * 4 + i) * O + o0 + o];
 #pragma unroll
-          for (int g = 0; g < S::NG; ++g) acc[i][g] += dv * wv[g];
+            for (int g = 0; g < S::NG; ++g) acc[i][g] += dv * wv[g];
+          }
         }
       }
       const int d = d0 + dd;
@@ -313,7 +320,7 @@ int launch_bwd(const void* x, const void* lng, const void* lnb, const void* w, c
     const int tiles = (n + kDxRows - 1) / kDxRows;
     const int rows = ((tiles + splits_x - 1) / splits_x) * kDxRows;
     const size_t smem = sizeof(float) * (3 * (size_t)kDxRows * D + (size_t)kDxRows * O +
-                                         (size_t)O * (S::AC + 1) + 2 * kDxRows + 2 * (size_t)D);
+                                         (size_t)kOT * (S::AC + 1) + 2 * kDxRows + 2 * (size_t)D);
     if (int e = set_smem(dx_kernel<T, G>, smem)) return e;
     dx_kernel<T, G><<<splits_x, kThreads, smem, stream>>>(
         xt, lg, lb, static_cast<const T*>(w), static_cast<const T*>(wb), gt,

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -39,3 +40,45 @@ def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     return torch.repeat_interleave(
         torch.arange(n, device=row_ptr.device), counts)
+
+
+# --- GAT (kernels/gat_fused.py, kernels/gat_bwd.py) -------------------------
+
+GAT_MAX_HC = 256  # csrc/gat_common.cuh: 8 columns a lane, one warp a row
+
+
+def leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def dleaky(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, 1.0, slope)
+
+
+def gat_edges(row_ptr: torch.Tensor, idx: torch.Tensor, n_edge: int):
+    """The valid edges of a CSR walk as (row, gathered index), int64: the
+    padded edges are the tail [n_edge, E) of both the receiver and the
+    sender order (their index n_pad - 1 is the largest), so the first
+    n_edge entries are exactly the valid ones."""
+    return segment_ids(row_ptr)[:n_edge], idx[:n_edge].long()
+
+
+def check_gat(h: torch.Tensor, asrc: torch.Tensor, adst: torch.Tensor):
+    """Shapes and types the GAT kernels take -> (n, H, C): h (N, H*C) f32
+    or bf16 with C a power-of-two multiple of 8 and H*C <= 256, 16-byte
+    aligned rows; asrc, adst (N, H) f32."""
+    check_cuda("h", h, shape=(None, None))
+    n, hc = h.shape
+    heads = asrc.shape[1] if asrc.dim() == 2 else 0
+    check_cuda("asrc", asrc, torch.float32, (n, heads))
+    check_cuda("adst", adst, torch.float32, (n, heads))
+    c = hc // max(heads, 1)
+    w = c // 8
+    if (heads == 0 or heads * c != hc or c % 8 or w & (w - 1)
+            or hc > GAT_MAX_HC):
+        raise ValueError(f"the GAT kernels take H*C <= {GAT_MAX_HC} columns "
+                         f"with C a power-of-two multiple of 8; got "
+                         f"{hc} columns for {heads} heads")
+    if h.data_ptr() % 16:
+        raise ValueError("h must be 16-byte aligned")
+    return n, heads, c

@@ -22,12 +22,13 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import check_cuda, dtype_code, stream_of
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+                                             dtype_code, stream_of)
 
 SUPPORTED = {(3, 3), (3, 4), (3, 5)}  # (spline order, grid size) compiled
 D_CHUNK, O_TILE = 32, 64  # csrc/kan_common.cuh kDC, kOT
 ROWS_PER_STEP = 32  # csrc/bspline_fused.cu kDwRows
-MAX_O = 128  # the dx kernel stages (O, 8*32) weights in shared memory
+DX_ROWS = 64  # csrc/bspline_fused.cu kDxRows
 
 
 def basis_ladder(x32: torch.Tensor, t32: torch.Tensor, k: int,
@@ -156,9 +157,13 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
         return (dx if need_dx else None), dwb, dws
     code = dtype_code(x)
     n, D, O, grid = _check_layer(x, knots, wb, ws, k)
-    if O > MAX_O:
-        raise ValueError(f"backward kernel takes at most {MAX_O} outputs, "
-                         f"got {O}")
+    # the dx kernel holds its rows' dout and one output tile of the chunk's
+    # weights in shared memory
+    smem = 4 * (DX_ROWS * O + O_TILE * ((grid + k + 1) * D_CHUNK + 1))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"backward of a layer with {O} outputs needs {smem} "
+                         f"bytes of shared memory per block; the H100 gives "
+                         f"{SMEM_LIMIT}")
     check_cuda("dout", dout, x.dtype, (n, O))
     splits = dw_splits(n, D, O, x.device)
     n_groups = grid + k + 1

@@ -28,12 +28,12 @@ import numpy as np
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import check_cuda, dtype_code, stream_of
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+                                             dtype_code, stream_of)
 
 LN_EPS = 1e-5
 MAX_G = 8  # csrc/fastkan_common.cuh kMaxG; the kernels take 2..MAX_G centers
 D_CHUNK, O_TILE, ROWS = 32, 64, 32  # kDC, kOT, row tiles of the kernels
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
 
 def centers(grid_min: float, grid_max: float, num_grids: int) -> np.ndarray:
@@ -208,7 +208,9 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb)
     check_cuda("dout", dout, x.dtype, (n, O))
-    smem = 4 * (3 * ROWS * D + ROWS * O + O * ((G + 1) * D_CHUNK + 1)
+    # the dx kernel's row tile (x, dxs, the SiLU' term, dout) and one output
+    # tile of the chunk's weights
+    smem = 4 * (3 * ROWS * D + ROWS * O + O_TILE * ((G + 1) * D_CHUNK + 1)
                 + 2 * ROWS + 2 * D)
     if smem > SMEM_LIMIT:
         raise ValueError(f"backward of a ({D}, {O}) layer with {G} centers "

@@ -1,11 +1,14 @@
 """Node-classification model, the counterpart of
-`kagnn_tpu/models/node.py::NodeClassifier` for conv_type in {"gin", "gcn"}
-and architecture in {"kan", "fastkan"} (the reference's GKAN_Nodes and
-GFASTKAN_Nodes with GIN or GCN convs).
+`kagnn_tpu/models/node.py::NodeClassifier` for conv_type in {"gin", "gcn",
+"gat"} and architecture in {"kan", "fastkan"} (the reference's GKAN_Nodes
+and GFASTKAN_Nodes).
 
 Per message-passing layer: conv -> MaskedBatchNorm -> dropout; the head is
 a KANLinear (kan) or a FastKANLayer (fastkan, with num_grids = grid_size);
-with `skip` the head reads the concatenation [x0, h1, ..., hL].
+with `skip` the head reads the concatenation [x0, h1, ..., hL]. `heads`
+applies to GAT only (the other convs have one): a GAT conv outputs
+hidden_channels * heads features, which the next conv, the BatchNorm and
+the head take.
 Under a compute dtype the node features are cast on entry and the logits
 come back in f32, as in the JAX model.
 """
@@ -17,12 +20,12 @@ import torch
 from torch import nn
 
 from kagnn_tpu_torch.kan.layers import KAN, FastKAN, FastKANLayer, KANLinear
-from kagnn_tpu_torch.nn.convs import (GCNConv, GINConv, fastkan_transform,
-                                      kan_transform)
+from kagnn_tpu_torch.nn.convs import (GATConv, GCNConv, GINConv,
+                                      fastkan_transform, kan_transform)
 from kagnn_tpu_torch.ops.norm import MaskedBatchNorm
 from kagnn_tpu_torch.utils.device import resolve_device
 
-_LATER = {"gat": "the GAT slice", "mlp": "the graph-task slice"}
+_LATER = {"mlp": "the graph-task slice"}
 
 
 class NodeClassifier(nn.Module):
@@ -39,13 +42,13 @@ class NodeClassifier(nn.Module):
             if value in _LATER:
                 raise NotImplementedError(
                     f"{name}={value!r} is ported with {_LATER[value]}; this "
-                    f"port runs conv_type 'gin' or 'gcn' with architecture "
-                    f"'kan' or 'fastkan'")
-        if (conv_type not in ("gin", "gcn")
+                    f"port runs conv_type 'gin', 'gcn' or 'gat' with "
+                    f"architecture 'kan' or 'fastkan'")
+        if (conv_type not in ("gin", "gcn", "gat")
                 or architecture not in ("kan", "fastkan")):
             raise ValueError(f"unknown conv_type/architecture "
                              f"{conv_type!r}/{architecture!r}")
-        del heads  # GAT only
+        heads = heads if conv_type == "gat" else 1
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         H = hidden_channels
@@ -61,16 +64,19 @@ class NodeClassifier(nn.Module):
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
         for i in range(mp_layers):
-            fin = num_features if i == 0 else H
+            fin = num_features if i == 0 else H * heads
             if conv_type == "gcn":
                 self.convs.append(GCNConv(fin, H, make, fused=fused, device=dev))
+            elif conv_type == "gat":
+                self.convs.append(GATConv(fin, H, heads, make, fused=fused,
+                                          generator=gen, device=dev))
             else:
                 sizes = [fin] + [H] * (hidden_layers - 1) + [H]
-                self.convs.append(GINConv(net(sizes, **basis)))
-            self.norms.append(MaskedBatchNorm(H, device=dev))
+                self.convs.append(GINConv(net(sizes, **basis), fused=fused))
+            self.norms.append(MaskedBatchNorm(H * heads, device=dev))
         self.skip, self.dropout = skip, dropout
         self.compute_dtype, self.seed = compute_dtype, seed
-        dim_head = num_features + mp_layers * H if skip else H
+        dim_head = num_features + mp_layers * H * heads if skip else H * heads
         self.head = layer(dim_head, num_classes, **basis)
         self._dropout_gen = None
 

@@ -1,2 +1,2 @@
-from kagnn_tpu_torch.nn.convs import (GCNConv, GINConv,  # noqa: F401
+from kagnn_tpu_torch.nn.convs import (GATConv, GCNConv, GINConv,  # noqa: F401
                                       fastkan_transform, kan_transform)

@@ -2,20 +2,24 @@
 `kagnn_tpu/nn/convs.py`:
 
   * `GINConv` — update((1+eps)·x_i + Σ_j x_j) with a KAN or FastKAN update
-    net (the aggregation fuses into the net's first layer);
+    net (the aggregation fuses into a KAN net's first layer);
   * `GCNConv` — D^-1/2 (A+I) D^-1/2 · t(x) + b with the self-loops in closed
     form, the transform t from a factory (fin, fout) -> KANLinear or
-    FastKANLayer.
+    FastKANLayer;
+  * `GATConv` — multi-head attention with LeakyReLU(0.2) logits, a
+    per-destination softmax over the edges and the implicit self-loop,
+    concatenated heads and a bias, the transform from the same factories.
 
-GAT, GINE and MLP update nets come with later slices of the port."""
+GINE and MLP update nets come with later slices of the port."""
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-from kagnn_tpu_torch.kan.layers import FastKANLayer, KANLinear
+from kagnn_tpu_torch.kan.layers import KAN, FastKANLayer, KANLinear
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
 
@@ -41,17 +45,24 @@ def fastkan_transform(num_grids: int = 4, **kw) -> TransformFactory:
 
 class GINConv(nn.Module):
     """update((1+eps)·x_i + sum_{j in N(i)} x_j), eps fixed (PyG default
-    train_eps=False). The aggregation fuses into the update net's first
-    layer (kernels/gin_fused.py for KAN, kernels/gin_fastkan.py for FastKAN,
-    when the net is fused)."""
+    train_eps=False). As in the JAX layer, the aggregation fuses into the
+    update net's first layer only for a KAN net (kernels/gin_fused.py when
+    the net is fused); any other net gets z summed in the compute dtype by
+    `segment.neighbor_sum`, through the segment-sum kernel when `fused`."""
 
-    def __init__(self, update: nn.Module, eps: float = 0.0):
+    def __init__(self, update: nn.Module, eps: float = 0.0,
+                 fused: bool = False):
         super().__init__()
-        self.update, self.eps = update, eps
+        self.update, self.eps, self.fused = update, eps, fused
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
-        return self.update(x, mask=g.node_mask, train=self.training,
-                           gin_graph=(g, self.eps))
+        if isinstance(self.update, KAN):
+            return self.update(x, mask=g.node_mask, train=self.training,
+                               gin_graph=(g, self.eps))
+        weight = None if self.fused else g.edge_mask.to(x.dtype)
+        agg = segment.neighbor_sum(x, g, edge_weight=weight, fused=self.fused)
+        return self.update((1.0 + self.eps) * x + agg, mask=g.node_mask,
+                           train=self.training)
 
 
 def _degree_with_self_loops(g, dtype: torch.dtype) -> torch.Tensor:
@@ -84,4 +95,57 @@ class GCNConv(nn.Module):
         dinv = torch.rsqrt(_degree_with_self_loops(g, h.dtype))
         hs = h * dinv[:, None]
         out = segment.gcn_aggregate(hs, g, dinv, fused=self.fused)
+        return out + self.bias
+
+
+NEGATIVE_SLOPE = 0.2  # GAT's LeakyReLU slope (PyG's default, all the JAX models use)
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention (PyG GATConv defaults: LeakyReLU slope
+    0.2, implicit self-loops, concatenated heads, a bias), the non-halo
+    branch of the JAX layer: h = t(x) (N, H·C), per-head logits
+    alpha_src = h @ amat and alpha_dst = h @ amat_dst with amat the
+    block-diagonal (H·C, H) expansion of att_src (1, H, C), then
+    `segment.gat_attention` (the GAT kernels when `fused`).
+
+    Under a compute dtype the two expansions are rounded once to it and
+    kept in f32, and the logits are products of the rounded h with f32
+    sums, as the JAX layer's `dot_general(..., preferred_element_type=f32)`;
+    the f32 bias promotes the conv's output to f32, as in GCN. att_src and
+    att_dst are drawn from `generator` with flax's glorot bound for a
+    (1, H, C) shape, sqrt(6 / (H + C))."""
+
+    def __init__(self, in_features: int, out_features: int, heads: int,
+                 transform: TransformFactory, fused: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.heads, self.out_features = heads, out_features
+        self.fused = fused
+        self.transform = transform(in_features, heads * out_features)
+        bound = math.sqrt(6.0 / (heads + out_features))
+        for name in ("att_src", "att_dst"):
+            w = (torch.rand((1, heads, out_features), generator=gen) * 2.0
+                 - 1.0) * bound
+            setattr(self, name, nn.Parameter(w.to(dev)))
+        self.bias = nn.Parameter(torch.zeros(heads * out_features, device=dev))
+
+    def _expand(self, att: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(1, H, C) -> the block-diagonal (H·C, H), rounded once to
+        `dtype` when that is not f32."""
+        H, C = self.heads, self.out_features
+        eye = torch.eye(H, dtype=att.dtype, device=att.device)
+        amat = (att[0][:, :, None] * eye[:, None, :]).reshape(H * C, H)
+        return amat if dtype == torch.float32 else amat.to(dtype).float()
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        h = self.transform(x)
+        amat = self._expand(self.att_src, h.dtype)
+        hf = h.float()
+        alpha_src = hf @ amat
+        alpha_dst = hf @ self._expand(self.att_dst, h.dtype)
+        out = segment.gat_attention(h, alpha_src, alpha_dst, g, NEGATIVE_SLOPE,
+                                    att_src_matrix=amat, fused=self.fused)
         return out + self.bias

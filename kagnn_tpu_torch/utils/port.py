@@ -1,5 +1,5 @@
 """Weight carrier between the JAX `NodeClassifier` variable tree and the
-port's `NodeClassifier` state_dict (gin and gcn convs, kan and fastkan
+port's `NodeClassifier` state_dict (gin, gcn and gat convs, kan and fastkan
 architectures). Works on numpy arrays: the JAX tree's leaves come in as
 numpy (`jax.tree.map(np.asarray, v)`), and nothing here imports jax.
 
@@ -9,6 +9,9 @@ Modules:
     {params,buffers}/GCNConv_{i}/KANLinear_0/... <-> convs.{i}.transform....
     params/GCNConv_{i}/FastKANLayer_0/...        <-> convs.{i}.transform....
     params/GCNConv_{i}/bias                      <-> convs.{i}.bias
+    {params,buffers}/GATConv_{i}/KANLinear_0/... <-> convs.{i}.transform....
+    params/GATConv_{i}/FastKANLayer_0/...        <-> convs.{i}.transform....
+    params/GATConv_{i}/{att_src,att_dst,bias}    <-> convs.{i}.{att_src,att_dst,bias}
     params/MaskedBatchNorm_{i}/{scale,bias}      <-> norms.{i}.{weight,bias}
     batch_stats/MaskedBatchNorm_{i}/{mean,var}   <-> norms.{i}.{running_mean,running_var}
     {params,buffers}/head/...                    <-> head....
@@ -60,8 +63,8 @@ def _module(mod: str, rest: tuple, head_is_fast: bool):
         layer = re.fullmatch(r"layers_(\d+)", rest[0]).group(1)
         return (f"convs.{m.group(2)}.update.layers.{layer}", rest[1:],
                 m.group(1) is not None)
-    if m := re.fullmatch(r"GCNConv_(\d+)", mod):
-        if rest == ("bias",):
+    if m := re.fullmatch(r"G(?:CN|AT)Conv_(\d+)", mod):
+        if rest in (("bias",), ("att_src",), ("att_dst",)):
             return f"convs.{m.group(1)}", rest, False
         t = re.fullmatch(r"(FastKANLayer|KANLinear)_0", rest[0])
         if t is not None:
@@ -91,7 +94,12 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
 def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
     """The port's state_dict -> JAX NodeClassifier variables (numpy)."""
     inv_bn = {v: k for k, v in _BN.items()}
+    gat = {k.split(".")[1] for k in state_dict
+           if k.startswith("convs.") and k.endswith(".att_src")}
     out: dict = {}
+
+    def conv(i: str) -> str:
+        return f"{'GATConv' if i in gat else 'GCNConv'}_{i}"
 
     def put(path, value):
         d = out
@@ -115,8 +123,8 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
             coll, _, path = leaf(".".join(parts[1:]))
             put((coll, "head", *path), v)
             continue
-        if parts[0] == "convs" and parts[2:] == ["bias"]:
-            put(("params", f"GCNConv_{parts[1]}", "bias"), v)
+        if parts[0] == "convs" and len(parts) == 3 and parts[2] != "update":
+            put(("params", conv(parts[1]), parts[2]), v)
             continue
         if parts[0] == "convs" and parts[2] == "update":
             coll, fast, path = leaf(".".join(parts[5:]))
@@ -126,7 +134,7 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
         if parts[0] == "convs" and parts[2] == "transform":
             coll, fast, path = leaf(".".join(parts[3:]))
             layer = "FastKANLayer_0" if fast else "KANLinear_0"
-            put((coll, f"GCNConv_{parts[1]}", layer, *path), v)
+            put((coll, conv(parts[1]), layer, *path), v)
             continue
         raise KeyError(f"no JAX counterpart for {key}")
     return out

@@ -21,11 +21,14 @@ from kagnn_tpu_torch.graphs import single_graph
 from kagnn_tpu_torch.kan.bspline import make_grid
 from kagnn_tpu_torch.kernels import bspline_fused as bf
 from kagnn_tpu_torch.kernels import fastkan_layer as fk
+from kagnn_tpu_torch.kernels import gat_bwd as gbw
+from kagnn_tpu_torch.kernels import gat_fused as gfu
 from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import gin_fused as gf
 from kagnn_tpu_torch.kernels import spmm
-from kagnn_tpu_torch.kernels.selfcheck import fastkan_gcn_chain
+from kagnn_tpu_torch.kernels.selfcheck import (fastkan_gcn_chain,
+                                               gat_attention_chain)
 from kagnn_tpu_torch.ops.segment import gcn_aggregate
 
 pytestmark = pytest.mark.usefixtures("card")
@@ -160,6 +163,80 @@ def test_new_autograd_functions_use_their_kernels():
     fastkan_gcn_chain(_graph(5, f=16))
 
 
+# (H, C) of the GAT kernels: the main path's 4 x 64 (8 lanes a head), one
+# head of 8 (one lane a head), 2 x 16, and 2 x 128 (16 lanes a head)
+GAT_SHAPES = [(4, 64), (1, 8), (2, 16), (2, 128)]
+
+
+@pytest.mark.parametrize("shape", GAT_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gat_kernels_match_plain(dt, shape):
+    """The GAT forward (out, alpha), dadst and sender (dh, dasrc) kernels
+    against their plain versions on a graph with isolated nodes, a node of
+    in-degree 301, N off every tile and 1,024-edge padding (many padded
+    edges at the pad row, which must take no part), with logits of a few
+    tens."""
+    H, C = shape
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(6)
+    snd = np.concatenate([rng.integers(0, 301, 900), np.arange(301)])
+    rcv = np.concatenate([rng.integers(0, 280, 900), np.zeros(301, np.int64)])
+    g = single_graph(snd, rcv, n_node=301, edge_pad_multiple=1024,
+                     device="cuda")
+    n = g.n_node_pad
+    h = torch.randn(n, H * C, generator=gen, device="cuda").to(td)
+    asrc, adst = (torch.randn(n, H, generator=gen, device="cuda") * 10
+                  for _ in range(2))
+    dout = torch.randn(n, H * C, generator=gen, device="cuda").to(td)
+    fa = (h, asrc, adst, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+    out, alpha = gfu.gat_fwd(*fa)
+    for a, b in zip((out, alpha), gfu.gat_fwd_plain(*fa)):
+        assert torch.isfinite(a).all()
+        close(a, b, dt if a.dtype == td else "f32")
+    s = (dout * out).float().reshape(n, H, C).sum(2).contiguous()
+    ba = (h, asrc, adst, alpha, s, dout)
+    close(gbw.gat_dadst(*ba, g.senders, g.recv_row_ptr, g.n_edge, 0.2),
+          gbw.gat_dadst_plain(*ba, g.senders, g.recv_row_ptr, g.n_edge, 0.2),
+          "f32")
+    sa = (g.receivers_by_sender, g.send_row_ptr, g.n_edge, 0.2)
+    for a, b in zip(gbw.gat_sender(*ba, *sa), gbw.gat_sender_plain(*ba, *sa)):
+        close(a, b, "f32")
+    lonely = (g.in_degrees == 0).nonzero()[:, 0]
+    assert int(lonely[-1]) == n - 1  # the pad row: only its self-loop
+    close(out[lonely], h[lonely], dt)
+
+
+def test_gat_attention_function_uses_its_kernels():
+    """GatAttention twice in a row: values and the gradients of h and of
+    the attention vectors on the card equal the plain path on the CPU (f32,
+    TF32 off; rtol 1e-3 / atol 1e-5), each kernel launched once per layer
+    (kernels/selfcheck.py, which chip_smoke.py runs too)."""
+    gat_attention_chain(_graph(7, f=8))
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (256, 256), (256, 40)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_layer_backward_kernels_take_wide_outputs(dt, shape):
+    """The B-spline and FastKAN backward kernels at GAT's widths (the
+    transform's 256 = 4 heads x 64 outputs): the dx kernels stage the
+    weights one 64-wide output tile at a time, so they run and match their
+    plain versions."""
+    D, O = shape
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(700, D, generator=gen, device="cuda").to(td)
+    dout = torch.randn(700, O, generator=gen, device="cuda").to(td)
+    knots, wb, ws = _layer(gen, D, O, 4, td)
+    for a, b in zip(bf.kan_linear_bwd(x, knots, wb, ws, dout, 3),
+                    bf.kan_linear_bwd_plain(x, knots, wb, ws, dout, 3)):
+        close(a, b, dt)
+    lw = _fastkan_layer(gen, D, O, 4, td)
+    ba = (x, *lw[:4], dout, -2.0, 2.0)
+    for a, b in zip(fk.fastkan_layer_bwd(*ba), fk.fastkan_layer_bwd_plain(*ba)):
+        close(a, b, dt)
+
+
 def test_kernels_count_their_launches():
     g = _graph(2, f=8)
     knots, wb, ws = _layer(torch.Generator(device="cuda").manual_seed(0),
@@ -185,6 +262,15 @@ def test_kernels_count_their_launches():
                          -2.0, 2.0)
     gfk.gin_fastkan_fwd(x, g.senders, g.recv_row_ptr, *layer, 0.0, -2.0, 2.0)
     assert [f.launches - b for f, b in zip(new, before)] == [1, 1, 1, 1]
+    gat = (gfu.gat_fwd, gbw.gat_dadst, gbw.gat_sender)
+    before = [f.launches for f in gat]
+    h = torch.randn(x.shape[0], 16, device="cuda")
+    a = torch.randn(x.shape[0], 2, device="cuda")
+    gfu.gat_fwd(h, a, a, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+    gbw.gat_dadst(h, a, a, a, a, h, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+    gbw.gat_sender(h, a, a, a, a, h, g.receivers_by_sender, g.send_row_ptr,
+                   g.n_edge, 0.2)
+    assert [f.launches - b for f, b in zip(gat, before)] == [1, 1, 1]
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -198,10 +284,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         bf.kan_linear_fwd(x.t().contiguous().t(), knots, wb, ws, 3)
     with pytest.raises(ValueError, match="spline order"):
         bf.kan_linear_fwd(x, knots[:-3].contiguous(), wb, ws, 3)
-    big = torch.zeros(8, 130, device="cuda")
-    with pytest.raises(ValueError, match="at most"):
-        bf.kan_linear_bwd(x, knots, big, torch.zeros(56, 130, device="cuda"),
-                          torch.zeros(x.shape[0], 130, device="cuda"), 3)
     with pytest.raises(TypeError):
         spmm.sorted_segment_sum(x, g.send_row_ptr.long())
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -214,6 +296,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                        g.senders, g.recv_row_ptr)
     with pytest.raises(ValueError, match="shared memory"):
         fk.fastkan_layer_bwd(*_wide_layer(gen), -2.0, 2.0)
+    # the GAT kernels take f32 asrc/adst and C a power-of-two multiple of 8
+    # with H*C <= 256
+    h, a = torch.zeros(x.shape[0], 64, device="cuda"), torch.zeros(
+        x.shape[0], 4, device="cuda")
+    ga_args = (g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+    with pytest.raises(TypeError):
+        gfu.gat_fwd(h, a.bfloat16(), a, *ga_args)
+    for hh, aa in ((torch.zeros(x.shape[0], 48, device="cuda"), a),
+                   (torch.zeros(x.shape[0], 512, device="cuda"), a),
+                   (torch.zeros(x.shape[0], 24, device="cuda"), a[:, :2])):
+        with pytest.raises(ValueError, match="GAT kernels"):
+            gfu.gat_fwd(hh, aa.contiguous(), aa.contiguous(), *ga_args)
     # the fused GCN aggregate takes no dtype but f32 and bf16 on the card:
     # fp16 raises instead of running the plain version
     launches = ga.gcn_agg_fwd.launches
@@ -231,7 +325,8 @@ def _wide_layer(gen, n=64, d=400, o=128, G=8):
 
 
 @pytest.mark.parametrize("conv,arch", [("gin", "kan"), ("gcn", "kan"),
-                                       ("gcn", "fastkan"), ("gin", "fastkan")])
+                                       ("gcn", "fastkan"), ("gin", "fastkan"),
+                                       ("gat", "kan"), ("gat", "fastkan")])
 def test_step_kernel_path_matches_plain_path(conv, arch, no_tf32):
     """A small model per node path: the kernel path (fused=True) against
     the plain autograd path (fused=False) on the card, in f32 with TF32 off.

@@ -44,6 +44,7 @@ from kagnn_tpu_torch.kernels import fastkan_layer as fk
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import spmm
 from kagnn_tpu_torch.nn import GINConv
+from kagnn_tpu_torch.ops import segment as segment_ops
 
 torch.set_num_threads(1)
 
@@ -268,8 +269,8 @@ def test_fastkan_layer_init_draws_from_the_generator():
 @pytest.mark.parametrize("fused", [False, True])
 def test_ginconv_fastkan_matches_jax(rng, fused):
     """GINConv(FastKAN([8, 16, 6])): value and every parameter gradient
-    against the JAX unfused module (the port's fused path runs the GIN
-    kernel's plain version on the CPU)."""
+    against the JAX unfused module (the port's fused path runs the segment
+    sum's and the layer kernels' plain versions on the CPU)."""
     gj, gt = _graphs(rng, f=8)
     x = (rng.normal(size=(gt.n_node_pad, 8)) * 0.5).astype(np.float32)
     nm = gt.node_mask.numpy()
@@ -282,11 +283,12 @@ def test_ginconv_fastkan_matches_jax(rng, fused):
             return jnp.sum(jnp.where(gj.node_mask[:, None], o * jnp.cos(o), 0.0)), o
 
         (_, out_j), gp = jax.value_and_grad(jloss, has_aux=True)(v["params"])
-    m = GINConv(FastKAN([8, 16, 6], num_grids=4, fused=fused, device="cpu"))
+    m = GINConv(FastKAN([8, 16, 6], num_grids=4, fused=fused, device="cpu"),
+                fused=fused)
     for j in range(2):
         _load_layer(m.update.layers[j], v["params"]["update"][f"layers_{j}"])
     out = m(gt, torch.from_numpy(x))
-    close(out[gt.node_mask], np.asarray(out_j)[nm], "f32", scaled=fused)
+    close(out[gt.node_mask], np.asarray(out_j)[nm], "f32")
     torch.where(gt.node_mask[:, None], out * torch.cos(out),
                 torch.zeros(())).sum().backward()
     for j, layer in enumerate(m.update.layers):
@@ -298,6 +300,37 @@ def test_ginconv_fastkan_matches_jax(rng, fused):
                 "layernorm.bias": p["layernorm"]["bias"]}
         for name, q in layer.named_parameters():
             close(q.grad, want[name], "f32", grad=True, err_msg=f"{j}.{name}")
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_fused_neighbor_sum_matches_jax_kernel(rng, dt):
+    """neighbor_sum(fused=True), the segment sum forward and Aᵀ·cot
+    backward that GINConv runs for a FastKAN net, against the JAX
+    `neighbor_sum` with the edge-mask weight on its kernel route
+    (`_neighbor_sum_sorted`, interpret mode). The pad row holds zeros, as
+    at every layer of the model, so the mask weight the port drops
+    multiplies nothing; the cotangent is zero there, as BatchNorm makes
+    it."""
+    jd, td = DTYPES[dt]
+    gj, gt = _graphs(rng, f=8)
+    nm = gt.node_mask.numpy()
+    x = (rng.normal(size=(gt.n_node_pad, 8)) * nm[:, None]).astype(np.float32)
+    cot = (rng.normal(size=x.shape) * nm[:, None]).astype(np.float32)
+    with jsegment.use_pallas_spmm(True, interpret=True):
+        out_j, vjp = jax.vjp(lambda a: jsegment.neighbor_sum(
+            a, gj, edge_weight=gj.edge_mask.astype(jd),
+            w_by_sender=gj.edge_mask_by_sender.astype(jd)),
+            jnp.asarray(x, jd))
+        (dx_j,) = vjp(jnp.asarray(cot, jd))
+    xt = torch.from_numpy(x).to(td).requires_grad_(True)
+    out_t = segment_ops.neighbor_sum(xt, gt, fused=True)
+    out_t.backward(torch.from_numpy(cot).to(td))
+    assert out_t.dtype == td and xt.grad.dtype == td
+    close(out_t, out_j, dt, err_msg="out", scaled=True)
+    close(xt.grad, dx_j, dt, grad=True, err_msg="dx", scaled=True)
+    with pytest.raises(ValueError, match="edge weight"):
+        segment_ops.neighbor_sum(xt, gt, edge_weight=gt.edge_mask.float(),
+                                 fused=True)
 
 
 def test_fastkan_layer_bf16_module_matches_jax(rng):
