@@ -10,28 +10,35 @@ Phases (any failure raises, and the script exits non-zero):
      TF32 off for matmul and cuDNN;
   2. build: compiles every CUDA kernel from `kagnn_tpu_torch/csrc/` (one
      nvcc per source, all at once) and prints the build time;
-  3. kernels: each of the 11 kernels against its plain PyTorch version on
+  3. kernels: each of the 14 kernels against its plain PyTorch version on
      the card, at small shapes, ragged shapes (N off every tile, isolated
-     nodes, a node of in-degree 301) and the main paths' shapes (the layer
-     kernels also at the GAT transform's widths, 256 = 4 heads x 64), in
-     f32 and bf16, with times (CUDA events) for the kernel, the plain
-     version and, where one PyTorch call computes the same function, that
-     call as the library yardstick (`torch.sparse.mm` on a CSR matrix; the
-     port never calls it; there is none for GAT attention); then the
-     forward and backward of the autograd Functions against the plain path;
+     nodes, a node of in-degree 301, receivers past the last segment) and
+     the main paths' shapes (the layer kernels also at the GAT transform's
+     widths, 256 = 4 heads x 64; the RBF kernels at the base-free FastKAN's
+     widths with x/w in f32/f32, f32/bf16 and bf16/bf16; the narrow sum at
+     k = 4 over the arxiv-sized graph's receivers), in f32 and bf16, with
+     times (CUDA events) for the kernel, the plain version and, where one
+     PyTorch call computes the same function, that call as the library
+     yardstick (`torch.sparse.mm` on a CSR matrix; the port never calls it;
+     there is none for GAT attention or the RBF product); then the forward
+     and backward of the autograd Functions against the plain path;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
-     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan): the kernel path
+     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan) and for the base-free
+     FastKAN and the layernorm-free FastKANLayer: the kernel path
      (fused=True) and the plain path (fused=False) agree on logits and
      every parameter gradient;
   5. main paths: the bf16 train step of each node path at full width on
-     the arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), 2
-     warm-up + 10 timed steps each, with the launch counters set to 0
-     before and checked after each path, and a profiler breakdown; then
-     the GIN+FastKAN fusion point, `FastKAN(x, gin_graph=(g, 0))` at the
-     main shapes, forward and backward once with its counts checked the
-     same way: the GIN conv sums z itself for a FastKAN net, as the JAX
-     model does, so no node path launches the gin_fastkan kernel and this
-     drive is the run that does;
+     the arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), and
+     of FastKAN([128, 64, 64, 40], num_grids=8, use_base_update=False) on
+     its node rows, 2 warm-up + 10 timed steps each, with the launch
+     counters set to 0 before and checked after each path, and a profiler
+     breakdown; then three drives of kernels no path launches, each forward
+     and backward once with its counts checked the same way: the
+     GIN+FastKAN fusion point `FastKAN(x, gin_graph=(g, 0))` (the GIN conv
+     sums z itself for a FastKAN net, as the JAX model does), the
+     layernorm-free FastKANLayer(128, 64) in bf16 (the RBF product of a
+     bf16 basis) and the narrow segment sum (no caller, as in the JAX
+     package); then `utils/profiling.kernel_report()` at its defaults;
   6. prints the kernel list as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -43,13 +50,13 @@ import math
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 / f32 non-tensor
+# the card's peaks (bound_ms(bytes, operations, dtype)) and the CUDA-event
+# timer, from the port; outside the repository this import fails first
+from kagnn_tpu_torch.utils.profiling import H100, time_ms
+
 NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
                num_classes=40, grid_size=4, spline_order=3, skip=False,
                hidden_layers=2, heads=4, dropout=0.0)  # bench.py _NODE_KW
@@ -97,38 +104,22 @@ def phase_build():
         log(f"ptxas {name}: {len(spills)} functions with spills")
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, ops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def compare(torch, name, got, want, dtype):
+def compare(torch, name, got, want, dtype, running_sum=False):
     """Elementwise |got - want| <= c * max(|want|, mean |want|). f32:
     c = 1e-4, since the kernel and its plain version only sum in different
     orders; bf16: c = 4 bf16 ulps, since both round the same f32 sums to
     bf16 once and a flipped rounding costs one ulp on top of the order.
-    The mean floors the scale of values near zero. Returns max |got - want|."""
+    The mean floors the scale of values near zero. `running_sum`: a bf16
+    sum rounded after each of many terms (the RBF dW over its row tiles),
+    where one partial that rounds the other way moves the rest of that
+    element's walk: held to 4 bf16 ulps of the largest |want|, the scale
+    the CPU tests hold it to against JAX. Returns max |got - want|."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     err = diff.max().item()
     c = 1e-4 if dtype == "float32" else 4 * BF16_ULP
-    scale = torch.clamp(want.abs(), min=max(want.abs().mean().item(), 1e-30))
+    floor = want.abs().max() if running_sum else want.abs().mean()
+    scale = torch.clamp(want.abs(), min=max(floor.item(), 1e-30))
     ratio = (diff / (c * scale)).max().item()
     ok = ratio <= 1.0 and math.isfinite(err)
     log(f"  {name} {dtype}: max_abs_err={err:.3e} worst err/tol={ratio:.3f} "
@@ -190,6 +181,12 @@ def phase_kernels(torch, big):
                                 "kagnn_tpu/pallas/gat_bwd.py:138"),
         "gat_sender": kernel_row("gat_sender", "kagnn_tpu_torch/csrc/gat_bwd.cu",
                                  "kagnn_tpu/pallas/gat_bwd.py:282"),
+        "rbf_fwd": kernel_row("rbf_fwd", "kagnn_tpu_torch/csrc/rbf_fused.cu",
+                              "kagnn_tpu/pallas/rbf_fused.py:63"),
+        "rbf_bwd": kernel_row("rbf_bwd", "kagnn_tpu_torch/csrc/rbf_fused.cu",
+                              "kagnn_tpu/pallas/rbf_fused.py:73"),
+        "spmm_narrow": kernel_row("spmm_narrow", "kagnn_tpu_torch/csrc/spmm_narrow.cu",
+                                  "kagnn_tpu/pallas/spmm.py:311"),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -224,8 +221,8 @@ def phase_kernels(torch, big):
                           spmm.sorted_segment_sum_plain(*args), dn)
             main = timed and dtype == torch.bfloat16
             if timed:
-                ms = time_ms(torch, lambda: spmm.sorted_segment_sum(*args))
-                pms = time_ms(torch, lambda: spmm.sorted_segment_sum_plain(*args))
+                ms = time_ms(lambda: spmm.sorted_segment_sum(*args))
+                pms = time_ms(lambda: spmm.sorted_segment_sum_plain(*args))
                 adj = torch.sparse_csr_tensor(
                     g.send_row_ptr.long(), g.receivers_by_sender.long(),
                     torch.ones(E, dtype=dtype, device="cuda"), size=(N, N),
@@ -233,8 +230,9 @@ def phase_kernels(torch, big):
                 lib = spmm.sorted_segment_sum_plain(*args)
                 torch.testing.assert_close(torch.sparse.mm(adj, dz).float(),
                                            lib.float(), rtol=0.02, atol=0.1)
-                lms = time_ms(torch, lambda: torch.sparse.mm(adj, dz))
-                bms, by = bound(2 * N * 64 * s + 4 * (E + N + 1), E * 64, dn)
+                lms = time_ms(lambda: torch.sparse.mm(adj, dz))
+                bms, by = H100.bound_ms(2 * N * 64 * s + 4 * (E + N + 1),
+                                        E * 64, dn)
                 log(f"  spmm main {dn}: ms={ms:.4f} plain_ms={pms:.4f} "
                     f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
                 record("spmm", err, main, ms, pms, bms, by, lms)
@@ -258,17 +256,19 @@ def phase_kernels(torch, big):
                            for w, a, b in zip(("dx", "dwb", "dws"), got, want))
                 nb1 = grid_size + k + 1
                 if timed:
-                    ms = time_ms(torch, lambda: bf.kan_linear_fwd(*fa))
-                    pms = time_ms(torch, lambda: bf.kan_linear_fwd_plain(*fa))
-                    bms, by = bound((N * D + knots.numel() + nb1 * D * O + N * O) * s,
-                                    2 * N * nb1 * D * O, dn)
+                    ms = time_ms(lambda: bf.kan_linear_fwd(*fa))
+                    pms = time_ms(lambda: bf.kan_linear_fwd_plain(*fa))
+                    bms, by = H100.bound_ms(
+                        (N * D + knots.numel() + nb1 * D * O + N * O) * s,
+                        2 * N * nb1 * D * O, dn)
                     log(f"  bspline_fwd main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record("bspline_fwd", err, main and (D, O) == (64, 64), ms, pms, bms, by)
-                    ms = time_ms(torch, lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
-                    pms = time_ms(torch, lambda: bf.kan_linear_bwd_plain(*fa[:4], dout, k))
-                    bms, by = bound((2 * N * D + knots.numel() + 2 * nb1 * D * O
-                                     + N * O) * s, 4 * N * nb1 * D * O, dn)
+                    ms = time_ms(lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
+                    pms = time_ms(lambda: bf.kan_linear_bwd_plain(*fa[:4], dout, k))
+                    bms, by = H100.bound_ms(
+                        (2 * N * D + knots.numel() + 2 * nb1 * D * O + N * O) * s,
+                        4 * N * nb1 * D * O, dn)
                     log(f"  bspline_bwd main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record("bspline_bwd", errb, main and (D, O) == (64, 64), ms, pms,
@@ -287,12 +287,12 @@ def phase_kernels(torch, big):
                                   a[nm], b[nm], dn)
                           for w, a, b in zip(("out", "z"), got, want))
                 if timed:
-                    ms = time_ms(torch, lambda: gf.gin_kan_fwd(*ga))
-                    pms = time_ms(torch, lambda: gf.gin_kan_fwd_plain(*ga))
+                    ms = time_ms(lambda: gf.gin_kan_fwd(*ga))
+                    pms = time_ms(lambda: gf.gin_kan_fwd_plain(*ga))
                     nb1 = grid_size + k + 1
-                    bms, by = bound((2 * N * D + knots.numel() + nb1 * D * O + N * O) * s
-                                    + 4 * (E + N + 1),
-                                    E * D + 2 * N * nb1 * D * O, dn)
+                    bms, by = H100.bound_ms(
+                        (2 * N * D + knots.numel() + nb1 * D * O + N * O) * s
+                        + 4 * (E + N + 1), E * D + 2 * N * nb1 * D * O, dn)
                     log(f"  gin_fused main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record("gin_fused", err, main and D == 64, ms, pms, bms, by)
@@ -374,15 +374,15 @@ def phase_new_kernels(torch, big, rows):
                           ga.gcn_agg_plain(*args), dn)
             times = {}
             if timed:
-                ms = time_ms(torch, lambda: ga.gcn_agg_fwd(*args))
-                pms = time_ms(torch, lambda: ga.gcn_agg_plain(*args))
+                ms = time_ms(lambda: ga.gcn_agg_fwd(*args))
+                pms = time_ms(lambda: ga.gcn_agg_plain(*args))
                 mat = csr_gcn_matrix(torch, g, dinv, dtype)
                 torch.testing.assert_close(torch.sparse.mm(mat, hs).float(),
                                            ga.gcn_agg_plain(*args).float(),
                                            rtol=0.02, atol=0.1)
-                lms = time_ms(torch, lambda: torch.sparse.mm(mat, hs))
-                bms, by = bound(2 * N * 64 * s + 4 * (N + E + N + 1),
-                                E * 64 + 2 * N * 64, dn)
+                lms = time_ms(lambda: torch.sparse.mm(mat, hs))
+                bms, by = H100.bound_ms(2 * N * 64 * s + 4 * (N + E + N + 1),
+                                        E * 64 + 2 * N * 64, dn)
                 log(f"  gcn_agg main {dn}: ms={ms:.4f} plain_ms={pms:.4f} "
                     f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
                 times = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
@@ -439,14 +439,15 @@ def phase_new_kernels(torch, big, rows):
                          E * D + prods)):
                     if name == "gin_fastkan" and not gin:
                         continue
-                    ms = time_ms(torch, fn)
-                    pms = time_ms(torch, plain, iters=5)
-                    bms, by = bound(nbytes, ops, dn)
+                    ms = time_ms(fn)
+                    pms = time_ms(plain, iters=5)
+                    bms, by = H100.bound_ms(nbytes, ops, dn)
                     log(f"  {name} main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
                                bound_ms=bms, bound_by=by)
     phase_gat_kernels(torch, big, rows)
+    phase_rbf_narrow_kernels(torch, big, rows)
     phase_autograd_functions(torch)
 
 
@@ -515,9 +516,9 @@ def phase_gat_kernels(torch, big, rows):
                     ("gat_sender", errs, lambda: gbw.gat_sender(*sa),
                      lambda: gbw.gat_sender_plain(*sa),
                      2 * wide + 4 * N * H * C + 5 * narrow + idx, 2 * ops)):
-                ms = time_ms(torch, fn)
-                pms = time_ms(torch, plain, iters=5)
-                bms, by = bound(nbytes, n_ops, dn)
+                ms = time_ms(fn)
+                pms = time_ms(plain, iters=5)
+                bms, by = H100.bound_ms(nbytes, n_ops, dn)
                 log(f"  {name} main {dn} H={H} C={C}: ms={ms:.4f} "
                     f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms=none")
                 record_row(rows[name], e, main, ms=ms, plain_ms=pms,
@@ -531,12 +532,128 @@ def phase_gat_kernels(torch, big, rows):
             snd = g.senders[e0:e0 + d_hub].contiguous()
             rp = torch.zeros_like(g.recv_row_ptr)
             rp[hub + 1:] = d_hub
-            hub_fwd = time_ms(torch, lambda: gfu.gat_fwd(h, asrc, adst, snd, rp,
+            hub_fwd = time_ms(lambda: gfu.gat_fwd(h, asrc, adst, snd, rp,
                                                          d_hub, slope))
-            hub_dadst = time_ms(torch, lambda: gbw.gat_dadst(
+            hub_dadst = time_ms(lambda: gbw.gat_dadst(
                 h, asrc, adst, alpha, S, dout, snd, rp, d_hub, slope))
             log(f"  GAT hub row alone {dn} (node {hub}, in-degree {d_hub}): "
                 f"gat_fwd {hub_fwd:.4f} ms, gat_dadst {hub_dadst:.4f} ms")
+
+
+# (D, O) of the RBF kernels on the base-free FastKAN([128, 64, 64, 40]) and
+# the layernorm-free layer: conv-0 width (128, 64), hidden (64, 64), head
+# (64, 40); x/w dtypes: f32/f32 (no compute dtype), f32/bf16 (layernorm on
+# under bf16: the main path), bf16/bf16 (layernorm off under bf16)
+RBF_SHAPES = ((128, 64), (64, 64), (64, 40))
+RBF_DTYPES = (("float32", "float32"), ("float32", "bfloat16"),
+              ("bfloat16", "bfloat16"))
+RBF_G = 8
+
+
+def phase_rbf_narrow_kernels(torch, big, rows):
+    """The RBF forward and backward on 100 rows, 301 rows and the main
+    graph's 169,344 rows, and the narrow segment sum over small, ragged and
+    the main graph's (`big`) receivers, against their plain versions, timed
+    at the main shapes. RBF bound: x, w and dout read
+    once, out or dx and dW written once; operations the products, at the bf16
+    peak when x and w are bf16, else at the f32 one; no PyTorch call computes
+    it. Narrow bound: vals and receivers read, out written; the library call
+    is torch.sparse.mm of a CSR of ones (N x E) with vals."""
+    from kagnn_tpu_torch.kernels import rbf_fused as rf
+    from kagnn_tpu_torch.kernels import spmm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ragged = ragged_graph(torch)
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    for xn, wn in RBF_DTYPES:
+        xd, wd = getattr(torch, xn), getattr(torch, wn)
+        sx, sw = (torch.tensor([], dtype=t).element_size() for t in (xd, wd))
+        prod = "bfloat16" if xd == wd == torch.bfloat16 else "float32"
+        for gname, N in (("small", 100), ("ragged", 301), ("main", big.n_node_pad)):
+            timed = gname == "main"
+            for D, O in RBF_SHAPES:
+                x = rand((N, D), xd, 1.5)
+                w = rand((RBF_G * D, O), wd, 0.3)
+                dout = rand((N, O), xd)
+                fa, ba = (x, w, -2.0, 2.0), (x, w, dout, -2.0, 2.0)
+                # each output held at the tolerance of its own dtype
+                err = compare(torch, f"rbf_fwd {gname} {xn}/{wn} D={D} O={O}",
+                              rf.rbf_spline_fwd(*fa), rf.rbf_spline_fwd_plain(*fa),
+                              xn)
+                errb = max(compare(torch, f"rbf_bwd {gname} {xn}/{wn} D={D} O={O} {nm}",
+                                   a, b, tol, running_sum=(nm, wn) == ("dw", "bfloat16"))
+                           for nm, tol, a, b in zip(("dx", "dw"), (xn, wn),
+                                                    rf.rbf_spline_bwd(*ba),
+                                                    rf.rbf_spline_bwd_plain(*ba)))
+                rep = timed and (xn, wn, D, O) == ("float32", "bfloat16", 64, 64)
+                if not timed:
+                    record_row(rows["rbf_fwd"], err, False)
+                    record_row(rows["rbf_bwd"], errb, False)
+                    continue
+                ops = 2 * N * RBF_G * D * O
+                wbytes = RBF_G * D * O * sw
+                for name, e, fn, plain, nbytes, n_ops in (
+                        ("rbf_fwd", err, lambda: rf.rbf_spline_fwd(*fa),
+                         lambda: rf.rbf_spline_fwd_plain(*fa),
+                         (N * D + N * O) * sx + wbytes, ops),
+                        ("rbf_bwd", errb, lambda: rf.rbf_spline_bwd(*ba),
+                         lambda: rf.rbf_spline_bwd_plain(*ba),
+                         (2 * N * D + N * O) * sx + 2 * wbytes, 2 * ops)):
+                    ms = time_ms(fn)
+                    pms = time_ms(plain, iters=5)
+                    bms, by = H100.bound_ms(nbytes, n_ops, prod)
+                    log(f"  {name} main {xn}/{wn} D={D} O={O}: ms={ms:.4f} "
+                        f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
+                        f"library_ms=none")
+                    record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
+                               bound_ms=bms, bound_by=by, library_ms=None)
+
+    # the narrow sum: k = 4 over the main graph's receivers (a 4-head GAT's
+    # per-edge quantities), and k in 1..8 on the small and ragged graphs
+    rng = np.random.default_rng(3)
+    small_rcv = torch.from_numpy(np.sort(rng.integers(0, 110, 700)).astype(
+        np.int32)).to("cuda")  # 10 past the 100 segments
+    for dn in ("float32", "bfloat16"):
+        dt = getattr(torch, dn)
+        for gname, rcv, segs, ks in (
+                ("small", small_rcv, 100, (1, 4, 8)),
+                ("ragged", ragged.receivers, 301, (1, 4, 8)),
+                ("main", big.receivers, big.n_node_pad, (4,))):
+            E = rcv.numel()
+            for k in ks:
+                vals = rand((E, k), dt, 10.0)
+                args = (vals, rcv, segs)
+                err = compare(torch, f"spmm_narrow {gname} k={k}",
+                              spmm.sorted_segment_sum_narrow(*args),
+                              spmm.sorted_segment_sum_narrow_plain(*args), dn)
+                if gname != "main":
+                    record_row(rows["spmm_narrow"], err, False)
+                    continue
+                ms = time_ms(lambda: spmm.sorted_segment_sum_narrow(*args))
+                pms = time_ms(lambda: spmm.sorted_segment_sum_narrow_plain(*args))
+                lms = None
+                if dn == "float32":  # the bf16 CSR product sums in bf16
+                    ones = torch.sparse_csr_tensor(
+                        spmm.narrow_row_ptr(rcv, segs).long(),
+                        torch.arange(E, device="cuda"),
+                        torch.ones(E, dtype=dt, device="cuda"), size=(segs, E),
+                        check_invariants=False)
+                    torch.testing.assert_close(
+                        torch.sparse.mm(ones, vals),
+                        spmm.sorted_segment_sum_narrow_plain(*args),
+                        rtol=1e-4, atol=1e-3)
+                    lms = time_ms(lambda: torch.sparse.mm(ones, vals))
+                s = torch.tensor([], dtype=dt).element_size()
+                bms, by = H100.bound_ms((E * k + segs * k) * s + 4 * E, E * k, dn)
+                log(f"  spmm_narrow main {dn} k={k}: ms={ms:.4f} plain_ms={pms:.4f} "
+                    f"library_ms={'none' if lms is None else f'{lms:.4f}'} "
+                    f"bound_ms={bms:.4f} ({by})")
+                record_row(rows["spmm_narrow"], err, dn == "float32", ms=ms,
+                           plain_ms=pms, bound_ms=bms, bound_by=by,
+                           library_ms=lms)
 
 
 def phase_autograd_functions(torch):
@@ -545,7 +662,8 @@ def phase_autograd_functions(torch):
     with tests/test_torch_cuda.py)."""
     from kagnn_tpu_torch.graphs import single_graph
     from kagnn_tpu_torch.kernels.selfcheck import (fastkan_gcn_chain,
-                                                   gat_attention_chain)
+                                                   gat_attention_chain,
+                                                   rbf_chain)
 
     rng = np.random.default_rng(5)
     g = single_graph(rng.integers(0, 300, 2000), rng.integers(0, 300, 2000),
@@ -558,6 +676,10 @@ def phase_autograd_functions(torch):
     log(f"autograd Function GatAttention (two layers): forward and 5 "
         f"gradients agree with the plain path on the CPU (worst "
         f"{worst:.3e}); each GAT kernel launched once per layer")
+    worst = rbf_chain()
+    log(f"autograd Function RbfSplineMatmul (two layers): forward and 3 "
+        f"gradients agree with the plain path on the CPU (worst "
+        f"{worst:.3e}); each RBF kernel launched once per layer")
 
 
 def phase_small_step(torch, conv, arch):
@@ -604,6 +726,46 @@ def phase_small_step(torch, conv, arch):
         raise AssertionError(f"bf16 kernel path too far from f32: {rel}")
 
 
+def phase_small_fastkan(torch):
+    """The slice's modules on a small node set, kernel path (fused=True)
+    against the plain path on the card: the base-free FastKAN([16, 16, 16,
+    4]) and the layernorm-free FastKANLayer(16, 4), logits and every
+    parameter gradient in f32 (values rtol 1e-4 / atol 1e-5, gradients rtol
+    1e-3 / atol 1e-5), then the bf16 kernel path against the f32 plain path
+    (the test_bf16.py bar)."""
+    from kagnn_tpu_torch.data import community_node_graph
+    from kagnn_tpu_torch.kan import FastKAN, FastKANLayer
+    from kagnn_tpu_torch.train import masked_softmax_cross_entropy
+
+    d = community_node_graph(n_nodes=300, n_classes=4, num_features=16, seed=0)
+    x = torch.from_numpy(d["nodes"]).to("cuda")
+    y = torch.from_numpy(d["y"]).to("cuda")
+    mask = torch.arange(300, device="cuda") % 3 != 0
+    nets = {"FastKAN(use_base_update=False)": lambda **kw: FastKAN(
+                [16, 16, 16, 4], num_grids=8, use_base_update=False, **kw),
+            "FastKANLayer(use_layernorm=False)": lambda **kw: FastKANLayer(
+                16, 4, num_grids=8, use_layernorm=False, **kw)}
+    for name, make in nets.items():
+        def run(fused, cd):
+            m = make(fused=fused, compute_dtype=cd, device="cuda")
+            logits = m(x)
+            masked_softmax_cross_entropy(logits, y, mask).backward()
+            return logits.detach().float(), {n: p.grad for n, p in m.named_parameters()}
+
+        lk, gk = run(True, None)
+        lp, gp = run(False, None)
+        torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-5)
+        for n in gp:
+            torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
+        lb, _ = run(True, torch.bfloat16)
+        rel = ((lb - lp).abs().mean() / (lp.abs().mean() + 1e-6)).item()
+        log(f"small step {name}: f32 logits max_abs_err="
+            f"{(lk - lp).abs().max().item():.3e}, {len(gp)} grads agree; bf16 "
+            f"vs f32 mean relative error {rel:.4f} (bar 0.1)")
+        if not rel < 0.1:
+            raise AssertionError(f"{name}: bf16 kernel path too far from f32: {rel}")
+
+
 def main_graph(torch):
     from kagnn_tpu_torch.data import arxiv_scale_graph
     from kagnn_tpu_torch.graphs import single_graph
@@ -639,6 +801,15 @@ MAIN_PATHS = {
 # backward once: the fused GIN+FastKAN layer, the second layer, both layer
 # backwards and A^T dz (x needs a gradient)
 FUSION_POINT = {"gin_fastkan": 1, "fastkan_fwd": 1, "fastkan_bwd": 2, "spmm": 1}
+# the slice's path: FastKAN([128, 64, 64, 40], num_grids=8,
+# use_base_update=False, fused, bf16) on the node rows, per train step: each
+# layer's layernorm, then the RBF product (x f32, w bf16); every layer's
+# input needs a gradient (the layernorm's parameters train)
+FASTKAN_PATH = {"rbf_fwd": 3, "rbf_bwd": 3}
+# FastKANLayer(128, 64, use_layernorm=False, fused, bf16), forward and
+# backward once (the bf16-basis path), and the narrow sum driven once
+LN_FREE_LAYER = {"rbf_fwd": 1, "rbf_bwd": 1}
+NARROW_DRIVE = {"spmm_narrow": 1}
 
 
 def counters():
@@ -650,6 +821,7 @@ def counters():
     from kagnn_tpu_torch.kernels import gcn_agg as ga
     from kagnn_tpu_torch.kernels import gin_fastkan as gfk
     from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels import rbf_fused as rf
     from kagnn_tpu_torch.kernels import spmm
 
     return {"spmm": spmm.sorted_segment_sum, "bspline_fwd": bf.kan_linear_fwd,
@@ -657,7 +829,9 @@ def counters():
             "gcn_agg": ga.gcn_agg_fwd, "fastkan_fwd": fk.fastkan_layer_fwd,
             "fastkan_bwd": fk.fastkan_layer_bwd,
             "gin_fastkan": gfk.gin_fastkan_fwd, "gat_fwd": gfu.gat_fwd,
-            "gat_dadst": gbw.gat_dadst, "gat_sender": gbw.gat_sender}
+            "gat_dadst": gbw.gat_dadst, "gat_sender": gbw.gat_sender,
+            "rbf_fwd": rf.rbf_spline_fwd, "rbf_bwd": rf.rbf_spline_bwd,
+            "spmm_narrow": spmm.sorted_segment_sum_narrow}
 
 
 def check_launches(name, launches, per_run, runs=1):
@@ -670,39 +844,66 @@ def check_launches(name, launches, per_run, runs=1):
 
 def phase_main_path(torch, g, conv, arch):
     from kagnn_tpu_torch.models import NodeClassifier
-    from kagnn_tpu_torch.train import make_node_steps
 
     model = NodeClassifier(conv_type=conv, architecture=arch, fused=True,
                            compute_dtype=torch.bfloat16, seed=0,
                            device="cuda", **NODE_KW)
+    return drive_path(torch, g, f"{conv}/{arch}", model, MAIN_PATHS[(conv, arch)])
+
+
+def phase_fastkan_path(torch, g):
+    """The slice's path at full width: the reference fastkan's layers with
+    use_base_update=False trained full-batch on the node features."""
+    from kagnn_tpu_torch.kan import FastKAN
+
+    class OnNodes(torch.nn.Module):
+        """The net on the graph's node rows (the calling convention of
+        make_node_steps)."""
+
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, batch):
+            return self.net(batch.nodes)
+
+    net = FastKAN([NODE_KW["num_features"], NODE_KW["hidden_channels"],
+                   NODE_KW["hidden_channels"], NODE_KW["num_classes"]],
+                  num_grids=RBF_G, use_base_update=False, fused=True,
+                  compute_dtype=torch.bfloat16, device="cuda")
+    return drive_path(torch, g, "fastkan/base-free", OnNodes(net), FASTKAN_PATH)
+
+
+def drive_path(torch, g, name, model, per_step):
+    """2 warm-up + 10 timed bf16 train steps (masked CE, Adam(1e-3)) with
+    the launch counters set to 0 before and checked after, then the host
+    enqueue time of one step, an evaluation and a profile. Returns the
+    launches and ms/step."""
+    from kagnn_tpu_torch.train import make_node_steps
+
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     train_step, evaluate = make_node_steps(model, opt)
     mask = g.node_mask
-    fns = counters()
-    per_step = MAIN_PATHS[(conv, arch)]
     warmup, timed = 2, 10
+    res = {}
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for f in fns.values():
-        f.launches = 0
-    losses = [train_step(g, mask) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [train_step(g, mask) for _ in range(timed)]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / timed
-    launches = {k: f.launches for k, f in fns.items()}
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        losses = [train_step(g, mask) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [train_step(g, mask) for _ in range(timed)]
+        torch.cuda.synchronize()
+        res["ms"] = (time.perf_counter() - t0) * 1e3 / timed
+        res["losses"] = [float(v) for v in losses]
+
+    launches = counted(torch, f"main path {name}", per_step, run, warmup + timed)
+    ms, vals = res["ms"], res["losses"]
     peak = torch.cuda.max_memory_allocated() / 2**30
-
-    vals = [float(v) for v in losses]
-    name = f"{conv}/{arch}"
     log(f"main path {name}: {warmup}+{timed} steps, ms/step={ms:.3f}, "
         f"peak_mem={peak:.3f} GiB, losses {vals[0]:.5f} -> {vals[-1]:.5f}")
-    log(f"main path {name} launches: {launches}")
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"non-finite loss on {name}: {vals}")
-    check_launches(name, launches, per_step, warmup + timed)
     # host cost of one step: the time to enqueue it on an idle card
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -765,21 +966,80 @@ def phase_fusion_point(torch, g):
     net = FastKAN([NODE_KW["num_features"], NODE_KW["hidden_channels"],
                    NODE_KW["hidden_channels"]], num_grids=NODE_KW["grid_size"],
                   fused=True, compute_dtype=torch.bfloat16, device="cuda")
-    x = g.nodes.detach().clone().requires_grad_(True)
+    return drive_once(torch, g, "fusion point FastKAN(x, gin_graph=(g, 0))",
+                      FUSION_POINT, lambda x: net(x, gin_graph=(g, 0.0)))[0]
+
+
+def counted(torch, name, per_run, run, runs=1):
+    """run() with every launch counter set to 0 just before and read just
+    after; checks the counts against per_run * runs and returns them."""
     fns = counters()
     torch.cuda.synchronize()
     for f in fns.values():
         f.launches = 0
-    out = net(x, gin_graph=(g, 0.0))
-    out[g.node_mask].float().sum().backward()
+    run()
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in fns.items()}
-    log(f"fusion point FastKAN(x, gin_graph=(g, 0)) launches: {launches}")
-    check_launches("fusion point", launches, FUSION_POINT)
-    if not (torch.isfinite(out[g.node_mask]).all()
-            and torch.isfinite(x.grad).all()):
-        raise AssertionError("fusion point: non-finite output or gradient")
+    log(f"{name} launches: {launches}")
+    check_launches(name, launches, per_run, runs)
     return launches
+
+
+def drive_once(torch, g, name, per_run, forward):
+    """forward(x) on a copy of the main graph's node rows that needs a
+    gradient, and the backward of its masked sum, once and counted; raises
+    on a non-finite output or gradient. Returns (launches, output)."""
+    x = g.nodes.detach().clone().requires_grad_(True)
+    res = {}
+
+    def run():
+        res["out"] = forward(x)
+        res["out"][g.node_mask].float().sum().backward()
+
+    launches = counted(torch, name, per_run, run)
+    if not (torch.isfinite(res["out"][g.node_mask]).all()
+            and torch.isfinite(x.grad).all()):
+        raise AssertionError(f"{name}: non-finite output or gradient")
+    return launches, res["out"]
+
+
+def phase_ln_free_layer(torch, g):
+    """FastKANLayer(128, 64, num_grids=8, use_layernorm=False, fused, bf16)
+    on the main graph's node rows, forward and backward once: the RBF
+    product of a bf16 x with the bf16 basis, plus the base update."""
+    from kagnn_tpu_torch.kan import FastKANLayer
+
+    layer = FastKANLayer(NODE_KW["num_features"], NODE_KW["hidden_channels"],
+                         num_grids=RBF_G, use_layernorm=False, fused=True,
+                         compute_dtype=torch.bfloat16, device="cuda")
+    launches, out = drive_once(torch, g, "layernorm-free FastKANLayer",
+                               LN_FREE_LAYER, layer)
+    if out.dtype != torch.bfloat16:
+        raise AssertionError(f"layernorm-free layer: output in {out.dtype}")
+    return launches
+
+
+def phase_narrow_drive(torch, g):
+    """sorted_segment_sum_narrow of (E, 4) f32 per-edge values (a 4-head
+    GAT's) over the main graph's receivers, once: no model path calls it."""
+    from kagnn_tpu_torch.kernels import spmm
+
+    vals = torch.randn(g.n_edge_pad, 4, device="cuda")
+    res = {}
+    launches = counted(torch, "narrow segment sum", NARROW_DRIVE, lambda: res.update(
+        out=spmm.sorted_segment_sum_narrow(vals, g.receivers, g.n_node_pad)))
+    if res["out"].shape != (g.n_node_pad, 4) or not torch.isfinite(res["out"]).all():
+        raise AssertionError("narrow segment sum: misshapen or non-finite output")
+    return launches
+
+
+def phase_kernel_report():
+    """utils/profiling.kernel_report() at its defaults, one JSON line a row."""
+    from kagnn_tpu_torch.utils.profiling import kernel_report
+
+    log("kernel_report (n=131072, d=64, o=64, f32, forward):")
+    for row in kernel_report():
+        log("  " + json.dumps(row))
 
 
 def main() -> int:
@@ -792,18 +1052,34 @@ def main() -> int:
     rows = phase_kernels(torch, g)
     for conv, arch in MAIN_PATHS:
         phase_small_step(torch, conv, arch)
-    step_ms = {}
+    phase_small_fastkan(torch)
+    step_ms, drives = {}, []
     for conv, arch in MAIN_PATHS:
         launches, step_ms[f"{conv}/{arch}"] = phase_main_path(torch, g, conv, arch)
+        drives.append(launches)
+    launches, step_ms["fastkan/base-free"] = phase_fastkan_path(torch, g)
+    drives += [launches, phase_fusion_point(torch, g), phase_ln_free_layer(torch, g),
+               phase_narrow_drive(torch, g)]
+    for launches in drives:
         for name, n in launches.items():
             rows[name]["launches"] += n
-    for name, n in phase_fusion_point(torch, g).items():
-        rows[name]["launches"] += n
+    phase_kernel_report()
     unused = [n for n, r in rows.items() if r["launches"] == 0]
     if unused:
         raise AssertionError(f"kernels no main path launched: {unused}")
     log(f"card: {card}; main paths ms/step: "
         + ", ".join(f"{k}={v:.3f}" for k, v in step_ms.items()))
+    # the order in which to redesign the kernels: first those slower than
+    # one PyTorch call of the same function, by the factor; then the rest by
+    # launches in this run x (ms - bound_ms) at the main path's shape
+    slower = sorted((r for r in rows.values()
+                     if r["library_ms"] is not None and r["ms"] > r["library_ms"]),
+                    key=lambda r: -r["ms"] / r["library_ms"])
+    log("slower than the library call: " + (", ".join(
+        f"{r['name']} {r['ms'] / r['library_ms']:.2f}x" for r in slower) or "none"))
+    excess = sorted(rows.values(), key=lambda r: -r["launches"] * (r["ms"] - r["bound_ms"]))
+    log("launches x (ms - bound_ms), ms: " + ", ".join(
+        f"{r['name']} {r['launches'] * (r['ms'] - r['bound_ms']):.1f}" for r in excess))
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

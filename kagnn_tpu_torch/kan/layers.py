@@ -16,7 +16,7 @@ parameters stay f32 master weights.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -27,11 +27,9 @@ from kagnn_tpu_torch.kernels.bspline_fused import kan_linear_fused
 from kagnn_tpu_torch.kernels.fastkan_layer import fastkan_layer_fused
 from kagnn_tpu_torch.kernels.gin_fastkan import gin_fastkan_fused
 from kagnn_tpu_torch.kernels.gin_fused import gin_kan_fused
+from kagnn_tpu_torch.kernels.rbf_fused import fastkan_fused
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
-
-# the RBF centers' range of every FastKANLayer (the JAX layer's default)
-GRID_MIN, GRID_MAX = -2.0, 2.0
 
 
 def kaiming_uniform(shape, a: float, generator: torch.Generator) -> torch.Tensor:
@@ -144,90 +142,122 @@ class KAN(nn.Module):
 
 class FastKANLayer(nn.Module):
     """RBF KAN layer (reference fastkan.py:49-85):
-        spline_linear(rbf(layernorm(x))) + base_linear(silu(x))
-    with centers linspace(-2, 2, num_grids) and width 4 / (num_grids - 1).
-    LayerNorm and the base update are always on and the spline weight's init
-    scale is 0.1, the JAX layer's defaults and all that its models use."""
+        spline_linear(rbf(layernorm(x))) + base_linear(base_activation(x))
+    with centers linspace(grid_min, grid_max, num_grids) and width
+    (grid_max - grid_min) / (num_grids - 1). The defaults are the JAX
+    layer's: centers on [-2, 2], 8 of them, layernorm and base update on,
+    SiLU, spline init scale 0.1. A flag that is off creates no submodule, so
+    the state_dict has the reference's keys."""
 
-    def __init__(self, input_dim: int, output_dim: int, num_grids: int = 8,
-                 fused: bool = False,
+    def __init__(self, input_dim: int, output_dim: int,
+                 grid_min: float = -2.0, grid_max: float = 2.0,
+                 num_grids: int = 8, use_base_update: bool = True,
+                 use_layernorm: bool = True,
+                 base_activation: Callable[[torch.Tensor], torch.Tensor] = F.silu,
+                 spline_weight_init_scale: float = 0.1, fused: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        if input_dim <= 1:
-            raise ValueError("Do not use layernorms on 1D inputs: a "
-                             "FastKANLayer needs more than one input feature")
+        if use_layernorm and input_dim <= 1:
+            raise ValueError("Do not use layernorms on 1D inputs. Set "
+                             "use_layernorm=False.")
         self.input_dim, self.output_dim = input_dim, output_dim
-        self.num_grids = num_grids
+        self.grid_min, self.grid_max, self.num_grids = grid_min, grid_max, num_grids
+        self.use_base_update, self.use_layernorm = use_base_update, use_layernorm
+        self.base_activation = base_activation
         self.fused, self.compute_dtype = fused, compute_dtype
-        self.denominator = (GRID_MAX - GRID_MIN) / (num_grids - 1)
-        self.layernorm = nn.LayerNorm(input_dim, eps=1e-5)
+        self.denominator = (grid_max - grid_min) / (num_grids - 1)
+        if use_layernorm:
+            self.layernorm = nn.LayerNorm(input_dim, eps=1e-5)
         # the holders are made uninitialised and filled from `gen` (on the
         # CPU), as the JAX layer draws them: a truncated normal on [-2, 2]
-        # times 0.1 for the spline weight, U(-1/sqrt(in), 1/sqrt(in)) for the
-        # base weight and bias (torch nn.Linear's)
+        # times the init scale for the spline weight, U(-1/sqrt(in),
+        # 1/sqrt(in)) for the base weight and bias (torch nn.Linear's)
         self.spline_linear = nn.utils.skip_init(
             nn.Linear, input_dim * num_grids, output_dim, bias=False)
-        self.base_linear = nn.utils.skip_init(nn.Linear, input_dim, output_dim)
-        bound = 1.0 / math.sqrt(input_dim)
+        if use_base_update:
+            self.base_linear = nn.utils.skip_init(nn.Linear, input_dim, output_dim)
         with torch.no_grad():
             nn.init.trunc_normal_(self.spline_linear.weight, 0.0, 1.0, -2.0,
                                   2.0, generator=gen)
-            self.spline_linear.weight.mul_(0.1)
-            for p in (self.base_linear.weight, self.base_linear.bias):
-                p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * bound)
+            self.spline_linear.weight.mul_(spline_weight_init_scale)
+            if use_base_update:
+                bound = 1.0 / math.sqrt(input_dim)
+                for p in (self.base_linear.weight, self.base_linear.bias):
+                    p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * bound)
         self.to(dev)
 
     def _cast(self, *ts):
         cd = self.compute_dtype
         return ts if cd is None else tuple(t.to(cd) for t in ts)
 
-    def forward(self, x: torch.Tensor, gin_graph=None) -> torch.Tensor:
-        """With `gin_graph=(g, eps)` the layer computes
-        FastKAN((1+eps)·x_i + Σ_j x_j) over the GraphBatch, the GIN conv
-        fusion point (kernels/gin_fastkan.py runs it in one launch)."""
+    def forward(self, x: torch.Tensor, use_layernorm: bool = True,
+                gin_graph=None) -> torch.Tensor:
+        """Routes as the JAX layer (`layers.py:282-345`): with `fused` and
+        the base update and both layernorm flags on, the whole layer is one
+        kernel (kernels/fastkan_layer.py; with `gin_graph=(g, eps)` the GIN
+        fusion point, kernels/gin_fastkan.py, FastKAN((1+eps)·x_i + Σ_j
+        x_j)); otherwise the layernorm if both flags are on, the basis
+        product (kernels/rbf_fused.py when `fused`) and the base update if
+        it is on."""
         orig_shape = x.shape
         x = x.reshape(-1, self.input_dim)
-        x, sw, lng, lnb, wb, bb = self._cast(
-            x, self.spline_linear.weight, self.layernorm.weight,
-            self.layernorm.bias, self.base_linear.weight, self.base_linear.bias)
-        grid = (GRID_MIN, GRID_MAX, self.num_grids)
+        x, sw = self._cast(x, self.spline_linear.weight)
+        grid = (self.grid_min, self.grid_max, self.num_grids)
+        ln = self.use_layernorm and use_layernorm
+        whole = self.fused and self.use_base_update and ln
+        if whole:
+            lng, lnb, wb, bb = self._cast(
+                self.layernorm.weight, self.layernorm.bias,
+                self.base_linear.weight, self.base_linear.bias)
         if gin_graph is not None:
             g, eps = gin_graph
-            if self.fused:
+            if whole:
                 out = gin_fastkan_fused(x, g, eps, lng, lnb, sw, wb, bb, *grid)
                 return out.reshape(*orig_shape[:-1], self.output_dim)
             agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
             x = (1.0 + eps) * x + agg
-        if self.fused:
+        if whole:
             out = fastkan_layer_fused(x, lng, lnb, sw, wb, bb, *grid)
             return out.reshape(*orig_shape[:-1], self.output_dim)
         # the JAX LayerNorm computes in f32 and returns f32 (its f32 scale
-        # promotes a bf16 input); the basis then meets the cast spline weight
-        # in f32, as jnp's type promotion has it
-        xs = F.layer_norm(x.float(), (self.input_dim,), self.layernorm.weight,
-                          self.layernorm.bias, 1e-5)
-        centers = rbf.make_rbf_grid(*grid, device=x.device).to(xs.dtype)
-        basis = rbf.rbf_basis(xs, centers, self.denominator)
-        ret = basis.reshape(x.shape[0], -1) @ sw.to(basis.dtype).T
-        ret = ret + F.silu(x) @ wb.T + bb
+        # promotes a bf16 input), and the basis meets the cast spline weight
+        # in f32; without it the basis stays in x's dtype
+        xs = (F.layer_norm(x.float(), (self.input_dim,), self.layernorm.weight,
+                           self.layernorm.bias, 1e-5) if ln else x)
+        if self.fused:
+            ret = fastkan_fused(xs, sw, *grid)
+        else:
+            centers = rbf.make_rbf_grid(*grid, device=x.device).to(xs.dtype)
+            basis = rbf.rbf_basis(xs, centers, self.denominator)
+            ret = basis.reshape(x.shape[0], -1) @ sw.to(basis.dtype).T
+        if self.use_base_update:
+            wb, bb = self._cast(self.base_linear.weight, self.base_linear.bias)
+            ret = ret + self.base_activation(x) @ wb.T + bb
         return ret.reshape(*orig_shape[:-1], self.output_dim)
 
 
 class FastKAN(nn.Module):
-    """Stack of FastKANLayer (reference fastkan.py:118-145)."""
+    """Stack of FastKANLayer (reference fastkan.py:118-145); its layers keep
+    the layernorm on."""
 
-    def __init__(self, layers_hidden: Sequence[int], num_grids: int = 8,
-                 fused: bool = False,
+    def __init__(self, layers_hidden: Sequence[int], grid_min: float = -2.0,
+                 grid_max: float = 2.0, num_grids: int = 8,
+                 use_base_update: bool = True,
+                 base_activation: Callable[[torch.Tensor], torch.Tensor] = F.silu,
+                 spline_weight_init_scale: float = 0.1, fused: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            FastKANLayer(fin, fout, num_grids=num_grids, fused=fused,
-                         compute_dtype=compute_dtype, generator=generator,
-                         device=device)
+            FastKANLayer(fin, fout, grid_min=grid_min, grid_max=grid_max,
+                         num_grids=num_grids, use_base_update=use_base_update,
+                         base_activation=base_activation,
+                         spline_weight_init_scale=spline_weight_init_scale,
+                         fused=fused, compute_dtype=compute_dtype,
+                         generator=generator, device=device)
             for fin, fout in zip(layers_hidden[:-1], layers_hidden[1:]))
 
     def forward(self, x: torch.Tensor, mask=None, train: bool = False,

@@ -65,7 +65,7 @@ def layer_norm_f32(x32: torch.Tensor):
     return xc * rstd, rstd
 
 
-def _num_grids(x, w) -> int:
+def num_grids_of(x, w) -> int:
     D = x.shape[1]
     G = w.shape[0] // max(D, 1)
     if G * D != w.shape[0]:
@@ -79,7 +79,7 @@ def fastkan_forward_f32(x32, lng, lnb, w, wb, bb, grid_min, grid_max,
     """Plain FastKANLayer forward of an f32 input, output in `dtype`
     (shared with the GIN kernel's plain version, which feeds the unrounded
     f32 aggregate)."""
-    G = _num_grids(x32, w)
+    G = num_grids_of(x32, w)
     c = torch.from_numpy(centers(grid_min, grid_max, G)).to(x32.device)
     xhat, _ = layer_norm_f32(x32)
     xs = xhat * lng.float() + lnb.float()
@@ -97,7 +97,7 @@ def fastkan_layer_fwd_plain(x, lng, lnb, w, wb, bb, grid_min, grid_max):
 def fastkan_layer_bwd_plain(x, lng, lnb, w, wb, dout, grid_min, grid_max):
     """The explicit VJP of the JAX `_bwd_kernel`: (dx, dlng, dlnb, dw, dwb,
     dbb), each in its input's dtype (dbb in wb's)."""
-    G = _num_grids(x, w)
+    G = num_grids_of(x, w)
     D = x.shape[1]
     ih = inv_h(grid_min, grid_max, G)
     c = torch.from_numpy(centers(grid_min, grid_max, G)).to(x.device)
@@ -125,7 +125,7 @@ def check_layer(x, lng, lnb, w, wb, bb=None):
     """Shapes and types the kernels take -> (n, D, O, G)."""
     check_cuda("x", x, shape=(None, None))
     n, D = x.shape
-    G = _num_grids(x, w)
+    G = num_grids_of(x, w)
     if not 2 <= G <= MAX_G:
         raise ValueError(f"the FastKAN kernels take 2 to {MAX_G} centers, "
                          f"got {G}")
@@ -264,12 +264,18 @@ def weight_layouts(ln_scale, ln_bias, spline_weight, base_weight, base_bias,
                    num_grids: int):
     """Module layouts -> kernel layouts: spline (O, D*G) with column d*G + g
     -> (G*D, O) with row g*D + d; base (O, D) -> (D, O)."""
+    return (ln_scale.contiguous(), ln_bias.contiguous(),
+            g_major(spline_weight, num_grids), base_weight.t().contiguous(),
+            base_bias.contiguous())
+
+
+def g_major(spline_weight: torch.Tensor, num_grids: int) -> torch.Tensor:
+    """The module's spline weight (O, D*G), column d*G + g, as the kernels'
+    (G*D, O), row g*D + d (contiguous)."""
     O = spline_weight.shape[0]
-    D = base_weight.shape[1]
-    w = spline_weight.reshape(O, D, num_grids).permute(2, 1, 0).reshape(
-        num_grids * D, O)
-    return (ln_scale.contiguous(), ln_bias.contiguous(), w.contiguous(),
-            base_weight.t().contiguous(), base_bias.contiguous())
+    D = spline_weight.shape[1] // num_grids
+    return spline_weight.reshape(O, D, num_grids).permute(2, 1, 0).reshape(
+        num_grids * D, O).contiguous()
 
 
 def fastkan_layer_fused(x, ln_scale, ln_bias, spline_weight, base_weight,

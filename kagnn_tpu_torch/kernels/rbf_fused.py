@@ -1,0 +1,218 @@
+"""Fused RBF basis and spline product, forward and backward: the port of
+`kagnn_tpu/pallas/rbf_fused.py::_fwd_kernel` and `::_bwd_kernel`
+(`rbf_spline_matmul`, `fastkan_fused`).
+
+    out = sum_g exp(-((x - c_g) * inv_h)^2) @ W_g
+
+with G centers c_g from linspace(grid_min, grid_max, G) and inv_h = (G-1) /
+(grid_max - grid_min). x (N, D) and the g-major spline weight w (G*D, O),
+row g*D + d, are each f32 or bf16, independently; out, dout and dx are in
+x's dtype, dW in w's. The FastKANLayer runs it when the layernorm or the
+base update is off (kan/layers.py).
+
+Rounding, as the JAX kernel has it in interpret mode (tests/test_torch_rbf.py):
+  * with x in bf16 the distance is bf16 arithmetic: the centers
+    c_0 + g * step and inv_h rounded to bf16, t = bf16(x - c_g),
+    d = bf16(t * inv_h), bf16(d * d); exp in f32. The forward rounds the
+    basis to bf16 before its product; the backward multiplies the f32 exp
+    (XLA keeps the excess precision there). The derivative factor
+    -2 * inv_h is the unrounded one;
+  * products and sums in f32; dW is summed over the JAX kernel's row tiles
+    (`dw_tile`) in tile order and rounded to w's dtype after each tile, as
+    `dw_ref += partial.astype(dw.dtype)` does.
+
+CUDA kernels: `csrc/rbf_fused.cu` (see its header for the bound on the H100
+and the design). On a CPU tensor the wrappers run the plain versions below;
+on a CUDA tensor they launch the kernels or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from kagnn_tpu_torch.kernels import _build
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+                                             dtype_code, stream_of)
+from kagnn_tpu_torch.kernels.fastkan_layer import (D_CHUNK, MAX_G, O_TILE,
+                                                   ROWS, centers, g_major,
+                                                   inv_h, num_grids_of)
+
+BWD_TILE = 512  # rows per dW tile of the JAX backward (BWD_TILE_N)
+
+
+def dw_tile(n: int) -> int:
+    """The JAX backward's row tile: `_tile_for(n, 512)`, 256 under 256 rows."""
+    return 256 if n < 256 else BWD_TILE
+
+
+def _round(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def constants(grid_min: float, grid_max: float, num_grids: int, dtype):
+    """(centers (G,) f32, inv_h) of the distance as the JAX kernel computes
+    it for x of `dtype`: in f32 `kernels/fastkan_layer.py::centers`; in
+    bf16 c_0 and the step rounded to bf16, then c_0 + g * step with each
+    operation rounded, and inv_h rounded."""
+    ih = inv_h(grid_min, grid_max, num_grids)
+    if dtype == torch.float32:
+        return torch.from_numpy(centers(grid_min, grid_max, num_grids)), ih
+    lin = np.linspace(grid_min, grid_max, num_grids).astype(np.float32)
+    step = float(lin[1] - lin[0]) if num_grids > 1 else 0.0
+
+    def r(v):
+        return _round(torch.as_tensor(v, dtype=torch.float32), dtype)
+
+    g = torch.arange(num_grids, dtype=torch.float32)
+    return r(r(float(lin[0])) + r(g * r(step))), float(r(ih))
+
+
+def basis_plain(x: torch.Tensor, c: torch.Tensor, ih: float,
+                round_exp: bool):
+    """x (N, D) -> basis (N, G*D) f32 and scaled distance d (N, G*D),
+    column g*D + d, with the rounding of x's dtype (module docstring)."""
+    G, D = c.numel(), x.shape[1]
+    t = _round(x.float().repeat(1, G) - c.to(x.device).repeat_interleave(D)[None, :],
+               x.dtype)
+    d = _round(t * ih, x.dtype)
+    e = torch.exp(-_round(d * d, x.dtype))
+    return (_round(e, x.dtype) if round_exp else e), d
+
+
+def rbf_spline_fwd_plain(x, w, grid_min: float, grid_max: float):
+    c, ih = constants(grid_min, grid_max, num_grids_of(x, w), x.dtype)
+    b, _ = basis_plain(x, c, ih, round_exp=True)
+    return (b @ w.float()).to(x.dtype)
+
+
+def rbf_spline_bwd_plain(x, w, dout, grid_min: float, grid_max: float,
+                         need_dx: bool = True):
+    """The explicit VJP of the JAX `_bwd_kernel`: (dx in x's dtype or None,
+    dW in w's dtype)."""
+    G, (n, D) = num_grids_of(x, w), x.shape
+    c, ih = constants(grid_min, grid_max, G, x.dtype)
+    b, d = basis_plain(x, c, ih, round_exp=False)
+    d32 = dout.float()
+    dx = None
+    if need_dx:
+        wide = (d32 @ w.float().T) * b * (-2.0 * inv_h(grid_min, grid_max, G)) * d
+        dx = sum(wide[:, g * D:(g + 1) * D] for g in range(G)).to(x.dtype)
+    tile = dw_tile(n)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for r0 in range(0, n, tile):
+        part = b[r0:r0 + tile].T @ d32[r0:r0 + tile]
+        dw = _round(dw + _round(part, w.dtype), w.dtype)
+    return dx, dw.to(w.dtype)
+
+
+def check_rbf(x, w):
+    """Shapes and types the kernels take -> (n, D, O, G)."""
+    check_cuda("x", x, shape=(None, None))
+    dtype_code(x)
+    n, D = x.shape
+    G = num_grids_of(x, w)
+    if not 2 <= G <= MAX_G:
+        raise ValueError(f"the RBF kernels take 2 to {MAX_G} centers, got {G}")
+    check_cuda("w", w, shape=(G * D, None))
+    dtype_code(w)
+    if D == 0 or w.shape[1] == 0:
+        raise ValueError(f"the RBF kernels take D, O >= 1, got ({D}, {w.shape[1]})")
+    return n, D, w.shape[1], G
+
+
+def _c_floats(t: torch.Tensor):
+    return (ctypes.c_float * t.numel())(*t.tolist())
+
+
+@functools.cache
+def _fwd_fn():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("rbf_fused", "rbf_fwd", [P, P, P, I, I, I, I, P, F, I, I, P])
+
+
+@functools.cache
+def _bwd_fn():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("rbf_fused", "rbf_bwd",
+                       [P, P, P, P, P, P, I, I, I, I, P, F, F, I, I, I, P])
+
+
+def rbf_spline_fwd(x, w, grid_min: float, grid_max: float) -> torch.Tensor:
+    """x (N, D), w (G*D, O) g-major, each f32 or bf16 -> (N, O) in x's
+    dtype."""
+    if x.device.type == "cpu":
+        return rbf_spline_fwd_plain(x, w, grid_min, grid_max)
+    n, D, O, G = check_rbf(x, w)
+    c, ih = constants(grid_min, grid_max, G, x.dtype)
+    out = torch.empty((n, O), dtype=x.dtype, device=x.device)
+    err = _fwd_fn()(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, D, O, G,
+                    _c_floats(c), ih, dtype_code(x), dtype_code(w), stream_of(x))
+    _build.check(err, "rbf_fwd")
+    rbf_spline_fwd.launches += 1
+    return out
+
+
+rbf_spline_fwd.launches = 0
+
+
+def rbf_spline_bwd(x, w, dout, grid_min: float, grid_max: float,
+                   need_dx: bool = True):
+    """-> (dx (N, D) in x's dtype or None, dW (G*D, O) in w's dtype). dx is
+    skipped when `need_dx` is False."""
+    if x.device.type == "cpu":
+        return rbf_spline_bwd_plain(x, w, dout, grid_min, grid_max, need_dx)
+    n, D, O, G = check_rbf(x, w)
+    check_cuda("dout", dout, x.dtype, (n, O))
+    # the dx kernel's dout tile and one output tile of the chunk's weights
+    smem = 4 * (ROWS * O + O_TILE * (G * D_CHUNK + 1))
+    if need_dx and smem > SMEM_LIMIT:
+        raise ValueError(f"dx of an RBF product with {O} outputs and {G} "
+                         f"centers needs {smem} bytes of shared memory per "
+                         f"block; the H100 gives {SMEM_LIMIT}")
+    c, ih = constants(grid_min, grid_max, G, x.dtype)
+    tile = dw_tile(n)
+    partial = torch.empty((-(-n // tile), G * D * O), dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty_like(w)
+    dx = torch.empty_like(x) if need_dx else None
+    err = _bwd_fn()(x.data_ptr(), w.data_ptr(), dout.data_ptr(),
+                    None if dx is None else dx.data_ptr(), partial.data_ptr(),
+                    dw.data_ptr(), n, D, O, G, _c_floats(c), ih,
+                    -2.0 * inv_h(grid_min, grid_max, G), tile, dtype_code(x),
+                    dtype_code(w), stream_of(x))
+    _build.check(err, "rbf_bwd")
+    rbf_spline_bwd.launches += 1
+    return dx, dw
+
+
+rbf_spline_bwd.launches = 0
+
+
+class RbfSplineMatmul(torch.autograd.Function):
+    """The JAX `rbf_spline_matmul` custom VJP: forward through the fused
+    kernel, backward through the fused backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, grid_min, grid_max):
+        ctx.save_for_backward(x, w)
+        ctx.grid = (grid_min, grid_max)
+        return rbf_spline_fwd(x, w, grid_min, grid_max)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w = ctx.saved_tensors
+        dx, dw = rbf_spline_bwd(x, w, dout.contiguous(), *ctx.grid,
+                                need_dx=ctx.needs_input_grad[0])
+        return dx, dw, None, None
+
+
+def fastkan_fused(xs: torch.Tensor, spline_weight: torch.Tensor,
+                  grid_min: float, grid_max: float,
+                  num_grids: int) -> torch.Tensor:
+    """`rbf_basis(xs).reshape(N, -1) @ spline_weight.T` through the kernels,
+    from the module's spline weight (O, D*G) (the JAX `fastkan_fused`)."""
+    return RbfSplineMatmul.apply(xs.contiguous(), g_major(spline_weight, num_grids),
+                                 float(grid_min), float(grid_max))

@@ -1,4 +1,4 @@
-"""On-card checks of the autograd Functions of the FastKAN, GCN and GAT
+"""On-card checks of the autograd Functions of the FastKAN, GCN, GAT and RBF
 kernels, shared by `chip_smoke.py` and `tests/test_torch_cuda.py`."""
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from kagnn_tpu_torch.kernels import gat_bwd as gbw
 from kagnn_tpu_torch.kernels import gat_fused as gfu
 from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
 
 
@@ -99,6 +100,46 @@ def gat_attention_chain(g, heads: int = 2, c: int = 16) -> float:
                     raise AssertionError("GatAttention did not launch each "
                                          "GAT kernel once per layer")
             res[dev] = [h.detach()[graph.node_mask], x.grad] + [a.grad for a in att]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    worst = 0.0
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5)
+        worst = max(worst, (a.cpu() - b).abs().max().item())
+    return worst
+
+
+def rbf_chain(n: int = 700, d: int = 16, o: int = 8, num_grids: int = 8) -> float:
+    """RbfSplineMatmul twice in a row, tanh between, as a layernorm-free and
+    base-free FastKAN of two layers, in f32 with TF32 off (restored after):
+    the values and the gradients of x and both spline weights through the
+    kernels against the same chain through the plain versions on the CPU
+    (rtol 1e-3 / atol 1e-5, the gradients' bar); each RBF kernel launched
+    once per layer. Raises AssertionError on a disagreement and returns the
+    worst max-abs error."""
+    gen = torch.Generator().manual_seed(4)
+    G = num_grids
+    x0 = torch.randn(n, d, generator=gen) * 1.5
+    ws = [torch.randn(fout, fin * G, generator=gen) * 0.3
+          for fin, fout in ((d, o), (o, o))]
+    fns = (rf.rbf_spline_fwd, rf.rbf_spline_bwd)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            before = [f.launches for f in fns]
+            x = x0.to(dev, copy=True).requires_grad_(True)
+            w = [t.to(dev, copy=True).requires_grad_(True) for t in ws]
+            h = torch.tanh(rf.fastkan_fused(x, w[0], -2.0, 2.0, G))
+            out = rf.fastkan_fused(h, w[1], -2.0, 2.0, G)
+            (out * torch.cos(out)).sum().backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                if [f.launches - b for f, b in zip(fns, before)] != [2, 2]:
+                    raise AssertionError("RbfSplineMatmul did not launch each "
+                                         "RBF kernel once per layer")
+            res[dev] = [out.detach(), x.grad] + [t.grad for t in w]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     worst = 0.0

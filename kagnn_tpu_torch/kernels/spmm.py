@@ -13,6 +13,11 @@ CUDA kernel: `csrc/spmm.cu` (one warp per row, f32 sum in registers, no
 atomics: deterministic; bound by device-memory bytes). On a CPU tensor the
 wrapper runs `sorted_segment_sum_plain`; on a CUDA tensor it launches the
 kernel or raises.
+
+`sorted_segment_sum_narrow` ports `spmm.py::_narrow_kernel` (the JAX
+`sorted_segment_sum_narrow`): the segment sum of narrow (E, k <= 8) rows
+over receiver-sorted edges, forward only, through `csrc/spmm_narrow.cu`
+(a warp per row whose lanes split the row's edges).
 """
 from __future__ import annotations
 
@@ -81,3 +86,58 @@ class SortedSegmentSum(torch.autograd.Function):
     def backward(ctx, cot):
         (row_ptr,) = ctx.saved_tensors
         return cot.index_select(0, segment_ids(row_ptr)), None
+
+
+NARROW_MAX_K = 8  # columns of the narrow segment sum (csrc/spmm_narrow.cu)
+
+
+def narrow_row_ptr(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The row pointer (num_segments+1,) int32 of ascending receivers, as
+    the JAX function's `block_starts` (searchsorted, side left): edges whose
+    receiver is num_segments or more fall past the last row."""
+    rows = torch.arange(num_segments + 1, dtype=receivers.dtype,
+                        device=receivers.device)
+    return torch.searchsorted(receivers, rows, out_int32=True)
+
+
+def sorted_segment_sum_narrow_plain(vals: torch.Tensor, receivers: torch.Tensor,
+                                    num_segments: int) -> torch.Tensor:
+    """The plain PyTorch version: index_add_ into f32 of the edges whose
+    receiver is a segment, then the values' dtype."""
+    keep = (receivers >= 0) & (receivers < num_segments)
+    out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float32,
+                      device=vals.device)
+    out.index_add_(0, receivers[keep].long(), vals[keep].float())
+    return out.to(vals.dtype)
+
+
+@functools.cache
+def _narrow_fn():
+    P, I = _build.P, _build.I
+    return _build.bind("spmm_narrow", "spmm_narrow", [P, P, P, I, I, I, P])
+
+
+def sorted_segment_sum_narrow(vals: torch.Tensor, receivers: torch.Tensor,
+                              num_segments: int) -> torch.Tensor:
+    """vals (E, k) f32/bf16 with k <= 8, receivers (E,) int32 ascending ->
+    (num_segments, k) in vals' dtype, summed in f32. Forward only: the JAX
+    function defines no VJP."""
+    if vals.dim() != 2 or not 1 <= vals.shape[1] <= NARROW_MAX_K:
+        raise ValueError(f"the narrow segment sum takes (E, k) values with "
+                         f"1 <= k <= {NARROW_MAX_K}, got {tuple(vals.shape)}")
+    if vals.device.type == "cpu":
+        return sorted_segment_sum_narrow_plain(vals, receivers, num_segments)
+    code = dtype_code(vals)
+    e, k = vals.shape
+    check_cuda("vals", vals)
+    check_cuda("receivers", receivers, torch.int32, (e,))
+    row_ptr = narrow_row_ptr(receivers, num_segments)
+    out = torch.empty((num_segments, k), dtype=vals.dtype, device=vals.device)
+    err = _narrow_fn()(vals.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                       num_segments, k, code, stream_of(vals))
+    _build.check(err, "spmm_narrow")
+    sorted_segment_sum_narrow.launches += 1
+    return out
+
+
+sorted_segment_sum_narrow.launches = 0

@@ -22,6 +22,11 @@ spline_scaler, the buffer grid); those of a FastKANLayer map as
 
 The layouts are the same on both sides (the JAX layers keep the torch
 layouts), so every array passes through unchanged.
+
+`fastkan_from_jax` / `fastkan_to_jax` carry a bare `FastKAN` or
+`FastKANLayer` (params/layers_{i}/... or the layer's own leaves), whose
+layernorm and base leaves may be missing (the layer's flags off), as the JAX
+side's `port_fastkan_layer(use_layernorm, use_base_update)` lays them out.
 """
 from __future__ import annotations
 
@@ -73,10 +78,14 @@ def _module(mod: str, rest: tuple, head_is_fast: bool):
     return None
 
 
+def _is_fastkan_layer(tree: Mapping) -> bool:
+    """A FastKANLayer's spline weight is (O, D*G); a KANLinear's is 3-D."""
+    return "spline_weight" in tree and np.ndim(tree["spline_weight"]) == 2
+
+
 def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX NodeClassifier variables -> the port's state_dict."""
-    head_is_fast = any("base_bias" in c.get("head", {})
-                       for c in variables.values())
+    head_is_fast = _is_fastkan_layer(variables.get("params", {}).get("head", {}))
     sd = {}
     for path, v in _leaves(variables):
         coll, mod, rest = path[0], path[1], path[2:]
@@ -138,3 +147,29 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
             continue
         raise KeyError(f"no JAX counterpart for {key}")
     return out
+
+
+def fastkan_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX FastKAN ({"params": {"layers_{i}": ...}}) or FastKANLayer
+    ({"params": {leaves}}) variables -> the port module's state_dict."""
+    sd = {}
+    for path, v in _leaves(variables["params"]):
+        layer = re.fullmatch(r"layers_(\d+)", path[0])
+        prefix, leaf = ((f"layers.{layer.group(1)}.", path[1:]) if layer
+                        else ("", path))
+        sd[prefix + _FAST[leaf]] = torch.from_numpy(np.array(_np(v), dtype=np.float32))
+    return sd
+
+
+def fastkan_to_jax(state_dict: Mapping[str, Any]) -> dict:
+    """The port's FastKAN or FastKANLayer state_dict -> JAX variables
+    (numpy)."""
+    params: dict = {}
+    for key, v in state_dict.items():
+        layer = re.fullmatch(r"layers\.(\d+)\.(.+)", key)
+        d = params.setdefault(f"layers_{layer.group(1)}", {}) if layer else params
+        *path, name = _FAST_INV[layer.group(2) if layer else key]
+        for p in path:
+            d = d.setdefault(p, {})
+        d[name] = _np(v)
+    return {"params": params}

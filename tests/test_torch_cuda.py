@@ -26,9 +26,10 @@ from kagnn_tpu_torch.kernels import gat_fused as gfu
 from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import gin_fused as gf
+from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
 from kagnn_tpu_torch.kernels.selfcheck import (fastkan_gcn_chain,
-                                               gat_attention_chain)
+                                               gat_attention_chain, rbf_chain)
 from kagnn_tpu_torch.ops.segment import gcn_aggregate
 
 pytestmark = pytest.mark.usefixtures("card")
@@ -271,6 +272,14 @@ def test_kernels_count_their_launches():
     gbw.gat_sender(h, a, a, a, a, h, g.receivers_by_sender, g.send_row_ptr,
                    g.n_edge, 0.2)
     assert [f.launches - b for f, b in zip(gat, before)] == [1, 1, 1]
+    slice4 = (rf.rbf_spline_fwd, rf.rbf_spline_bwd, spmm.sorted_segment_sum_narrow)
+    before = [f.launches for f in slice4]
+    w = torch.randn(8 * 8, 4, device="cuda")
+    rf.rbf_spline_fwd(x, w, -2.0, 2.0)
+    rf.rbf_spline_bwd(x, w, torch.ones(x.shape[0], 4, device="cuda"), -2.0, 2.0)
+    spmm.sorted_segment_sum_narrow(torch.ones(g.n_edge_pad, 4, device="cuda"),
+                                   g.receivers, x.shape[0])
+    assert [f.launches - b for f, b in zip(slice4, before)] == [1, 1, 1]
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -308,6 +317,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                    (torch.zeros(x.shape[0], 24, device="cuda"), a[:, :2])):
         with pytest.raises(ValueError, match="GAT kernels"):
             gfu.gat_fwd(hh, aa.contiguous(), aa.contiguous(), *ga_args)
+    # the RBF kernels take 2..8 centers, dout in x's dtype; the narrow sum
+    # at most 8 columns and int32 receivers
+    for G in (1, 9):
+        with pytest.raises(ValueError, match="centers"):
+            rf.rbf_spline_fwd(x, torch.zeros(G * 8, 4, device="cuda"), -2.0, 2.0)
+    w = torch.zeros(4 * 8, 4, device="cuda")
+    with pytest.raises(TypeError):
+        rf.rbf_spline_bwd(x, w, torch.zeros(x.shape[0], 4, device="cuda").bfloat16(),
+                          -2.0, 2.0)
+    with pytest.raises(ValueError, match="1 <= k <= 8"):
+        spmm.sorted_segment_sum_narrow(torch.zeros(g.n_edge_pad, 9, device="cuda"),
+                                       g.receivers, x.shape[0])
+    with pytest.raises(TypeError):
+        spmm.sorted_segment_sum_narrow(torch.zeros(g.n_edge_pad, 4, device="cuda"),
+                                       g.receivers.long(), x.shape[0])
     # the fused GCN aggregate takes no dtype but f32 and bf16 on the card:
     # fp16 raises instead of running the plain version
     launches = ga.gcn_agg_fwd.launches
@@ -351,3 +375,58 @@ def test_step_kernel_path_matches_plain_path(conv, arch, no_tf32):
     torch.testing.assert_close(lk[nm], lp[nm], rtol=1e-4, atol=1e-5)
     for n in gp:
         torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
+
+
+# (rows, D, O, centers) of the RBF kernels: one 256-row dW tile (N < 256),
+# three 512-row tiles with a ragged last one, two output tiles (O > 64),
+# more than 128 features, 2 centers, and the slice's widths
+RBF_SHAPES = [(200, 6, 5, 4), (1300, 40, 100, 8), (1300, 200, 70, 2),
+              (1300, 128, 64, 8), (1300, 64, 40, 8)]
+RBF_DTYPES = [("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"), ("bf16", "f32")]
+
+
+@pytest.mark.parametrize("shape", RBF_SHAPES)
+@pytest.mark.parametrize("xw", RBF_DTYPES, ids=["-".join(p) for p in RBF_DTYPES])
+def test_rbf_kernels_match_plain(xw, shape, no_tf32):
+    """The RBF forward and backward (dx and the tile-ordered dW) against
+    their plain versions, for x and w each in f32 or bf16; dx skipped when
+    x needs none."""
+    n, D, O, G = shape
+    xd, wd = xw
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn(n, D, generator=gen, device="cuda") * 1.5).to(DTYPES[xd])
+    w = (torch.randn(G * D, O, generator=gen, device="cuda") * 0.3).to(DTYPES[wd])
+    dout = torch.randn(n, O, generator=gen, device="cuda").to(DTYPES[xd])
+    bf = "bf16" if "bf16" in xw else "f32"  # products of bf16 operands
+    out = rf.rbf_spline_fwd(x, w, -2.0, 2.0)
+    assert out.dtype == x.dtype
+    close(out, rf.rbf_spline_fwd_plain(x, w, -2.0, 2.0), bf)
+    (dx, dw), (pdx, pdw) = (f(x, w, dout, -2.0, 2.0) for f in (
+        rf.rbf_spline_bwd, rf.rbf_spline_bwd_plain))
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    close(dx, pdx, bf)
+    close(dw, pdw, wd if xd == wd else bf)
+    dx2, dw2 = rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0, need_dx=False)
+    assert dx2 is None and torch.equal(dw2, dw)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_narrow_kernel_matches_plain(dt, k):
+    """The narrow segment sum over a graph's receivers (a node of in-degree
+    301, isolated nodes, padded edges at the last row) and with edges past
+    the last segment."""
+    g = _graph(4, n=301, e=900, hub=301)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    vals = (torch.randn(g.n_edge_pad, k, generator=gen, device="cuda") * 10).to(DTYPES[dt])
+    for segs in (g.n_node_pad, 250):
+        close(spmm.sorted_segment_sum_narrow(vals, g.receivers, segs),
+              spmm.sorted_segment_sum_narrow_plain(vals, g.receivers, segs), dt)
+
+
+def test_rbf_function_uses_its_kernels():
+    """RbfSplineMatmul twice in a row: values and the gradients of x and
+    both weights on the card equal the plain path on the CPU (f32, TF32
+    off; rtol 1e-3 / atol 1e-5), each kernel launched once per layer
+    (kernels/selfcheck.py, which chip_smoke.py runs too)."""
+    rbf_chain()
