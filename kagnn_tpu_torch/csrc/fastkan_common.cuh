@@ -1,7 +1,8 @@
-// Shared device code of the FastKANLayer kernels (fastkan_layer.cu,
-// gin_fastkan.cu): LayerNorm statistics, the [SiLU | RBF] basis chunk and
-// the whole layer's forward on a row tile held in shared memory, plus the
-// dispatch over (dtype, number of centers).
+// Shared device code of the RBF kernels (fastkan_layer.cu, gin_fastkan.cu,
+// rbf_fused.cu): LayerNorm statistics, the RBF basis of one value, the
+// [SiLU |] RBF basis chunk, the chunked basis x weight product of a row
+// tile, the whole layer's forward on a row tile held in shared memory, and
+// the dispatch over (dtype, number of centers).
 //
 // The layer, as kagnn_tpu/pallas/fastkan_layer.py::_fwd_kernel computes it:
 //   xhat = (x - mean) * rsqrt(var + eps)          (f32 statistics over D)
@@ -28,16 +29,19 @@ constexpr int kMaxG = 8;  // centers supported: 2..kMaxG
 constexpr float kLnEps = 1e-5f;
 
 // The RBF centers c_0..c_{G-1}, computed on the host exactly as the JAX
-// kernel builds them (c_0 + g * step in f32), passed by value.
+// kernels build them (c_0 + g * step, in f32 or, for the RBF product of a
+// bf16 x, in bf16), passed by value.
 struct Centers {
   float c[kMaxG];
 };
 
-// Columns of one feature chunk of the basis matrix A = [SiLU(x) | B_0..B_G-1]:
-// column g*kDC + j holds feature d0 + j of group g (g = 0 is SiLU).
-template <int G> struct Shape {
-  static constexpr int NG = G + 1;       // groups: SiLU + centers
-  static constexpr int AC = NG * kDC;    // columns of a chunk
+// Columns of one feature chunk of the basis matrix A = [SiLU(x) |] B_0..B_G-1:
+// column g*kDC + j holds feature d0 + j of group g (with BASE, g = 0 is
+// SiLU and group g + 1 is B_g; without, group g is B_g).
+template <int G, bool BASE = true> struct Shape {
+  static constexpr int B0 = BASE ? 1 : 0;  // group of B_0
+  static constexpr int NG = G + B0;        // groups: [SiLU +] centers
+  static constexpr int AC = NG * kDC;      // columns of a chunk
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -70,46 +74,45 @@ __device__ __forceinline__ void ln_stats(const float* x_s, int rows, int D, floa
   }
 }
 
-// xs = xhat * lng + lnb, then the G basis values and their scaled distances
-// d_g = (xs - c_g) * inv_h (needed by the backward).
-template <int G>
+// The G basis values of one basis input xs and their scaled distances
+// d_g = (xs - c_g) * inv_h (needed by the backward). TR is the type the
+// distance is computed in: each of xs - c_g, the product with inv_h and
+// d * d is rounded to it, as the JAX RBF kernel computes in x's dtype (no
+// rounding for float). ROUND_EXP rounds the basis to TR as well.
+template <int G, typename TR = float, bool ROUND_EXP = false>
 __device__ __forceinline__ void rbf(float xs, const Centers& cs, float inv_h, float (&b)[G],
                                     float (&dist)[G]) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const float d = (xs - cs.c[g]) * inv_h;
+    const float d = kan::round_t<TR>(kan::round_t<TR>(xs - cs.c[g]) * inv_h);
     dist[g] = d;
-    b[g] = expf(-(d * d));
+    const float e = expf(-kan::round_t<TR>(d * d));
+    b[g] = ROUND_EXP ? kan::round_t<TR>(e) : e;
   }
 }
 
-// Fill the basis chunk A_s (rows x AC floats) for features d0..d0+kDC-1.
-// load_x(rr, row, d) gives the layer input, stats(rr, row, &mu, &rstd) its
-// row statistics; rows at or past row_end and features past D give zeros.
-template <typename T, int G, typename LoadX, typename Stats>
-__device__ __forceinline__ void build_chunk(LoadX load_x, Stats stats, float* A_s, int rows,
-                                            int row0, int row_end, int d0, int D,
-                                            const T* __restrict__ lng,
-                                            const T* __restrict__ lnb, const Centers& cs,
+// Fill the basis chunk A_s (rows x Shape<G, BASE>::AC floats) for features
+// d0..d0+kDC-1. load(rr, row, d, x, xs) gives the layer input x (for SiLU)
+// and the basis input xs (x after the layernorm, or x itself); rows at or
+// past row_end and features past D give zeros. TR and ROUND_EXP as in rbf.
+template <int G, bool BASE, typename TR = float, bool ROUND_EXP = false, typename Load>
+__device__ __forceinline__ void basis_chunk(Load load, float* A_s, int rows, int row0,
+                                            int row_end, int d0, int D, const Centers& cs,
                                             float inv_h) {
-  using S = Shape<G>;
+  using S = Shape<G, BASE>;
   const int dd = threadIdx.x % kDC;
   const int d = d0 + dd;
-  const float gam = d < D ? to_f(lng[d]) : 0.f;
-  const float bet = d < D ? to_f(lnb[d]) : 0.f;
   for (int rr = threadIdx.x / kDC; rr < rows; rr += kThreads / kDC) {
     const int row = row0 + rr;
     float* a = A_s + rr * S::AC + dd;
     if (d < D && row < row_end) {
-      const float xv = load_x(rr, row, d);
-      float mu, rstd;
-      stats(rr, row, mu, rstd);
-      const float xs = ((xv - mu) * rstd) * gam + bet;
-      a[0] = xv * sigmoid(xv);
+      float xv, xs;
+      load(rr, row, d, xv, xs);
+      if constexpr (BASE) a[0] = xv * sigmoid(xv);
       float b[G], dist[G];
-      rbf<G>(xs, cs, inv_h, b, dist);
+      rbf<G, TR, ROUND_EXP>(xs, cs, inv_h, b, dist);
 #pragma unroll
-      for (int g = 0; g < G; ++g) a[(g + 1) * kDC] = b[g];
+      for (int g = 0; g < G; ++g) a[(g + S::B0) * kDC] = b[g];
     } else {
 #pragma unroll
       for (int g = 0; g < S::NG; ++g) a[g * kDC] = 0.f;
@@ -117,51 +120,64 @@ __device__ __forceinline__ void build_chunk(LoadX load_x, Stats stats, float* A_
   }
 }
 
-// Row d of group g of the stacked weight [Wb; W] (NG*D, O): group 0 is the
-// base weight (D, O), group g >= 1 the spline weight laid out g-major as
-// (G*D, O) with row (g-1)*D + d.
-template <typename T>
+// The layer's basis chunk [SiLU(x) | B(LN(x))]: load_x(rr, row, d) gives
+// the layer input, stats(rr, row, &mu, &rstd) its row statistics, and
+// xs = xhat * lng + lnb.
+template <typename T, int G, typename LoadX, typename Stats>
+__device__ __forceinline__ void build_chunk(LoadX load_x, Stats stats, float* A_s, int rows,
+                                            int row0, int row_end, int d0, int D,
+                                            const T* __restrict__ lng,
+                                            const T* __restrict__ lnb, const Centers& cs,
+                                            float inv_h) {
+  const int d = d0 + threadIdx.x % kDC;
+  const float gam = d < D ? to_f(lng[d]) : 0.f;
+  const float bet = d < D ? to_f(lnb[d]) : 0.f;
+  auto load = [&](int rr, int row, int dc, float& xv, float& xs) {
+    xv = load_x(rr, row, dc);
+    float mu, rstd;
+    stats(rr, row, mu, rstd);
+    xs = ((xv - mu) * rstd) * gam + bet;
+  };
+  basis_chunk<G, true>(load, A_s, rows, row0, row_end, d0, D, cs, inv_h);
+}
+
+// Row d of group g of the weight [Wb;] W: with BASE group 0 is the base
+// weight (D, O) and group g >= 1 row (g-1)*D + d of the spline weight, laid
+// out g-major as (G*D, O); without, group g is row g*D + d.
+template <bool BASE = true, typename T>
 __device__ __forceinline__ const T* weight_row(const T* wb, const T* w, int g, int d, int D,
                                                int O) {
+  if constexpr (!BASE) return w + ((size_t)g * D + d) * O;
   return g == 0 ? wb + (size_t)d * O : w + ((size_t)(g - 1) * D + d) * O;
 }
 
-// The whole FastKANLayer forward of one tile of kFwdRows rows starting at
-// row0, whose f32 input x_s (kFwdRows x D) is already in shared memory:
-// statistics into mu_s/rstd_s, then per 32-feature chunk the basis matrix
-// in A_s (kFwdRows x AC floats) and its products with [Wb; W] in f32.
-// Thread t owns output column blockIdx.y*kOT + t % kOT for 8 rows.
-template <typename T, int G>
-__device__ __forceinline__ void forward_tile(const float* x_s, float* A_s, float* mu_s,
-                                             float* rstd_s, int row0, int n, int D, int O,
-                                             const T* __restrict__ lng,
-                                             const T* __restrict__ lnb, const Centers& cs,
-                                             float inv_h, const T* __restrict__ w,
-                                             const T* __restrict__ wb,
-                                             const T* __restrict__ bb, T* __restrict__ out) {
-  using S = Shape<G>;
-  __syncthreads();  // x_s is complete
-  ln_stats(x_s, kFwdRows, D, mu_s, rstd_s);
+// The product of one tile of kFwdRows rows starting at row0 with the
+// weight, one 32-feature chunk at a time: build(d0) fills A_s (kFwdRows x
+// Shape<G, BASE>::AC floats) with the chunk's basis, then
+//   out[row, o] = sum_{g, d} A[row, g*D + d] * [Wb;] W[g*D + d, o] (+ bb[o])
+// in f32, written in TO; the bias only with BASE. Thread t owns output
+// column blockIdx.y*kOT + t % kOT for 8 rows (row group t / kOT).
+template <int G, bool BASE, typename TW, typename TO, typename Build>
+__device__ __forceinline__ void chunked_forward(Build build, float* A_s, int row0, int n, int D,
+                                                int O, const TW* __restrict__ wb,
+                                                const TW* __restrict__ w,
+                                                const TW* __restrict__ bb, TO* __restrict__ out) {
+  using S = Shape<G, BASE>;
   const int o = blockIdx.y * kOT + threadIdx.x % kOT;
   const int rg = threadIdx.x / kOT;
   float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  auto load_x = [&](int rr, int, int d) { return x_s[(size_t)rr * D + d]; };
-  auto stats = [&](int rr, int, float& mu, float& rstd) {
-    mu = mu_s[rr];
-    rstd = rstd_s[rr];
-  };
   for (int d0 = 0; d0 < D; d0 += kDC) {
-    __syncthreads();  // statistics written; the previous chunk is consumed
-    build_chunk<T, G>(load_x, stats, A_s, kFwdRows, row0, n, d0, D, lng, lnb, cs, inv_h);
+    __syncthreads();  // what build reads is written; the previous chunk is consumed
+    build(d0);
     __syncthreads();
     const int dn = min(kDC, D - d0);
     if (o < O) {
       const float* a0 = A_s + rg * 8 * S::AC;
 #pragma unroll
       for (int g = 0; g < S::NG; ++g) {
-        const T* wrow = weight_row(wb, w, g, d0, D, O) + o;
+        const TW* wrow = weight_row<BASE>(wb, w, g, d0, D, O) + o;
         for (int j = 0; j < dn; ++j) {
           const float wv = to_f(wrow[(size_t)j * O]);
           const float* a = a0 + g * kDC + j;
@@ -172,13 +188,39 @@ __device__ __forceinline__ void forward_tile(const float* x_s, float* A_s, float
     }
   }
   if (o < O) {
-    const float bias = to_f(bb[o]);
+    float bias = 0.f;
+    if constexpr (BASE) bias = to_f(bb[o]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int row = row0 + rg * 8 + i;
-      if (row < n) out[(size_t)row * O + o] = from_f<T>(acc[i] + bias);
+      if (row < n) out[(size_t)row * O + o] = from_f<TO>(BASE ? acc[i] + bias : acc[i]);
     }
   }
+}
+
+// The whole FastKANLayer forward of one tile of kFwdRows rows starting at
+// row0, whose f32 input x_s (kFwdRows x D) is already in shared memory:
+// statistics into mu_s/rstd_s, then per 32-feature chunk the basis matrix
+// in A_s (kFwdRows x AC floats) and its products with [Wb; W] in f32.
+template <typename T, int G>
+__device__ __forceinline__ void forward_tile(const float* x_s, float* A_s, float* mu_s,
+                                             float* rstd_s, int row0, int n, int D, int O,
+                                             const T* __restrict__ lng,
+                                             const T* __restrict__ lnb, const Centers& cs,
+                                             float inv_h, const T* __restrict__ w,
+                                             const T* __restrict__ wb,
+                                             const T* __restrict__ bb, T* __restrict__ out) {
+  __syncthreads();  // x_s is complete
+  ln_stats(x_s, kFwdRows, D, mu_s, rstd_s);
+  auto load_x = [&](int rr, int, int d) { return x_s[(size_t)rr * D + d]; };
+  auto stats = [&](int rr, int, float& mu, float& rstd) {
+    mu = mu_s[rr];
+    rstd = rstd_s[rr];
+  };
+  auto build = [&](int d0) {
+    build_chunk<T, G>(load_x, stats, A_s, kFwdRows, row0, n, d0, D, lng, lnb, cs, inv_h);
+  };
+  chunked_forward<G, true>(build, A_s, row0, n, D, O, wb, w, bb, out);
 }
 
 // Shared memory of forward_tile's caller: x_s, A_s, mu_s, rstd_s.

@@ -31,7 +31,10 @@
 // leaves the SM. Moving the products to wgmma is later work.
 //
 // Design: the forward gives each block a 32-row tile and a 64-wide output
-// tile and builds the basis a 32-feature chunk at a time in shared memory.
+// tile and builds the basis a 32-feature chunk at a time in shared memory:
+// the basis builder and tile product of the FastKANLayer kernels
+// (fastkan_common.cuh) without the layernorm and the SiLU column, with the
+// distance rounded to x's type.
 // The backward runs as up to three launches on the caller's stream:
 //   1. dx_kernel (skipped when x needs no gradient): one 32-row tile per
 //      block; per feature chunk dout @ W^T with the chunk's weights staged
@@ -48,96 +51,43 @@
 
 namespace {
 
+using fkan::basis_chunk;
 using fkan::Centers;
+using fkan::rbf;
 using kan::from_f;
 using kan::kDC;
+using kan::kFwdRows;
 using kan::kOT;
 using kan::kThreads;
 using kan::round_t;
 using kan::to_f;
 
-constexpr int kRows = 32;    // rows per forward and dx tile
+constexpr int kDxRows = 32;  // rows per dx tile
 constexpr int kDwRows = 32;  // rows per step of a dW tile
 
-// The G basis values and scaled distances of one input value, with the
-// rounding of x's type TX (none for f32). ROUND_EXP rounds the basis too.
-template <typename TX, int G, bool ROUND_EXP>
-__device__ __forceinline__ void basis(float xv, const Centers& cs, float inv_h, float (&b)[G],
-                                      float (&dist)[G]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float d = round_t<TX>(round_t<TX>(xv - cs.c[g]) * inv_h);
-    dist[g] = d;
-    const float e = expf(-round_t<TX>(d * d));
-    b[g] = ROUND_EXP ? round_t<TX>(e) : e;
+// load for basis_chunk: x itself is the basis input
+template <typename TX>
+struct LoadX {
+  const TX* x;
+  int D;
+  __device__ __forceinline__ void operator()(int, int row, int d, float& xv, float& xs) const {
+    xv = xs = to_f(x[(size_t)row * D + d]);
   }
-}
+};
 
-// Fill A_s (rows x G*kDC floats) with the basis of features d0..d0+kDC-1:
-// column g*kDC + j holds B_g of feature d0 + j. Rows at or past row_end and
-// features past D give zeros.
-template <typename TX, int G, bool ROUND_EXP>
-__device__ __forceinline__ void build_chunk(const TX* __restrict__ x, float* A_s, int rows,
-                                            int row0, int row_end, int d0, int D,
-                                            const Centers& cs, float inv_h) {
-  const int dd = threadIdx.x % kDC;
-  const int d = d0 + dd;
-  for (int rr = threadIdx.x / kDC; rr < rows; rr += kThreads / kDC) {
-    const int row = row0 + rr;
-    float* a = A_s + rr * (G * kDC) + dd;
-    if (d < D && row < row_end) {
-      float b[G], dist[G];
-      basis<TX, G, ROUND_EXP>(to_f(x[(size_t)row * D + d]), cs, inv_h, b, dist);
-#pragma unroll
-      for (int g = 0; g < G; ++g) a[g * kDC] = b[g];
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) a[g * kDC] = 0.f;
-    }
-  }
-}
-
-// grid (row tiles, output tiles). Thread t owns output column
-// blockIdx.y*kOT + t % kOT for 8 rows (row group t / kOT).
+// grid (row tiles, output tiles); the basis is rounded to x's type before
+// the product, as the JAX forward has it.
 template <typename TX, typename TW, int G>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out, int n, int D,
            int O, Centers cs, float inv_h) {
-  constexpr int AC = G * kDC;
   extern __shared__ __align__(16) float smem[];
-  float* A_s = smem;  // kRows x AC
-  const int row0 = blockIdx.x * kRows;
-  const int o = blockIdx.y * kOT + threadIdx.x % kOT;
-  const int rg = threadIdx.x / kOT;
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kDC) {
-    __syncthreads();  // the previous chunk's products are done with A_s
-    build_chunk<TX, G, true>(x, A_s, kRows, row0, n, d0, D, cs, inv_h);
-    __syncthreads();
-    const int dn = min(kDC, D - d0);
-    if (o < O) {
-      const float* a0 = A_s + rg * 8 * AC;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const TW* wrow = w + ((size_t)g * D + d0) * O + o;
-        for (int j = 0; j < dn; ++j) {
-          const float wv = to_f(wrow[(size_t)j * O]);
-          const float* a = a0 + g * kDC + j;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] += a[i * AC] * wv;
-        }
-      }
-    }
-  }
-  if (o < O) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = row0 + rg * 8 + i;
-      if (row < n) out[(size_t)row * O + o] = from_f<TX>(acc[i]);
-    }
-  }
+  float* A_s = smem;  // kFwdRows x G*kDC
+  const int row0 = blockIdx.x * kFwdRows;
+  auto build = [&](int d0) {
+    basis_chunk<G, false, TX, true>(LoadX<TX>{x, D}, A_s, kFwdRows, row0, n, d0, D, cs, inv_h);
+  };
+  fkan::chunked_forward<G, false, TW, TX>(build, A_s, row0, n, D, O, nullptr, w, nullptr, out);
 }
 
 // One 32-row tile per block. Thread t owns feature d0 + t % kDC of 4 rows
@@ -149,12 +99,12 @@ dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restri
   constexpr int AC = G * kDC;
   constexpr int pitch = AC + 1;  // odd pitch: conflict-free staging stores
   extern __shared__ __align__(16) float smem[];
-  float* dout_s = smem;                     // kRows x O
-  float* w_s = dout_s + (size_t)kRows * O;  // kOT x pitch, [o - o0][g*kDC + j]
+  float* dout_s = smem;                       // kDxRows x O
+  float* w_s = dout_s + (size_t)kDxRows * O;  // kOT x pitch, [o - o0][g*kDC + j]
   const int dd = threadIdx.x % kDC;
   const int rg = threadIdx.x / kDC;  // 8 row groups of 4 rows
-  const int r0 = blockIdx.x * kRows;
-  for (int i = threadIdx.x; i < kRows * O; i += kThreads) {
+  const int r0 = blockIdx.x * kDxRows;
+  for (int i = threadIdx.x; i < kDxRows * O; i += kThreads) {
     const int row = r0 + i / O;
     dout_s[i] = row < n ? to_f(dout[(size_t)r0 * O + i]) : 0.f;
   }
@@ -196,7 +146,7 @@ dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restri
       const int row = r0 + rg * 4 + i;
       if (row >= n) continue;
       float b[G], dist[G];
-      basis<TX, G, false>(to_f(x[(size_t)row * D + d]), cs, inv_h, b, dist);
+      rbf<G, TX>(to_f(x[(size_t)row * D + d]), cs, inv_h, b, dist);
       float s = 0.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) s += ((acc[i][g] * b[g]) * k2) * dist[g];
@@ -223,6 +173,7 @@ dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
   const int og = threadIdx.x % 16, kg = threadIdx.x / 16;
   const int rbeg = blockIdx.y * tile;
   const int rend = min(n, rbeg + tile);
+  const LoadX<TX> load{x, D};
   float acc[KPT][4];
 #pragma unroll
   for (int j = 0; j < KPT; ++j)
@@ -230,7 +181,7 @@ dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
     for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
   for (int r0 = rbeg; r0 < rend; r0 += kDwRows) {
     __syncthreads();  // the previous step's products are done
-    build_chunk<TX, G, false>(x, A_s, kDwRows, r0, rend, d0, D, cs, inv_h);
+    basis_chunk<G, false, TX>(load, A_s, kDwRows, r0, rend, d0, D, cs, inv_h);
     for (int i = threadIdx.x; i < kDwRows * kOT; i += kThreads) {
       const int row = r0 + i / kOT, o = o0 + i % kOT;
       dout_s[i] = (row < rend && o < O) ? to_f(dout[(size_t)row * O + o]) : 0.f;
@@ -286,9 +237,9 @@ int set_smem(K kernel, size_t bytes) {
 template <typename TX, typename TW, int G>
 int launch_fwd(const void* x, const void* w, void* out, int n, int D, int O, Centers cs,
                float inv_h, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRows * G * kDC;
+  const size_t smem = sizeof(float) * kFwdRows * G * kDC;
   if (int e = set_smem(fwd_kernel<TX, TW, G>, smem)) return e;
-  dim3 grid((n + kRows - 1) / kRows, (O + kOT - 1) / kOT);
+  dim3 grid((n + kFwdRows - 1) / kFwdRows, (O + kOT - 1) / kOT);
   if (grid.x > 0 && grid.y > 0)
     fwd_kernel<TX, TW, G><<<grid, kThreads, smem, stream>>>(
         static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), n, D, O,
@@ -303,9 +254,9 @@ int launch_bwd(const void* x, const void* w, const void* dout, void* dx, float* 
   const TX* xt = static_cast<const TX*>(x);
   const TX* gt = static_cast<const TX*>(dout);
   if (dx != nullptr && n > 0) {
-    const size_t smem = sizeof(float) * ((size_t)kRows * O + (size_t)kOT * (G * kDC + 1));
+    const size_t smem = sizeof(float) * ((size_t)kDxRows * O + (size_t)kOT * (G * kDC + 1));
     if (int e = set_smem(dx_kernel<TX, TW, G>, smem)) return e;
-    dx_kernel<TX, TW, G><<<(n + kRows - 1) / kRows, kThreads, smem, stream>>>(
+    dx_kernel<TX, TW, G><<<(n + kDxRows - 1) / kDxRows, kThreads, smem, stream>>>(
         xt, static_cast<const TW*>(w), gt, static_cast<TX*>(dx), n, D, O, cs, inv_h, k2);
     if (int e = (int)cudaGetLastError()) return e;
   }

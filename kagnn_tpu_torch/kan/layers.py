@@ -16,7 +16,7 @@ parameters stay f32 master weights.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,8 @@ from kagnn_tpu_torch.kernels.rbf_fused import fastkan_fused
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
 
+# the RBF centers' range of every FastKANLayer (the JAX layer's default)
+GRID_MIN, GRID_MAX = -2.0, 2.0
 
 def kaiming_uniform(shape, a: float, generator: torch.Generator) -> torch.Tensor:
     """torch.nn.init.kaiming_uniform_(w, a) for a weight (out, in), drawn
@@ -142,19 +144,16 @@ class KAN(nn.Module):
 
 class FastKANLayer(nn.Module):
     """RBF KAN layer (reference fastkan.py:49-85):
-        spline_linear(rbf(layernorm(x))) + base_linear(base_activation(x))
-    with centers linspace(grid_min, grid_max, num_grids) and width
-    (grid_max - grid_min) / (num_grids - 1). The defaults are the JAX
-    layer's: centers on [-2, 2], 8 of them, layernorm and base update on,
-    SiLU, spline init scale 0.1. A flag that is off creates no submodule, so
-    the state_dict has the reference's keys."""
+        spline_linear(rbf(layernorm(x))) + base_linear(silu(x))
+    with centers linspace(-2, 2, num_grids) and width 4 / (num_grids - 1).
+    The layernorm and the base update are optional, as in the JAX layer; a
+    flag that is off creates no submodule, so the state_dict has the
+    reference's keys. The grid range, SiLU and the spline weight's init
+    scale 0.1 are the JAX layer's defaults and all that its models use."""
 
-    def __init__(self, input_dim: int, output_dim: int,
-                 grid_min: float = -2.0, grid_max: float = 2.0,
-                 num_grids: int = 8, use_base_update: bool = True,
-                 use_layernorm: bool = True,
-                 base_activation: Callable[[torch.Tensor], torch.Tensor] = F.silu,
-                 spline_weight_init_scale: float = 0.1, fused: bool = False,
+    def __init__(self, input_dim: int, output_dim: int, num_grids: int = 8,
+                 use_base_update: bool = True, use_layernorm: bool = True,
+                 fused: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -164,17 +163,16 @@ class FastKANLayer(nn.Module):
             raise ValueError("Do not use layernorms on 1D inputs. Set "
                              "use_layernorm=False.")
         self.input_dim, self.output_dim = input_dim, output_dim
-        self.grid_min, self.grid_max, self.num_grids = grid_min, grid_max, num_grids
+        self.num_grids = num_grids
         self.use_base_update, self.use_layernorm = use_base_update, use_layernorm
-        self.base_activation = base_activation
         self.fused, self.compute_dtype = fused, compute_dtype
-        self.denominator = (grid_max - grid_min) / (num_grids - 1)
+        self.denominator = (GRID_MAX - GRID_MIN) / (num_grids - 1)
         if use_layernorm:
             self.layernorm = nn.LayerNorm(input_dim, eps=1e-5)
         # the holders are made uninitialised and filled from `gen` (on the
         # CPU), as the JAX layer draws them: a truncated normal on [-2, 2]
-        # times the init scale for the spline weight, U(-1/sqrt(in),
-        # 1/sqrt(in)) for the base weight and bias (torch nn.Linear's)
+        # times 0.1 for the spline weight, U(-1/sqrt(in), 1/sqrt(in)) for the
+        # base weight and bias (torch nn.Linear's)
         self.spline_linear = nn.utils.skip_init(
             nn.Linear, input_dim * num_grids, output_dim, bias=False)
         if use_base_update:
@@ -182,7 +180,7 @@ class FastKANLayer(nn.Module):
         with torch.no_grad():
             nn.init.trunc_normal_(self.spline_linear.weight, 0.0, 1.0, -2.0,
                                   2.0, generator=gen)
-            self.spline_linear.weight.mul_(spline_weight_init_scale)
+            self.spline_linear.weight.mul_(0.1)
             if use_base_update:
                 bound = 1.0 / math.sqrt(input_dim)
                 for p in (self.base_linear.weight, self.base_linear.bias):
@@ -205,7 +203,7 @@ class FastKANLayer(nn.Module):
         orig_shape = x.shape
         x = x.reshape(-1, self.input_dim)
         x, sw = self._cast(x, self.spline_linear.weight)
-        grid = (self.grid_min, self.grid_max, self.num_grids)
+        grid = (GRID_MIN, GRID_MAX, self.num_grids)
         ln = self.use_layernorm and use_layernorm
         whole = self.fused and self.use_base_update and ln
         if whole:
@@ -235,7 +233,7 @@ class FastKANLayer(nn.Module):
             ret = basis.reshape(x.shape[0], -1) @ sw.to(basis.dtype).T
         if self.use_base_update:
             wb, bb = self._cast(self.base_linear.weight, self.base_linear.bias)
-            ret = ret + self.base_activation(x) @ wb.T + bb
+            ret = ret + F.silu(x) @ wb.T + bb
         return ret.reshape(*orig_shape[:-1], self.output_dim)
 
 
@@ -243,21 +241,16 @@ class FastKAN(nn.Module):
     """Stack of FastKANLayer (reference fastkan.py:118-145); its layers keep
     the layernorm on."""
 
-    def __init__(self, layers_hidden: Sequence[int], grid_min: float = -2.0,
-                 grid_max: float = 2.0, num_grids: int = 8,
-                 use_base_update: bool = True,
-                 base_activation: Callable[[torch.Tensor], torch.Tensor] = F.silu,
-                 spline_weight_init_scale: float = 0.1, fused: bool = False,
+    def __init__(self, layers_hidden: Sequence[int], num_grids: int = 8,
+                 use_base_update: bool = True, fused: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            FastKANLayer(fin, fout, grid_min=grid_min, grid_max=grid_max,
-                         num_grids=num_grids, use_base_update=use_base_update,
-                         base_activation=base_activation,
-                         spline_weight_init_scale=spline_weight_init_scale,
-                         fused=fused, compute_dtype=compute_dtype,
-                         generator=generator, device=device)
+            FastKANLayer(fin, fout, num_grids=num_grids,
+                         use_base_update=use_base_update, fused=fused,
+                         compute_dtype=compute_dtype, generator=generator,
+                         device=device)
             for fin, fout in zip(layers_hidden[:-1], layers_hidden[1:]))
 
     def forward(self, x: torch.Tensor, mask=None, train: bool = False,

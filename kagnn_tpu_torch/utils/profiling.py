@@ -10,8 +10,8 @@
   * `time_ms(fn)` — a function's time on the card from CUDA events;
   * `kernel_report(...)` — the fused KAN kernels and their eager torch paths
     at given shapes, one roofline row each;
-  * `device_ms_per_call(run, n_calls)` — device kernel time per call, from
-    torch.profiler.
+  * `device_profile(run, n_calls)` — device kernel time per call, in all
+    and by kernel, and the host operators' self time, from torch.profiler.
 
 Nothing here times the CPU: `time_ms` and `kernel_report` raise without a
 CUDA device, where there is no kernel to time.
@@ -220,11 +220,21 @@ def kernel_report(n: int = 131072, d: int = 64, o: int = 64,
     return rows
 
 
-def device_ms_per_call(run: Callable[[], None], n_calls: int) -> Optional[float]:
-    """Summed device kernel time per call, in ms, of `run()`, which makes
-    `n_calls` calls of the function measured, from a torch.profiler trace.
-    None when the trace holds no device time (no CUDA device, or a profiler
-    that sees no kernel)."""
+@dataclasses.dataclass
+class DeviceProfile:
+    """Per call of the function profiled: `ms` the summed device kernel
+    time (None when the trace holds none: no CUDA device, or a profiler
+    that sees no kernel); `kernels` (name, ms, launches) and `host`
+    (operator, self CPU ms, calls), each longest first. The host times
+    include the profiler's own cost."""
+    ms: Optional[float]
+    kernels: list[tuple[str, float, int]]
+    host: list[tuple[str, float, int]]
+
+
+def device_profile(run: Callable[[], None], n_calls: int) -> DeviceProfile:
+    """Profile `run()`, which makes `n_calls` calls of the function
+    measured, with torch.profiler; the times per call."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
 
@@ -232,6 +242,14 @@ def device_ms_per_call(run: Callable[[], None], n_calls: int) -> Optional[float]
         run()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / n_calls if total else None
+    events = prof.key_averages()
+
+    def per_call(device_type, attr):
+        rows = [(e.key, getattr(e, attr) / 1e3 / n_calls, e.count // n_calls)
+                for e in events if e.device_type == device_type]
+        return sorted(rows, key=lambda row: -row[1])
+
+    kernels = per_call(DeviceType.CUDA, "self_device_time_total")
+    total = sum(ms for _, ms, _ in kernels)
+    return DeviceProfile(total if total else None, kernels,
+                         per_call(DeviceType.CPU, "self_cpu_time_total"))

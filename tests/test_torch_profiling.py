@@ -56,7 +56,12 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.get("name", "") for e in events)
 
 
-def test_device_ms_per_call_without_device_time_is_none():
-    """A run of CPU work only has no device time to report."""
-    assert profiling.device_ms_per_call(
-        lambda: torch.ones(8, 8) @ torch.ones(8, 8), 1) is None
+def test_device_profile_without_device_time_is_none():
+    """A run of CPU work only has no device time to report; its host
+    operators are listed per call, longest first."""
+    prof = profiling.device_profile(
+        lambda: [torch.ones(8, 8) @ torch.ones(8, 8) for _ in range(4)], 2)
+    assert prof.ms is None and prof.kernels == []
+    assert ("aten::mm", 2) in [(k, n) for k, _, n in prof.host]
+    assert [ms for _, ms, _ in prof.host] == sorted(
+        (ms for _, ms, _ in prof.host), reverse=True)

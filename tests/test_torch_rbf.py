@@ -200,13 +200,11 @@ def _jax_layer(x, kw, call_ln=True, key=0):
     return v, out, gp, gx, wt
 
 
-def _check_layer(x, kw, dt, call_ln=True, base_activation=None):
+def _check_layer(x, kw, dt, call_ln=True):
     v, out_j, gp, gx, wt = _jax_layer(x, kw, call_ln)
     pkw = {k: val for k, val in kw.items() if k != "compute_dtype"}
     pkw.update(compute_dtype=None if dt == "f32" else torch.bfloat16,
                device="cpu")
-    if base_activation is not None:
-        pkw["base_activation"] = base_activation
     m = FastKANLayer(**pkw)
     m.load_state_dict(port.fastkan_from_jax(v))
     xt = torch.from_numpy(x).requires_grad_(True)
@@ -247,33 +245,38 @@ def test_call_time_use_layernorm_false_matches_jax(rng, dt, fused):
     _check_layer(x, kw, dt, call_ln=False)
 
 
-def test_fastkan_layer_grid_range_and_activation_match_jax(rng):
-    """Centers on [-1, 3], 5 of them, and tanh as the base activation."""
-    x = (rng.normal(size=(33, 6)) + 1.0).astype(np.float32)
-    kw = dict(input_dim=6, output_dim=5, grid_min=-1.0, grid_max=3.0,
-              num_grids=5, base_activation=jnp.tanh)
-    _check_layer(x, kw, "f32", base_activation=torch.tanh)
+@pytest.mark.parametrize("xw", [XW[0], XW[2]], ids=["f32-f32", "bf16-bf16"])
+def test_rbf_spline_matmul_grid_range_matches_jax(rng, xw):
+    """The kernels take any grid range: centers on [-1, 3], 5 of them (the
+    layers keep the JAX layer's [-2, 2])."""
+    xd, wd = xw
+    (jx, jw, jd), (tx, tw, td) = _inputs(rng, 300, 6, 5, 5, xd, wd)
+    jx = jx + 1.0  # about the range's middle
+    want = _jax_rbf(jx, jw, jd, 5, grid=(-1.0, 3.0))
+    got = _port_rbf(torch.tensor(_np32(jx)).to(tx.dtype), tw, td,
+                    grid=(-1.0, 3.0))
+    for name, a, b, grad in zip(("out", "dx", "dw"), got, want,
+                                (False, True, True)):
+        close(a, b, xd, grad=grad, err_msg=name)
 
 
 def test_fastkan_flags_build_the_reference_modules():
     """A flag that is off creates no submodule (the reference's state_dict
     keys); layernorm on 1-D inputs raises only when the layernorm is on; the
-    spline init scale scales a truncated normal on [-2, 2]."""
+    spline weight is a truncated normal on [-2, 2] times 0.1."""
     m = FastKANLayer(4, 3, use_layernorm=False, use_base_update=False,
-                     spline_weight_init_scale=0.5, device="cpu")
+                     device="cpu")
     assert list(m.state_dict()) == ["spline_linear.weight"]
-    assert 0.5 < m.spline_linear.weight.abs().max() <= 1.0
+    assert 0.0 < m.spline_linear.weight.abs().max() <= 0.2
     assert sorted(FastKANLayer(4, 3, use_base_update=False,
                                device="cpu").state_dict()) == [
         "layernorm.bias", "layernorm.weight", "spline_linear.weight"]
     FastKANLayer(1, 3, use_layernorm=False, device="cpu")
     with pytest.raises(ValueError, match="1D inputs"):
         FastKANLayer(1, 3, device="cpu")
-    net = FastKAN([4, 3, 2], grid_min=-1.0, grid_max=1.0, num_grids=5,
-                  use_base_update=False, device="cpu")
+    net = FastKAN([4, 3, 2], num_grids=5, use_base_update=False, device="cpu")
     assert all(not hasattr(layer, "base_linear") and layer.use_layernorm
-               and (layer.grid_min, layer.grid_max) == (-1.0, 1.0)
-               for layer in net.layers)
+               and layer.num_grids == 5 for layer in net.layers)
 
 
 def test_fastkan_carrier_round_trips(rng):
