@@ -16,7 +16,12 @@ Phases (any failure raises, and the script exits non-zero):
      the main paths' shapes (the layer kernels also at the GAT transform's
      widths, 256 = 4 heads x 64; the RBF kernels at the base-free FastKAN's
      widths with x/w in f32/f32, f32/bf16 and bf16/bf16; the narrow sum at
-     k = 4 over the arxiv-sized graph's receivers), in f32 and bf16, with
+     k = 4 over the arxiv-sized graph's receivers; gcn_agg also on a hub row
+     of 100,000 in-edges, on a graph of light rows and on the main graph's
+     hub row alone, timed), in f32 and bf16 (a bf16 weight gradient summed
+     over row tiles against the plain walk, `selfcheck.dw_walk_check`, with
+     two wrong reduces that must fail it at the main shapes' 1,323
+     B-spline and 331 FastKAN and RBF tiles), with
      times (CUDA events) for the kernel, the plain version and, where one
      PyTorch call computes the same function, that call as the library
      yardstick (`torch.sparse.mm` on a CSR matrix; the port never calls it;
@@ -56,11 +61,13 @@ import numpy as np
 # the card's peaks (bound_ms(bytes, operations, dtype)) and the CUDA-event
 # timer, from the port; outside the repository this import fails first
 from kagnn_tpu_torch.utils.profiling import H100, time_ms
+from kagnn_tpu_torch.kernels._common import dw_tile
+from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, check_bspline_bwd,
+                                               check_fastkan_bwd, dw_walk_check)
 
 NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
                num_classes=40, grid_size=4, spline_order=3, skip=False,
                hidden_layers=2, heads=4, dropout=0.0)  # bench.py _NODE_KW
-BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
 # (D, O) of the layer kernels: GIN/GCN hidden (64, 64), head (64, 40), conv 0
 # (128, 64); GAT transforms (128, 256) and (256, 256), GAT head (256, 40)
 LAYER_SHAPES = ((64, 64), (64, 40), (128, 64), (128, 256), (256, 256), (256, 40))
@@ -123,76 +130,6 @@ def compare(torch, name, got, want, dtype):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: err/tol {ratio}")
-    return err
-
-
-# The bar of the bf16 RBF dW, a running sum over the row tiles: elementwise
-# DW_WALK_ULPS bf16 ulps (2^-8) of the largest |value| the element's running
-# sum took, and at most DW_WALK_SHARE of the elements differing from the
-# plain walk. Set from two readings at 331 tiles (PERF.md §6): the kernel
-# against its plain version, and reduces that round once at the end or skip
-# the rounding of each partial, which the bar must refuse.
-DW_WALK_ULPS = 8
-DW_WALK_SHARE = 0.01
-
-
-def compare_dw_walk(torch, name, x, w, dout, got, want, wrong_must_fail):
-    """The bf16 RBF dW against its plain version. Both add the tiles' f32
-    partials in tile order, rounding each partial and the running sum to
-    bf16; a partial whose summation order flips its rounding moves the rest
-    of that element's walk by about an ulp of the running sum, so few
-    elements differ, each by a few ulps of its peak (DW_WALK_ULPS). With
-    `wrong_must_fail` (many tiles) two wrong reduces of the same partials
-    are read too and each must fail the bar: the sum in f32 rounded once,
-    and the running sum without rounding each partial. Returns max |got -
-    want|."""
-    from kagnn_tpu_torch.kernels import rbf_fused as rf
-
-    n, D = x.shape
-    G = w.shape[0] // D
-    c, ih = rf.constants(-2.0, 2.0, G, x.dtype)
-    b, _ = rf.basis_plain(x, c, ih, round_exp=False)
-    d32 = dout.float()
-    tile = rf.dw_tile(n)
-
-    def r(t):
-        return t.bfloat16().float()
-
-    walk, peak, once, raw = (torch.zeros(w.shape, device="cuda") for _ in range(4))
-    for r0 in range(0, n, tile):
-        p = b[r0:r0 + tile].T @ d32[r0:r0 + tile]
-        walk = r(walk + r(p))
-        peak = torch.maximum(peak, walk.abs())
-        once += p
-        raw = r(raw + p)
-    del b
-    want = want.float()
-    tol = DW_WALK_ULPS * BF16_ULP * peak.clamp(min=1e-30)
-
-    def reading(v):
-        diff = (v.float() - want).abs()
-        return ((diff / tol).max().item(), (diff > 0).float().mean().item(),
-                diff.max().item())
-
-    ratio, share, err = reading(got)
-    ok = ratio <= 1.0 and share <= DW_WALK_SHARE and math.isfinite(err)
-    log(f"  {name}: max_abs_err={err:.3e} worst err/tol={ratio:.3f} "
-        f"(tol {DW_WALK_ULPS} bf16 ulps of the running-sum peak), "
-        f"{share:.5f} of elements differ (limit {DW_WALK_SHARE}; "
-        f"{-(-n // tile)} tiles) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version: err/tol {ratio}, share {share}")
-    if not wrong_must_fail:
-        return err
-    for wname, v in (("round-once", r(once)), ("unrounded-partials", raw)):
-        wr, ws, _ = reading(v)
-        refused = wr > 1.0 or ws > DW_WALK_SHARE
-        log(f"    {wname} reduce: worst err/tol={wr:.3f}, {ws:.5f} of "
-            f"elements differ: {'refused' if refused else 'FAIL: passes'}")
-        if not refused:
-            raise AssertionError(f"{name}: the bar does not refuse a {wname} "
-                                 f"reduce")
     return err
 
 
@@ -315,11 +252,10 @@ def phase_kernels(torch, big):
                 fa = (x, knots, wb, ws, k)
                 err = compare(torch, f"bspline_fwd {gname} D={D} O={O}",
                               bf.kan_linear_fwd(*fa), bf.kan_linear_fwd_plain(*fa), dn)
-                got = bf.kan_linear_bwd(*fa[:4], dout, k)
-                want = bf.kan_linear_bwd_plain(*fa[:4], dout, k)
-                errb = max(compare(torch, f"bspline_bwd {gname} D={D} O={O} {w}",
-                                   a, b, dn)
-                           for w, a, b in zip(("dx", "dwb", "dws"), got, want))
+                errb = check_bspline_bwd(
+                    f"bspline_bwd {gname} D={D} O={O}", *fa[:4], dout, k,
+                    lambda name, a, b: compare(torch, name, a, b, dn),
+                    wrong_must_fail=timed, log=log)
                 nb1 = grid_size + k + 1
                 if timed:
                     ms = time_ms(lambda: bf.kan_linear_fwd(*fa))
@@ -398,6 +334,48 @@ def csr_gcn_matrix(torch, g, dinv, dtype):
                                    size=(N, N), check_invariants=False)
 
 
+def gcn_hub_alone(torch, g, hs, dinv, dn):
+    """gcn_agg on a graph that keeps only the main graph's longest receiver
+    row (every other row empty): the time of the hub row's pieces and their
+    combine, a floor under the whole launch."""
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kernels import gcn_agg as ga
+
+    deg = g.recv_row_ptr[1:] - g.recv_row_ptr[:-1]
+    hub = int(deg[:g.n_node].argmax())
+    e0, d_hub = int(g.recv_row_ptr[hub]), int(deg[hub])
+    h = single_graph(g.senders[e0:e0 + d_hub].cpu().numpy(), np.full(d_hub, hub),
+                     n_node=g.n_node, edge_pad_multiple=1024, device="cuda")
+    args = (hs, dinv, h.senders, h.recv_row_ptr)
+    compare(torch, "gcn_agg hub row alone", ga.gcn_agg_fwd(*args, h.receivers),
+            ga.gcn_agg_plain(*args), dn)
+    ms = time_ms(lambda: ga.gcn_agg_fwd(*args, h.receivers))
+    log(f"  gcn_agg hub row alone {dn} (node {hub}, in-degree {d_hub}): {ms:.4f} ms")
+
+
+def phase_gcn_split(torch, rows):
+    """gcn_agg against its plain version on a hub row of 100,000 in-edges
+    and on a graph of light rows, D 64, f32 and bf16, twice each and equal
+    bit for bit (no atomics)."""
+    from kagnn_tpu_torch.kernels import gcn_agg as ga
+    from kagnn_tpu_torch.kernels.selfcheck import gcn_split_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for kind in ("hub", "light"):
+        g = gcn_split_graph(kind)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            hs = torch.randn(g.n_node_pad, 64, generator=gen, device="cuda").to(dtype)
+            dinv = torch.rsqrt(g.in_degrees.float() + 1.0)
+            args = (hs, dinv, g.senders, g.recv_row_ptr)
+            got = ga.gcn_agg_fwd(*args, g.receivers)
+            err = compare(torch, f"gcn_agg {kind} ({g.n_node_pad},64)", got,
+                          ga.gcn_agg_plain(*args), dn)
+            if not torch.equal(got, ga.gcn_agg_fwd(*args, g.receivers)):
+                raise AssertionError(f"gcn_agg {kind} {dn}: two runs differ")
+            record_row(rows["gcn_agg"], err, False)
+
+
 def phase_new_kernels(torch, big, rows):
     """gcn_agg, the FastKANLayer forward and backward and gin_fastkan
     against their plain versions (`big` is the main paths' graph)."""
@@ -436,11 +414,11 @@ def phase_new_kernels(torch, big, rows):
             hs = rand((N, 64), dtype)
             dinv = torch.rsqrt(g.in_degrees.to(dtype) + 1.0).float()
             args = (hs, dinv, g.senders, g.recv_row_ptr)
-            err = compare(torch, f"gcn_agg {gname} ({N},64)", ga.gcn_agg_fwd(*args),
-                          ga.gcn_agg_plain(*args), dn)
+            err = compare(torch, f"gcn_agg {gname} ({N},64)",
+                          ga.gcn_agg_fwd(*args, g.receivers), ga.gcn_agg_plain(*args), dn)
             times = {}
             if timed:
-                ms = time_ms(lambda: ga.gcn_agg_fwd(*args))
+                ms = time_ms(lambda: ga.gcn_agg_fwd(*args, g.receivers))
                 pms = time_ms(lambda: ga.gcn_agg_plain(*args))
                 mat = csr_gcn_matrix(torch, g, dinv, dtype)
                 torch.testing.assert_close(torch.sparse.mm(mat, hs).float(),
@@ -453,6 +431,7 @@ def phase_new_kernels(torch, big, rows):
                     f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
                 times = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                              library_ms=lms)
+                gcn_hub_alone(torch, g, hs, dinv, dn)
             record_row(rows["gcn_agg"], err, main, **times)
 
             # (64, 64): hidden layers; (64, 40): the head; (128, 64): conv 0;
@@ -468,12 +447,10 @@ def phase_new_kernels(torch, big, rows):
                 err = compare(torch, f"fastkan_fwd {gname} D={D} O={O}",
                               fk.fastkan_layer_fwd(*fa),
                               fk.fastkan_layer_fwd_plain(*fa), dn)
-                errb = max(compare(torch, f"fastkan_bwd {gname} D={D} O={O} {w}",
-                                   a, b, dn)
-                           for w, a, b in zip(
-                               ("dx", "dlng", "dlnb", "dw", "dwb", "dbb"),
-                               fk.fastkan_layer_bwd(*ba),
-                               fk.fastkan_layer_bwd_plain(*ba)))
+                errb = check_fastkan_bwd(
+                    f"fastkan_bwd {gname} D={D} O={O}", x, *lw[:4], dout,
+                    lambda name, a, b: compare(torch, name, a, b, dn),
+                    wrong_must_fail=timed, log=log)
                 ga_args = (x, g.senders, g.recv_row_ptr, *lw, 0.0, -2.0, 2.0)
                 errg = max((compare(torch, f"gin_fastkan {gname} D={D} O={O} {w}",
                                     a[nm], b[nm], dn)
@@ -512,6 +489,7 @@ def phase_new_kernels(torch, big, rows):
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
                                bound_ms=bms, bound_by=by)
+    phase_gcn_split(torch, rows)
     phase_gat_kernels(torch, big, rows)
     phase_rbf_narrow_kernels(torch, big, rows)
     phase_autograd_functions(torch)
@@ -653,8 +631,11 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                 bname = f"rbf_bwd {gname} {xn}/{wn} D={D} O={O}"
                 errb = compare(torch, f"{bname} dx", dx, pdx, xn)
                 if wn == "bfloat16":
-                    errb = max(errb, compare_dw_walk(torch, f"{bname} dw", x, w, dout,
-                                                     dw, pdw, timed))
+                    c, ih = rf.constants(-2.0, 2.0, RBF_G, x.dtype)
+                    basis, _ = rf.basis_plain(x, c, ih, round_exp=False)
+                    errb = max(errb, dw_walk_check(f"{bname} dw", basis, dout,
+                                                   dw_tile(N), dw, pdw, timed, log))
+                    del basis
                 else:
                     errb = max(errb, compare(torch, f"{bname} dw", dw, pdw, wn))
                 del dx, dw, pdx, pdw

@@ -11,25 +11,47 @@
 // Bound on the H100: at the main path's shapes (N = 169,344 rows, D = 64 or
 // 128, O = 64 or 40, 8 groups) each product is 2*N*8D*O operations against
 // N*(D+O) elements moved, about 50-100 operations per byte, below the bf16
-// tensor-core ridge of about 295: device-memory bytes bound it. This first
-// version computes the products on the CUDA cores in f32, so its time is set
-// by issue rate, not by bytes; the basis matrix still never leaves the SM.
-// Moving the products to wgmma is later work.
+// tensor-core ridge of about 295: device-memory bytes bound it. The forward
+// computes its product on the CUDA cores in f32, so its time is set by
+// issue rate, not by bytes; the basis matrix never leaves the SM.
 //
-// The backward runs as three launches, all on the caller's stream:
-//   1. dx: a tile of 64 rows computes dout @ [Wb; Ws]^T per 32-feature chunk
-//      (the chunk's weights staged in shared memory one 64-wide tile of
-//      outputs at a time, so any O fits: 131 KB at O = 256), rebuilds the
-//      ladder from x and applies the analytic derivative;
-//   2. dW partials: the TPU kernel accumulates dWb/dWs across its sequential
-//      grid; Hopper blocks run in parallel, so a fixed number of blocks
-//      (about two per SM) each sum a contiguous range of rows into an f32
-//      partial buffer of its own;
-//   3. a second small pass adds the partials in a fixed order and casts once
-//      to the weights' dtype. The result is deterministic. (The JAX kernel
-//      adds its per-tile partials in the output dtype, bf16 under mixed
-//      precision; the port adds them in f32. At one or two row tiles the two
-//      agree.)
+// The backward, under bf16, runs both products on the tensor cores with
+// mma.sync.m16n8k16 (bf16 operands from ldmatrix, f32 accumulators): the
+// JAX `preferred_element_type=f32` products, exact products summed in f32
+// in another order. (wgmma needs 64-row warpgroup tiles fed by shared-memory
+// descriptors; the per-(row, feature) ladder epilogue here wants each
+// thread to hold all of a feature's groups, which the m16n8 fragment layout
+// gives directly. Moving to wgmma is later work.) In f32 the products stay
+// on the CUDA cores (TF32 would miss the f32 bars). Launches (the wrapper
+// runs 1 on a second stream, beside 2 and 3 on the caller's: they share
+// only their inputs, and the dx kernel's one block an SM leaves room for
+// the dW kernel's):
+//   1. dx. bf16: dx_mma_kernel, persistent blocks each own one 32-feature
+//      chunk and stage its weights [Wb; Ws] once in shared memory, ordered
+//      so that warp nw's 8 n-tiles of 8 columns are the NG groups of
+//      features nw*8 .. nw*8+7; then per 32-row tile dbasis = dout @ W^T on
+//      the tensor cores, and each thread, holding every group of its
+//      (row, feature) pairs in its accumulators, rebuilds the Cox-de Boor
+//      ladder (kan::ladder) with its penultimate bases and writes dx. f32:
+//      dx_kernel, the same function on the CUDA cores, 64-row tiles, the
+//      chunk's weights staged one 64-wide output tile at a time;
+//   2. dW partials, one per row tile of the JAX backward (128 rows): the
+//      TPU kernel adds them across its sequential grid; Hopper blocks run in
+//      parallel, so each (feature chunk, tile) block writes its partial of
+//      [SiLU(x) | B(x)]^T @ dout, rounded to the weights' dtype (exact: the
+//      walk rounds it first). bf16: dw_mma_kernel builds the tile's basis in
+//      shared memory (rounded to bf16 as the JAX kernel casts it) and runs
+//      the product on the tensor cores; f32: dw_partial_kernel on the CUDA
+//      cores;
+//   3. kan::walk_tiles adds the partials in tile order, rounding the running
+//      sum after each tile, as `dw_ref += partial.astype(dw.dtype)`. The
+//      partials are walked in windows of at most 128 MiB of scratch that
+//      carry the running sum (1,323 tiles of 524,288 bf16 at (256, 256) are
+//      1.39 GB: 11 windows). Partials rather than blocks that own a dW tile and walk
+//      the rows themselves: each (row, feature) ladder is then built once,
+//      and 1,323 x D/32 blocks fill the card, where an in-block walk runs
+//      as many blocks as dW has 64 x 64 tiles (8 at (64, 64)).
+// No atomics: the result is deterministic.
 
 #include "kan_common.cuh"
 
@@ -37,8 +59,10 @@ namespace {
 
 using namespace kan;
 
-constexpr int kDxRows = 64;  // rows per dx tile: 8 row groups of 8
-constexpr int kDwRows = 32;  // rows per dW partial step
+constexpr int kDxRows = 64;   // rows per tile of the f32 dx kernel: 8 row groups of 8
+constexpr int kDwRows = 32;   // rows per step of the f32 dW partial kernel
+constexpr int kTile = 128;    // rows per tile of the JAX backward (DEFAULT_TILE_N)
+constexpr int kMmaRows = 32;  // rows per tile of the bf16 dx kernel
 
 template <typename T, int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
@@ -124,24 +148,24 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T* __restr
   }
 }
 
-// grid (D chunks, splits, O tiles). Thread t owns 4 output columns
-// (t % 16) x KPT basis columns (t / 16) of the chunk's (AC, kOT) block.
+// f32: grid (D chunks, row tiles t0.. of one window, O tiles): the partial
+// of rows [t*kTile, (t+1)*kTile). Thread t owns 4 output columns (t % 16) x
+// KPT basis columns (t / 16) of the chunk's (AC, kOT) block.
 template <typename T, int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
 dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ knots,
-                  const T* __restrict__ dout, float* __restrict__ partial, int n, int D, int O,
-                  int rows_per_split) {
+                  const T* __restrict__ dout, T* __restrict__ partial, int n, int D, int O,
+                  int t0) {
   using S = Shape<ORDER, GRID>;
   constexpr int KPT = S::AC / 16;
   extern __shared__ __align__(16) float smem[];
   float* A_s = smem;                      // kDwRows x AC
   float* dout_s = smem + kDwRows * S::AC; // kDwRows x kOT
   const int d0 = blockIdx.x * kDC;
-  const int split = blockIdx.y;
   const int o0 = blockIdx.z * kOT;
   const int og = threadIdx.x % 16, kg = threadIdx.x / 16;
-  const int rbeg = split * rows_per_split;
-  const int rend = min(n, rbeg + rows_per_split);
+  const int rbeg = (t0 + blockIdx.y) * kTile;
+  const int rend = min(n, rbeg + kTile);
   float acc[KPT][4];
 #pragma unroll
   for (int j = 0; j < KPT; ++j)
@@ -170,7 +194,7 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ knots,
       }
     }
   }
-  const size_t m = (size_t)S::NG * D * O;
+  T* part = partial + blockIdx.y * ((size_t)S::NG * D * O);
 #pragma unroll
   for (int j = 0; j < KPT; ++j) {
     const int c = kg * KPT + j;
@@ -180,7 +204,255 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ knots,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int o = o0 + og * 4 + q;
-      if (o < O) partial[split * m + gc * O + o] = acc[j][q];
+      if (o < O) part[gc * O + o] = from_f<T>(acc[j][q]);
+    }
+  }
+}
+
+// ---- bf16 backward on the tensor cores -------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lane t gives the address of row t % 8 of matrix
+// t / 8. TRANS delivers each matrix transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+}
+
+// two 8x8 b16 matrices (lanes 0..15 give the addresses)
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c (16x8, f32) += a (16x16, bf16, row) @ b (16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy `rows` rows of `cols` bf16 (row r from src(r), or zeros where src(r)
+// is null) into dst (pitch elements a row), and zero columns cols..cpad-1.
+// 16-byte copies when every source row is 16-byte aligned (cols % 8 == 0).
+template <typename Src>
+__device__ __forceinline__ void stage_rows(bf16* dst, int pitch, int rows, int cols, int cpad,
+                                           Src src) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  if (cols % 8 == 0) {
+    const int vpr = cpad / 8;  // 16-byte packs a row
+    for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
+      const int r = i / vpr, c = (i % vpr) * 8;
+      const bf16* sr = src(r);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (sr != nullptr && c < cols) v = *reinterpret_cast<const uint4*>(sr + c);
+      *reinterpret_cast<uint4*>(dst + (size_t)r * pitch + c) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cpad; i += kThreads) {
+      const int r = i / cpad, c = i % cpad;
+      const bf16* sr = src(r);
+      dst[(size_t)r * pitch + c] = (sr != nullptr && c < cols) ? sr[c] : zero;
+    }
+  }
+}
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// dx under bf16. grid (persistent row blocks, D chunks). Shared memory:
+// W_s (AC x (O16 + 8)): row n = nw*NG*8 + g*8 + l holds [Wb; Ws] row
+// (g, d0 + nw*8 + l), so warp (mw, nw) (8 warps: 2 x 4) computes rows
+// mw*16.. of the 32-row tile against NG n-tiles that are the NG groups of
+// its 8 features; dout_s (32 x (O16 + 8)) the tile's dout. One block an SM
+// (about 170 registers a thread): two at 128 registers, with the knots in
+// shared memory and x loaded ahead of the barrier, measured slower on the
+// H100 (0.355 against 0.278 ms at (64, 64)).
+template <int ORDER, int GRID>
+__global__ void __launch_bounds__(kThreads)
+dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
+              const bf16* __restrict__ wb, const bf16* __restrict__ ws,
+              const bf16* __restrict__ dout, bf16* __restrict__ dx, int n, int D, int O) {
+  using S = Shape<ORDER, GRID>;
+  constexpr int NG = S::NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int O16 = round_up(O, 16), pitch = O16 + 8;
+  bf16* W_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dout_s = W_s + (size_t)S::AC * pitch;
+  const int d0 = blockIdx.y * kDC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mw = warp / 4, nw = warp % 4;
+  const int gid = lane / 4, tig = lane % 4;
+  stage_rows(W_s, pitch, S::AC, O, O16, [&](int r) -> const bf16* {
+    const int q = r / (NG * 8), g = (r % (NG * 8)) / 8, l = r % 8;
+    const int d = d0 + q * 8 + l;
+    return d < D ? weight_row(wb, ws, g, d, D, O) : nullptr;
+  });
+  // this thread's two features and their knots
+  float t[2][S::NK];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int d = d0 + nw * 8 + tig * 2 + p;
+#pragma unroll
+    for (int j = 0; j < S::NK; ++j) t[p][j] = d < D ? to_f(knots[(size_t)j * D + d]) : 0.f;
+  }
+  for (int r0 = blockIdx.x * kMmaRows; r0 < n; r0 += gridDim.x * kMmaRows) {
+    __syncthreads();  // W_s is staged; the previous tile is done with dout_s
+    stage_rows(dout_s, pitch, kMmaRows, O, O16, [&](int r) -> const bf16* {
+      return r0 + r < n ? dout + (size_t)(r0 + r) * O : nullptr;
+    });
+    __syncthreads();
+    float acc[NG][4];
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
+    for (int k0 = 0; k0 < O16; k0 += 16) {
+      unsigned a[4];
+      ldmatrix_x4<false>(a, dout_s + (size_t)(mw * 16 + (lane / 8 % 2) * 8 + lane % 8) * pitch +
+                                k0 + (lane / 16) * 8);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        unsigned b[2];
+        ldmatrix_x2(b, W_s + (size_t)(nw * NG * 8 + g * 8 + lane % 8) * pitch + k0 +
+                           (lane / 8 % 2) * 8);
+        mma_bf16(acc[g], a, b[0], b[1]);
+      }
+    }
+    // acc[g][2*h + p] is dbasis of row mw*16 + gid + 8*h, group g, feature
+    // d0 + nw*8 + tig*2 + p
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + mw * 16 + gid + 8 * h;
+      if (row >= n) continue;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int d = d0 + nw * 8 + tig * 2 + p;
+        if (d >= D) continue;
+        const float xv = to_f(x[(size_t)row * D + d]);
+        float v = acc[0][2 * h + p] * dsilu(xv, sigmoid(xv));
+        float b[S::NK - 1], pen[S::NK - ORDER];
+        ladder<ORDER, S::NK>(xv, t[p], b, pen);
+#pragma unroll
+        for (int g = 0; g < S::NB; ++g) {
+          const float left = pen[g] * (1.f / (t[p][g + ORDER] - t[p][g]));
+          const float right = pen[g + 1] * (1.f / (t[p][g + ORDER + 1] - t[p][g + 1]));
+          v += acc[g + 1][2 * h + p] * ((float)ORDER * (left - right));
+        }
+        dx[(size_t)row * D + d] = from_f<bf16>(v);
+      }
+    }
+  }
+}
+
+// dW partials under bf16. grid (D chunks, row tiles t0.. of one window).
+// Shared memory: A_s (kTile x (AC + 8)), the tile's [SiLU(x) | B(x)]
+// rounded to bf16, column g*kDC + j for feature d0 + j; dout_s (kTile x
+// (O64 + 8)). Per 64-wide output pass, warp w computes the 16-row m-tiles
+// w, w + 8, .. of A^T @ dout (M = AC, K = kTile rows, N = 64) and writes
+// them rounded to bf16.
+template <int ORDER, int GRID>
+__global__ void __launch_bounds__(kThreads)
+dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
+              const bf16* __restrict__ dout, bf16* __restrict__ partial, int n, int D, int O,
+              int t0) {
+  using S = Shape<ORDER, GRID>;
+  constexpr int pa = S::AC + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int O64 = round_up(O, 64), po = O64 + 8;
+  bf16* A_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dout_s = A_s + (size_t)kTile * pa;
+  const int d0 = blockIdx.x * kDC;
+  const int rbeg = (t0 + blockIdx.y) * kTile;
+  const int rows = min(kTile, n - rbeg);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+
+  {  // the basis of the tile: thread t owns feature d0 + t % kDC
+    const int j = threadIdx.x % kDC, d = d0 + j;
+    float t[S::NK];
+#pragma unroll
+    for (int q = 0; q < S::NK; ++q) t[q] = d < D ? to_f(knots[(size_t)q * D + d]) : 0.f;
+    for (int r = threadIdx.x / kDC; r < kTile; r += kThreads / kDC) {
+      bf16* a = A_s + (size_t)r * pa + j;
+      if (d < D && r < rows) {
+        const float xv = to_f(x[(size_t)(rbeg + r) * D + d]);
+        a[0] = from_f<bf16>(xv * sigmoid(xv));
+        float b[S::NK - 1];
+        ladder<ORDER, S::NK>(xv, t, b, nullptr);
+#pragma unroll
+        for (int g = 0; g < S::NB; ++g) a[(g + 1) * kDC] = from_f<bf16>(b[g]);
+      } else {
+#pragma unroll
+        for (int g = 0; g < S::NG; ++g) a[g * kDC] = from_f<bf16>(0.f);
+      }
+    }
+  }
+  stage_rows(dout_s, po, kTile, O, O64, [&](int r) -> const bf16* {
+    return r < rows ? dout + (size_t)(rbeg + r) * O : nullptr;
+  });
+  __syncthreads();
+
+  bf16* part = partial + blockIdx.y * ((size_t)S::NG * D * O);
+  const bool pairs = O % 2 == 0;
+  for (int o0 = 0; o0 < O; o0 += 64) {
+    for (int mt = warp; mt < S::AC / 16; mt += kThreads / 32) {
+      float acc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < kTile; k0 += 16) {
+        unsigned a[4];
+        ldmatrix_x4<true>(a, A_s + (size_t)(k0 + (lane / 16) * 8 + lane % 8) * pa + mt * 16 +
+                                 (lane / 8 % 2) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          unsigned b[4];
+          ldmatrix_x4<true>(b, dout_s + (size_t)(k0 + (lane / 8 % 2) * 8 + lane % 8) * po + o0 +
+                                   np * 16 + (lane / 16) * 8);
+          mma_bf16(acc[2 * np], a, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // acc[nt][2*h + p]: A column mt*16 + gid + 8*h, output o0 + nt*8 + tig*2 + p
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = mt * 16 + gid + 8 * h;
+        const int d = d0 + c % kDC;
+        if (d >= D) continue;
+        bf16* prow = part + ((size_t)(c / kDC) * D + d) * O;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int o = o0 + nt * 8 + tig * 2;
+          if (pairs && o + 1 < O) {
+            *reinterpret_cast<__nv_bfloat162*>(prow + o) =
+                __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
+          } else {
+            if (o < O) prow[o] = from_f<bf16>(acc[nt][2 * h]);
+            if (o + 1 < O) prow[o + 1] = from_f<bf16>(acc[nt][2 * h + 1]);
+          }
+        }
+      }
     }
   }
 }
@@ -205,32 +477,76 @@ int launch_fwd(const void* x, const void* knots, const void* wb, const void* ws,
   return (int)cudaGetLastError();
 }
 
+// dx (the caller may put it on a stream of its own: it shares nothing with
+// the dW launches but their inputs).
 template <typename T, int ORDER, int GRID>
-int launch_bwd(const void* x, const void* knots, const void* wb, const void* ws,
-               const void* dout, void* dx, float* partial, void* dw, int n, int D, int O,
-               int splits, cudaStream_t stream) {
+int launch_dx(const void* x, const void* knots, const void* wb, const void* ws,
+              const void* dout, void* dx, int n, int D, int O, cudaStream_t stream) {
   using S = Shape<ORDER, GRID>;
   const T* xt = static_cast<const T*>(x);
   const T* kt = static_cast<const T*>(knots);
   const T* gt = static_cast<const T*>(dout);
-  if (dx != nullptr && n > 0) {
+  if (n == 0) return 0;
+  if constexpr (std::is_same_v<T, bf16>) {
+    const int chunks = (D + kDC - 1) / kDC;
+    const size_t smem = sizeof(bf16) * (size_t)(S::AC + kMmaRows) * (round_up(O, 16) + 8);
+    if (int e = set_smem(dx_mma_kernel<ORDER, GRID>, smem)) return e;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int tiles = (n + kMmaRows - 1) / kMmaRows;
+    dim3 grid(std::max(1, std::min(tiles, (2 * sms + chunks - 1) / chunks)), chunks);
+    dx_mma_kernel<ORDER, GRID><<<grid, kThreads, smem, stream>>>(
+        xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt, static_cast<T*>(dx),
+        n, D, O);
+  } else {
     const size_t smem = sizeof(float) * ((size_t)kDxRows * O + (size_t)kOT * (S::AC + 1));
     if (int e = set_smem(dx_kernel<T, ORDER, GRID>, smem)) return e;
     dx_kernel<T, ORDER, GRID><<<(n + kDxRows - 1) / kDxRows, kThreads, smem, stream>>>(
-        xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt,
-        static_cast<T*>(dx), n, D, O);
-    if (int e = (int)cudaGetLastError()) return e;
+        xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt, static_cast<T*>(dx),
+        n, D, O);
   }
-  const int tiles = (n + kDwRows - 1) / kDwRows;
-  const int rows_per_split = ((tiles + splits - 1) / splits) * kDwRows;
-  const size_t smem = sizeof(float) * ((size_t)kDwRows * S::AC + kDwRows * kOT);
-  if (int e = set_smem(dw_partial_kernel<T, ORDER, GRID>, smem)) return e;
-  dim3 grid((D + kDC - 1) / kDC, splits, (O + kOT - 1) / kOT);
-  dw_partial_kernel<T, ORDER, GRID><<<grid, kThreads, smem, stream>>>(
-      xt, kt, gt, partial, n, D, O, rows_per_split);
-  if (int e = (int)cudaGetLastError()) return e;
-  return reduce_partials<T>(partial, static_cast<T*>(dw), splits, (size_t)S::NG * D * O,
-                            stream);
+  return (int)cudaGetLastError();
+}
+
+// The dW partials of `window` tiles at a time, each window walked into dw
+// (carrying the running sum).
+template <typename T, int ORDER, int GRID>
+int launch_dw(const void* x, const void* knots, const void* dout, void* partial, void* dw, int n,
+              int D, int O, int window, cudaStream_t stream) {
+  using S = Shape<ORDER, GRID>;
+  constexpr bool kMma = std::is_same_v<T, bf16>;
+  const T* xt = static_cast<const T*>(x);
+  const T* kt = static_cast<const T*>(knots);
+  const T* gt = static_cast<const T*>(dout);
+  T* pt = static_cast<T*>(partial);
+  const int chunks = (D + kDC - 1) / kDC;
+  size_t smem;
+  if constexpr (kMma) {
+    smem = sizeof(bf16) * (size_t)kTile * (S::AC + 8 + round_up(O, 64) + 8);
+    if (int e = set_smem(dw_mma_kernel<ORDER, GRID>, smem)) return e;
+  } else {
+    smem = sizeof(float) * ((size_t)kDwRows * S::AC + kDwRows * kOT);
+    if (int e = set_smem(dw_partial_kernel<T, ORDER, GRID>, smem)) return e;
+  }
+  const int tiles = (n + kTile - 1) / kTile;
+  const size_t m = (size_t)S::NG * D * O;
+  for (int t0 = 0; t0 < tiles || t0 == 0; t0 += window) {
+    const int wt = std::max(0, std::min(window, tiles - t0));
+    if (wt > 0) {
+      if constexpr (kMma) {
+        dw_mma_kernel<ORDER, GRID><<<dim3(chunks, wt), kThreads, smem, stream>>>(xt, kt, gt, pt,
+                                                                                 n, D, O, t0);
+      } else {
+        dw_partial_kernel<T, ORDER, GRID>
+            <<<dim3(chunks, wt, (O + kOT - 1) / kOT), kThreads, smem, stream>>>(xt, kt, gt, pt,
+                                                                               n, D, O, t0);
+      }
+      if (int e = (int)cudaGetLastError()) return e;
+    }
+    if (int e = kan::walk_tiles<T, T>(pt, static_cast<T*>(dw), wt, m, t0 > 0, stream)) return e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -244,12 +560,21 @@ extern "C" int bspline_fwd(const void* x, const void* knots, const void* wb, con
   KAN_DISPATCH(dtype, order, grid, launch_fwd, x, knots, wb, ws, out, n, d, o, s);
 }
 
-// dx (n, D) (skipped when dx is null) and dw (NG*D, O) = [dWb; dWs] from
-// dout (n, O). partial is f32 scratch of splits * NG*D*O elements.
-extern "C" int bspline_bwd(const void* x, const void* knots, const void* wb, const void* ws,
-                           const void* dout, void* dx, float* partial, void* dw, int n, int d,
-                           int o, int grid, int order, int dtype, int splits, void* stream) {
+// dx (n, D) from dout (n, O); x (n, D), knots (K, D), wb (D, O), ws
+// (NB*D, O), all of one dtype, device memory, contiguous.
+extern "C" int bspline_bwd_dx(const void* x, const void* knots, const void* wb, const void* ws,
+                              const void* dout, void* dx, int n, int d, int o, int grid,
+                              int order, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KAN_DISPATCH(dtype, order, grid, launch_bwd, x, knots, wb, ws, dout, dx, partial, dw, n, d,
-               o, splits, s);
+  KAN_DISPATCH(dtype, order, grid, launch_dx, x, knots, wb, ws, dout, dx, n, d, o, s);
+}
+
+// dw (NG*D, O) = [dWb; dWs] from dout (n, O), summed over row tiles of 128
+// in tile order. partial: scratch of window * NG*D*O elements of the
+// inputs' dtype.
+extern "C" int bspline_bwd_dw(const void* x, const void* knots, const void* dout, void* partial,
+                              void* dw, int n, int d, int o, int grid, int order, int dtype,
+                              int window, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  KAN_DISPATCH(dtype, order, grid, launch_dw, x, knots, dout, partial, dw, n, d, o, window, s);
 }

@@ -15,25 +15,27 @@
 // (N, G*D) basis never leaves the SM. Moving the products to wgmma is later
 // work.
 //
-// The backward runs as four launches on the caller's stream:
+// The backward runs as up to five launches on the caller's stream:
 //   1. dx_kernel: about two blocks per SM each walk a contiguous range of
-//      32-row tiles. Per tile: LayerNorm statistics (written to a scratch
-//      (N, 2) buffer for launch 2), then per 32-feature chunk
+//      32-row pieces. Per piece: LayerNorm statistics (written to a scratch
+//      (N, 2) buffer for launch 3), then per 32-feature chunk
 //      dout @ [Wb; W]^T with the chunk's weights staged in shared memory
-//      one 64-wide tile of outputs at a time (175 KB at D = O = 256),
-//      the RBF derivative into dxs and the SiLU' term, and last the
-//      LayerNorm VJP per row. dlng/dlnb add up in shared memory over the
-//      block's rows (one thread per feature, rows in order) and leave as
-//      one f32 partial per block;
-//   2. dw_partial_kernel: the TPU kernel sums dW, dWb and dbb across its
-//      sequential grid; Hopper blocks run in parallel, so a fixed number of
-//      blocks each sum a contiguous row range into an f32 partial of its
-//      own (as bspline_fused.cu);
-//   3./4. reduce passes (kan_common.cuh) add the partials in a fixed order
-//      and cast once to
-//      the weights' dtype. No atomics: the result is deterministic. (The
-//      JAX kernel adds its per-tile partials in the weights' dtype, bf16
-//      under mixed precision; the port adds in f32.)
+//      one 64-wide tile of outputs at a time (175 KB at D = O = 256), the
+//      RBF derivative into dxs and the SiLU' term, and last the LayerNorm VJP
+//      per row. The piece's sums of dxs * xhat and dxs (rows in order) leave
+//      as its f32 partial of dlng/dlnb;
+//   2. tile_sums_kernel adds the pieces of each row tile of the JAX
+//      backward (`_tile_for(n, 512)` rows: 512, or 256 under 256 rows) into
+//      the tile's f32 partial;
+//   3. dw_partial_kernel: one block per (feature chunk, row tile, output
+//      tile) writes the tile's partial of dW, dWb and dbb, rounded to the
+//      weights' dtype (exact: the walk rounds each partial first);
+//   4./5. kan::walk_tiles adds the partials in tile order, rounding the
+//      running sum to the weights' dtype after each tile, as the JAX
+//      kernel's `dw_ref += partial.astype(dw.dtype)` over its sequential
+//      grid; the dW partials in windows of tiles (at most 128 MiB of
+//      scratch) that carry the running sum, dlng/dlnb in one pass. No
+//      atomics: the result is deterministic.
 // A row of zeros (pad rows after MaskedBatchNorm) has variance 0 and
 // rstd = 1/sqrt(1e-5): finite, as in the JAX kernel.
 
@@ -69,7 +71,7 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restrict__ lnb,
           const T* __restrict__ w, const T* __restrict__ wb, const T* __restrict__ dout,
-          T* __restrict__ dx, float* __restrict__ stats, float* __restrict__ ln_partial, int n,
+          T* __restrict__ dx, float* __restrict__ stats, float* __restrict__ ln_sub, int n,
           int D, int O, Centers cs, float inv_h, int rows_per_split) {
   using S = Shape<G>;
   constexpr int R = kDxRows;
@@ -82,8 +84,6 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
   float* w_s = dout_s + (size_t)R * O;         // kOT x pitch, [o - o0][g*kDC + j]
   float* mu_s = w_s + (size_t)kOT * pitch;     // R
   float* rstd_s = mu_s + R;                    // R
-  float* dlng_s = rstd_s + R;                  // D
-  float* dlnb_s = dlng_s + D;                  // D
   const int dd = threadIdx.x % kDC;
   const int rg = threadIdx.x / kDC;  // 8 row groups of 4 rows
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -91,7 +91,6 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
   const int rend = min(n, rbeg + rows_per_split);
   const float two_inv_h = -2.f * inv_h;
 
-  for (int d = threadIdx.x; d < D; d += kThreads) dlng_s[d] = dlnb_s[d] = 0.f;
   for (int r0 = rbeg; r0 < rend; r0 += R) {
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < R * D; i += kThreads) {
@@ -162,7 +161,8 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
       }
     }
     __syncthreads();
-    // dlng += sum_rows dxs * xhat, dlnb += sum_rows dxs (rows in order)
+    // this R-row piece's sums of dxs * xhat and dxs (rows in order)
+    float* sub = ln_sub + (size_t)(r0 / R) * 2 * D;
     for (int d = threadIdx.x; d < D; d += kThreads) {
       float sg = 0.f, sb = 0.f;
       for (int rr = 0; rr < R; ++rr) {
@@ -170,8 +170,8 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
         sg += v * ((x_s[rr * D + d] - mu_s[rr]) * rstd_s[rr]);
         sb += v;
       }
-      dlng_s[d] += sg;
-      dlnb_s[d] += sb;
+      sub[d] = sg;
+      sub[D + d] = sb;
     }
     if (dx == nullptr) continue;
     // the LayerNorm VJP per row: dx = rstd (dxhat - mean dxhat - xhat mean(dxhat xhat))
@@ -193,34 +193,42 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restric
       }
     }
   }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    ln_partial[(size_t)blockIdx.x * 2 * D + d] = dlng_s[d];
-    ln_partial[(size_t)blockIdx.x * 2 * D + D + d] = dlnb_s[d];
-  }
 }
 
-// grid (D chunks, splits, O tiles). Thread t owns 4 output columns
-// (t % 16) x KPT basis columns (t / 16) of the chunk's (AC, kOT) block.
-// The blocks of the first D chunk also sum dout into dbb.
+// out[t*m + i] = sum over j < group, in order, of sub[(t*group + j)*m + i]
+// (pieces past `parts` left out): the R-row pieces of dlng/dlnb added into
+// the JAX tile's f32 partial.
+__global__ void tile_sums_kernel(const float* __restrict__ sub, float* __restrict__ out,
+                                 int parts, int group, int tiles, int m) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= tiles * m) return;
+  const int t = i / m, c = i % m;
+  float s = 0.f;
+  for (int j = t * group; j < min(parts, (t + 1) * group); ++j) s += sub[(size_t)j * m + c];
+  out[i] = s;
+}
+
+// grid (D chunks, row tiles t0.. of one window, O tiles): the partial of
+// rows [t*tile, (t+1)*tile), rounded to T. Thread t owns 4 output columns
+// (t % 16) x KPT basis columns (t / 16) of the chunk's (AC, kOT) block. The
+// blocks of the first D chunk also sum dout into dbb.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ lng,
                   const T* __restrict__ lnb, const float* __restrict__ stats,
-                  const T* __restrict__ dout, float* __restrict__ partial, int n, int D, int O,
-                  Centers cs, float inv_h, int rows_per_split) {
+                  const T* __restrict__ dout, T* __restrict__ partial, int n, int D, int O,
+                  Centers cs, float inv_h, int tile, int t0) {
   using S = Shape<G>;
   constexpr int KPT = S::AC / 16;
   extern __shared__ __align__(16) float smem[];
   float* A_s = smem;                       // kDwRows x AC
   float* dout_s = smem + kDwRows * S::AC;  // kDwRows x kOT
   const int d0 = blockIdx.x * kDC;
-  const int split = blockIdx.y;
   const int o0 = blockIdx.z * kOT;
   const int og = threadIdx.x % 16, kg = threadIdx.x / 16;
   const bool sums_bias = blockIdx.x == 0 && kg == 0;
-  const int rbeg = split * rows_per_split;
-  const int rend = min(n, rbeg + rows_per_split);
+  const int rbeg = (t0 + blockIdx.y) * tile;
+  const int rend = min(n, rbeg + tile);
   float acc[KPT][4];
   float bacc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -261,7 +269,7 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ lng,
     }
   }
   const size_t m = (size_t)S::NG * D * O + O;
-  float* part = partial + split * m;
+  T* part = partial + blockIdx.y * m;
 #pragma unroll
   for (int j = 0; j < KPT; ++j) {
     const int c = kg * KPT + j;
@@ -271,14 +279,14 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ lng,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int o = o0 + og * 4 + q;
-      if (o < O) part[gc * O + o] = acc[j][q];
+      if (o < O) part[gc * O + o] = from_f<T>(acc[j][q]);
     }
   }
   if (sums_bias) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int o = o0 + og * 4 + q;
-      if (o < O) part[(size_t)S::NG * D * O + o] = bacc[q];
+      if (o < O) part[(size_t)S::NG * D * O + o] = from_f<T>(bacc[q]);
     }
   }
 }
@@ -306,39 +314,50 @@ int launch_fwd(const void* x, const void* lng, const void* lnb, const void* w, c
 
 template <typename T, int G>
 int launch_bwd(const void* x, const void* lng, const void* lnb, const void* w, const void* wb,
-               const void* dout, void* dx, float* stats, float* ln_partial, float* w_partial,
-               void* grads, int n, int D, int O, Centers cs, float inv_h, int splits_x,
-               int splits_w, cudaStream_t stream) {
+               const void* dout, void* dx, float* stats, float* ln_partial, void* w_partial,
+               void* grads, int n, int D, int O, Centers cs, float inv_h, int tile, int window,
+               cudaStream_t stream) {
   using S = Shape<G>;
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(dout);
   const T* lg = static_cast<const T*>(lng);
   const T* lb = static_cast<const T*>(lnb);
   T* out = static_cast<T*>(grads);
+  T* wp = static_cast<T*>(w_partial);
   const size_t m_w = (size_t)S::NG * D * O + O;  // [dWb; dW] then dbb
+  const int tiles = (n + tile - 1) / tile;
+  const int pieces = (n + kDxRows - 1) / kDxRows;
+  float* ln_tiles = ln_partial + (size_t)pieces * 2 * D;
   if (n > 0) {
-    const int tiles = (n + kDxRows - 1) / kDxRows;
-    const int rows = ((tiles + splits_x - 1) / splits_x) * kDxRows;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int per = (pieces + 2 * sms - 1) / (2 * sms);  // pieces a block: about two blocks an SM
     const size_t smem = sizeof(float) * (3 * (size_t)kDxRows * D + (size_t)kDxRows * O +
-                                         (size_t)kOT * (S::AC + 1) + 2 * kDxRows + 2 * (size_t)D);
+                                         (size_t)kOT * (S::AC + 1) + 2 * kDxRows);
     if (int e = set_smem(dx_kernel<T, G>, smem)) return e;
-    dx_kernel<T, G><<<splits_x, kThreads, smem, stream>>>(
+    dx_kernel<T, G><<<(pieces + per - 1) / per, kThreads, smem, stream>>>(
         xt, lg, lb, static_cast<const T*>(w), static_cast<const T*>(wb), gt,
-        static_cast<T*>(dx), stats, ln_partial, n, D, O, cs, inv_h, rows);
+        static_cast<T*>(dx), stats, ln_partial, n, D, O, cs, inv_h, per * kDxRows);
     if (int e = (int)cudaGetLastError()) return e;
-  } else {
-    splits_x = 0;  // no rows: the reduce writes zeros
+    const int m = 2 * D;
+    tile_sums_kernel<<<(tiles * m + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+        ln_partial, ln_tiles, pieces, tile / kDxRows, tiles, m);
+    if (int e = (int)cudaGetLastError()) return e;
   }
-  const int tiles = (n + kDwRows - 1) / kDwRows;
-  const int rows = ((tiles + splits_w - 1) / splits_w) * kDwRows;
-  const size_t smem = sizeof(float) * ((size_t)kDwRows * S::AC + kDwRows * kOT);
-  if (int e = set_smem(dw_partial_kernel<T, G>, smem)) return e;
-  dim3 grid((D + kDC - 1) / kDC, splits_w, (O + kOT - 1) / kOT);
-  dw_partial_kernel<T, G><<<grid, kThreads, smem, stream>>>(xt, lg, lb, stats, gt, w_partial, n,
-                                                           D, O, cs, inv_h, rows);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (int e = kan::reduce_partials<T>(w_partial, out, splits_w, m_w, stream)) return e;
-  return kan::reduce_partials<T>(ln_partial, out + m_w, splits_x, 2 * (size_t)D, stream);
+  const size_t smem_w = sizeof(float) * ((size_t)kDwRows * S::AC + kDwRows * kOT);
+  if (int e = set_smem(dw_partial_kernel<T, G>, smem_w)) return e;
+  for (int t0 = 0; t0 < tiles || t0 == 0; t0 += window) {
+    const int wt = std::min(window, tiles - t0);
+    if (wt > 0) {
+      dim3 grid((D + kDC - 1) / kDC, wt, (O + kOT - 1) / kOT);
+      dw_partial_kernel<T, G><<<grid, kThreads, smem_w, stream>>>(xt, lg, lb, stats, gt, wp, n,
+                                                                 D, O, cs, inv_h, tile, t0);
+      if (int e = (int)cudaGetLastError()) return e;
+    }
+    if (int e = kan::walk_tiles<T, T>(wp, out, std::max(wt, 0), m_w, t0 > 0, stream)) return e;
+  }
+  return kan::walk_tiles<float, T>(ln_tiles, out + m_w, tiles, 2 * (size_t)D, false, stream);
 }
 
 Centers centers_of(const float* c, int G) {
@@ -361,16 +380,17 @@ extern "C" int fastkan_fwd(const void* x, const void* lng, const void* lnb, cons
 }
 
 // dx (n, D) (skipped when dx is null) and grads = [dWb (D*O) | dW (G*D*O) |
-// dbb (O) | dlng (D) | dlnb (D)] in the inputs' dtype, from dout (n, O).
-// Scratch (f32): stats 2n, ln_partial splits_x * 2D,
-// w_partial splits_w * ((G+1)*D*O + O).
+// dbb (O) | dlng (D) | dlnb (D)] in the inputs' dtype, from dout (n, O),
+// summed over row tiles of `tile` rows (a multiple of 32). Scratch: stats 2n
+// f32, ln_partial (ceil(n / 32) + ceil(n / tile)) * 2D f32, w_partial
+// window * ((G+1)*D*O + O) in the inputs' dtype (`window` tiles at a time).
 extern "C" int fastkan_bwd(const void* x, const void* lng, const void* lnb, const void* w,
                            const void* wb, const void* dout, void* dx, float* stats,
-                           float* ln_partial, float* w_partial, void* grads, int n, int d,
+                           float* ln_partial, void* w_partial, void* grads, int n, int d,
                            int o, int G, const float* centers, float inv_h, int dtype,
-                           int splits_x, int splits_w, void* stream) {
+                           int tile, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Centers cs = centers_of(centers, G);
   FASTKAN_DISPATCH(dtype, G, launch_bwd, x, lng, lnb, w, wb, dout, dx, stats, ln_partial,
-                   w_partial, grads, n, d, o, cs, inv_h, splits_x, splits_w, s);
+                   w_partial, grads, n, d, o, cs, inv_h, tile, window, s);
 }

@@ -1,13 +1,17 @@
 // Shared device code of the port's kernels: element conversions, SiLU, the
-// warp-per-row CSR gather (spmm.cu, gcn_agg.cu, gin_fused.cu,
-// gin_fastkan.cu), the fixed-order reduce of f32 weight-gradient partials
-// (bspline_fused.cu, fastkan_layer.cu), and for the KANLinear kernels the
-// Cox-de Boor ladder and the dispatch over (dtype, spline order, grid size).
+// warp-per-row CSR gather (spmm.cu, gin_fused.cu, gin_fastkan.cu), the
+// piece gather with wide loads (gcn_agg.cu), the tile-ordered walk of
+// weight-gradient partials (bspline_fused.cu, fastkan_layer.cu,
+// rbf_fused.cu), and for the KANLinear kernels the Cox-de Boor ladder and the
+// dispatch over (dtype, spline order, grid size).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace kan {
 
@@ -109,6 +113,99 @@ __device__ __forceinline__ void csr_row_sum(const T* __restrict__ src,
   }
 }
 
+// V values of T that one lane loads at once: 16 bytes (V = 16 / sizeof(T)),
+// or one value when V == 1.
+template <typename T, int V>
+using Pack = std::conditional_t<V == 1, T, uint4>;
+
+template <typename T, int V>
+__device__ __forceinline__ void add_pack(const Pack<T, V>& r, float (&acc)[V]) {
+  if constexpr (V == 1) {
+    acc[0] += to_f(r);
+  } else if constexpr (std::is_same_v<T, float>) {
+    const float* f = reinterpret_cast<const float*>(&r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] += f[j];
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      acc[2 * j] += f.x;
+      acc[2 * j + 1] += f.y;
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_pack(T* p, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = from_f<T>(v[0]);
+  } else {
+    Pack<T, V> r;
+    T* t = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) t[j] = from_f<T>(v[j]);
+    *reinterpret_cast<Pack<T, V>*>(p) = r;
+  }
+}
+
+// The CSR gather of a lane group with wide loads, for rows split into
+// pieces: acc[j] = the f32 sum, in edge order, of column c + j of row idx[e]
+// of src (rows of d values) over e = e0, e0 + step, ... < e1. Each lane
+// loads V columns at once (16 bytes, or one value when V == 1; the caller
+// keeps c + V <= d and the rows 16-byte aligned) and keeps U edges in
+// flight; edges past e1 are masked, not left to a serial tail. The fixed
+// order makes the sum deterministic without atomics. (csr_row_sum above is
+// the warp-per-row walk of the kernels not yet moved to this one.)
+template <typename T, int V, int U>
+__device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
+                                              const int* __restrict__ idx, int e0, int e1,
+                                              int step, int c, int d, float (&acc)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  for (int e = e0; e < e1; e += U * step) {
+    int row[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) row[u] = e + u * step < e1 ? __ldg(idx + e + u * step) : -1;
+    Pack<T, V> r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (row[u] >= 0) r[u] = __ldg(reinterpret_cast<const Pack<T, V>*>(src + (size_t)row[u] * d + c));
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (row[u] >= 0) add_pack<T, V>(r[u], acc);
+  }
+}
+
+// The weight-gradient walk of the layer backwards (bspline_fused.cu,
+// fastkan_layer.cu, rbf_fused.cu): partial holds `tiles` per-tile partials of
+// m elements each (in TP: f32, or already rounded to TW), and
+//   dw[i] = s,  s = round_TW(s + round_TW(partial[t*m + i])), t in order,
+// the JAX backward's `dw_ref += partial.astype(dw.dtype)` over its
+// sequential grid. With carry, s starts from dw[i] (a value in TW, so the
+// carry is exact): windows of tiles walked one after another give the walk
+// of all of them. No atomics: the result is deterministic.
+template <typename TP, typename TW>
+__global__ void walk_tiles_kernel(const TP* __restrict__ partial, TW* __restrict__ dw, int tiles,
+                                  size_t m, bool carry) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = carry ? to_f(dw[i]) : 0.f;
+#pragma unroll 8
+    for (int t = 0; t < tiles; ++t) s = round_t<TW>(s + round_t<TW>(to_f(partial[t * m + i])));
+    dw[i] = from_f<TW>(s);
+  }
+}
+
+template <typename TP, typename TW>
+int walk_tiles(const TP* partial, TW* dw, int tiles, size_t m, bool carry, cudaStream_t stream) {
+  const size_t need = (m + 255) / 256;
+  const int blocks = need < 4096 ? (int)need : 4096;
+  if (blocks > 0) walk_tiles_kernel<TP, TW><<<blocks, 256, 0, stream>>>(partial, dw, tiles, m, carry);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kThreads = 256;  // threads per block of every KAN kernel
 constexpr int kFwdRows = 32;   // rows per forward tile: 4 row groups of 8
 constexpr int kDC = 32;        // features per chunk of the basis matrix
@@ -203,28 +300,6 @@ __device__ __forceinline__ void kan_forward_tile(Load load, float* A_s, int row0
       if (row < n) out[(size_t)row * O + o] = from_f<T>(acc[i]);
     }
   }
-}
-
-// out[i] = sum over k = 0..splits-1, in that order, of partial[k*m + i],
-// cast once to T: the weight gradients' per-block f32 partials added in a
-// fixed order, so the result is deterministic without atomics.
-template <typename T>
-__global__ void reduce_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                              int splits, size_t m) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += partial[k * m + i];
-    out[i] = from_f<T>(s);
-  }
-}
-
-template <typename T>
-int reduce_partials(const float* partial, T* out, int splits, size_t m, cudaStream_t stream) {
-  const size_t need = (m + kThreads - 1) / kThreads;
-  const int blocks = need < 4096 ? (int)need : 4096;
-  if (blocks > 0) reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(partial, out, splits, m);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace kan

@@ -44,8 +44,8 @@
 //      tile) writes the tile's f32 partial B^T @ dout (the TPU kernel sums
 //      the tiles across its sequential grid; Hopper blocks run in
 //      parallel);
-//   3. reduce_tiles_kernel adds the partials in tile order, rounding as
-//      above. No atomics: the result is deterministic.
+//   3. kan::walk_tiles adds the partials in tile order, rounding as above.
+//      No atomics: the result is deterministic.
 
 #include "fastkan_common.cuh"
 
@@ -59,7 +59,6 @@ using kan::kDC;
 using kan::kFwdRows;
 using kan::kOT;
 using kan::kThreads;
-using kan::round_t;
 using kan::to_f;
 
 constexpr int kDxRows = 32;  // rows per dx tile
@@ -215,19 +214,6 @@ dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
   }
 }
 
-// dw[i] = the tiles' partials added in tile order, the running sum rounded
-// to TW after each tile (and each partial rounded before it is added).
-template <typename TW>
-__global__ void reduce_tiles_kernel(const float* __restrict__ partial, TW* __restrict__ dw,
-                                    int tiles, size_t m) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < tiles; ++t) s = round_t<TW>(s + round_t<TW>(partial[t * m + i]));
-    dw[i] = from_f<TW>(s);
-  }
-}
-
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -269,13 +255,8 @@ int launch_bwd(const void* x, const void* w, const void* dout, void* dx, float* 
                                                                inv_h, tile);
     if (int e = (int)cudaGetLastError()) return e;
   }
-  const size_t m = (size_t)G * D * O;
-  const size_t need = (m + kThreads - 1) / kThreads;
-  const int blocks = need < 4096 ? (int)need : 4096;
-  if (blocks > 0)
-    reduce_tiles_kernel<TW><<<blocks, kThreads, 0, stream>>>(partial, static_cast<TW*>(dw),
-                                                              tiles, m);
-  return (int)cudaGetLastError();
+  return kan::walk_tiles<float, TW>(partial, static_cast<TW*>(dw), tiles, (size_t)G * D * O,
+                                    false, stream);
 }
 
 Centers centers_of(const float* c, int G) {

@@ -34,6 +34,62 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# --- weight gradients summed over the JAX backward's row tiles --------------
+#
+# A JAX layer backward adds one f32 partial per row tile of its sequential
+# grid into a gradient held in the weights' dtype (`dw_ref +=
+# partial.astype(dw.dtype)`): in bf16 a running sum in which each partial,
+# then the sum, is rounded after every tile. The port's kernels write the
+# tiles' partials (already rounded: exact, since the walk rounds them first)
+# and walk them in tile order (csrc/kan_common.cuh `walk_tiles`), in windows
+# of at most WALK_WINDOW_BYTES of scratch that carry the running sum.
+
+WALK_WINDOW_BYTES = 128 * 2 ** 20
+
+
+def dw_tile(n: int, tile: int = 512) -> int:
+    """The JAX backward's row tile: `_tile_for(n, tile)` of
+    `kagnn_tpu/pallas/rbf_fused.py`, halved while above 256 rows and above
+    twice n."""
+    while tile > 256 and tile > 2 * n:
+        tile //= 2
+    return tile
+
+
+def round_to(t: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 t rounded to `dtype` and back (no-op for f32)."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def tile_partials(a: torch.Tensor, b: torch.Tensor, tile: int):
+    """The f32 partials a[r:r+tile]^T @ b[r:r+tile] of each row tile, in
+    tile order."""
+    a, b = a.float(), b.float()
+    return (a[r:r + tile].T @ b[r:r + tile] for r in range(0, a.shape[0], tile))
+
+
+def walk_tiles(parts, shape, dtype, device) -> torch.Tensor:
+    """The JAX running sum of per-tile f32 partials: s = round(s + round(p))
+    in `dtype`, tile by tile, from zeros. Returns f32."""
+    s = torch.zeros(shape, dtype=torch.float32, device=device)
+    for p in parts:
+        s = round_to(s + round_to(p, dtype), dtype)
+    return s
+
+
+def tiled_gram(a: torch.Tensor, b: torch.Tensor, tile: int, dtype) -> torch.Tensor:
+    """a^T @ b summed over row tiles as the JAX backward sums it, in
+    `dtype`."""
+    return walk_tiles(tile_partials(a, b, tile), (a.shape[1], b.shape[1]),
+                      dtype, a.device).to(dtype)
+
+
+def walk_window(tiles: int, m: int, elem_bytes: int) -> int:
+    """Tiles of partials (m elements each) that one window of the walk
+    holds."""
+    return max(1, min(tiles, WALK_WINDOW_BYTES // max(1, m * elem_bytes)))
+
+
 def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
     """Row of each CSR entry: row_ptr (n+1,) -> (row_ptr[-1],) int64."""
     n = row_ptr.numel() - 1

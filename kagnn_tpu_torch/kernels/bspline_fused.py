@@ -11,9 +11,16 @@ The backward rebuilds the ladder from x and uses the analytic derivative
 Layouts are the JAX kernel's: x (N, D), knots (K, D), wb (D, O) and the
 spline weight flattened to ws (n_basis*D, O) with row g*D + d.
 
+The weight gradients are summed as the JAX backward sums them: one f32
+partial per 128-row tile, added in tile order into a gradient held in the
+weights' dtype (each partial and the running sum rounded after every tile;
+`_common.tiled_gram`).
+
 CUDA kernels: `csrc/bspline_fused.cu` (see its header for the bound on the
-H100 and the design). On a CPU tensor the wrappers run the plain versions
-below; on a CUDA tensor they launch the kernels or raise.
+H100 and the design; under bf16 the backward's products run on the tensor
+cores, and the backward's dx kernel runs on a second stream beside its dW
+kernels). On a CPU tensor the wrappers run the plain versions below; on a
+CUDA tensor they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -23,12 +30,13 @@ import torch
 
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
-                                             dtype_code, stream_of)
+                                             dtype_code, stream_of,
+                                             tiled_gram, walk_window)
 
 SUPPORTED = {(3, 3), (3, 4), (3, 5)}  # (spline order, grid size) compiled
 D_CHUNK, O_TILE = 32, 64  # csrc/kan_common.cuh kDC, kOT
-ROWS_PER_STEP = 32  # csrc/bspline_fused.cu kDwRows
 DX_ROWS = 64  # csrc/bspline_fused.cu kDxRows
+JAX_TILE = 128  # rows per tile of the JAX backward (DEFAULT_TILE_N)
 
 
 def basis_ladder(x32: torch.Tensor, t32: torch.Tensor, k: int,
@@ -70,23 +78,31 @@ def kan_linear_fwd_plain(x, knots, wb, ws, k):
     return kan_forward_f32(x.float(), knots, wb, ws, k, x.dtype)
 
 
+def dw_operand(x, knots, k):
+    """[SiLU(x) | B_0(x) .. B_NB-1(x)] (N, (NB+1)*D), rounded to x's dtype
+    as the JAX backward casts both before its weight-gradient products:
+    [dWb; dWs] = dw_operand^T @ dout, summed over row tiles."""
+    x32 = x.float()
+    bases, _ = basis_ladder(x32, knots.float(), k)
+    return torch.cat([x32 * torch.sigmoid(x32)] + bases, dim=1).to(x.dtype)
+
+
 def kan_linear_bwd_plain(x, knots, wb, ws, dout, k):
-    """The explicit analytic gradient: (dx, dwb, dws)."""
+    """The explicit analytic gradient: (dx, dwb, dws). dWb and dWs are
+    summed over the JAX kernel's 128-row tiles in tile order, rounded to the
+    weights' dtype after each tile (`_common.tiled_gram`)."""
     x32, d32, t32 = x.float(), dout.float(), knots.float()
     sig = torch.sigmoid(x32)
-    sx = (x32 * sig).to(x.dtype)
-    dwb = (sx.float().T @ d32).to(wb.dtype)
+    D = x.shape[1]
+    dw = tiled_gram(dw_operand(x, knots, k), d32, JAX_TILE, wb.dtype)
     dx = (d32 @ wb.float().T) * (sig * (1.0 + x32 * (1.0 - sig)))
     bases, pen = basis_ladder(x32, t32, k, keep_penultimate=True)
-    basis = torch.cat(bases, dim=1).to(x.dtype)
-    dws = (basis.float().T @ d32).to(ws.dtype)
     dbasis = d32 @ ws.float().T
-    D = x.shape[1]
     for g in range(len(bases)):
         left = pen[g] * (1.0 / (t32[g + k] - t32[g]))[None, :]
         right = pen[g + 1] * (1.0 / (t32[g + k + 1] - t32[g + 1]))[None, :]
         dx = dx + dbasis[:, g * D:(g + 1) * D] * (k * (left - right))
-    return dx.to(x.dtype), dwb, dws
+    return dx.to(x.dtype), dw[:D], dw[D:]
 
 
 def _grid_size(knots: torch.Tensor, k: int) -> int:
@@ -116,10 +132,23 @@ def _fwd_fn():
 
 
 @functools.cache
-def _bwd_fn():
+def _dx_fn():
     P, I = _build.P, _build.I
-    return _build.bind("bspline_fused", "bspline_bwd",
-                       [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
+    return _build.bind("bspline_fused", "bspline_bwd_dx",
+                       [P, P, P, P, P, P, I, I, I, I, I, I, P])
+
+
+@functools.cache
+def _dw_fn():
+    P, I = _build.P, _build.I
+    return _build.bind("bspline_fused", "bspline_bwd_dw",
+                       [P, P, P, P, P, I, I, I, I, I, I, I, P])
+
+
+@functools.cache
+def _side_stream(device) -> torch.cuda.Stream:
+    """The second stream the backward runs its dx kernel on, one a device."""
+    return torch.cuda.Stream(device)
 
 
 def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
@@ -141,41 +170,62 @@ def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
 kan_linear_fwd.launches = 0
 
 
-def dw_splits(n: int, D: int, O: int, device) -> int:
-    """Blocks that each own an f32 partial of dW: about two per SM in all."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_split = -(-D // D_CHUNK) * -(-O // O_TILE)
-    tiles = max(1, -(-n // ROWS_PER_STEP))
-    return max(1, min(tiles, (2 * sms) // per_split))
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself when 16-byte aligned (the kernels load 16 bytes at once),
+    else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bwd_smem(D: int, O: int, grid: int, k: int, dtype) -> int:
+    """Shared memory per block of the backward's largest kernel: under bf16
+    the dx kernel's chunk weights and dout tile, and the dW kernel's basis
+    and dout tile (csrc/bspline_fused.cu); in f32 the dx kernel's rows of
+    dout and one output tile of the chunk's weights."""
+    ac = (grid + k + 1) * D_CHUNK
+    if dtype == torch.bfloat16:
+        return max(2 * (ac + 32) * (-(-O // 16) * 16 + 8),
+                   2 * JAX_TILE * (ac + 8 + -(-O // 64) * 64 + 8))
+    return 4 * (DX_ROWS * O + O_TILE * (ac + 1))
 
 
 def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
     """-> (dx or None, dwb (D, O), dws (n_basis*D, O)), in the inputs'
-    dtype. dx is skipped when `need_dx` is False."""
+    dtype. dx is skipped when `need_dx` is False. dWb and dWs are summed
+    over the JAX kernel's 128-row tiles in tile order (module docstring of
+    csrc/bspline_fused.cu)."""
     if x.device.type == "cpu":
         dx, dwb, dws = kan_linear_bwd_plain(x, knots, wb, ws, dout, k)
         return (dx if need_dx else None), dwb, dws
     code = dtype_code(x)
     n, D, O, grid = _check_layer(x, knots, wb, ws, k)
-    # the dx kernel holds its rows' dout and one output tile of the chunk's
-    # weights in shared memory
-    smem = 4 * (DX_ROWS * O + O_TILE * ((grid + k + 1) * D_CHUNK + 1))
+    smem = bwd_smem(D, O, grid, k, x.dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"backward of a layer with {O} outputs needs {smem} "
                          f"bytes of shared memory per block; the H100 gives "
                          f"{SMEM_LIMIT}")
     check_cuda("dout", dout, x.dtype, (n, O))
-    splits = dw_splits(n, D, O, x.device)
+    x, wb, ws, dout = (_aligned(t) for t in (x, wb, ws, dout))
     n_groups = grid + k + 1
+    m = n_groups * D * O
+    window = walk_window(-(-n // JAX_TILE), m, x.element_size())
     dx = torch.empty_like(x) if need_dx else None
-    partial = torch.empty((splits, n_groups * D, O), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((window, m), dtype=x.dtype, device=x.device)
     dw = torch.empty((n_groups * D, O), dtype=x.dtype, device=x.device)
-    err = _bwd_fn()(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
-                    ws.data_ptr(), dout.data_ptr(),
-                    None if dx is None else dx.data_ptr(), partial.data_ptr(),
-                    dw.data_ptr(), n, D, O, grid, k, code, splits,
-                    stream_of(x))
+    # dx on a second stream beside the dW partials and their walk: they
+    # share only their inputs; the caller's stream waits for both
+    main = torch.cuda.current_stream(x.device)
+    if dx is not None:
+        side = _side_stream(x.device)
+        side.wait_stream(main)
+        err = _dx_fn()(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
+                       ws.data_ptr(), dout.data_ptr(), dx.data_ptr(), n, D, O,
+                       grid, k, code, side.cuda_stream)
+        _build.check(err, "bspline_bwd dx")
+    err = _dw_fn()(x.data_ptr(), knots.data_ptr(), dout.data_ptr(),
+                   partial.data_ptr(), dw.data_ptr(), n, D, O, grid, k, code,
+                   window, main.cuda_stream)
+    if dx is not None:
+        main.wait_stream(side)
     _build.check(err, "bspline_bwd")
     kan_linear_bwd.launches += 1
     return dx, dw[:D], dw[D:]

@@ -29,7 +29,8 @@ import torch
 
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
-                                             dtype_code, stream_of)
+                                             dtype_code, dw_tile, stream_of,
+                                             tiled_gram, walk_window)
 
 LN_EPS = 1e-5
 MAX_G = 8  # csrc/fastkan_common.cuh kMaxG; the kernels take 2..MAX_G centers
@@ -94,9 +95,11 @@ def fastkan_layer_fwd_plain(x, lng, lnb, w, wb, bb, grid_min, grid_max):
                                grid_max, x.dtype)
 
 
-def fastkan_layer_bwd_plain(x, lng, lnb, w, wb, dout, grid_min, grid_max):
-    """The explicit VJP of the JAX `_bwd_kernel`: (dx, dlng, dlnb, dw, dwb,
-    dbb), each in its input's dtype (dbb in wb's)."""
+def fastkan_bwd_terms(x, lng, lnb, w, dout, grid_min, grid_max):
+    """(dx without the SiLU' term (N, D) f32, the weight gradients' factors):
+    each gradient is a^T @ b summed over the JAX kernel's row tiles, for
+    (a, b) in the order dlng, dlnb, dW, dWb, dbb: (1, dxs * xhat),
+    (1, dxs), (basis, dout), (SiLU(x), dout), (1, dout), all f32."""
     G = num_grids_of(x, w)
     D = x.shape[1]
     ih = inv_h(grid_min, grid_max, G)
@@ -104,21 +107,30 @@ def fastkan_layer_bwd_plain(x, lng, lnb, w, wb, dout, grid_min, grid_max):
     x32, d32, g32 = x.float(), dout.float(), lng.float()
     xhat, rstd = layer_norm_f32(x32)
     basis, dist = wide_basis(xhat * g32 + lnb.float(), c, ih)
-    dw = basis.T @ d32
     wide = (d32 @ w.float().T) * basis * (-2.0 * ih) * dist
     dxs = sum(wide[:, g * D:(g + 1) * D] for g in range(G))
-    dlng = (dxs * xhat).sum(0)
-    dlnb = dxs.sum(0)
     dxhat = dxs * g32
     m1 = dxhat.mean(1, keepdim=True)
     m2 = (dxhat * xhat).mean(1, keepdim=True)
-    dx = rstd * (dxhat - m1 - xhat * m2)
+    ones = torch.ones((x.shape[0], 1), device=x.device)
+    return rstd * (dxhat - m1 - xhat * m2), [
+        (ones, dxs * xhat), (ones, dxs), (basis, d32),
+        (x32 * torch.sigmoid(x32), d32), (ones, d32)]
+
+
+def fastkan_layer_bwd_plain(x, lng, lnb, w, wb, dout, grid_min, grid_max):
+    """The explicit VJP of the JAX `_bwd_kernel`: (dx, dlng, dlnb, dw, dwb,
+    dbb), each in its input's dtype (dbb in wb's). The weight gradients are
+    summed over the JAX kernel's row tiles (`_common.dw_tile`) in tile
+    order, rounded to their dtype after each tile (`_common.tiled_gram`)."""
+    dx, terms = fastkan_bwd_terms(x, lng, lnb, w, dout, grid_min, grid_max)
+    tile = dw_tile(x.shape[0])
+    dlng, dlnb, dw, dwb, dbb = (tiled_gram(a, b, tile, t.dtype)
+                                for (a, b), t in zip(terms, (lng, lnb, w, wb, wb)))
+    x32, d32 = x.float(), dout.float()
     sig = torch.sigmoid(x32)
-    dwb = (x32 * sig).T @ d32
-    dbb = d32.sum(0)
     dx = dx + (d32 @ wb.float().T) * (sig * (1.0 + x32 * (1.0 - sig)))
-    return (dx.to(x.dtype), dlng.to(lng.dtype), dlnb.to(lnb.dtype),
-            dw.to(w.dtype), dwb.to(wb.dtype), dbb.to(wb.dtype))
+    return (dx.to(x.dtype), dlng[0], dlnb[0], dw, dwb, dbb[0])
 
 
 def check_layer(x, lng, lnb, w, wb, bb=None):
@@ -185,17 +197,6 @@ def fastkan_layer_fwd(x, lng, lnb, w, wb, bb, grid_min: float,
 fastkan_layer_fwd.launches = 0
 
 
-def bwd_splits(n: int, D: int, O: int, device):
-    """(blocks of the dx kernel, blocks per (feature chunk, output tile) of
-    the dW kernel): about two per SM in all for each, so that the f32
-    partials stay small."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = max(1, -(-n // ROWS))
-    per_split = -(-D // D_CHUNK) * -(-O // O_TILE)
-    return (max(1, min(tiles, 2 * sms)),
-            max(1, min(tiles, (2 * sms) // per_split)))
-
-
 def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
                       grid_max: float, need_dx: bool = True):
     """-> (dx or None, dlng (D,), dlnb (D,), dw (G*D, O), dwb (D, O),
@@ -211,17 +212,20 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
     # the dx kernel's row tile (x, dxs, the SiLU' term, dout) and one output
     # tile of the chunk's weights
     smem = 4 * (3 * ROWS * D + ROWS * O + O_TILE * ((G + 1) * D_CHUNK + 1)
-                + 2 * ROWS + 2 * D)
+                + 2 * ROWS)
     if smem > SMEM_LIMIT:
         raise ValueError(f"backward of a ({D}, {O}) layer with {G} centers "
                          f"needs {smem} bytes of shared memory per block; "
                          f"the H100 gives {SMEM_LIMIT}")
-    sx, sw = bwd_splits(n, D, O, x.device)
-    f32 = dict(dtype=torch.float32, device=x.device)
+    tile = dw_tile(n)
+    tiles = -(-n // tile)
     m_w = (G + 1) * D * O + O
+    f32 = dict(dtype=torch.float32, device=x.device)
     stats = torch.empty((max(n, 1), 2), **f32)
-    ln_partial = torch.empty((sx, 2 * D), **f32)
-    w_partial = torch.empty((sw, m_w), **f32)
+    # the dx kernel's dlng/dlnb per 32-row piece, then per row tile
+    ln_partial = torch.empty((max(-(-n // ROWS) + tiles, 1), 2 * D), **f32)
+    window = walk_window(tiles, m_w, x.element_size())
+    w_partial = torch.empty((window, m_w), dtype=x.dtype, device=x.device)
     grads = torch.empty(m_w + 2 * D, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
     err = _bwd_fn()(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
@@ -230,7 +234,8 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
                     ln_partial.data_ptr(), w_partial.data_ptr(),
                     grads.data_ptr(), n, D, O, G,
                     c_centers(grid_min, grid_max, G),
-                    inv_h(grid_min, grid_max, G), code, sx, sw, stream_of(x))
+                    inv_h(grid_min, grid_max, G), code, tile, window,
+                    stream_of(x))
     _build.check(err, "fastkan_bwd")
     fastkan_layer_bwd.launches += 1
     dwb = grads[:D * O].view(D, O)

@@ -14,8 +14,9 @@ with A^T dd the segment-sum kernel over the sender CSR with the gather index
 `receivers_by_sender` (kernels/spmm.py), so no (E, D) tensor is formed.
 
 CUDA kernel: `csrc/gcn_agg.cu` (see its header for the bound on the H100 and
-the design). On a CPU tensor the wrapper runs the plain version below; on a
-CUDA tensor it launches the kernel or raises.
+the design: rows of more than 64 in-edges are summed in pieces by separate
+warps and combined in a fixed order). On a CPU tensor the wrapper runs the
+plain version below; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -38,16 +39,21 @@ def gcn_agg_plain(hs, dinv, senders, recv_row_ptr):
     return ((agg + hs.float()) * dinv.float()[:, None]).to(hs.dtype)
 
 
+PIECE = 64  # csrc/gcn_agg.cu kPiece: edges per chunk of the row split
+
+
 @functools.cache
 def _fn():
     P, I = _build.P, _build.I
-    return _build.bind("gcn_agg", "gcn_agg_fwd", [P, P, P, P, P, I, I, I, P])
+    return _build.bind("gcn_agg", "gcn_agg_fwd",
+                       [P, P, P, P, P, P, P, I, I, I, I, P])
 
 
-def gcn_agg_fwd(hs, dinv, senders, recv_row_ptr) -> torch.Tensor:
+def gcn_agg_fwd(hs, dinv, senders, recv_row_ptr, receivers) -> torch.Tensor:
     """hs (N, D) f32/bf16, dinv (N,) f32, senders (E,) int32 in
-    receiver-sorted order, recv_row_ptr (N+1,) int32 -> (N, D) in hs's
-    dtype."""
+    receiver-sorted order, recv_row_ptr (N+1,) int32, receivers (E,) int32
+    (the row of each edge, which the kernel reads to find the rows it
+    splits) -> (N, D) in hs's dtype."""
     if hs.device.type == "cpu":
         return gcn_agg_plain(hs, dinv, senders, recv_row_ptr)
     code = dtype_code(hs)
@@ -55,11 +61,15 @@ def gcn_agg_fwd(hs, dinv, senders, recv_row_ptr) -> torch.Tensor:
     n, d = hs.shape
     check_cuda("dinv", dinv, torch.float32, (n,))
     check_cuda("senders", senders, torch.int32, (None,))
+    E = senders.numel()
+    check_cuda("receivers", receivers, torch.int32, (E,))
     check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
     out = torch.empty_like(hs)
+    partial = torch.empty((2 * -(-E // PIECE), d), dtype=torch.float32,
+                          device=hs.device)
     err = _fn()(hs.data_ptr(), dinv.data_ptr(), senders.data_ptr(),
-                recv_row_ptr.data_ptr(), out.data_ptr(), n, d, code,
-                stream_of(hs))
+                receivers.data_ptr(), recv_row_ptr.data_ptr(), out.data_ptr(),
+                partial.data_ptr(), n, d, E, code, stream_of(hs))
     _build.check(err, "gcn_agg_fwd")
     gcn_agg_fwd.launches += 1
     return out
@@ -76,7 +86,7 @@ class GcnAggregate(torch.autograd.Function):
     def forward(ctx, hs, dinv, g):
         ctx.save_for_backward(dinv)
         ctx.g = g
-        return gcn_agg_fwd(hs, dinv, g.senders, g.recv_row_ptr)
+        return gcn_agg_fwd(hs, dinv, g.senders, g.recv_row_ptr, g.receivers)
 
     @staticmethod
     def backward(ctx, dout):

@@ -35,21 +35,12 @@ import torch
 
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
-                                             dtype_code, stream_of)
+                                             dtype_code, dw_tile, stream_of,
+                                             tiled_gram)
+from kagnn_tpu_torch.kernels._common import round_to as _round
 from kagnn_tpu_torch.kernels.fastkan_layer import (D_CHUNK, MAX_G, O_TILE,
                                                    ROWS, centers, g_major,
                                                    inv_h, num_grids_of)
-
-BWD_TILE = 512  # rows per dW tile of the JAX backward (BWD_TILE_N)
-
-
-def dw_tile(n: int) -> int:
-    """The JAX backward's row tile: `_tile_for(n, 512)`, 256 under 256 rows."""
-    return 256 if n < 256 else BWD_TILE
-
-
-def _round(t: torch.Tensor, dtype) -> torch.Tensor:
-    return t if dtype == torch.float32 else t.to(dtype).float()
 
 
 def constants(grid_min: float, grid_max: float, num_grids: int, dtype):
@@ -100,12 +91,7 @@ def rbf_spline_bwd_plain(x, w, dout, grid_min: float, grid_max: float,
     if need_dx:
         wide = (d32 @ w.float().T) * b * (-2.0 * inv_h(grid_min, grid_max, G)) * d
         dx = sum(wide[:, g * D:(g + 1) * D] for g in range(G)).to(x.dtype)
-    tile = dw_tile(n)
-    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-    for r0 in range(0, n, tile):
-        part = b[r0:r0 + tile].T @ d32[r0:r0 + tile]
-        dw = _round(dw + _round(part, w.dtype), w.dtype)
-    return dx, dw.to(w.dtype)
+    return dx, tiled_gram(b, d32, dw_tile(n), w.dtype)
 
 
 def check_rbf(x, w):

@@ -1,9 +1,15 @@
-"""On-card checks of the autograd Functions of the FastKAN, GCN, GAT and RBF
-kernels, shared by `chip_smoke.py` and `tests/test_torch_cuda.py`."""
+"""On-card checks shared by `chip_smoke.py` and `tests/test_torch_cuda.py`:
+the autograd Functions of the FastKAN, GCN, GAT and RBF kernels, the bar of
+a bf16 weight gradient summed over row tiles (`dw_walk_check`), and the
+graphs of the split gcn_agg (`gcn_split_graph`)."""
 from __future__ import annotations
 
 import torch
 
+import numpy as np
+
+from kagnn_tpu_torch.graphs import single_graph
+from kagnn_tpu_torch.kernels import bspline_fused as bf
 from kagnn_tpu_torch.kernels import fastkan_layer as fk
 from kagnn_tpu_torch.kernels import gat_bwd as gbw
 from kagnn_tpu_torch.kernels import gat_fused as gfu
@@ -11,6 +17,80 @@ from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
+from kagnn_tpu_torch.kernels._common import dw_tile, round_to, tile_partials
+
+BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
+# The bar of a bf16 weight gradient that a kernel walks over row tiles (the
+# RBF, B-spline and FastKAN backwards): elementwise DW_WALK_ULPS units of
+# 2^-8 of the largest |value| the element's running sum took (floored at the
+# mean of those peaks over the gradient: a partial that cancels to near zero
+# differs between two f32 summation orders by far more than its own ulp),
+# and at most DW_WALK_SHARE of the elements (or 2, for gradients of fewer
+# than 200) differing from the plain walk at all. Set from readings at
+# DW_WALK_TILES = 331 tiles (PERF.md §6): the RBF kernel against its plain
+# version, and reduces that round once at the end or skip the rounding of
+# each partial, which the bar must refuse. Over more tiles the units grow
+# with the square root of the tile count: each tile's partial can flip its
+# rounding on its own, and the walks' differences add up as a random walk
+# (16 units at the B-spline's 1,323 tiles, where one element of 65,536 read
+# 8.7 units at (128, 256); PERF.md §6).
+DW_WALK_ULPS = 8
+DW_WALK_TILES = 331
+DW_WALK_SHARE = 0.01
+
+
+def dw_walk_check(name: str, a: torch.Tensor, b: torch.Tensor, tile: int,
+                  got: torch.Tensor, want: torch.Tensor,
+                  wrong_must_fail: bool = False, log=print) -> float:
+    """The bf16 gradient `got` that a kernel summed as sum over row tiles of
+    a[tile]^T @ b[tile], against its plain version `want`. Both add the
+    tiles' f32 partials in tile order, rounding each partial and the running
+    sum to bf16; a partial whose summation order flips its rounding moves
+    the rest of that element's walk by about an ulp of the running sum, so
+    few elements differ, each by a few ulps of its peak (the bar above). With
+    `wrong_must_fail` (many tiles) two wrong reduces of the same partials are
+    read too and each must fail the bar: the sum in f32 rounded once, and
+    the running sum without rounding each partial. Raises AssertionError;
+    returns max |got - want|."""
+    bf = torch.bfloat16
+    shape = (a.shape[1], b.shape[1])
+    walk, peak, once, raw = (torch.zeros(shape, device=a.device) for _ in range(4))
+    for p in tile_partials(a, b, tile):
+        walk = round_to(walk + round_to(p, bf), bf)
+        peak = torch.maximum(peak, walk.abs())
+        once += p
+        raw = round_to(raw + p, bf)
+    want = want.float().reshape(shape)
+    tiles = -(-a.shape[0] // tile)
+    units = DW_WALK_ULPS * max(1.0, (tiles / DW_WALK_TILES) ** 0.5)
+    tol = units * BF16_ULP * peak.clamp(min=max(peak.mean().item(), 1e-30))
+    limit = max(DW_WALK_SHARE, 2.0 / walk.numel())
+
+    def reading(v):
+        diff = (v.float().reshape(shape) - want).abs()
+        return ((diff / tol).max().item(), (diff > 0).float().mean().item(),
+                diff.max().item())
+
+    ratio, share, err = reading(got)
+    ok = ratio <= 1.0 and share <= limit and err == err
+    log(f"  {name}: max_abs_err={err:.3e} worst err/tol={ratio:.3f} (tol "
+        f"{units:.1f} bf16 ulps of the running-sum peak), {share:.5f} of "
+        f"elements differ (limit {limit:.5f}; {tiles} tiles) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: err/tol {ratio}, share {share}")
+    if wrong_must_fail:
+        for wname, v in (("round-once", round_to(once, bf)),
+                         ("unrounded-partials", raw)):
+            wr, ws, _ = reading(v)
+            refused = wr > 1.0 or ws > limit
+            log(f"    {wname} reduce: worst err/tol={wr:.3f}, {ws:.5f} of "
+                f"elements differ: {'refused' if refused else 'FAIL: passes'}")
+            if not refused:
+                raise AssertionError(f"{name}: the bar does not refuse a "
+                                     f"{wname} reduce")
+    return err
 
 
 def fastkan_gcn_chain(g, d: int = 16, o: int = 8, num_grids: int = 4) -> float:
@@ -147,3 +227,57 @@ def rbf_chain(n: int = 700, d: int = 16, o: int = 8, num_grids: int = 8) -> floa
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5)
         worst = max(worst, (a.cpu() - b).abs().max().item())
     return worst
+
+
+def check_bspline_bwd(name, x, knots, wb, ws, dout, k, close,
+                      wrong_must_fail=False, log=print) -> float:
+    """kan_linear_bwd against its plain version on the card: dx with
+    close(name, got, want) -> error, and [dWb; dWs] with `close` in f32 or
+    `dw_walk_check` in bf16 (its 128-row tiles). Returns the worst error."""
+    got = bf.kan_linear_bwd(x, knots, wb, ws, dout, k)
+    want = bf.kan_linear_bwd_plain(x, knots, wb, ws, dout, k)
+    err = close(f"{name} dx", got[0], want[0])
+    dw, pdw = torch.cat(got[1:]), torch.cat(want[1:])
+    if x.dtype != torch.bfloat16:
+        return max(err, close(f"{name} dW", dw, pdw))
+    return max(err, dw_walk_check(f"{name} dW", bf.dw_operand(x, knots, k), dout,
+                                  bf.JAX_TILE, dw, pdw, wrong_must_fail, log))
+
+
+def check_fastkan_bwd(name, x, lng, lnb, w, wb, dout, close,
+                      wrong_must_fail=False, log=print) -> float:
+    """fastkan_layer_bwd against its plain version on the card: dx with
+    close(name, got, want) -> error, and dlng, dlnb, dW, dWb, dbb with
+    `close` in f32 or `dw_walk_check` in bf16 (its `dw_tile` rows). Returns
+    the worst error."""
+    args = (x, lng, lnb, w, wb, dout, -2.0, 2.0)
+    got, want = fk.fastkan_layer_bwd(*args), fk.fastkan_layer_bwd_plain(*args)
+    if not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError(f"{name}: non-finite gradient")
+    err = close(f"{name} dx", got[0], want[0])
+    if x.dtype != torch.bfloat16:
+        return max([err] + [close(f"{name} {n}", a, b) for n, a, b in zip(
+            ("dlng", "dlnb", "dw", "dwb", "dbb"), got[1:], want[1:])])
+    _, terms = fk.fastkan_bwd_terms(x, lng, lnb, w, dout, -2.0, 2.0)
+    tile = dw_tile(x.shape[0])
+    return max([err] + [dw_walk_check(f"{name} {n}", a, b, tile, g, p, wrong_must_fail, log)
+                        for n, (a, b), g, p in zip(("dlng", "dlnb", "dw", "dwb", "dbb"),
+                                                   terms, got[1:], want[1:])])
+
+
+def gcn_split_graph(kind: str, device="cuda"):
+    """A graph for the row split of gcn_agg: "hub", 2,000 nodes with 20,000
+    random edges and node 0 receiving 100,000 more (1,563 pieces of 64);
+    "light", 3,000 nodes with 60,000 random edges, every row of 64 in-edges
+    or fewer (no row is split)."""
+    n, e, hub = {"hub": (2000, 20000, 100_000), "light": (3000, 60000, 0)}[kind]
+    rng = np.random.default_rng(8)
+    snd, rcv = rng.integers(0, n, e), rng.integers(1, n, e)
+    if hub:
+        snd = np.concatenate([snd, rng.integers(0, n, hub)])
+        rcv = np.concatenate([rcv, np.zeros(hub, np.int64)])
+    g = single_graph(snd, rcv, n_node=n, device=device)
+    top = int((g.recv_row_ptr[1:] - g.recv_row_ptr[:-1]).max())
+    if (top < hub) if hub else top > ga.PIECE:
+        raise AssertionError(f"gcn_split_graph({kind}): largest in-degree {top}")
+    return g

@@ -17,10 +17,12 @@ Tolerances:
     bf16 hi/lo pair (16 significant bits), the rtol applies to the output's
     scale (max |jax|) instead of to each element;
   * bf16: max |port - jax| <= 4 bf16 ulps (4 * 2^-8) of the output's scale:
-    both round the same f32 sums to bf16 once. The JAX backward adds its
-    per-tile weight-gradient partials in bf16 where the port adds in f32;
-    at the sizes here (<= 512 rows) the JAX kernel runs one tile, so both
-    round once.
+    both round the same f32 sums to bf16. The five weight gradients follow
+    the JAX backward's sum over its row tiles (`_common.dw_tile`), each
+    tile's f32 partial and the running sum rounded to bf16;
+    `test_fastkan_bf16_weight_grads_walk_the_jax_tiles` holds that walk
+    over 40 tiles to 1 unit of 2^-8 of the scale, which the f32 sum rounded
+    once fails.
 Valid rows only for the GIN kernel: its output at the masked last row is
 unspecified (no edge-mask multiply, as in the JAX kernel)."""
 import jax
@@ -159,6 +161,56 @@ def test_fastkan_kernel_keeps_the_basis_in_f32(rng):
                      + (x32 * torch.sigmoid(x32)) @ wb.float()
                      + bb.float()).to(torch.bfloat16))
     assert (f32_basis != want).sum() < (rounded != want).sum()
+
+
+def test_fastkan_bf16_weight_grads_walk_the_jax_tiles(rng):
+    """20,380 rows are 40 tiles of 512: the JAX backward adds each tile's
+    f32 partial of dlng, dlnb, dW, dWb and dbb into the bf16 gradient,
+    rounding the partial and the sum after every tile. The port walks the
+    same tiles: every element within 1 unit of 2^-8 (a bf16 ulp) of its
+    gradient's scale (max |jax|), since both round the same f32 partials at
+    the same points and only the partials' summation order differs (a
+    flipped rounding moves an element by about one ulp of its running sum;
+    none flips here). The same partials summed in f32 and rounded once, the
+    port's sum before, are further away than that bar in all five."""
+    n, d, o, G = 40 * 512 - 100, 4, 4, 4
+    ws = _layer_weights(rng, d, o, G)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    dout = rng.normal(size=(n, o)).astype(np.float32)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in [x] + ws]
+    _, vjp = jax.vjp(lambda *a: jax_fastkan_layer(
+        *a, -2.0, 2.0, G, 4.0 / (G - 1), interpret=True), *jargs)
+    grads_j = vjp(jnp.asarray(dout, jnp.bfloat16))
+    xt, *mod = [torch.tensor(_np32(a)).bfloat16() for a in jargs]
+    lng, lnb, w, wb, _ = fk.weight_layouts(*mod, G)
+    dt = torch.from_numpy(dout).bfloat16()
+    got = fk.fastkan_layer_bwd(xt, lng, lnb, w, wb, dt, -2.0, 2.0,
+                               need_dx=False)[1:]
+    _, terms = fk.fastkan_bwd_terms(xt, lng, lnb, w, dt, -2.0, 2.0)
+    # the port's layouts -> the module's: dW (G*D, O) -> (O, D*G), dWb (D, O)
+    # -> (O, D)
+    to_module = (lambda v: v.reshape(-1), lambda v: v.reshape(-1),
+                 lambda v: v.reshape(G, d, o).permute(2, 1, 0).reshape(o, d * G),
+                 lambda v: v.T, lambda v: v.reshape(-1))
+    for name, g, (a, b), f, want in zip(("dlng", "dlnb", "dw", "dwb", "dbb"),
+                                        got, terms, to_module, grads_j[1:]):
+        want = _np32(want)
+        unit = BF16_ULP * np.abs(want).max()
+        err = np.abs(_np32(f(g)) - want).max()
+        err_once = np.abs(_np32(f((a.T @ b).bfloat16())) - want).max()
+        assert err <= unit < err_once, (name, err / unit, err_once / unit)
+
+
+def test_dw_tile_is_the_jax_row_tile():
+    """The row tile of the port's weight-gradient walks is the JAX
+    backward's `_tile_for`, for the FastKAN and RBF backwards' 512 and the
+    forward's 1024."""
+    from kagnn_tpu.pallas.rbf_fused import _tile_for
+    from kagnn_tpu_torch.kernels._common import dw_tile
+
+    for tile in (512, 1024):
+        for n in (0, 1, 127, 128, 255, 256, 257, 511, 512, 513, 169344):
+            assert dw_tile(n, tile) == _tile_for(n, tile), (n, tile)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))

@@ -219,5 +219,5 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch(rng):
     gj, gt = _graphs(rng, n=20, e=60, f=4)
     before = ga.gcn_agg_fwd.launches
     ga.gcn_agg_fwd(gt.nodes, torch.ones(gt.n_node_pad), gt.senders,
-                   gt.recv_row_ptr)
+                   gt.recv_row_ptr, gt.receivers)
     assert ga.gcn_agg_fwd.launches == before

@@ -15,9 +15,12 @@ Tolerances:
     (kagnn_tpu/pallas/spmm.py `_split_hilo`, 16 significant bits), so its
     error follows the size of the summed terms, not of a sum that cancels;
   * bf16: max |port - jax| <= 4 bf16 ulps (4 * 2^-8) of the output's scale
-    (max |jax|): both round the same f32 sums to bf16, and the JAX backward
-    adds its per-tile weight-gradient partials in bf16 where the port adds
-    them in f32 and rounds once.
+    (max |jax|): both round the same f32 sums to bf16. The weight gradients
+    follow the JAX backward's sum over its 128-row tiles, each tile's f32
+    partial and the running sum rounded to bf16 (`_common.tiled_gram`);
+    `test_bspline_bf16_dw_walks_the_jax_tiles` holds that walk over 40
+    tiles to 1 unit of 2^-8 of the scale, which the f32 sum rounded once
+    fails.
 Valid rows only for the GIN kernel: its output at the masked last row is
 unspecified (no edge-mask multiply, as in the JAX kernel)."""
 import jax
@@ -139,6 +142,38 @@ def test_bspline_fused_fwd_bwd_matches_jax(rng, dt):
     close(dwb_t, dwb_j, dt, grad=True, err_msg="dwb")
     close(dws_t, np.asarray(dws_j.astype(jnp.float32)).reshape(-1, o), dt,
           grad=True, err_msg="dws")
+
+
+def test_bspline_bf16_dw_walks_the_jax_tiles(rng):
+    """5,083 rows are 40 tiles of 128: the JAX backward adds each tile's f32
+    partial of dWb and dWs into the bf16 gradient, rounding the partial and
+    the sum after every tile. The port walks the same tiles: every element
+    of both gradients within 1 unit of 2^-8 (a bf16 ulp) of the gradient's
+    scale (max |jax|), since both round the same f32 partials at the same
+    points and only the partials' summation order differs (a flipped
+    rounding moves an element by about one ulp of its running sum; none
+    flips here). The same partials summed in f32 and rounded once, the
+    port's sum before, are further away than that bar in both gradients."""
+    n, d, o, k = 40 * 128 - 37, 8, 8, 3
+    knots, wb, ws = _layer(rng, d, o)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    dout = rng.normal(size=(n, o)).astype(np.float32)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (x, knots, wb, ws)]
+    _, vjp = jax.vjp(lambda x_, wb_, ws_: bspline_kan_matmul(
+        x_, jargs[1], wb_, ws_, k, True), jargs[0], jargs[2], jargs[3])
+    _, dwb_j, dws_j = vjp(jnp.asarray(dout, jnp.bfloat16))
+    t = [torch.tensor(_np32(a)).bfloat16()
+         for a in (jargs[0], jargs[1], jargs[2], jargs[3].reshape(-1, o))]
+    dt = torch.from_numpy(dout).bfloat16()
+    _, dwb, dws = bf.kan_linear_bwd(*t, dt, k, need_dx=False)
+    once = (bf.dw_operand(t[0], t[1], k).float().T @ dt.float()).bfloat16()
+    for name, got, old, want in (("dwb", dwb, once[:d], dwb_j),
+                                 ("dws", dws, once[d:], dws_j.reshape(-1, o))):
+        want = _np32(want)
+        unit = 2.0 ** -8 * np.abs(want).max()
+        err = np.abs(_np32(got) - want).max()
+        err_once = np.abs(_np32(old) - want).max()
+        assert err <= unit < err_once, (name, err / unit, err_once / unit)
 
 
 def test_bspline_autograd_function_uses_the_backward(rng):
