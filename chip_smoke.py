@@ -18,10 +18,11 @@ Phases (any failure raises, and the script exits non-zero):
      widths with x/w in f32/f32, f32/bf16 and bf16/bf16; the narrow sum at
      k = 4 over the arxiv-sized graph's receivers; gcn_agg also on a hub row
      of 100,000 in-edges, on a graph of light rows and on the main graph's
-     hub row alone, timed), in f32 and bf16 (a bf16 weight gradient summed
-     over row tiles against the plain walk, `selfcheck.dw_walk_check`, with
-     two wrong reduces that must fail it at the main shapes' 1,323
-     B-spline and 331 FastKAN and RBF tiles), with
+     hub row alone, timed, and at D 42, one value a lane), in f32 and bf16
+     (a bf16 weight gradient summed over more than one row tile against
+     the plain walk, `selfcheck.dw_walk_check`, with two wrong reduces that
+     must fail it at the main shapes' 1,323 B-spline and 331 FastKAN and RBF
+     tiles; over one, the 4-ulp bar of every kernel), with
      times (CUDA events) for the kernel, the plain version and, where one
      PyTorch call computes the same function, that call as the library
      yardstick (`torch.sparse.mm` on a CSR matrix; the port never calls it;
@@ -62,7 +63,8 @@ import numpy as np
 # timer, from the port; outside the repository this import fails first
 from kagnn_tpu_torch.utils.profiling import H100, time_ms
 from kagnn_tpu_torch.kernels._common import dw_tile
-from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, check_bspline_bwd,
+from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
+                                               check_bspline_bwd,
                                                check_fastkan_bwd, dw_walk_check)
 
 NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
@@ -131,6 +133,22 @@ def compare(torch, name, got, want, dtype):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: err/tol {ratio}")
     return err
+
+
+def log_kernel_split(torch, name, fn, calls=5):
+    """Device ms per call of each kernel fn() launches, from torch.profiler
+    (`utils/profiling.device_profile`); the kernels of a call may overlap
+    (the B-spline backward runs its dx kernel on a second stream)."""
+    from kagnn_tpu_torch.utils.profiling import device_profile
+
+    prof = device_profile(lambda: [fn() for _ in range(calls)], calls)
+    if prof.ms is None:
+        log(f"  {name} by kernel: not measured (the profiler saw no device time)")
+        return
+    short = [key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+             for key, _, _ in prof.kernels]
+    log(f"  {name} by kernel, ms per call: " + ", ".join(
+        f"{s} {t:.4f}" for s, (_, t, _) in zip(short, prof.kernels)))
 
 
 def kernel_row(name, source, replaces):
@@ -273,6 +291,9 @@ def phase_kernels(torch, big):
                         4 * N * nb1 * D * O, dn)
                     log(f"  bspline_bwd main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    if main:
+                        log_kernel_split(torch, f"bspline_bwd main {dn} D={D} O={O}",
+                                         lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
                     record("bspline_bwd", errb, main and (D, O) == (64, 64), ms, pms,
                            bms, by)
                 else:
@@ -355,21 +376,22 @@ def gcn_hub_alone(torch, g, hs, dinv, dn):
 
 def phase_gcn_split(torch, rows):
     """gcn_agg against its plain version on a hub row of 100,000 in-edges
-    and on a graph of light rows, D 64, f32 and bf16, twice each and equal
-    bit for bit (no atomics)."""
+    and on a graph of light rows, D 64 (16-byte loads) and D 42 (rows not
+    whole 16-byte packs: one value a lane), f32 and bf16, twice each and
+    equal bit for bit (no atomics)."""
     from kagnn_tpu_torch.kernels import gcn_agg as ga
     from kagnn_tpu_torch.kernels.selfcheck import gcn_split_graph
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for kind in ("hub", "light"):
+    for kind, D in (("hub", 64), ("light", 64), ("hub", 42), ("light", 42)):
         g = gcn_split_graph(kind)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
-            hs = torch.randn(g.n_node_pad, 64, generator=gen, device="cuda").to(dtype)
+            hs = torch.randn(g.n_node_pad, D, generator=gen, device="cuda").to(dtype)
             dinv = torch.rsqrt(g.in_degrees.float() + 1.0)
             args = (hs, dinv, g.senders, g.recv_row_ptr)
             got = ga.gcn_agg_fwd(*args, g.receivers)
-            err = compare(torch, f"gcn_agg {kind} ({g.n_node_pad},64)", got,
+            err = compare(torch, f"gcn_agg {kind} ({g.n_node_pad},{D})", got,
                           ga.gcn_agg_plain(*args), dn)
             if not torch.equal(got, ga.gcn_agg_fwd(*args, g.receivers)):
                 raise AssertionError(f"gcn_agg {kind} {dn}: two runs differ")
@@ -630,7 +652,7 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                 (dx, dw), (pdx, pdw) = rf.rbf_spline_bwd(*ba), rf.rbf_spline_bwd_plain(*ba)
                 bname = f"rbf_bwd {gname} {xn}/{wn} D={D} O={O}"
                 errb = compare(torch, f"{bname} dx", dx, pdx, xn)
-                if wn == "bfloat16":
+                if wn == "bfloat16" and -(-N // dw_tile(N)) > DW_CLOSE_TILES:
                     c, ih = rf.constants(-2.0, 2.0, RBF_G, x.dtype)
                     basis, _ = rf.basis_plain(x, c, ih, round_exp=False)
                     errb = max(errb, dw_walk_check(f"{bname} dw", basis, dout,

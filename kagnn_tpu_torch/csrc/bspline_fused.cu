@@ -32,7 +32,9 @@
 //      features nw*8 .. nw*8+7; then per 32-row tile dbasis = dout @ W^T on
 //      the tensor cores, and each thread, holding every group of its
 //      (row, feature) pairs in its accumulators, rebuilds the Cox-de Boor
-//      ladder (kan::ladder) with its penultimate bases and writes dx. f32:
+//      ladder (kan::ladder) with its penultimate bases and writes dx. The
+//      tiles' dout and x go through two shared-memory buffers, the next
+//      tile's copied with cp.async while this one computes. f32:
 //      dx_kernel, the same function on the CUDA cores, 64-row tiles, the
 //      chunk's weights staged one 64-wide output tile at a time;
 //   2. dW partials, one per row tile of the JAX backward (128 rows): the
@@ -251,21 +253,43 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 16 bytes from global src to shared dst without passing through registers;
+// in flight until a cp.async.wait_group that covers its commit group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Copy `rows` rows of `cols` bf16 (row r from src(r), or zeros where src(r)
 // is null) into dst (pitch elements a row), and zero columns cols..cpad-1.
-// 16-byte copies when every source row is 16-byte aligned (cols % 8 == 0).
+// With `wide` (every source row 16-byte aligned, cols % 8 == 0) the copies
+// are cp.async of 16 bytes: they land once the caller has committed them and
+// waited (cp_async_wait, then a barrier). Otherwise plain stores, in place
+// at the next barrier.
 template <typename Src>
 __device__ __forceinline__ void stage_rows(bf16* dst, int pitch, int rows, int cols, int cpad,
-                                           Src src) {
+                                           bool wide, Src src) {
   const bf16 zero = __float2bfloat16_rn(0.f);
-  if (cols % 8 == 0) {
+  if (wide) {
     const int vpr = cpad / 8;  // 16-byte packs a row
     for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
       const int r = i / vpr, c = (i % vpr) * 8;
       const bf16* sr = src(r);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (sr != nullptr && c < cols) v = *reinterpret_cast<const uint4*>(sr + c);
-      *reinterpret_cast<uint4*>(dst + (size_t)r * pitch + c) = v;
+      bf16* d = dst + (size_t)r * pitch + c;
+      if (sr != nullptr && c < cols)
+        cp_async16(d, sr + c);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
     }
   } else {
     for (int i = threadIdx.x; i < rows * cpad; i += kThreads) {
@@ -278,14 +302,18 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int pitch, int rows, int c
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
+constexpr int kXPitch = kDC + 8;  // bf16 a row of the dx kernel's staged x tile
+
 // dx under bf16. grid (persistent row blocks, D chunks). Shared memory:
 // W_s (AC x (O16 + 8)): row n = nw*NG*8 + g*8 + l holds [Wb; Ws] row
 // (g, d0 + nw*8 + l), so warp (mw, nw) (8 warps: 2 x 4) computes rows
 // mw*16.. of the 32-row tile against NG n-tiles that are the NG groups of
-// its 8 features; dout_s (32 x (O16 + 8)) the tile's dout. One block an SM
-// (about 170 registers a thread): two at 128 registers, with the knots in
-// shared memory and x loaded ahead of the barrier, measured slower on the
-// H100 (0.355 against 0.278 ms at (64, 64)).
+// its 8 features; two buffers of the tile's dout (32 x (O16 + 8)) and of its
+// x chunk (32 x kXPitch). The next tile's dout and x are copied with
+// cp.async while this one computes (W_s lands with the first tile), so the
+// epilogue reads x from shared memory. One block an SM (about 170 registers
+// a thread): two at 128 registers, with the knots in shared memory and x
+// loaded ahead of the barrier, measured slower on the H100.
 template <int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
 dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
@@ -296,16 +324,31 @@ dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int O16 = round_up(O, 16), pitch = O16 + 8;
   bf16* W_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dout_s = W_s + (size_t)S::AC * pitch;
+  bf16* dout_s = W_s + (size_t)S::AC * pitch;         // 2 buffers
+  bf16* x_s = dout_s + (size_t)2 * kMmaRows * pitch;  // 2 buffers
   const int d0 = blockIdx.y * kDC;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int mw = warp / 4, nw = warp % 4;
   const int gid = lane / 4, tig = lane % 4;
-  stage_rows(W_s, pitch, S::AC, O, O16, [&](int r) -> const bf16* {
+  const int stride = gridDim.x * kMmaRows;
+  // the tile at rows r0.. into buffer b
+  auto stage = [&](int r0, int b) {
+    stage_rows(dout_s + (size_t)b * kMmaRows * pitch, pitch, kMmaRows, O, O16, O % 8 == 0,
+               [&](int r) -> const bf16* {
+                 return r0 + r < n ? dout + (size_t)(r0 + r) * O : nullptr;
+               });
+    stage_rows(x_s + (size_t)b * kMmaRows * kXPitch, kXPitch, kMmaRows, min(kDC, D - d0), kDC,
+               D % 8 == 0, [&](int r) -> const bf16* {
+                 return r0 + r < n ? x + (size_t)(r0 + r) * D + d0 : nullptr;
+               });
+  };
+  stage_rows(W_s, pitch, S::AC, O, O16, O % 8 == 0, [&](int r) -> const bf16* {
     const int q = r / (NG * 8), g = (r % (NG * 8)) / 8, l = r % 8;
     const int d = d0 + q * 8 + l;
     return d < D ? weight_row(wb, ws, g, d, D, O) : nullptr;
   });
+  stage(blockIdx.x * kMmaRows, 0);
+  cp_async_commit();
   // this thread's two features and their knots
   float t[2][S::NK];
 #pragma unroll
@@ -314,12 +357,15 @@ dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
 #pragma unroll
     for (int j = 0; j < S::NK; ++j) t[p][j] = d < D ? to_f(knots[(size_t)j * D + d]) : 0.f;
   }
-  for (int r0 = blockIdx.x * kMmaRows; r0 < n; r0 += gridDim.x * kMmaRows) {
-    __syncthreads();  // W_s is staged; the previous tile is done with dout_s
-    stage_rows(dout_s, pitch, kMmaRows, O, O16, [&](int r) -> const bf16* {
-      return r0 + r < n ? dout + (size_t)(r0 + r) * O : nullptr;
-    });
-    __syncthreads();
+  int buf = 0;
+  for (int r0 = blockIdx.x * kMmaRows; r0 < n; r0 += stride, buf ^= 1) {
+    __syncthreads();  // the tile before this one is done with the buffer staged next
+    if (r0 + stride < n) stage(r0 + stride, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this tile (and W_s) landed for every thread
+    const bf16* dt = dout_s + (size_t)buf * kMmaRows * pitch;
+    const bf16* xt = x_s + (size_t)buf * kMmaRows * kXPitch;
     float acc[NG][4];
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -327,8 +373,8 @@ dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
       for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
     for (int k0 = 0; k0 < O16; k0 += 16) {
       unsigned a[4];
-      ldmatrix_x4<false>(a, dout_s + (size_t)(mw * 16 + (lane / 8 % 2) * 8 + lane % 8) * pitch +
-                                k0 + (lane / 16) * 8);
+      ldmatrix_x4<false>(a, dt + (size_t)(mw * 16 + (lane / 8 % 2) * 8 + lane % 8) * pitch + k0 +
+                                (lane / 16) * 8);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         unsigned b[2];
@@ -341,13 +387,13 @@ dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
     // d0 + nw*8 + tig*2 + p
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = r0 + mw * 16 + gid + 8 * h;
+      const int rt = mw * 16 + gid + 8 * h, row = r0 + rt;
       if (row >= n) continue;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        const int d = d0 + nw * 8 + tig * 2 + p;
+        const int j = nw * 8 + tig * 2 + p, d = d0 + j;
         if (d >= D) continue;
-        const float xv = to_f(x[(size_t)row * D + d]);
+        const float xv = to_f(xt[rt * kXPitch + j]);
         float v = acc[0][2 * h + p] * dsilu(xv, sigmoid(xv));
         float b[S::NK - 1], pen[S::NK - ORDER];
         ladder<ORDER, S::NK>(xv, t[p], b, pen);
@@ -361,14 +407,18 @@ dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
       }
     }
   }
+  cp_async_wait<0>();  // the last, empty, commit group
 }
 
 // dW partials under bf16. grid (D chunks, row tiles t0.. of one window).
 // Shared memory: A_s (kTile x (AC + 8)), the tile's [SiLU(x) | B(x)]
 // rounded to bf16, column g*kDC + j for feature d0 + j; dout_s (kTile x
-// (O64 + 8)). Per 64-wide output pass, warp w computes the 16-row m-tiles
-// w, w + 8, .. of A^T @ dout (M = AC, K = kTile rows, N = 64) and writes
-// them rounded to bf16.
+// (O64 + 8)), copied with cp.async while the block builds the basis (a
+// block owns one tile, so there is no next tile to double-buffer: the
+// resident blocks of an SM overlap each other's copies and products).
+// Per 64-wide output pass, warp w computes the 16-row m-tiles w, w + 8, ..
+// of A^T @ dout (M = AC, K = kTile rows, N = 64) and writes them rounded to
+// bf16.
 template <int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
 dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
@@ -385,6 +435,10 @@ dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
   const int rows = min(kTile, n - rbeg);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
+  stage_rows(dout_s, po, kTile, O, O64, O % 8 == 0, [&](int r) -> const bf16* {
+    return r < rows ? dout + (size_t)(rbeg + r) * O : nullptr;
+  });
+  cp_async_commit();
 
   {  // the basis of the tile: thread t owns feature d0 + t % kDC
     const int j = threadIdx.x % kDC, d = d0 + j;
@@ -406,10 +460,8 @@ dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
       }
     }
   }
-  stage_rows(dout_s, po, kTile, O, O64, [&](int r) -> const bf16* {
-    return r < rows ? dout + (size_t)(rbeg + r) * O : nullptr;
-  });
-  __syncthreads();
+  cp_async_wait<0>();
+  __syncthreads();  // the basis and dout landed for every thread
 
   bf16* part = partial + blockIdx.y * ((size_t)S::NG * D * O);
   const bool pairs = O % 2 == 0;
@@ -489,7 +541,8 @@ int launch_dx(const void* x, const void* knots, const void* wb, const void* ws,
   if (n == 0) return 0;
   if constexpr (std::is_same_v<T, bf16>) {
     const int chunks = (D + kDC - 1) / kDC;
-    const size_t smem = sizeof(bf16) * (size_t)(S::AC + kMmaRows) * (round_up(O, 16) + 8);
+    const size_t smem = sizeof(bf16) * ((size_t)(S::AC + 2 * kMmaRows) * (round_up(O, 16) + 8) +
+                                        2 * kMmaRows * kXPitch);
     if (int e = set_smem(dx_mma_kernel<ORDER, GRID>, smem)) return e;
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);

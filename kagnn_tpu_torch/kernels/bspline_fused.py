@@ -178,12 +178,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def bwd_smem(D: int, O: int, grid: int, k: int, dtype) -> int:
     """Shared memory per block of the backward's largest kernel: under bf16
-    the dx kernel's chunk weights and dout tile, and the dW kernel's basis
-    and dout tile (csrc/bspline_fused.cu); in f32 the dx kernel's rows of
-    dout and one output tile of the chunk's weights."""
+    the dx kernel's chunk weights and two buffers of its 32-row dout and x
+    tiles, and the dW kernel's basis and dout tile (csrc/bspline_fused.cu);
+    in f32 the dx kernel's rows of dout and one output tile of the chunk's
+    weights."""
     ac = (grid + k + 1) * D_CHUNK
     if dtype == torch.bfloat16:
-        return max(2 * (ac + 32) * (-(-O // 16) * 16 + 8),
+        return max(2 * ((ac + 64) * (-(-O // 16) * 16 + 8) + 64 * (D_CHUNK + 8)),
                    2 * JAX_TILE * (ac + 8 + -(-O // 64) * 64 + 8))
     return 4 * (DX_ROWS * O + O_TILE * (ac + 1))
 
