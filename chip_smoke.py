@@ -9,7 +9,9 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for matmul and cuDNN;
   2. build: compiles every CUDA kernel from `kagnn_tpu_torch/csrc/` (one
-     nvcc per source, all at once) and prints the build time;
+     nvcc per library, all at once: a layer source is a library per shape,
+     the main paths' and the search-space corners' below) and prints the
+     build time;
   3. kernels: each of the 14 kernels against its plain PyTorch version on
      the card, at small shapes, ragged shapes (N off every tile, isolated
      nodes, a node of in-degree 301, receivers past the last segment) and
@@ -27,18 +29,23 @@ Phases (any failure raises, and the script exits non-zero):
      PyTorch call computes the same function, that call as the library
      yardstick (`torch.sparse.mm` on a CSR matrix; the port never calls it;
      there is none for GAT attention or the RBF product); then the forward
-     and backward of the autograd Functions against the plain path;
+     and backward of the autograd Functions against the plain path; then
+     every kernel at the search-space corners of the experiment scripts
+     (`phase_corners`: spline order 1-4 and grid 1-16, 2-32 centers, 500
+     and 3,703 features, GAT heads of 2-128 columns, 512 outputs) against
+     its plain version;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
-     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan) and for the base-free
-     FastKAN and the layernorm-free FastKANLayer: the kernel path
-     (fused=True) and the plain path (fused=False) agree on logits and
-     every parameter gradient;
+     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan), at five search-space
+     corners (STEP_CORNERS) and for the base-free FastKAN and the
+     layernorm-free FastKANLayer: the kernel path (fused=True) and the plain
+     path (fused=False) agree on logits and every parameter gradient;
   5. main paths: the bf16 train step of each node path at full width on
      the arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), and
      of FastKAN([128, 64, 64, 40], num_grids=8, use_base_update=False) on
      its node rows, 2 warm-up + 10 timed steps each, with the launch
      counters set to 0 before and checked after each path, and a profiler
-     breakdown; then three drives of kernels no path launches, each forward
+     breakdown (which keys the redesign order: device ms per step by
+     kernel, summed over the paths); then three drives of kernels no path launches, each forward
      and backward once with its counts checked the same way: the
      GIN+FastKAN fusion point `FastKAN(x, gin_graph=(g, 0))` (the GIN conv
      sums z itself for a FastKAN net, as the JAX model does), the
@@ -97,13 +104,25 @@ def phase_device(torch):
     return card
 
 
+# (spline order, grid size) and centers of the search-space corners the
+# corner phase runs (experiments/node_classification.py,
+# graph_classification.py): each is a library of its own, built with the
+# main paths' in one parallel build
+KAN_CORNERS = ((1, 1), (2, 8), (4, 16), (1, 8))
+FASTKAN_CORNERS = (2, 16, 32)
+
+
 def phase_build():
     from kagnn_tpu_torch.kernels import _build
 
+    units = list(_build.MAIN)
+    units += [(n, s) for n in ("bspline_fused", "gin_fused") for s in KAN_CORNERS]
+    units += [(n, (g,)) for n in ("fastkan_layer", "gin_fastkan", "rbf_fused")
+              for g in FASTKAN_CORNERS]
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    reports = _build.build_all(units)
     secs = time.perf_counter() - t0
-    log(f"build: {len(_build.SOURCES)} sources in {secs:.1f} s")
+    log(f"build: {len(units)} libraries of {len(_build.SOURCES)} sources in {secs:.1f} s")
     (_build.BUILD / "ptxas.txt").write_text(
         "\n".join(f"== {n}\n{r}" for n, r in reports.items()))
     for name, rep in reports.items():
@@ -509,6 +528,8 @@ def phase_new_kernels(torch, big, rows):
                     bms, by = H100.bound_ms(nbytes, ops, dn)
                     log(f"  {name} main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    if name == "fastkan_bwd" and main:
+                        log_kernel_split(torch, f"fastkan_bwd main {dn} D={D} O={O}", fn)
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
                                bound_ms=bms, bound_by=by)
     phase_gcn_split(torch, rows)
@@ -729,6 +750,110 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                            library_ms=lms)
 
 
+# (heads, columns a head) of the GAT corner: hidden 2, 37, 96 and 128 with
+# the experiment scripts' 4 heads (H*C up to 512), and one head of 37
+GAT_CORNERS = ((4, 2), (4, 37), (4, 96), (4, 128), (1, 37))
+
+
+def phase_corners(torch, rows):
+    """Every kernel at the search-space corners of the experiment scripts
+    against its plain version, f32 and bf16, on the ragged graph (301
+    nodes, a node of in-degree 301, isolated nodes): the B-spline
+    forward, both backwards and gin_fused at spline order 1-4 and grid 1-16
+    (KAN_CORNERS), with the bf16 backward also at 512 outputs; the FastKAN
+    layer forward and backward, gin_fastkan and the RBF product at 2, 16
+    and 32 centers and at 500 features, and with 32 centers at 3,703
+    features (CiteSeer's width) and at 512 outputs (the dx kernels' output
+    parts); the three GAT kernels at GAT_CORNERS. Errors join each kernel's
+    row; no time is taken."""
+    from kagnn_tpu_torch.kan.bspline import make_grid
+    from kagnn_tpu_torch.kernels import bspline_fused as bf
+    from kagnn_tpu_torch.kernels import fastkan_layer as fk
+    from kagnn_tpu_torch.kernels import gat_bwd as gbw
+    from kagnn_tpu_torch.kernels import gat_fused as gfu
+    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+    from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels import rbf_fused as rf
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    g = ragged_graph(torch)
+    N, nm = g.n_node_pad, g.node_mask
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    n_cmp = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+
+        def cmp(row, name, a, b, kind=dn):
+            nonlocal n_cmp
+            n_cmp += 1
+            record_row(rows[row], compare(torch, name, a, b, kind), False)
+
+        def cmp_bwd(row, err):
+            nonlocal n_cmp
+            n_cmp += 1
+            record_row(rows[row], err, False)
+
+        close = lambda name, a, b: compare(torch, name, a, b, dn)  # noqa: E731
+        shapes = [(k, gs, D, O) for k, gs in KAN_CORNERS for D, O in ((40, 100), (64, 64))]
+        if dtype == torch.bfloat16:  # the backward's output parts
+            shapes += [(4, 16, 32, 512), (3, 4, 64, 512)]
+        for k, gs, D, O in shapes:
+            knots = make_grid(D, gs, k, device="cuda").t().contiguous().to(dtype)
+            wb, ws = rand((D, O), dtype, 0.3), rand(((gs + k) * D, O), dtype, 0.3)
+            x, dout = rand((N, D), dtype), rand((N, O), dtype, 0.1)
+            tag = f"order {k} grid {gs} D={D} O={O}"
+            fa = (x, knots, wb, ws, k)
+            cmp("bspline_fwd", f"bspline_fwd corner {tag}", bf.kan_linear_fwd(*fa),
+                bf.kan_linear_fwd_plain(*fa))
+            cmp_bwd("bspline_bwd", check_bspline_bwd(f"bspline_bwd corner {tag}", *fa[:4],
+                                                     dout, k, close, log=log))
+            ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.25)
+            for w, a, b in zip(("out", "z"), gf.gin_kan_fwd(*ga), gf.gin_kan_fwd_plain(*ga)):
+                cmp("gin_fused", f"gin_fused corner {tag} {w}", a[nm], b[nm])
+        for G, D, O in [(G, D, O) for G in FASTKAN_CORNERS for D, O in ((40, 100), (500, 64))] \
+                + [(32, 3703, 64), (32, 64, 512)]:
+            lw = (1.0 + rand((D,), dtype, 0.2), rand((D,), dtype, 0.1),
+                  rand((G * D, O), dtype, 0.3), rand((D, O), dtype, 0.3), rand((O,), dtype, 0.1))
+            x, dout = rand((N, D), dtype), rand((N, O), dtype, 0.1)
+            x[N - 1] = 0.0
+            tag = f"G={G} D={D} O={O}"
+            cmp("fastkan_fwd", f"fastkan_fwd corner {tag}",
+                fk.fastkan_layer_fwd(x, *lw, -2.0, 2.0),
+                fk.fastkan_layer_fwd_plain(x, *lw, -2.0, 2.0))
+            cmp_bwd("fastkan_bwd", check_fastkan_bwd(f"fastkan_bwd corner {tag}", x, *lw[:4],
+                                                     dout, close, log=log))
+            ga = (x, g.senders, g.recv_row_ptr, *lw, 0.25, -2.0, 2.0)
+            for w, a, b in zip(("out", "z"), gfk.gin_fastkan_fwd(*ga),
+                               gfk.gin_fastkan_fwd_plain(*ga)):
+                cmp("gin_fastkan", f"gin_fastkan corner {tag} {w}", a[nm], b[nm])
+            w_ = rand((G * D, O), dtype, 0.3)
+            cmp("rbf_fwd", f"rbf_fwd corner {tag}", rf.rbf_spline_fwd(x, w_, -2.0, 2.0),
+                rf.rbf_spline_fwd_plain(x, w_, -2.0, 2.0))
+            for w, a, b in zip(("dx", "dW"), rf.rbf_spline_bwd(x, w_, dout, -2.0, 2.0),
+                               rf.rbf_spline_bwd_plain(x, w_, dout, -2.0, 2.0)):
+                cmp("rbf_bwd", f"rbf_bwd corner {tag} {w}", a, b)
+        for H, C in GAT_CORNERS:
+            h, dout = rand((N, H * C), dtype), rand((N, H * C), dtype, 0.1)
+            asrc, adst = rand((N, H), torch.float32, 2.0), rand((N, H), torch.float32, 2.0)
+            tag = f"H={H} C={C}"
+            fa = (h, asrc, adst, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+            out, alpha = gfu.gat_fwd(*fa)
+            want = gfu.gat_fwd_plain(*fa)
+            cmp("gat_fwd", f"gat_fwd corner {tag} out", out, want[0])
+            cmp("gat_fwd", f"gat_fwd corner {tag} alpha", alpha, want[1], "float32")
+            S = (dout * out).float().reshape(N, H, C).sum(2).contiguous()
+            da = (h, asrc, adst, alpha, S, dout, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+            cmp("gat_dadst", f"gat_dadst corner {tag}", gbw.gat_dadst(*da),
+                gbw.gat_dadst_plain(*da), "float32")
+            sa = (*da[:6], g.receivers_by_sender, g.send_row_ptr, g.n_edge, 0.2)
+            for w, a, b in zip(("dh", "dasrc"), gbw.gat_sender(*sa), gbw.gat_sender_plain(*sa)):
+                cmp("gat_sender", f"gat_sender corner {tag} {w}", a, b, "float32")
+    log(f"corners: {n_cmp} comparisons, all within their bars")
+
+
 def phase_autograd_functions(torch):
     """FastKANLayerFn -> GcnAggregate -> GinFastKan chained on a small
     graph, then GatAttention twice in a row (kernels/selfcheck.py, shared
@@ -755,8 +880,22 @@ def phase_autograd_functions(torch):
         f"{worst:.3e}); each RBF kernel launched once per layer")
 
 
-def phase_small_step(torch, conv, arch):
-    """Kernel path against the plain path on the card, f32 and bf16."""
+# search-space corners of the small-step phase: (conv, architecture,
+# settings), one conv each
+STEP_CORNERS = (("gin", "kan", dict(spline_order=1, grid_size=8)),
+                ("gcn", "kan", dict(spline_order=4, grid_size=16)),
+                ("gin", "fastkan", dict(grid_size=32)),
+                ("gat", "kan", dict(hidden_channels=37, heads=4)),
+                ("gat", "fastkan", dict(hidden_channels=37, heads=4, grid_size=16)))
+
+
+def phase_small_step(torch, conv, arch, **corner):
+    """Kernel path (fused=True) against the plain path on the card, f32 and
+    bf16. At the defaults below the plain path is the unfused model
+    (fused=False); at a search-space corner's settings (one conv) it is the
+    same fused model on the CPU, whose wrappers run the plain versions: the
+    fused and unfused formulas round the RBF centers differently (as the
+    JAX package's do), which 32 centers amplify past the f32 bar."""
     from kagnn_tpu_torch.data import community_node_graph
     from kagnn_tpu_torch.graphs import single_graph
     from kagnn_tpu_torch.models import NodeClassifier
@@ -768,18 +907,25 @@ def phase_small_step(torch, conv, arch):
     kw = dict(conv_type=conv, architecture=arch, mp_layers=3,
               num_features=16, hidden_channels=16, num_classes=4,
               grid_size=4, spline_order=3, skip=False)
+    if corner:
+        kw.update(mp_layers=1, **corner)
+    name = f"{conv}/{arch}" + "".join(f" {k}={v}" for k, v in corner.items())
 
-    def run(fused, cd):
-        m = NodeClassifier(fused=fused, compute_dtype=cd, device="cuda", **kw)
+    def run(fused, cd, dev="cuda", state=None):
+        m = NodeClassifier(fused=fused, compute_dtype=cd, device=dev, **kw)
+        if state is not None:
+            m.load_state_dict(state)
         m.train()
-        logits = m(g)
-        loss = masked_softmax_cross_entropy(logits, g.y, g.node_mask)
+        graph = g if dev == "cuda" else g.to(dev)
+        logits = m(graph)
+        loss = masked_softmax_cross_entropy(logits, graph.y, graph.node_mask)
         loss.backward()
-        return logits.detach(), {n: p.grad for n, p in m.named_parameters()}
+        return (logits.detach().to("cuda"),
+                {n: p.grad.to("cuda") for n, p in m.named_parameters()}, m.state_dict())
 
     nm = g.node_mask
-    lk, gk = run(True, None)
-    lp, gp = run(False, None)
+    lk, gk, state = run(True, None)
+    lp, gp, _ = run(True, None, "cpu", state) if corner else run(False, None)
     # f32: same tolerances as the CPU parity tests (values rtol 1e-4 /
     # atol 1e-5, grads rtol 1e-3 / atol 1e-5): only summation order differs
     torch.testing.assert_close(lk[nm], lp[nm], rtol=1e-4, atol=1e-5)
@@ -787,15 +933,26 @@ def phase_small_step(torch, conv, arch):
     for n in gp:
         torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
         worst = max(worst, (gk[n] - gp[n]).abs().max().item())
-    log(f"small step {conv}/{arch} f32: logits max_abs_err="
+    log(f"small step {name} f32: logits max_abs_err="
         f"{(lk[nm] - lp[nm]).abs().max().item():.3e}, "
         f"{len(gp)} grads agree (worst {worst:.3e})")
     # bf16 kernel path against the f32 plain path: the test_bf16.py bar
-    lb, _ = run(True, torch.bfloat16)
+    lb, _, _ = run(True, torch.bfloat16, state=state)
+    if corner:
+        # bf16 against the same bf16 model on the CPU: the kernels' 4-ulp bar
+        # on the logits' scale (both round at the same points)
+        lc, _, _ = run(True, torch.bfloat16, "cpu", state)
+        err = (lb[nm] - lc[nm]).abs().max().item()
+        tol = 4 * BF16_ULP * lc[nm].abs().max().item()
+        log(f"small step {name} bf16 vs the CPU: logits max_abs_err={err:.3e} "
+            f"(tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            raise AssertionError(f"{name}: bf16 kernel path disagrees with its plain "
+                                 f"versions: {err} > {tol}")
     rel = ((lb[nm] - lp[nm]).abs().mean() / (lp[nm].abs().mean() + 1e-6)).item()
-    log(f"small step {conv}/{arch} bf16 vs f32: mean relative error "
+    log(f"small step {name} bf16 vs f32: mean relative error "
         f"{rel:.4f} (bar 0.1)")
-    if not rel < 0.1:
+    if not rel < 0.1 and not corner:
         raise AssertionError(f"bf16 kernel path too far from f32: {rel}")
 
 
@@ -951,7 +1108,7 @@ def drive_path(torch, g, name, model, per_step):
     """2 warm-up + 10 timed bf16 train steps (masked CE, Adam(1e-3)) with
     the launch counters set to 0 before and checked after, then the host
     enqueue time of one step, an evaluation and a profile. Returns the
-    launches and ms/step."""
+    launches, ms/step and the profiled device ms per step by kernel."""
     from kagnn_tpu_torch.train import make_node_steps
 
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
@@ -989,22 +1146,23 @@ def drive_path(torch, g, name, model, per_step):
             not torch.isfinite(logits[mask]).all():
         raise AssertionError(f"{name}: evaluate gave non-finite or misshapen "
                              f"logits")
-    profile_steps(torch, lambda: train_step(g, mask), ms)
-    return launches, ms
+    by_kernel = profile_steps(torch, lambda: train_step(g, mask), ms)
+    return launches, ms, by_kernel
 
 
 def profile_steps(torch, step, step_ms, steps=3):
     """Device time per step by kernel, from torch.profiler over a few main
     path steps (after the counted run, so its launches are not counted).
     The busy share compares the summed kernel time with the timed run's
-    ms/step; the profiler's own overhead is outside both."""
+    ms/step; the profiler's own overhead is outside both. Returns device ms
+    per step by kernel name (empty when the profiler saw none)."""
     from kagnn_tpu_torch.utils.profiling import device_profile
 
     torch.cuda.synchronize()
     prof = device_profile(lambda: [step() for _ in range(steps)], steps)
     if prof.ms is None:
         log("profile: the profiler saw no device time (not measured)")
-        return
+        return {}
     log(f"profile: {prof.ms:.3f} ms of kernels per step, busy share "
         f"{prof.ms / step_ms:.3f} of the timed {step_ms:.3f} ms/step")
     for key, t, calls in prof.kernels[:15]:
@@ -1016,6 +1174,31 @@ def profile_steps(torch, step, step_ms, steps=3):
         f"per step under the profiler; the largest:")
     for key, t, calls in prof.host[:8]:
         log(f"  {t:8.4f} ms/step {calls:4d} calls/step  {key[:70]}")
+    return {key: t for key, t, _ in prof.kernels}
+
+
+# The kernel rows by the CUDA function names of csrc/ (each library's
+# kernels carry its prefix): the first prefix a profiled name starts with
+# decides its row. The tile walk (kan::walk_tiles_kernel) is shared by the
+# three layer backwards and goes to the one the path launched.
+KERNEL_NAMES = (("bspline_fwd_kernel", "bspline_fwd"), ("bspline_", "bspline_bwd"),
+                ("gin_fwd_kernel", "gin_fused"), ("gin_fastkan_kernel", "gin_fastkan"),
+                ("fastkan_fwd_kernel", "fastkan_fwd"), ("fastkan_", "fastkan_bwd"),
+                ("rbf_fwd_kernel", "rbf_fwd"), ("rbf_", "rbf_bwd"),
+                ("gat_fwd_kernel", "gat_fwd"), ("gat_dadst_kernel", "gat_dadst"),
+                ("gat_sender_kernel", "gat_sender"), ("gcn_", "gcn_agg"),
+                ("spmm_csr_kernel", "spmm"), ("narrow_kernel", "spmm_narrow"))
+
+
+def kernel_row_of(key, launches):
+    """The kernel row of a profiled kernel name on a path with `launches`,
+    or None for PyTorch's own kernels."""
+    base = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    base = base.replace("kan::", "").split("<")[0].split("(")[0].strip()
+    if base == "walk_tiles_kernel":
+        return next((r for r in ("bspline_bwd", "fastkan_bwd", "rbf_bwd")
+                     if launches.get(r)), None)
+    return next((row for prefix, row in KERNEL_NAMES if base.startswith(prefix)), None)
 
 
 def phase_fusion_point(torch, g):
@@ -1111,14 +1294,20 @@ def main() -> int:
     g = main_graph(torch)
     log("kernels against their plain versions:")
     rows = phase_kernels(torch, g)
+    log("kernels at the search-space corners against their plain versions:")
+    phase_corners(torch, rows)
     for conv, arch in MAIN_PATHS:
         phase_small_step(torch, conv, arch)
+    for conv, arch, corner in STEP_CORNERS:
+        phase_small_step(torch, conv, arch, **corner)
     phase_small_fastkan(torch)
-    step_ms, drives = {}, []
+    step_ms, drives, profiled = {}, [], []
     for conv, arch in MAIN_PATHS:
-        launches, step_ms[f"{conv}/{arch}"] = phase_main_path(torch, g, conv, arch)
+        launches, step_ms[f"{conv}/{arch}"], by_kernel = phase_main_path(torch, g, conv, arch)
         drives.append(launches)
-    launches, step_ms["fastkan/base-free"] = phase_fastkan_path(torch, g)
+        profiled.append((launches, by_kernel))
+    launches, step_ms["fastkan/base-free"], by_kernel = phase_fastkan_path(torch, g)
+    profiled.append((launches, by_kernel))
     drives += [launches, phase_fusion_point(torch, g), phase_ln_free_layer(torch, g),
                phase_narrow_drive(torch, g)]
     for launches in drives:
@@ -1132,15 +1321,29 @@ def main() -> int:
         + ", ".join(f"{k}={v:.3f}" for k, v in step_ms.items()))
     # the order in which to redesign the kernels: first those slower than
     # one PyTorch call of the same function, by the factor; then the rest by
-    # launches in this run x (ms - bound_ms) at the main path's shape
+    # the profiled device ms per step of their kernels, summed over the
+    # seven paths (every shape a path launches counts at its own time)
     slower = sorted((r for r in rows.values()
                      if r["library_ms"] is not None and r["ms"] > r["library_ms"]),
                     key=lambda r: -r["ms"] / r["library_ms"])
     log("slower than the library call: " + (", ".join(
         f"{r['name']} {r['ms'] / r['library_ms']:.2f}x" for r in slower) or "none"))
-    excess = sorted(rows.values(), key=lambda r: -r["launches"] * (r["ms"] - r["bound_ms"]))
-    log("launches x (ms - bound_ms), ms: " + ", ".join(
-        f"{r['name']} {r['launches'] * (r['ms'] - r['bound_ms']):.1f}" for r in excess))
+    per_step = dict.fromkeys(rows, 0.0)
+    other = 0.0
+    for launches, by_kernel in profiled:
+        for key, t in by_kernel.items():
+            row = kernel_row_of(key, launches)
+            if row is None:
+                other += t
+            else:
+                per_step[row] += t
+    if any(by_kernel for _, by_kernel in profiled):
+        log("redesign order, device ms per step by kernel summed over the seven "
+            "paths (profiler): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sorted(per_step.items(), key=lambda kv: -kv[1]))
+            + f"; PyTorch's own kernels {other:.3f}")
+    else:
+        log("redesign order: not measured (the profiler saw no device time)")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

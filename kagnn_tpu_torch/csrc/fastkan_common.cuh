@@ -1,8 +1,9 @@
 // Shared device code of the RBF kernels (fastkan_layer.cu, gin_fastkan.cu,
 // rbf_fused.cu): LayerNorm statistics, the RBF basis of one value, the
 // [SiLU |] RBF basis chunk, the chunked basis x weight product of a row
-// tile, the whole layer's forward on a row tile held in shared memory, and
-// the dispatch over (dtype, number of centers).
+// tile, the whole layer's forward on a row tile, and the dtype dispatch at
+// the number of centers a library is built for (FKAN_G, 2..32: one library
+// per count, built at its first use, kernels/_build.py).
 //
 // The layer, as kagnn_tpu/pallas/fastkan_layer.py::_fwd_kernel computes it:
 //   xhat = (x - mean) * rsqrt(var + eps)          (f32 statistics over D)
@@ -25,7 +26,7 @@ using kan::kThreads;
 using kan::sigmoid;
 using kan::to_f;
 
-constexpr int kMaxG = 8;  // centers supported: 2..kMaxG
+constexpr int kMaxG = 32;  // centers supported: 2..kMaxG
 constexpr float kLnEps = 1e-5f;
 
 // The RBF centers c_0..c_{G-1}, computed on the host exactly as the JAX
@@ -36,12 +37,16 @@ struct Centers {
 };
 
 // Columns of one feature chunk of the basis matrix A = [SiLU(x) |] B_0..B_G-1:
-// column g*kDC + j holds feature d0 + j of group g (with BASE, g = 0 is
-// SiLU and group g + 1 is B_g; without, group g is B_g).
+// column g*DC + j holds feature d0 + j of group g (with BASE, g = 0 is
+// SiLU and group g + 1 is B_g; without, group g is B_g). The chunk is 32
+// features wide up to 8 centers and narrower past them (16 up to 16, 8 up to
+// 32), so that a chunk's basis and the staged weight tiles stay near the
+// size they have at 8 centers (at most 264 columns).
 template <int G, bool BASE = true> struct Shape {
   static constexpr int B0 = BASE ? 1 : 0;  // group of B_0
   static constexpr int NG = G + B0;        // groups: [SiLU +] centers
-  static constexpr int AC = NG * kDC;      // columns of a chunk
+  static constexpr int DC = G <= 8 ? kDC : (G <= 16 ? 16 : 8);  // features a chunk
+  static constexpr int AC = NG * DC;       // columns of a chunk
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -50,26 +55,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Mean and 1/sqrt(var + eps) of each of `rows` rows of x_s (rows x D, f32),
-// two passes as the JAX kernel's _ln_stats. One warp per row; every lane
-// ends with the same values, in a fixed summation order.
-__device__ __forceinline__ void ln_stats(const float* x_s, int rows, int D, float* mu_s,
-                                         float* rstd_s) {
+// Mean and 1/sqrt(var + eps) of one row of D values xv(c), two passes as
+// the JAX kernel's _ln_stats, by one warp: every lane ends with the same
+// values, in a fixed summation order (lane-strided sums, then a butterfly).
+template <typename XV>
+__device__ __forceinline__ void row_stats(XV xv, int D, float& mu, float& rstd) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += xv(c);
+  mu = warp_sum(s) / (float)D;
+  float q = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float xc = xv(c) - mu;
+    q += xc * xc;
+  }
+  const float var = warp_sum(q) / (float)D;
+  rstd = 1.f / sqrtf(var + kLnEps);
+}
+
+// row_stats of each of `rows` rows, xv(rr, c) the f32 value of column c of
+// local row rr; one warp per row.
+template <typename XV>
+__device__ __forceinline__ void ln_stats(XV xv, int rows, int D, float* mu_s, float* rstd_s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int rr = warp; rr < rows; rr += kThreads / 32) {
-    const float* xr = x_s + (size_t)rr * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += xr[c];
-    const float mu = warp_sum(s) / (float)D;
-    float q = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float xc = xr[c] - mu;
-      q += xc * xc;
-    }
-    const float var = warp_sum(q) / (float)D;
+    float mu, rstd;
+    row_stats([&](int c) { return xv(rr, c); }, D, mu, rstd);
     if (lane == 0) {
       mu_s[rr] = mu;
-      rstd_s[rr] = 1.f / sqrtf(var + kLnEps);
+      rstd_s[rr] = rstd;
     }
   }
 }
@@ -92,7 +106,7 @@ __device__ __forceinline__ void rbf(float xs, const Centers& cs, float inv_h, fl
 }
 
 // Fill the basis chunk A_s (rows x Shape<G, BASE>::AC floats) for features
-// d0..d0+kDC-1. load(rr, row, d, x, xs) gives the layer input x (for SiLU)
+// d0..d0+DC-1. load(rr, row, d, x, xs) gives the layer input x (for SiLU)
 // and the basis input xs (x after the layernorm, or x itself); rows at or
 // past row_end and features past D give zeros. TR and ROUND_EXP as in rbf.
 template <int G, bool BASE, typename TR = float, bool ROUND_EXP = false, typename Load>
@@ -100,9 +114,9 @@ __device__ __forceinline__ void basis_chunk(Load load, float* A_s, int rows, int
                                             int row_end, int d0, int D, const Centers& cs,
                                             float inv_h) {
   using S = Shape<G, BASE>;
-  const int dd = threadIdx.x % kDC;
+  const int dd = threadIdx.x % S::DC;
   const int d = d0 + dd;
-  for (int rr = threadIdx.x / kDC; rr < rows; rr += kThreads / kDC) {
+  for (int rr = threadIdx.x / S::DC; rr < rows; rr += kThreads / S::DC) {
     const int row = row0 + rr;
     float* a = A_s + rr * S::AC + dd;
     if (d < D && row < row_end) {
@@ -112,10 +126,10 @@ __device__ __forceinline__ void basis_chunk(Load load, float* A_s, int rows, int
       float b[G], dist[G];
       rbf<G, TR, ROUND_EXP>(xs, cs, inv_h, b, dist);
 #pragma unroll
-      for (int g = 0; g < G; ++g) a[(g + S::B0) * kDC] = b[g];
+      for (int g = 0; g < G; ++g) a[(g + S::B0) * S::DC] = b[g];
     } else {
 #pragma unroll
-      for (int g = 0; g < S::NG; ++g) a[g * kDC] = 0.f;
+      for (int g = 0; g < S::NG; ++g) a[g * S::DC] = 0.f;
     }
   }
 }
@@ -129,7 +143,7 @@ __device__ __forceinline__ void build_chunk(LoadX load_x, Stats stats, float* A_
                                             const T* __restrict__ lng,
                                             const T* __restrict__ lnb, const Centers& cs,
                                             float inv_h) {
-  const int d = d0 + threadIdx.x % kDC;
+  const int d = d0 + threadIdx.x % Shape<G>::DC;
   const float gam = d < D ? to_f(lng[d]) : 0.f;
   const float bet = d < D ? to_f(lnb[d]) : 0.f;
   auto load = [&](int rr, int row, int dc, float& xv, float& xs) {
@@ -152,7 +166,7 @@ __device__ __forceinline__ const T* weight_row(const T* wb, const T* w, int g, i
 }
 
 // The product of one tile of kFwdRows rows starting at row0 with the
-// weight, one 32-feature chunk at a time: build(d0) fills A_s (kFwdRows x
+// weight, one DC-feature chunk at a time: build(d0) fills A_s (kFwdRows x
 // Shape<G, BASE>::AC floats) with the chunk's basis, then
 //   out[row, o] = sum_{g, d} A[row, g*D + d] * [Wb;] W[g*D + d, o] (+ bb[o])
 // in f32, written in TO; the bias only with BASE. Thread t owns output
@@ -168,11 +182,11 @@ __device__ __forceinline__ void chunked_forward(Build build, float* A_s, int row
   float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kDC) {
+  for (int d0 = 0; d0 < D; d0 += S::DC) {
     __syncthreads();  // what build reads is written; the previous chunk is consumed
     build(d0);
     __syncthreads();
-    const int dn = min(kDC, D - d0);
+    const int dn = min(S::DC, D - d0);
     if (o < O) {
       const float* a0 = A_s + rg * 8 * S::AC;
 #pragma unroll
@@ -180,7 +194,7 @@ __device__ __forceinline__ void chunked_forward(Build build, float* A_s, int row
         const TW* wrow = weight_row<BASE>(wb, w, g, d0, D, O) + o;
         for (int j = 0; j < dn; ++j) {
           const float wv = to_f(wrow[(size_t)j * O]);
-          const float* a = a0 + g * kDC + j;
+          const float* a = a0 + g * S::DC + j;
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[i] += a[i * S::AC] * wv;
         }
@@ -199,20 +213,21 @@ __device__ __forceinline__ void chunked_forward(Build build, float* A_s, int row
 }
 
 // The whole FastKANLayer forward of one tile of kFwdRows rows starting at
-// row0, whose f32 input x_s (kFwdRows x D) is already in shared memory:
-// statistics into mu_s/rstd_s, then per 32-feature chunk the basis matrix
-// in A_s (kFwdRows x AC floats) and its products with [Wb; W] in f32.
-template <typename T, int G>
-__device__ __forceinline__ void forward_tile(const float* x_s, float* A_s, float* mu_s,
-                                             float* rstd_s, int row0, int n, int D, int O,
+// row0, whose f32 input is xv(rr, d) for local row rr (from shared memory,
+// or for wide rows from device memory): statistics into mu_s/rstd_s, then
+// per feature chunk the basis matrix in A_s (kFwdRows x AC floats) and its
+// products with [Wb; W] in f32.
+template <typename T, int G, typename XV>
+__device__ __forceinline__ void forward_tile(XV xv, float* A_s, float* mu_s, float* rstd_s,
+                                             int row0, int n, int D, int O,
                                              const T* __restrict__ lng,
                                              const T* __restrict__ lnb, const Centers& cs,
                                              float inv_h, const T* __restrict__ w,
                                              const T* __restrict__ wb,
                                              const T* __restrict__ bb, T* __restrict__ out) {
-  __syncthreads();  // x_s is complete
-  ln_stats(x_s, kFwdRows, D, mu_s, rstd_s);
-  auto load_x = [&](int rr, int, int d) { return x_s[(size_t)rr * D + d]; };
+  __syncthreads();  // what xv reads is complete
+  ln_stats(xv, kFwdRows, D, mu_s, rstd_s);
+  auto load_x = [&](int rr, int, int d) { return xv(rr, d); };
   auto stats = [&](int rr, int, float& mu, float& rstd) {
     mu = mu_s[rr];
     rstd = rstd_s[rr];
@@ -223,32 +238,27 @@ __device__ __forceinline__ void forward_tile(const float* x_s, float* A_s, float
   chunked_forward<G, true>(build, A_s, row0, n, D, O, wb, w, bb, out);
 }
 
-// Shared memory of forward_tile's caller: x_s, A_s, mu_s, rstd_s.
-template <int G> constexpr size_t forward_smem(int D) {
-  return sizeof(float) * ((size_t)kFwdRows * D + (size_t)kFwdRows * Shape<G>::AC + 2 * kFwdRows);
+// Shared memory of forward_tile's caller: [x_s (kFwdRows x D, when the
+// rows are held),] A_s, mu_s, rstd_s.
+template <int G> constexpr size_t forward_smem(int D, bool hold) {
+  return sizeof(float) * ((hold ? (size_t)kFwdRows * D : 0) + (size_t)kFwdRows * Shape<G>::AC +
+                          2 * kFwdRows);
 }
 
 }  // namespace fkan
 
-// Calls FN<T, G>(args...) for G in 2..8 and f32/bf16, and returns
-// cudaErrorInvalidValue for anything else.
-#define FASTKAN_DISPATCH_G(T, G_, FN, ...)                  \
-  switch (G_) {                                             \
-    case 2: return FN<T, 2>(__VA_ARGS__);                   \
-    case 3: return FN<T, 3>(__VA_ARGS__);                   \
-    case 4: return FN<T, 4>(__VA_ARGS__);                   \
-    case 5: return FN<T, 5>(__VA_ARGS__);                   \
-    case 6: return FN<T, 6>(__VA_ARGS__);                   \
-    case 7: return FN<T, 7>(__VA_ARGS__);                   \
-    case 8: return FN<T, 8>(__VA_ARGS__);                   \
-    default: return (int)cudaErrorInvalidValue;             \
-  }
+// The number of centers a library of a FastKAN source is built for (-D
+// FKAN_G, kernels/_build.py); the default is the main path's.
+#ifndef FKAN_G
+#define FKAN_G 4
+#endif
 
+// Calls FN<T, FKAN_G>(args...) for f32/bf16 and returns
+// cudaErrorInvalidValue for another dtype or number of centers.
 #define FASTKAN_DISPATCH(dtype, G_, FN, ...)                                   \
   do {                                                                         \
-    if (dtype == kan::kF32) { FASTKAN_DISPATCH_G(float, G_, FN, __VA_ARGS__) } \
-    if (dtype == kan::kBF16) {                                                 \
-      FASTKAN_DISPATCH_G(__nv_bfloat16, G_, FN, __VA_ARGS__)                   \
-    }                                                                          \
+    if (G_ != FKAN_G) return (int)cudaErrorInvalidValue;                       \
+    if (dtype == kan::kF32) return FN<float, FKAN_G>(__VA_ARGS__);             \
+    if (dtype == kan::kBF16) return FN<__nv_bfloat16, FKAN_G>(__VA_ARGS__);    \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)

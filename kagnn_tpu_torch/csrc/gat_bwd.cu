@@ -18,13 +18,14 @@
 // per edge one gathered row of H*C values (h_s for dadst, dout_r for the
 // sender pass) and a few narrow values, 2*H*C to 4*H*C operations.
 //
-// Design: one warp per row (gat_common.cuh), edges in CSR order, four rows in
-// flight, the per-head dot by a butterfly over the head's lanes, every sum in
-// registers: no atomics, deterministic. gat_dadst reads dout_r, adst_r,
-// alpha_r and S_r once per row and gathers h_s and asrc_s; gat_sender reads
-// h_s and asrc_s once and gathers dout_r, adst_r, alpha_r and S_r. The
-// hub row (in-degree 2,748 at node 0 of the main graph) is one warp's work in
-// gat_dadst; the sender CSR's rows are short (out-degree <= 23 there).
+// Design: one warp per row (gat_common.cuh: J passes of 32 slots, any C),
+// edges in CSR order, unroll<J>() rows in flight, the per-head dot by a
+// butterfly over the head's slots, every sum in registers: no atomics,
+// deterministic. gat_dadst reads dout_r, adst_r, alpha_r and S_r once per
+// row and gathers h_s and asrc_s; gat_sender reads h_s and asrc_s once and
+// gathers dout_r, adst_r, alpha_r and S_r. The hub row (in-degree 2,748 at
+// node 0 of the main graph) is one warp's work in gat_dadst; the sender
+// CSR's rows are short (out-degree <= 23 there).
 
 #include "gat_common.cuh"
 
@@ -32,159 +33,207 @@ namespace {
 
 using namespace gat;
 
-template <typename T>
+template <typename T, int J, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 gat_dadst_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
                  const float* __restrict__ adst, const float* __restrict__ alpha,
                  const float* __restrict__ S, const T* __restrict__ dout,
                  const int* __restrict__ senders, const int* __restrict__ row_ptr,
-                 float* __restrict__ dadst, int n, int H, int C, int n_edge, float slope) {
+                 float* __restrict__ dadst, int n, int H, int C, int P, int n_edge,
+                 float slope) {
+  constexpr int U = unroll<J>();
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= n) return;
-  const Lane ln = lane_of(H, C);
   const size_t HC = (size_t)H * C;
   int e0, e1;
   row_edges(row_ptr, row, n_edge, e0, e1);
-  const size_t rh = (size_t)row * H + ln.head;
-  const float ad = adst[rh], al = alpha[rh], sr = S[rh];
-  float dv[kCols];
-  load8(dout + row * HC + ln.col, dv);
-  float da = 0.f;
-
-  auto edge = [&](float a, const float (&v)[kCols]) {
-    float p = 0.f;
+  Slot sl[J];
+  float ad[J], al[J], sr[J], da[J], dv[J][kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) p += dv[j] * v[j];
-    const float dw = head_sum(p, C);
-    const float z = a + ad;
-    const float w = expf(fminf(leaky(z, slope) - al, kClamp));
-    da += w * (dw - sr) * dleaky(z, slope);
+  for (int j = 0; j < J; ++j) {
+    sl[j] = slot_of(j, H, C, P);
+    const size_t rh = (size_t)row * H + sl[j].head;
+    ad[j] = adst[rh];
+    al[j] = alpha[rh];
+    sr[j] = S[rh];
+    da[j] = 0.f;
+    load_cols<VEC>(dout + row * HC, sl[j], dv[j]);
+  }
+
+  // one edge: a[j] = asrc_s of slot j's head, v[j] its columns of h_s
+  auto edge = [&](const float (&a)[J], const float (&v)[J][kCols]) {
+    float dw[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      float p = 0.f;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) p += dv[j][k] * v[j][k];
+      dw[j] = p;
+    }
+    head_sum<J>(dw, P);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float z = a[j] + ad[j];
+      const float w = expf(fminf(leaky(z, slope) - al[j], kClamp));
+      da[j] += w * (dw[j] - sr[j]) * dleaky(z, slope);
+    }
   };
   int e = e0;
-  for (; e + kUnroll <= e1; e += kUnroll) {
-    int s[kUnroll];
-    float a[kUnroll], v[kUnroll][kCols];
+  for (; e + U <= e1; e += U) {
+    int s[U];
+    float a[U][J], v[U][J][kCols];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) s[u] = __ldg(senders + e + u);
+    for (int u = 0; u < U; ++u) s[u] = __ldg(senders + e + u);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      a[u] = __ldg(asrc + (size_t)s[u] * H + ln.head);
-      load8(h + s[u] * HC + ln.col, v[u]);
-    }
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) edge(a[u], v[u]);
+      for (int j = 0; j < J; ++j) {
+        a[u][j] = __ldg(asrc + (size_t)s[u] * H + sl[j].head);
+        load_cols<VEC>(h + s[u] * HC, sl[j], v[u][j]);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) edge(a[u], v[u]);
   }
   for (; e < e1; ++e) {
     const int s = __ldg(senders + e);
-    float v[kCols];
-    load8(h + s * HC + ln.col, v);
-    edge(__ldg(asrc + (size_t)s * H + ln.head), v);
+    float a[J], v[J][kCols];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      a[j] = __ldg(asrc + (size_t)s * H + sl[j].head);
+      load_cols<VEC>(h + s * HC, sl[j], v[j]);
+    }
+    edge(a, v);
   }
-  if (ln.leader) dadst[rh] = da;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (sl[j].leader) dadst[(size_t)row * H + sl[j].head] = da[j];
 }
 
-template <typename T>
+template <typename T, int J, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 gat_sender_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
                   const float* __restrict__ adst, const float* __restrict__ alpha,
                   const float* __restrict__ S, const T* __restrict__ dout,
                   const int* __restrict__ receivers, const int* __restrict__ row_ptr,
-                  float* __restrict__ dh, float* __restrict__ dasrc, int n, int H, int C,
+                  float* __restrict__ dh, float* __restrict__ dasrc, int n, int H, int C, int P,
                   int n_edge, float slope) {
+  constexpr int U = unroll<J>();
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= n) return;
-  const Lane ln = lane_of(H, C);
   const size_t HC = (size_t)H * C;
   int e0, e1;
   row_edges(row_ptr, row, n_edge, e0, e1);
-  const float as = asrc[(size_t)row * H + ln.head];
-  float hv[kCols], acc[kCols];
-  load8(h + row * HC + ln.col, hv);
+  Slot sl[J];
+  float as[J], da[J], hv[J][kCols], acc[J][kCols];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
-  float da = 0.f;
+  for (int j = 0; j < J; ++j) {
+    sl[j] = slot_of(j, H, C, P);
+    as[j] = asrc[(size_t)row * H + sl[j].head];
+    da[j] = 0.f;
+    load_cols<VEC>(h + row * HC, sl[j], hv[j]);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[j][k] = 0.f;
+  }
 
-  auto edge = [&](float ad, float al, float sr, const float (&dv)[kCols]) {
-    float p = 0.f;
+  // one edge: the receiver's adst, alpha and S of slot j's head, and its
+  // columns of dout
+  auto edge = [&](const float (&ad)[J], const float (&al)[J], const float (&sr)[J],
+                  const float (&dv)[J][kCols]) {
+    float dw[J];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) p += dv[j] * hv[j];
-    const float dw = head_sum(p, C);
-    const float z = as + ad;
-    const float w = expf(fminf(leaky(z, slope) - al, kClamp));
-    da += w * (dw - sr) * dleaky(z, slope);
+    for (int j = 0; j < J; ++j) {
+      float p = 0.f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] += w * dv[j];
+      for (int k = 0; k < kCols; ++k) p += dv[j][k] * hv[j][k];
+      dw[j] = p;
+    }
+    head_sum<J>(dw, P);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float z = as[j] + ad[j];
+      const float w = expf(fminf(leaky(z, slope) - al[j], kClamp));
+      da[j] += w * (dw[j] - sr[j]) * dleaky(z, slope);
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) acc[j][k] += w * dv[j][k];
+    }
   };
   int e = e0;
-  for (; e + kUnroll <= e1; e += kUnroll) {
-    int r[kUnroll];
-    float ad[kUnroll], al[kUnroll], sr[kUnroll], dv[kUnroll][kCols];
+  for (; e + U <= e1; e += U) {
+    int r[U];
+    float ad[U][J], al[U][J], sr[U][J], dv[U][J][kCols];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) r[u] = __ldg(receivers + e + u);
+    for (int u = 0; u < U; ++u) r[u] = __ldg(receivers + e + u);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t rh = (size_t)r[u] * H + ln.head;
-      ad[u] = __ldg(adst + rh);
-      al[u] = __ldg(alpha + rh);
-      sr[u] = __ldg(S + rh);
-      load8(dout + r[u] * HC + ln.col, dv[u]);
-    }
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) edge(ad[u], al[u], sr[u], dv[u]);
+      for (int j = 0; j < J; ++j) {
+        const size_t rh = (size_t)r[u] * H + sl[j].head;
+        ad[u][j] = __ldg(adst + rh);
+        al[u][j] = __ldg(alpha + rh);
+        sr[u][j] = __ldg(S + rh);
+        load_cols<VEC>(dout + r[u] * HC, sl[j], dv[u][j]);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) edge(ad[u], al[u], sr[u], dv[u]);
   }
   for (; e < e1; ++e) {
     const size_t r = __ldg(receivers + e);
-    const size_t rh = r * H + ln.head;
-    float dv[kCols];
-    load8(dout + r * HC + ln.col, dv);
-    edge(__ldg(adst + rh), __ldg(alpha + rh), __ldg(S + rh), dv);
+    float ad[J], al[J], sr[J], dv[J][kCols];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const size_t rh = r * H + sl[j].head;
+      ad[j] = __ldg(adst + rh);
+      al[j] = __ldg(alpha + rh);
+      sr[j] = __ldg(S + rh);
+      load_cols<VEC>(dout + r * HC, sl[j], dv[j]);
+    }
+    edge(ad, al, sr, dv);
   }
-  if (ln.active) store8(dh + row * HC + ln.col, acc);
-  if (ln.leader) dasrc[(size_t)row * H + ln.head] = da;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (sl[j].cnt > 0) store_cols<VEC>(dh + row * HC, sl[j], acc[j]);
+    if (sl[j].leader) dasrc[(size_t)row * H + sl[j].head] = da[j];
+  }
 }
 
-template <typename T>
-int launch_dadst(const void* h, const float* asrc, const float* adst, const float* alpha,
+template <typename T, int J, bool VEC>
+int launch_dadst(int P, const void* h, const float* asrc, const float* adst, const float* alpha,
                  const float* S, const void* dout, const int* senders, const int* row_ptr,
                  float* dadst, int n, int H, int C, int n_edge, float slope,
                  cudaStream_t stream) {
   const int blocks = (n + kWarps - 1) / kWarps;
   if (blocks > 0)
-    gat_dadst_kernel<T><<<blocks, kWarps * 32, 0, stream>>>(
+    gat_dadst_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
         static_cast<const T*>(h), asrc, adst, alpha, S, static_cast<const T*>(dout), senders,
-        row_ptr, dadst, n, H, C, n_edge, slope);
+        row_ptr, dadst, n, H, C, P, n_edge, slope);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_sender(const void* h, const float* asrc, const float* adst, const float* alpha,
-                  const float* S, const void* dout, const int* receivers, const int* row_ptr,
-                  float* dh, float* dasrc, int n, int H, int C, int n_edge, float slope,
-                  cudaStream_t stream) {
+template <typename T, int J, bool VEC>
+int launch_sender(int P, const void* h, const float* asrc, const float* adst,
+                  const float* alpha, const float* S, const void* dout, const int* receivers,
+                  const int* row_ptr, float* dh, float* dasrc, int n, int H, int C, int n_edge,
+                  float slope, cudaStream_t stream) {
   const int blocks = (n + kWarps - 1) / kWarps;
   if (blocks > 0)
-    gat_sender_kernel<T><<<blocks, kWarps * 32, 0, stream>>>(
+    gat_sender_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
         static_cast<const T*>(h), asrc, adst, alpha, S, static_cast<const T*>(dout), receivers,
-        row_ptr, dh, dasrc, n, H, C, n_edge, slope);
+        row_ptr, dh, dasrc, n, H, C, P, n_edge, slope);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dadst (n, H) f32 over the receiver CSR (senders in receiver-sorted order).
-// h and dout (n, H*C) of one dtype; asrc, adst, alpha, S (n, H) f32.
+// h and dout (n, H*C) of one dtype; asrc, adst, alpha, S (n, H) f32. Any
+// C >= 1 with H * P <= 256 slots (gat_common.cuh).
 extern "C" int gat_dadst(const void* h, const float* asrc, const float* adst, const float* alpha,
                          const float* S, const void* dout, const int* senders,
                          const int* row_ptr, float* dadst, int n, int H, int C, int n_edge,
                          float slope, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kan::kF32)
-    return launch_dadst<float>(h, asrc, adst, alpha, S, dout, senders, row_ptr, dadst, n, H, C,
-                               n_edge, slope, s);
-  if (dtype == kan::kBF16)
-    return launch_dadst<__nv_bfloat16>(h, asrc, adst, alpha, S, dout, senders, row_ptr, dadst,
-                                       n, H, C, n_edge, slope, s);
-  return (int)cudaErrorInvalidValue;
+  GAT_DISPATCH(dtype, H, C, launch_dadst, h, asrc, adst, alpha, S, dout, senders, row_ptr,
+               dadst, n, H, C, n_edge, slope, s);
 }
 
 // dh (n, H*C) f32 and dasrc (n, H) f32 over the sender CSR (receivers in
@@ -194,11 +243,6 @@ extern "C" int gat_sender(const void* h, const float* asrc, const float* adst, c
                           const int* row_ptr, float* dh, float* dasrc, int n, int H, int C,
                           int n_edge, float slope, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kan::kF32)
-    return launch_sender<float>(h, asrc, adst, alpha, S, dout, receivers, row_ptr, dh, dasrc, n,
-                                H, C, n_edge, slope, s);
-  if (dtype == kan::kBF16)
-    return launch_sender<__nv_bfloat16>(h, asrc, adst, alpha, S, dout, receivers, row_ptr, dh,
-                                        dasrc, n, H, C, n_edge, slope, s);
-  return (int)cudaErrorInvalidValue;
+  GAT_DISPATCH(dtype, H, C, launch_sender, h, asrc, adst, alpha, S, dout, receivers, row_ptr,
+               dh, dasrc, n, H, C, n_edge, slope, s);
 }

@@ -1,16 +1,22 @@
 // Shared device code of the GAT kernels (gat_fused.cu, gat_bwd.cu): the
-// leaky ReLU and its derivative, 8-column row loads and stores, the lane
+// leaky ReLU and its derivative, 8-column row loads and stores, the slot
 // layout of a row, the per-head reduction and the valid edges of a row.
 //
-// Layout: one warp owns one node row of H*C <= 256 columns; lane l holds the
-// 8 consecutive columns 8l .. 8l+7 (one 16-byte load in bf16, two in f32),
-// all of them in head 8l / C since C is a multiple of 8. A lane computes the
-// logit, weight and softmax state of its own head, as do the other C/8
-// lanes of that head, so the forward needs no traffic between lanes; a
-// per-head dot product is a butterfly over the C/8 lanes of the head (C/8 a
-// power of two: the lanes of a head are an aligned group). Lanes past H*C
-// (H*C < 256) read column 0 of the row and store nothing; they form groups
-// of their own, so they never mix into an active head's sum.
+// Layout: one warp owns one node row of H*C columns, the C columns of head h
+// contiguous at h*C (the JAX layout). A head's columns are cut into
+// L = ceil(C / 8) packs of 8, the last masked past C, and the head gets P
+// slots, P the power of two >= L. The warp holds J passes of 32 slots
+// (J = ceil(H*P / 32), 1, 2, 4 or 8): slot v = j*32 + lane holds pack v % P
+// of head v / P, so each lane computes the logit, weight and softmax state
+// of its slots' own heads, as do the other slots of those heads, and the
+// forward needs no traffic between lanes. A per-head dot product is a
+// butterfly over the head's P slots: an aligned group of P lanes when
+// P <= 32, else all 32 lanes and the P / 32 passes of the head. Slots past
+// a head's L packs or past the H heads hold no columns (their values are
+// 0), so they add nothing to a head's sum. When C is a multiple of 8 a pack
+// is one 16-byte load in bf16 (two in f32); otherwise the packs load
+// value by value. The main path (H = 4, C = 64) is one pass of 32 slots,
+// 8 a head.
 #pragma once
 
 #include <cmath>
@@ -23,9 +29,13 @@ using kan::from_f;
 using kan::to_f;
 
 constexpr int kWarps = 8;       // rows (one warp each) per block
-constexpr int kCols = 8;        // columns per lane
-constexpr int kUnroll = 4;      // edges whose rows a warp has in flight at once
+constexpr int kCols = 8;        // columns per slot
 constexpr float kClamp = 80.f;  // the JAX backward's clamp of the exp argument
+
+// edges whose rows a warp has in flight at once, by passes a row
+template <int J> __host__ __device__ constexpr int unroll() {
+  return J <= 2 ? 4 : (J == 4 ? 2 : 1);
+}
 
 __device__ __forceinline__ float leaky(float z, float slope) { return z >= 0.f ? z : slope * z; }
 __device__ __forceinline__ float dleaky(float z, float slope) { return z >= 0.f ? 1.f : slope; }
@@ -61,29 +71,77 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kCols]
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// The lane's place in a row of H*C columns.
-struct Lane {
-  int col;      // the first of its 8 columns (0 for a lane past H*C)
-  int head;     // the head of those columns
-  bool active;  // whether the lane holds columns of the row
-  bool leader;  // the first lane of its head: it writes the head's values
+// One slot's place in a row of H*C columns.
+struct Slot {
+  int col;      // the first of its columns (0 for a slot without columns)
+  int cnt;      // its columns: 8, fewer for a head's last pack, 0 for none
+  int head;     // its head (0 for a slot past the H heads)
+  bool leader;  // the head's first pack: it writes the head's values
 };
 
-__device__ __forceinline__ Lane lane_of(int H, int C) {
-  Lane l;
-  const int c = (threadIdx.x % 32) * kCols;
-  l.active = c < H * C;
-  l.col = l.active ? c : 0;
-  l.head = l.col / C;
-  l.leader = l.active && c % C == 0;
-  return l;
+// slot j of this lane (pass j of the row), with P slots a head
+__device__ __forceinline__ Slot slot_of(int j, int H, int C, int P) {
+  const int v = j * 32 + threadIdx.x % 32;
+  const int head = v / P, q = v % P;
+  const bool active = head < H && q * kCols < C;
+  Slot s;
+  s.head = head < H ? head : 0;
+  s.col = active ? head * C + q * kCols : 0;
+  s.cnt = active ? min(kCols, C - q * kCols) : 0;
+  s.leader = active && q == 0;
+  return s;
 }
 
-// The sum of v over the C/8 lanes of this lane's head, the same value in
+// the slot's columns of a row (zeros past cnt). With VEC (cnt 8 or 0) the
+// pack is loaded unconditionally (a slot without columns reads column 0 of
+// the row, a valid address) and zeroed by a select: no branch, so the loads
+// of the edges a warp unrolls stay in flight together.
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ row, const Slot& s,
+                                          float (&v)[kCols]) {
+  if constexpr (VEC) {
+    load8(row + s.col, v);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) v[k] = s.cnt > 0 ? v[k] : 0.f;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) v[k] = k < s.cnt ? to_f(row[s.col + k]) : 0.f;
+  }
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_cols(T* row, const Slot& s, const float (&v)[kCols]) {
+  if constexpr (VEC) {
+    if (s.cnt > 0) store8(row + s.col, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k)
+      if (k < s.cnt) row[s.col + k] = from_f<T>(v[k]);
+  }
+}
+
+// p[j] <- the sum of p over the slots of slot j's head, the same value in
 // each of them. Every lane of the warp must call it.
-__device__ __forceinline__ float head_sum(float v, int C) {
-  for (int off = C / (2 * kCols); off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+template <int J>
+__device__ __forceinline__ void head_sum(float (&p)[J], int P) {
+  const int span = P < 32 ? P : 32;  // lanes of a head within one pass
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    for (int off = span / 2; off > 0; off >>= 1) p[j] += __shfl_xor_sync(0xffffffffu, p[j], off);
+  if (P > 32) {  // a head spans P / 32 passes of this lane
+    const int per = P / 32;
+    float q[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) q[j] = p[j];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+        if (i / per == j / per) s += q[i];
+      p[j] = s;
+    }
+  }
 }
 
 // [e0, e1): the valid edges of CSR row `row`. Padded edges are the tail
@@ -95,4 +153,40 @@ __device__ __forceinline__ void row_edges(const int* __restrict__ row_ptr, int r
   e1 = min(row_ptr[row + 1], n_edge);
 }
 
+// slots a head and passes a row for heads of C columns: P = the power of
+// two >= ceil(C / 8), J = the power of two >= H*P / 32; false past 8 passes
+inline bool plan(int H, int C, int& P, int& J) {
+  const int L = (C + kCols - 1) / kCols;
+  for (P = 1; P < L; P *= 2) {
+  }
+  const int need = (H * P + 31) / 32;
+  for (J = 1; J < need; J *= 2) {
+  }
+  return H >= 1 && C >= 1 && J <= 8;
+}
+
 }  // namespace gat
+
+// Calls FN<T, J, VEC>(args...) for the dtype (f32 or bf16), the passes a row
+// J in {1, 2, 4, 8} and VEC = whether C is a multiple of 8; returns
+// cudaErrorInvalidValue otherwise.
+#define GAT_DISPATCH_J(T, J_, VEC_, FN, ...)                                   \
+  switch (J_) {                                                                \
+    case 1: return VEC_ ? FN<T, 1, true>(__VA_ARGS__) : FN<T, 1, false>(__VA_ARGS__); \
+    case 2: return VEC_ ? FN<T, 2, true>(__VA_ARGS__) : FN<T, 2, false>(__VA_ARGS__); \
+    case 4: return VEC_ ? FN<T, 4, true>(__VA_ARGS__) : FN<T, 4, false>(__VA_ARGS__); \
+    case 8: return VEC_ ? FN<T, 8, true>(__VA_ARGS__) : FN<T, 8, false>(__VA_ARGS__); \
+    default: return (int)cudaErrorInvalidValue;                                \
+  }
+
+#define GAT_DISPATCH(dtype, H_, C_, FN, ...)                                   \
+  do {                                                                         \
+    int P_, J_;                                                                \
+    if (!gat::plan(H_, C_, P_, J_)) return (int)cudaErrorInvalidValue;         \
+    const bool VEC_ = C_ % gat::kCols == 0;                                    \
+    if (dtype == kan::kF32) { GAT_DISPATCH_J(float, J_, VEC_, FN, P_, __VA_ARGS__) } \
+    if (dtype == kan::kBF16) {                                                 \
+      GAT_DISPATCH_J(__nv_bfloat16, J_, VEC_, FN, P_, __VA_ARGS__)             \
+    }                                                                          \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)

@@ -20,14 +20,14 @@
 // every edge (E rows), which the 50 MB L2 serves only in part at the main
 // path's N = 169,344 (h is 87 MB in bf16).
 //
-// Design: one warp per receiver row (gat_common.cuh), two passes over the
-// row's edges in CSR order: the first takes the max of the gathered asrc
-// (leaky is increasing, so that gives the shift), the second the weights,
-// the denominator and the weighted sum of the gathered rows, in registers,
-// four rows in flight. No atomics, no (E, H*C) tensor, deterministic. One
-// warp walks a hub row alone (node 0 of the main graph has 2,748 edges),
-// which bounds the launch's time from below; splitting long rows is later
-// work.
+// Design: one warp per receiver row (gat_common.cuh: J passes of 32
+// slots, any C), two passes over the row's edges in CSR order: the first
+// takes the max of the gathered asrc (leaky is increasing, so that gives the
+// shift), the second the weights, the denominator and the weighted sum of
+// the gathered rows, in registers, unroll<J>() rows in flight. No atomics,
+// no (E, H*C) tensor, deterministic. One warp walks a hub row alone (node 0
+// of the main graph has 2,748 edges), which bounds the launch's time from
+// below; splitting long rows is later work.
 
 #include "gat_common.cuh"
 
@@ -35,82 +35,101 @@ namespace {
 
 using namespace gat;
 
-template <typename T>
+template <typename T, int J, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 gat_fwd_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
                const float* __restrict__ adst, const int* __restrict__ senders,
                const int* __restrict__ row_ptr, T* __restrict__ out, float* __restrict__ alpha,
-               int n, int H, int C, int n_edge, float slope) {
+               int n, int H, int C, int P, int n_edge, float slope) {
+  constexpr int U = unroll<J>();
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= n) return;
-  const Lane ln = lane_of(H, C);
   const size_t HC = (size_t)H * C;
   int e0, e1;
   row_edges(row_ptr, row, n_edge, e0, e1);
-  const float ad = adst[(size_t)row * H + ln.head];
-  const float sl = leaky(asrc[(size_t)row * H + ln.head] + ad, slope);
+  Slot sl[J];
+  float ad[J], self[J], m[J], den[J], acc[J][kCols];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    sl[j] = slot_of(j, H, C, P);
+    ad[j] = adst[(size_t)row * H + sl[j].head];
+    self[j] = leaky(asrc[(size_t)row * H + sl[j].head] + ad[j], slope);
+  }
 
   // pass 1: the shift
-  float ma = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    float ma = -INFINITY;
 #pragma unroll 4
-  for (int e = e0; e < e1; ++e)
-    ma = fmaxf(ma, __ldg(asrc + (size_t)__ldg(senders + e) * H + ln.head));
-  const float m = kan::round_t<__nv_bfloat16>(e1 > e0 ? fmaxf(sl, leaky(ma + ad, slope)) : sl);
+    for (int e = e0; e < e1; ++e)
+      ma = fmaxf(ma, __ldg(asrc + (size_t)__ldg(senders + e) * H + sl[j].head));
+    m[j] = kan::round_t<__nv_bfloat16>(e1 > e0 ? fmaxf(self[j], leaky(ma + ad[j], slope))
+                                               : self[j]);
+  }
 
   // pass 2: the self-loop, then the edges in order
-  const float es = expf(sl - m);
-  float den = es;
-  float acc[kCols];
-  load8(h + row * HC + ln.col, acc);
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] *= es;
+  for (int j = 0; j < J; ++j) {
+    const float es = expf(self[j] - m[j]);
+    den[j] = es;
+    load_cols<VEC>(h + row * HC, sl[j], acc[j]);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[j][k] *= es;
+  }
+  auto edge = [&](int j, float a, const float (&v)[kCols]) {
+    const float w = expf(leaky(a + ad[j], slope) - m[j]);
+    den[j] += w;
+    const float wq = kan::round_t<T>(w);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[j][k] += wq * v[k];
+  };
   int e = e0;
-  for (; e + kUnroll <= e1; e += kUnroll) {
-    int s[kUnroll];
-    float a[kUnroll], v[kUnroll][kCols];
+  for (; e + U <= e1; e += U) {
+    int s[U];
+    float a[U][J], v[U][J][kCols];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) s[u] = __ldg(senders + e + u);
+    for (int u = 0; u < U; ++u) s[u] = __ldg(senders + e + u);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      a[u] = __ldg(asrc + (size_t)s[u] * H + ln.head);
-      load8(h + s[u] * HC + ln.col, v[u]);
-    }
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float w = expf(leaky(a[u] + ad, slope) - m);
-      den += w;
-      const float wq = kan::round_t<T>(w);
+      for (int j = 0; j < J; ++j) {
+        a[u][j] = __ldg(asrc + (size_t)s[u] * H + sl[j].head);
+        load_cols<VEC>(h + s[u] * HC, sl[j], v[u][j]);
+      }
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[j] += wq * v[u][j];
-    }
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < J; ++j) edge(j, a[u][j], v[u][j]);
   }
   for (; e < e1; ++e) {
     const int s = __ldg(senders + e);
-    float v[kCols];
-    load8(h + s * HC + ln.col, v);
-    const float w = expf(leaky(__ldg(asrc + (size_t)s * H + ln.head) + ad, slope) - m);
-    den += w;
-    const float wq = kan::round_t<T>(w);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] += wq * v[j];
+    for (int j = 0; j < J; ++j) {
+      float v[kCols];
+      load_cols<VEC>(h + s * HC, sl[j], v);
+      edge(j, __ldg(asrc + (size_t)s * H + sl[j].head), v);
+    }
   }
-  if (ln.active) {
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] /= den;
-    store8(out + row * HC + ln.col, acc);
+  for (int j = 0; j < J; ++j) {
+    if (sl[j].cnt > 0) {
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) acc[j][k] /= den[j];
+      store_cols<VEC>(out + row * HC, sl[j], acc[j]);
+    }
+    if (sl[j].leader) alpha[(size_t)row * H + sl[j].head] = m[j] + logf(den[j]);
   }
-  if (ln.leader) alpha[(size_t)row * H + ln.head] = m + logf(den);
 }
 
-template <typename T>
-int launch(const void* h, const float* asrc, const float* adst, const int* senders,
+template <typename T, int J, bool VEC>
+int launch(int P, const void* h, const float* asrc, const float* adst, const int* senders,
            const int* row_ptr, void* out, float* alpha, int n, int H, int C, int n_edge,
            float slope, cudaStream_t stream) {
   const int blocks = (n + kWarps - 1) / kWarps;
   if (blocks > 0)
-    gat_fwd_kernel<T><<<blocks, kWarps * 32, 0, stream>>>(
+    gat_fwd_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
         static_cast<const T*>(h), asrc, adst, senders, row_ptr, static_cast<T*>(out), alpha, n,
-        H, C, n_edge, slope);
+        H, C, P, n_edge, slope);
   return (int)cudaGetLastError();
 }
 
@@ -118,15 +137,13 @@ int launch(const void* h, const float* asrc, const float* adst, const int* sende
 
 // out (n, H*C) in h's dtype and alpha (n, H) f32 from h (n, H*C), asrc and
 // adst (n, H) f32 over the receiver CSR (row_ptr of n+1 entries, senders in
-// receiver-sorted order; edges at or past n_edge are padding).
+// receiver-sorted order; edges at or past n_edge are padding). Any C >= 1
+// with H * P <= 256 slots (gat_common.cuh); h 16-byte aligned when C is a
+// multiple of 8.
 extern "C" int gat_fwd(const void* h, const float* asrc, const float* adst, const int* senders,
                        const int* row_ptr, void* out, float* alpha, int n, int H, int C,
                        int n_edge, float slope, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kan::kF32)
-    return launch<float>(h, asrc, adst, senders, row_ptr, out, alpha, n, H, C, n_edge, slope, s);
-  if (dtype == kan::kBF16)
-    return launch<__nv_bfloat16>(h, asrc, adst, senders, row_ptr, out, alpha, n, H, C, n_edge,
-                                 slope, s);
-  return (int)cudaErrorInvalidValue;
+  GAT_DISPATCH(dtype, H, C, launch, h, asrc, adst, senders, row_ptr, out, alpha, n, H, C,
+               n_edge, slope, s);
 }

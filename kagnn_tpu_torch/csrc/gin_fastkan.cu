@@ -18,7 +18,11 @@
 // the layer runs on the unrounded f32 z while the stored z is rounded to
 // x's dtype (the backward rebuilds from the stored z), and there is no
 // edge-mask multiply: padded edges point at the masked last row, whose
-// output every consumer masks.
+// output every consumer masks. Where the f32 z tile (32 x D) does not fit in
+// shared memory beside the basis chunk (wide inputs: D in the thousands),
+// it lives in a device scratch `zbuf` (n_pad x D) instead; the blocks of a
+// tile's output columns write the same values there. Any number of centers
+// 2-32 (one library each, FKAN_G).
 
 #include "fastkan_common.cuh"
 
@@ -34,14 +38,15 @@ gin_fastkan_kernel(const T* __restrict__ x, const int* __restrict__ senders,
                    const int* __restrict__ row_ptr, const T* __restrict__ lng,
                    const T* __restrict__ lnb, const T* __restrict__ w,
                    const T* __restrict__ wb, const T* __restrict__ bb, T* __restrict__ out,
-                   T* __restrict__ z, int n, int D, int O, float eps, Centers cs,
-                   float inv_h) {
+                   T* __restrict__ z, float* __restrict__ zbuf, int n, int D, int O, float eps,
+                   Centers cs, float inv_h) {
   extern __shared__ __align__(16) float smem[];
-  float* z_s = smem;                              // kFwdRows x D, f32 z
-  float* A_s = z_s + (size_t)kFwdRows * D;        // kFwdRows x AC
+  const int row0 = blockIdx.x * kFwdRows;
+  float* A_s = smem;  // kFwdRows x AC
   float* mu_s = A_s + (size_t)kFwdRows * Shape<G>::AC;
   float* rstd_s = mu_s + kFwdRows;
-  const int row0 = blockIdx.x * kFwdRows;
+  // kFwdRows x D, f32 z: in shared memory, or the tile's rows of zbuf
+  float* z_s = zbuf != nullptr ? zbuf + (size_t)row0 * D : rstd_s + kFwdRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float self = 1.f + eps;
 
@@ -66,15 +71,17 @@ gin_fastkan_kernel(const T* __restrict__ x, const int* __restrict__ senders,
     }
   }
   // forward_tile synchronises before it reads z_s
-  forward_tile<T, G>(z_s, A_s, mu_s, rstd_s, row0, n, D, O, lng, lnb, cs, inv_h, w, wb, bb,
-                     out);
+  auto zv = [&](int rr, int d) { return z_s[(size_t)rr * D + d]; };
+  forward_tile<T, G>(zv, A_s, mu_s, rstd_s, row0, n, D, O, lng, lnb, cs, inv_h, w, wb, bb, out);
 }
 
 template <typename T, int G>
 int launch(const void* x, const int* senders, const int* row_ptr, const void* lng,
            const void* lnb, const void* w, const void* wb, const void* bb, void* out, void* z,
-           int n, int D, int O, float eps, Centers cs, float inv_h, cudaStream_t stream) {
-  const size_t smem = forward_smem<G>(D);
+           float* zbuf, int n, int D, int O, float eps, Centers cs, float inv_h,
+           cudaStream_t stream) {
+  const size_t smem = forward_smem<G>(D, zbuf == nullptr);
+  if (smem > kan::kSmemLimit) return (int)cudaErrorInvalidValue;
   if (int e = (int)cudaFuncSetAttribute(gin_fastkan_kernel<T, G>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem))
@@ -84,8 +91,8 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* ln
     gin_fastkan_kernel<T, G><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(x), senders, row_ptr, static_cast<const T*>(lng),
         static_cast<const T*>(lnb), static_cast<const T*>(w), static_cast<const T*>(wb),
-        static_cast<const T*>(bb), static_cast<T*>(out), static_cast<T*>(z), n, D, O, eps, cs,
-        inv_h);
+        static_cast<const T*>(bb), static_cast<T*>(out), static_cast<T*>(z), zbuf, n, D, O, eps,
+        cs, inv_h);
   return (int)cudaGetLastError();
 }
 
@@ -94,15 +101,16 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* ln
 // out (n, O) and z (n, D) from x (n, D) over the receiver CSR (row_ptr of
 // n+1 entries, senders in receiver-sorted edge order). lng, lnb (D,),
 // w (G*D, O) g-major, wb (D, O), bb (O,), all of x's dtype; centers: G
-// floats in host memory.
+// floats in host memory. zbuf: null, or f32 scratch of ceil(n / 32) * 32 x D
+// for wide inputs.
 extern "C" int gin_fastkan_fwd(const void* x, const int* senders, const int* row_ptr,
                                const void* lng, const void* lnb, const void* w, const void* wb,
-                               const void* bb, void* out, void* z, int n, int d, int o,
-                               float eps, int G, const float* centers, float inv_h, int dtype,
-                               void* stream) {
+                               const void* bb, void* out, void* z, float* zbuf, int n, int d,
+                               int o, float eps, int G, const float* centers, float inv_h,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Centers cs{};
   for (int g = 0; g < G && g < kMaxG; ++g) cs.c[g] = centers[g];
-  FASTKAN_DISPATCH(dtype, G, launch, x, senders, row_ptr, lng, lnb, w, wb, bb, out, z, n, d, o,
-                   eps, cs, inv_h, s);
+  FASTKAN_DISPATCH(dtype, G, launch, x, senders, row_ptr, lng, lnb, w, wb, bb, out, z, zbuf, n,
+                   d, o, eps, cs, inv_h, s);
 }

@@ -15,7 +15,13 @@
 // it. As in the JAX kernel, the ladder runs on the unrounded f32 z while the
 // stored z is rounded to x's dtype (the backward rebuilds from the stored z),
 // and there is no edge-mask multiply: padded edges point at the masked last
-// row, whose output every consumer masks.
+// row, whose output every consumer masks. Where the f32 z tile (32 x D) and
+// the basis chunk do not fit in shared memory (wide inputs: D in the
+// thousands), the tile's f32 z lives in a device scratch `zbuf` (n_pad x D,
+// L2-resident while the block runs) instead; the blocks of a tile's output
+// columns write the same values there.
+//
+// Shapes: one library per (spline order, grid size), as bspline_fused.cu.
 
 #include "kan_common.cuh"
 
@@ -30,12 +36,13 @@ __global__ void __launch_bounds__(kThreads)
 gin_fwd_kernel(const T* __restrict__ x, const int* __restrict__ senders,
                const int* __restrict__ row_ptr, const T* __restrict__ knots,
                const T* __restrict__ wb, const T* __restrict__ ws, T* __restrict__ out,
-               T* __restrict__ z, int n, int D, int O, float eps) {
+               T* __restrict__ z, float* __restrict__ zbuf, int n, int D, int O, float eps) {
   using S = Shape<ORDER, GRID>;
   extern __shared__ __align__(16) float smem[];
-  float* A_s = smem;                      // kFwdRows x AC
-  float* z_s = smem + kFwdRows * S::AC;   // kFwdRows x D, f32 z
   const int row0 = blockIdx.x * kFwdRows;
+  float* A_s = smem;  // kFwdRows x AC
+  // kFwdRows x D, f32 z: in shared memory, or the tile's rows of zbuf
+  float* z_s = zbuf != nullptr ? zbuf + (size_t)row0 * D : smem + kFwdRows * S::AC;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float self = 1.f + eps;
 
@@ -66,10 +73,11 @@ gin_fwd_kernel(const T* __restrict__ x, const int* __restrict__ senders,
 
 template <typename T, int ORDER, int GRID>
 int launch(const void* x, const int* senders, const int* row_ptr, const void* knots,
-           const void* wb, const void* ws, void* out, void* z, int n, int D, int O, float eps,
-           cudaStream_t stream) {
+           const void* wb, const void* ws, void* out, void* z, float* zbuf, int n, int D, int O,
+           float eps, cudaStream_t stream) {
   using S = Shape<ORDER, GRID>;
-  const size_t smem = sizeof(float) * kFwdRows * ((size_t)S::AC + D);
+  const size_t smem = sizeof(float) * kFwdRows * ((size_t)S::AC + (zbuf ? 0 : D));
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (int e = (int)cudaFuncSetAttribute(gin_fwd_kernel<T, ORDER, GRID>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem))
@@ -79,7 +87,7 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* kn
     gin_fwd_kernel<T, ORDER, GRID><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(x), senders, row_ptr, static_cast<const T*>(knots),
         static_cast<const T*>(wb), static_cast<const T*>(ws), static_cast<T*>(out),
-        static_cast<T*>(z), n, D, O, eps);
+        static_cast<T*>(z), zbuf, n, D, O, eps);
   return (int)cudaGetLastError();
 }
 
@@ -87,12 +95,13 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* kn
 
 // out (n, O) and z (n, D) from x (n, D) over the receiver CSR (row_ptr of
 // n+1 entries, senders in receiver-sorted edge order). knots (K, D),
-// wb (D, O), ws (NB*D, O), all of x's dtype.
+// wb (D, O), ws (NB*D, O), all of x's dtype. zbuf: null, or f32 scratch of
+// ceil(n / 32) * 32 x D for wide inputs.
 extern "C" int gin_fwd(const void* x, const int* senders, const int* row_ptr,
                        const void* knots, const void* wb, const void* ws, void* out, void* z,
-                       int n, int d, int o, float eps, int grid, int order, int dtype,
-                       void* stream) {
+                       float* zbuf, int n, int d, int o, float eps, int grid, int order,
+                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KAN_DISPATCH(dtype, order, grid, launch, x, senders, row_ptr, knots, wb, ws, out, z, n, d,
-               o, eps, s);
+  KAN_DISPATCH(dtype, order, grid, launch, x, senders, row_ptr, knots, wb, ws, out, z, zbuf, n,
+               d, o, eps, s);
 }

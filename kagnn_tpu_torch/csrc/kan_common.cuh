@@ -3,7 +3,7 @@
 // piece gather with wide loads (gcn_agg.cu), the tile-ordered walk of
 // weight-gradient partials (bspline_fused.cu, fastkan_layer.cu,
 // rbf_fused.cu), and for the KANLinear kernels the Cox-de Boor ladder and the
-// dispatch over (dtype, spline order, grid size).
+// dtype dispatch at the (spline order, grid size) a library is built for.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -192,7 +192,8 @@ __global__ void walk_tiles_kernel(const TP* __restrict__ partial, TW* __restrict
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = carry ? to_f(dw[i]) : 0.f;
-#pragma unroll 8
+    // the loads are independent of the running sum: 32 a thread in flight
+#pragma unroll 32
     for (int t = 0; t < tiles; ++t) s = round_t<TW>(s + round_t<TW>(to_f(partial[t * m + i])));
     dw[i] = from_f<TW>(s);
   }
@@ -207,6 +208,7 @@ int walk_tiles(const TP* partial, TW* dw, int tiles, size_t m, bool carry, cudaS
 }
 
 constexpr int kThreads = 256;  // threads per block of every KAN kernel
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block may use on the H100
 constexpr int kFwdRows = 32;   // rows per forward tile: 4 row groups of 8
 constexpr int kDC = 32;        // features per chunk of the basis matrix
 constexpr int kOT = 64;        // output columns per block (blockIdx.y tiles O)
@@ -304,20 +306,23 @@ __device__ __forceinline__ void kan_forward_tile(Load load, float* A_s, int row0
 
 }  // namespace kan
 
-// Calls FN<T, ORDER, GRID>(args...) for the supported combinations and
-// returns cudaErrorInvalidValue for any other. The main path uses order 3,
-// grid 4; grids 3 and 5 are the neighbouring configurations.
+// The shape a library of a KANLinear source is built for: each (spline
+// order, grid size) is its own library, compiled at its first use with the
+// shape as -D defines (kernels/_build.py). The defaults are the main path's.
+#ifndef KAN_ORDER
+#define KAN_ORDER 3
+#endif
+#ifndef KAN_GRID
+#define KAN_GRID 4
+#endif
+
+// Calls FN<T, KAN_ORDER, KAN_GRID>(args...) for f32 or bf16 and returns
+// cudaErrorInvalidValue for another dtype or shape.
 #define KAN_DISPATCH(dtype, order, grid, FN, ...)                              \
   do {                                                                         \
-    if (order != 3) return (int)cudaErrorInvalidValue;                         \
-    if (dtype == kan::kF32) {                                                  \
-      if (grid == 3) return FN<float, 3, 3>(__VA_ARGS__);                      \
-      if (grid == 4) return FN<float, 3, 4>(__VA_ARGS__);                      \
-      if (grid == 5) return FN<float, 3, 5>(__VA_ARGS__);                      \
-    } else if (dtype == kan::kBF16) {                                          \
-      if (grid == 3) return FN<__nv_bfloat16, 3, 3>(__VA_ARGS__);              \
-      if (grid == 4) return FN<__nv_bfloat16, 3, 4>(__VA_ARGS__);              \
-      if (grid == 5) return FN<__nv_bfloat16, 3, 5>(__VA_ARGS__);              \
-    }                                                                          \
+    if (order != KAN_ORDER || grid != KAN_GRID) return (int)cudaErrorInvalidValue; \
+    if (dtype == kan::kF32) return FN<float, KAN_ORDER, KAN_GRID>(__VA_ARGS__);   \
+    if (dtype == kan::kBF16)                                                   \
+      return FN<__nv_bfloat16, KAN_ORDER, KAN_GRID>(__VA_ARGS__);              \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)

@@ -36,16 +36,20 @@
 // (fastkan_common.cuh) without the layernorm and the SiLU column, with the
 // distance rounded to x's type.
 // The backward runs as up to three launches on the caller's stream:
-//   1. dx_kernel (skipped when x needs no gradient): one 32-row tile per
+//   1. rbf_dx_kernel (skipped when x needs no gradient): one 32-row tile per
 //      block; per feature chunk dout @ W^T with the chunk's weights staged
 //      in shared memory one 64-wide output tile at a time, then the basis
 //      derivative summed over g;
-//   2. dw_partial_kernel: one block per (feature chunk, row tile, output
+//   2. rbf_dw_partial_kernel: one block per (feature chunk, row tile, output
 //      tile) writes the tile's f32 partial B^T @ dout (the TPU kernel sums
 //      the tiles across its sequential grid; Hopper blocks run in
 //      parallel);
 //   3. kan::walk_tiles adds the partials in tile order, rounding as above.
 //      No atomics: the result is deterministic.
+//
+// Shapes: any number of centers 2-32 (one library each, FKAN_G; the feature
+// chunk narrows past 8 centers, fastkan_common.cuh), any D, and O up to the
+// dx kernel's staged dout tile (about 1,200 outputs).
 
 #include "fastkan_common.cuh"
 
@@ -55,7 +59,6 @@ using fkan::basis_chunk;
 using fkan::Centers;
 using fkan::rbf;
 using kan::from_f;
-using kan::kDC;
 using kan::kFwdRows;
 using kan::kOT;
 using kan::kThreads;
@@ -78,10 +81,10 @@ struct LoadX {
 // the product, as the JAX forward has it.
 template <typename TX, typename TW, int G>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out, int n, int D,
-           int O, Centers cs, float inv_h) {
+rbf_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out, int n,
+               int D, int O, Centers cs, float inv_h) {
   extern __shared__ __align__(16) float smem[];
-  float* A_s = smem;  // kFwdRows x G*kDC
+  float* A_s = smem;  // kFwdRows x AC
   const int row0 = blockIdx.x * kFwdRows;
   auto build = [&](int d0) {
     basis_chunk<G, false, TX, true>(LoadX<TX>{x, D}, A_s, kFwdRows, row0, n, d0, D, cs, inv_h);
@@ -89,28 +92,30 @@ fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ 
   fkan::chunked_forward<G, false, TW, TX>(build, A_s, row0, n, D, O, nullptr, w, nullptr, out);
 }
 
-// One 32-row tile per block. Thread t owns feature d0 + t % kDC of 4 rows
-// (row group t / kDC) in each feature chunk.
+// One 32-row tile per block. Thread t owns feature d0 + t % DC of RPT rows
+// (row group t / DC) in each feature chunk.
 template <typename TX, typename TW, int G>
 __global__ void __launch_bounds__(kThreads)
-dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restrict__ dout,
-          TX* __restrict__ dx, int n, int D, int O, Centers cs, float inv_h, float k2) {
-  constexpr int AC = G * kDC;
+rbf_dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restrict__ dout,
+              TX* __restrict__ dx, int n, int D, int O, Centers cs, float inv_h, float k2) {
+  using S = fkan::Shape<G, false>;
+  constexpr int DC = S::DC, AC = S::AC;
+  constexpr int RPT = kDxRows * DC / kThreads;  // rows a thread: 4, 2 or 1
   constexpr int pitch = AC + 1;  // odd pitch: conflict-free staging stores
   extern __shared__ __align__(16) float smem[];
   float* dout_s = smem;                       // kDxRows x O
-  float* w_s = dout_s + (size_t)kDxRows * O;  // kOT x pitch, [o - o0][g*kDC + j]
-  const int dd = threadIdx.x % kDC;
-  const int rg = threadIdx.x / kDC;  // 8 row groups of 4 rows
+  float* w_s = dout_s + (size_t)kDxRows * O;  // kOT x pitch, [o - o0][g*DC + j]
+  const int dd = threadIdx.x % DC;
+  const int rg = threadIdx.x / DC;  // row groups of RPT rows
   const int r0 = blockIdx.x * kDxRows;
   for (int i = threadIdx.x; i < kDxRows * O; i += kThreads) {
     const int row = r0 + i / O;
     dout_s[i] = row < n ? to_f(dout[(size_t)r0 * O + i]) : 0.f;
   }
-  for (int d0 = 0; d0 < D; d0 += kDC) {
-    float acc[4][G];
+  for (int d0 = 0; d0 < D; d0 += DC) {
+    float acc[RPT][G];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int g = 0; g < G; ++g) acc[i][g] = 0.f;
     // dbasis = dout @ W^T for the chunk, one kOT-wide tile of outputs at a
@@ -121,18 +126,18 @@ dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restri
       __syncthreads();  // dout_s is complete; the previous tile is done with w_s
       for (int i = threadIdx.x; i < on * AC; i += kThreads) {
         const int o = i % on, rest = i / on;
-        const int j = rest % kDC, g = rest / kDC;
+        const int j = rest % DC, g = rest / DC;
         const int d = d0 + j;
-        w_s[o * pitch + g * kDC + j] = d < D ? to_f(w[((size_t)g * D + d) * O + o0 + o]) : 0.f;
+        w_s[o * pitch + g * DC + j] = d < D ? to_f(w[((size_t)g * D + d) * O + o0 + o]) : 0.f;
       }
       __syncthreads();
       for (int o = 0; o < on; ++o) {
         float wv[G];
 #pragma unroll
-        for (int g = 0; g < G; ++g) wv[g] = w_s[o * pitch + g * kDC + dd];
+        for (int g = 0; g < G; ++g) wv[g] = w_s[o * pitch + g * DC + dd];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float dv = dout_s[(rg * 4 + i) * O + o0 + o];
+        for (int i = 0; i < RPT; ++i) {
+          const float dv = dout_s[(rg * RPT + i) * O + o0 + o];
 #pragma unroll
           for (int g = 0; g < G; ++g) acc[i][g] += dv * wv[g];
         }
@@ -141,8 +146,8 @@ dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restri
     const int d = d0 + dd;
     if (d >= D) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + rg * 4 + i;
+    for (int i = 0; i < RPT; ++i) {
+      const int row = r0 + rg * RPT + i;
       if (row >= n) continue;
       float b[G], dist[G];
       rbf<G, TX>(to_f(x[(size_t)row * D + d]), cs, inv_h, b, dist);
@@ -159,15 +164,16 @@ dx_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restri
 // Thread t owns 4 output columns (t % 16) x KPT basis columns (t / 16).
 template <typename TX, int G>
 __global__ void __launch_bounds__(kThreads)
-dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
-                  float* __restrict__ partial, int n, int D, int O, Centers cs, float inv_h,
-                  int tile) {
-  constexpr int AC = G * kDC;
-  constexpr int KPT = AC / 16;
+rbf_dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
+                      float* __restrict__ partial, int n, int D, int O, Centers cs, float inv_h,
+                      int tile) {
+  using S = fkan::Shape<G, false>;
+  constexpr int DC = S::DC, AC = S::AC;
+  constexpr int KPT = (AC + 15) / 16;
   extern __shared__ __align__(16) float smem[];
   float* A_s = smem;                    // kDwRows x AC
   float* dout_s = smem + kDwRows * AC;  // kDwRows x kOT
-  const int d0 = blockIdx.x * kDC;
+  const int d0 = blockIdx.x * DC;
   const int o0 = blockIdx.z * kOT;
   const int og = threadIdx.x % 16, kg = threadIdx.x / 16;
   const int rbeg = blockIdx.y * tile;
@@ -191,7 +197,8 @@ dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
       const float* a = A_s + r * AC + kg * KPT;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const float av = a[j];
+        // columns past AC only where AC is not a multiple of 16
+        const float av = AC % 16 == 0 || kg * KPT + j < AC ? a[j] : 0.f;
         acc[j][0] += av * dv.x;
         acc[j][1] += av * dv.y;
         acc[j][2] += av * dv.z;
@@ -203,9 +210,9 @@ dw_partial_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
 #pragma unroll
   for (int j = 0; j < KPT; ++j) {
     const int c = kg * KPT + j;
-    const int d = d0 + c % kDC;
-    if (d >= D) continue;
-    const size_t row = (size_t)(c / kDC) * D + d;
+    const int d = d0 + c % DC;
+    if (c >= AC || d >= D) continue;
+    const size_t row = (size_t)(c / DC) * D + d;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int o = o0 + og * 4 + q;
@@ -223,11 +230,11 @@ int set_smem(K kernel, size_t bytes) {
 template <typename TX, typename TW, int G>
 int launch_fwd(const void* x, const void* w, void* out, int n, int D, int O, Centers cs,
                float inv_h, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kFwdRows * G * kDC;
-  if (int e = set_smem(fwd_kernel<TX, TW, G>, smem)) return e;
+  const size_t smem = sizeof(float) * kFwdRows * fkan::Shape<G, false>::AC;
+  if (int e = set_smem(rbf_fwd_kernel<TX, TW, G>, smem)) return e;
   dim3 grid((n + kFwdRows - 1) / kFwdRows, (O + kOT - 1) / kOT);
   if (grid.x > 0 && grid.y > 0)
-    fwd_kernel<TX, TW, G><<<grid, kThreads, smem, stream>>>(
+    rbf_fwd_kernel<TX, TW, G><<<grid, kThreads, smem, stream>>>(
         static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), n, D, O,
         cs, inv_h);
   return (int)cudaGetLastError();
@@ -240,18 +247,22 @@ int launch_bwd(const void* x, const void* w, const void* dout, void* dx, float* 
   const TX* xt = static_cast<const TX*>(x);
   const TX* gt = static_cast<const TX*>(dout);
   if (dx != nullptr && n > 0) {
-    const size_t smem = sizeof(float) * ((size_t)kDxRows * O + (size_t)kOT * (G * kDC + 1));
-    if (int e = set_smem(dx_kernel<TX, TW, G>, smem)) return e;
-    dx_kernel<TX, TW, G><<<(n + kDxRows - 1) / kDxRows, kThreads, smem, stream>>>(
+    const size_t smem =
+        sizeof(float) * ((size_t)kDxRows * O + (size_t)kOT * (fkan::Shape<G, false>::AC + 1));
+    if (smem > kan::kSmemLimit) return (int)cudaErrorInvalidValue;
+    if (int e = set_smem(rbf_dx_kernel<TX, TW, G>, smem)) return e;
+    rbf_dx_kernel<TX, TW, G><<<(n + kDxRows - 1) / kDxRows, kThreads, smem, stream>>>(
         xt, static_cast<const TW*>(w), gt, static_cast<TX*>(dx), n, D, O, cs, inv_h, k2);
     if (int e = (int)cudaGetLastError()) return e;
   }
   const int tiles = (n + tile - 1) / tile;
   if (tiles > 0) {
-    const size_t smem = sizeof(float) * ((size_t)kDwRows * G * kDC + kDwRows * kOT);
-    if (int e = set_smem(dw_partial_kernel<TX, G>, smem)) return e;
-    dim3 grid((D + kDC - 1) / kDC, tiles, (O + kOT - 1) / kOT);
-    dw_partial_kernel<TX, G><<<grid, kThreads, smem, stream>>>(xt, gt, partial, n, D, O, cs,
+    const size_t smem =
+        sizeof(float) * ((size_t)kDwRows * fkan::Shape<G, false>::AC + kDwRows * kOT);
+    if (int e = set_smem(rbf_dw_partial_kernel<TX, G>, smem)) return e;
+    constexpr int DC = fkan::Shape<G, false>::DC;
+    dim3 grid((D + DC - 1) / DC, tiles, (O + kOT - 1) / kOT);
+    rbf_dw_partial_kernel<TX, G><<<grid, kThreads, smem, stream>>>(xt, gt, partial, n, D, O, cs,
                                                                inv_h, tile);
     if (int e = (int)cudaGetLastError()) return e;
   }
@@ -267,27 +278,16 @@ Centers centers_of(const float* c, int G) {
 
 }  // namespace
 
-// Calls FN<TX, TW, G>(args...) for x and w types f32/bf16 and G in 2..8, and
-// returns cudaErrorInvalidValue for anything else.
-#define RBF_DISPATCH_G(TX, TW, G_, FN, ...)              \
-  switch (G_) {                                          \
-    case 2: return FN<TX, TW, 2>(__VA_ARGS__);           \
-    case 3: return FN<TX, TW, 3>(__VA_ARGS__);           \
-    case 4: return FN<TX, TW, 4>(__VA_ARGS__);           \
-    case 5: return FN<TX, TW, 5>(__VA_ARGS__);           \
-    case 6: return FN<TX, TW, 6>(__VA_ARGS__);           \
-    case 7: return FN<TX, TW, 7>(__VA_ARGS__);           \
-    case 8: return FN<TX, TW, 8>(__VA_ARGS__);           \
-    default: return (int)cudaErrorInvalidValue;          \
-  }
-
+// Calls FN<TX, TW, FKAN_G>(args...) for x and w types f32/bf16 and returns
+// cudaErrorInvalidValue for another type or number of centers.
 #define RBF_DISPATCH(xd, wd, G_, FN, ...)                                              \
   do {                                                                                 \
     using bf16 = __nv_bfloat16;                                                        \
-    if (xd == kan::kF32 && wd == kan::kF32) { RBF_DISPATCH_G(float, float, G_, FN, __VA_ARGS__) } \
-    if (xd == kan::kF32 && wd == kan::kBF16) { RBF_DISPATCH_G(float, bf16, G_, FN, __VA_ARGS__) } \
-    if (xd == kan::kBF16 && wd == kan::kF32) { RBF_DISPATCH_G(bf16, float, G_, FN, __VA_ARGS__) } \
-    if (xd == kan::kBF16 && wd == kan::kBF16) { RBF_DISPATCH_G(bf16, bf16, G_, FN, __VA_ARGS__) } \
+    if (G_ != FKAN_G) return (int)cudaErrorInvalidValue;                               \
+    if (xd == kan::kF32 && wd == kan::kF32) return FN<float, float, FKAN_G>(__VA_ARGS__); \
+    if (xd == kan::kF32 && wd == kan::kBF16) return FN<float, bf16, FKAN_G>(__VA_ARGS__); \
+    if (xd == kan::kBF16 && wd == kan::kF32) return FN<bf16, float, FKAN_G>(__VA_ARGS__); \
+    if (xd == kan::kBF16 && wd == kan::kBF16) return FN<bf16, bf16, FKAN_G>(__VA_ARGS__); \
     return (int)cudaErrorInvalidValue;                                                 \
   } while (0)
 

@@ -34,6 +34,12 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself when 16-byte aligned (the kernels load 16 bytes at once),
+    else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 # --- weight gradients summed over the JAX backward's row tiles --------------
 #
 # A JAX layer backward adds one f32 partial per row tile of its sequential
@@ -100,7 +106,16 @@ def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
 
 # --- GAT (kernels/gat_fused.py, kernels/gat_bwd.py) -------------------------
 
-GAT_MAX_HC = 256  # csrc/gat_common.cuh: 8 columns a lane, one warp a row
+GAT_MAX_SLOTS = 256  # csrc/gat_common.cuh: at most 8 passes of 32 slots a row
+
+
+def gat_slots(heads: int, c: int) -> int:
+    """Slots of 8 columns a GAT row takes (csrc/gat_common.cuh): H times the
+    power of two >= ceil(C / 8)."""
+    p = 1
+    while p * 8 < c:
+        p *= 2
+    return heads * p
 
 
 def leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -121,20 +136,20 @@ def gat_edges(row_ptr: torch.Tensor, idx: torch.Tensor, n_edge: int):
 
 def check_gat(h: torch.Tensor, asrc: torch.Tensor, adst: torch.Tensor):
     """Shapes and types the GAT kernels take -> (n, H, C): h (N, H*C) f32
-    or bf16 with C a power-of-two multiple of 8 and H*C <= 256, 16-byte
-    aligned rows; asrc, adst (N, H) f32."""
+    or bf16 with any C >= 1 and at most GAT_MAX_SLOTS slots a row (4 heads
+    of any C up to 512; H*C up to 2,048 when C is a power-of-two multiple
+    of 8), rows 16-byte aligned when C is a multiple of 8; asrc, adst
+    (N, H) f32."""
     check_cuda("h", h, shape=(None, None))
     n, hc = h.shape
     heads = asrc.shape[1] if asrc.dim() == 2 else 0
     check_cuda("asrc", asrc, torch.float32, (n, heads))
     check_cuda("adst", adst, torch.float32, (n, heads))
     c = hc // max(heads, 1)
-    w = c // 8
-    if (heads == 0 or heads * c != hc or c % 8 or w & (w - 1)
-            or hc > GAT_MAX_HC):
-        raise ValueError(f"the GAT kernels take H*C <= {GAT_MAX_HC} columns "
-                         f"with C a power-of-two multiple of 8; got "
-                         f"{hc} columns for {heads} heads")
-    if h.data_ptr() % 16:
+    if heads == 0 or c == 0 or heads * c != hc or gat_slots(heads, c) > GAT_MAX_SLOTS:
+        raise ValueError(f"the GAT kernels take H heads of C >= 1 columns in at "
+                         f"most {GAT_MAX_SLOTS} slots of 8 (H times the power "
+                         f"of two >= C/8); got {hc} columns for {heads} heads")
+    if c % 8 == 0 and h.data_ptr() % 16:
         raise ValueError("h must be 16-byte aligned")
     return n, heads, c

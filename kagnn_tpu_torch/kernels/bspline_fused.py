@@ -19,8 +19,10 @@ weights' dtype (each partial and the running sum rounded after every tile;
 CUDA kernels: `csrc/bspline_fused.cu` (see its header for the bound on the
 H100 and the design; under bf16 the backward's products run on the tensor
 cores, and the backward's dx kernel runs on a second stream beside its dW
-kernels). On a CPU tensor the wrappers run the plain versions below; on a
-CUDA tensor they launch the kernels or raise.
+kernels), one library per (spline order, grid size), built at its first
+use: any order 1-4 and grid 1-16 (`ORDERS`, `GRIDS`), the search spaces
+of the experiment scripts. On a CPU tensor the wrappers run the plain
+versions below; on a CUDA tensor they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -29,13 +31,14 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
-                                             dtype_code, stream_of,
-                                             tiled_gram, walk_window)
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, aligned,
+                                             check_cuda, dtype_code,
+                                             stream_of, tiled_gram,
+                                             walk_window)
 
-SUPPORTED = {(3, 3), (3, 4), (3, 5)}  # (spline order, grid size) compiled
+ORDERS, GRIDS = range(1, 5), range(1, 17)  # the shapes the kernels take
 D_CHUNK, O_TILE = 32, 64  # csrc/kan_common.cuh kDC, kOT
-DX_ROWS = 64  # csrc/bspline_fused.cu kDxRows
+MMA_ROWS, X_PITCH = 32, D_CHUNK + 8  # csrc/bspline_fused.cu kMmaRows, kXPitch
 JAX_TILE = 128  # rows per tile of the JAX backward (DEFAULT_TILE_N)
 
 
@@ -107,9 +110,9 @@ def kan_linear_bwd_plain(x, knots, wb, ws, dout, k):
 
 def _grid_size(knots: torch.Tensor, k: int) -> int:
     g = knots.shape[0] - 2 * k - 1
-    if (k, g) not in SUPPORTED:
-        raise ValueError(f"no CUDA kernel compiled for spline order {k}, grid "
-                         f"size {g}; compiled: {sorted(SUPPORTED)}")
+    if k not in ORDERS or g not in GRIDS:
+        raise ValueError(f"the B-spline kernels take spline order 1-4 and "
+                         f"grid size 1-16; got spline order {k}, grid size {g}")
     return g
 
 
@@ -125,24 +128,24 @@ def _check_layer(x, knots, wb, ws, k):
 
 
 @functools.cache
-def _fwd_fn():
+def _fwd_fn(k: int, grid: int):
     P, I = _build.P, _build.I
     return _build.bind("bspline_fused", "bspline_fwd",
-                       [P, P, P, P, P, I, I, I, I, I, I, P])
+                       [P, P, P, P, P, I, I, I, I, I, I, P], (k, grid))
 
 
 @functools.cache
-def _dx_fn():
+def _dx_fn(k: int, grid: int):
     P, I = _build.P, _build.I
     return _build.bind("bspline_fused", "bspline_bwd_dx",
-                       [P, P, P, P, P, P, I, I, I, I, I, I, P])
+                       [P, P, P, P, P, P, I, I, I, I, I, I, P], (k, grid))
 
 
 @functools.cache
-def _dw_fn():
+def _dw_fn(k: int, grid: int):
     P, I = _build.P, _build.I
     return _build.bind("bspline_fused", "bspline_bwd_dw",
-                       [P, P, P, P, P, I, I, I, I, I, I, I, P])
+                       [P, P, P, P, P, I, I, I, I, I, I, I, P], (k, grid))
 
 
 @functools.cache
@@ -159,7 +162,7 @@ def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
     code = dtype_code(x)
     n, D, O, grid = _check_layer(x, knots, wb, ws, k)
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
-    err = _fwd_fn()(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
+    err = _fwd_fn(k, grid)(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
                     ws.data_ptr(), out.data_ptr(), n, D, O, grid, k, code,
                     stream_of(x))
     _build.check(err, "bspline_fwd")
@@ -170,23 +173,23 @@ def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
 kan_linear_fwd.launches = 0
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself when 16-byte aligned (the kernels load 16 bytes at once),
-    else an aligned copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def bwd_smem(D: int, O: int, grid: int, k: int, dtype) -> int:
-    """Shared memory per block of the backward's largest kernel: under bf16
-    the dx kernel's chunk weights and two buffers of its 32-row dout and x
-    tiles, and the dW kernel's basis and dout tile (csrc/bspline_fused.cu);
-    in f32 the dx kernel's rows of dout and one output tile of the chunk's
-    weights."""
-    ac = (grid + k + 1) * D_CHUNK
+    """Shared memory per block of the backward's largest kernel at its
+    narrowest staging (csrc/bspline_fused.cu): under bf16 the dx kernel's
+    16-wide part of the chunk weights beside two buffers of its 32-row dout
+    and x tiles, and the dW kernel's basis beside a 64-wide part of its dout
+    tile (both kernels take wider parts where they fit); in f32 the dx
+    kernel's rows of dout and one output tile of the chunk's weights
+    (`DxF32`)."""
+    ng = grid + k + 1
+    ac = ng * D_CHUNK
     if dtype == torch.bfloat16:
-        return max(2 * ((ac + 64) * (-(-O // 16) * 16 + 8) + 64 * (D_CHUNK + 8)),
-                   2 * JAX_TILE * (ac + 8 + -(-O // 64) * 64 + 8))
-    return 4 * (DX_ROWS * O + O_TILE * (ac + 1))
+        return max(2 * (ac * 24 + 2 * MMA_ROWS * (-(-O // 16) * 16 + 8)
+                        + 2 * MMA_ROWS * X_PITCH),
+                   2 * JAX_TILE * (ac + 8 + 64 + 8))
+    rpt = 8 if ng <= 9 else 4 if ng <= 14 else 2
+    otx = O_TILE if ac <= 320 else 32
+    return 4 * (8 * rpt * O + otx * (ac + 1))
 
 
 def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
@@ -205,7 +208,7 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
                          f"bytes of shared memory per block; the H100 gives "
                          f"{SMEM_LIMIT}")
     check_cuda("dout", dout, x.dtype, (n, O))
-    x, wb, ws, dout = (_aligned(t) for t in (x, wb, ws, dout))
+    x, wb, ws, dout = (aligned(t) for t in (x, wb, ws, dout))
     n_groups = grid + k + 1
     m = n_groups * D * O
     window = walk_window(-(-n // JAX_TILE), m, x.element_size())
@@ -218,11 +221,11 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
     if dx is not None:
         side = _side_stream(x.device)
         side.wait_stream(main)
-        err = _dx_fn()(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
+        err = _dx_fn(k, grid)(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
                        ws.data_ptr(), dout.data_ptr(), dx.data_ptr(), n, D, O,
                        grid, k, code, side.cuda_stream)
         _build.check(err, "bspline_bwd dx")
-    err = _dw_fn()(x.data_ptr(), knots.data_ptr(), dout.data_ptr(),
+    err = _dw_fn(k, grid)(x.data_ptr(), knots.data_ptr(), dout.data_ptr(),
                    partial.data_ptr(), dw.data_ptr(), n, D, O, grid, k, code,
                    window, main.cuda_stream)
     if dx is not None:

@@ -16,8 +16,12 @@ g-major as w (G*D, O) with row g*D + d, wb (D, O), bb (O,), one dtype.
 with column d*G + g, base weight (O, D)) and maps them.
 
 CUDA kernels: `csrc/fastkan_layer.cu` (see its header for the bound on the
-H100 and the design). On a CPU tensor the wrappers run the plain versions
-below; on a CUDA tensor they launch the kernels or raise.
+H100 and the design: under bf16 the backward's products run on the tensor
+cores, its dx kernels on a second stream beside its dW kernels), one
+library per number of centers, built at its first use: any G from 2 to
+MAX_G, any D, O up to the staged tiles' shared memory. On a CPU tensor the
+wrappers run the plain versions below; on a CUDA tensor they launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -28,13 +32,20 @@ import numpy as np
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
-                                             dtype_code, dw_tile, stream_of,
-                                             tiled_gram, walk_window)
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, aligned,
+                                             check_cuda, dtype_code, dw_tile,
+                                             stream_of, tiled_gram,
+                                             walk_window)
 
 LN_EPS = 1e-5
-MAX_G = 8  # csrc/fastkan_common.cuh kMaxG; the kernels take 2..MAX_G centers
-D_CHUNK, O_TILE, ROWS = 32, 64, 32  # kDC, kOT, row tiles of the kernels
+MAX_G = 32  # csrc/fastkan_common.cuh kMaxG; the kernels take 2..MAX_G centers
+O_TILE, ROWS = 64, 32  # kOT, kFwdRows of the kernels
+
+
+def chunk(num_grids: int) -> int:
+    """Features of a chunk of the basis matrix (csrc/fastkan_common.cuh
+    Shape::DC): 32 up to 8 centers, 16 up to 16, 8 past."""
+    return 32 if num_grids <= 8 else 16 if num_grids <= 16 else 8
 
 
 def centers(grid_min: float, grid_max: float, num_grids: int) -> np.ndarray:
@@ -147,31 +158,57 @@ def check_layer(x, lng, lnb, w, wb, bb=None):
         check_cuda(name, t, x.dtype, shape)
     if bb is not None:
         check_cuda("bb", bb, x.dtype, (O,))
-    smem = 4 * (ROWS * D + ROWS * (G + 1) * D_CHUNK + 2 * ROWS)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{D} features need {smem} bytes of shared memory "
-                         f"per block; the H100 gives {SMEM_LIMIT}")
     return n, D, O, G
 
 
+@functools.lru_cache(maxsize=64)
 def c_centers(grid_min, grid_max, G):
-    """The centers as a ctypes float array (read on the host)."""
+    """The centers as a ctypes float array (read on the host; made once per
+    grid: a train step calls the layer kernels many times)."""
     return (ctypes.c_float * G)(*centers(grid_min, grid_max, G).tolist())
 
 
 @functools.cache
-def _fwd_fn():
+def _fwd_fn(G: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("fastkan_layer", "fastkan_fwd",
-                       [P, P, P, P, P, P, P, I, I, I, I, P, F, I, P])
+                       [P, P, P, P, P, P, P, I, I, I, I, P, F, I, P], (G,))
 
 
 @functools.cache
-def _bwd_fn():
+def _bwd_fns(G: int):
+    """(plan, stats, dx, dw) of the backward (csrc/fastkan_layer.cu)."""
     P, I, F = _build.P, _build.I, _build.F
-    return _build.bind("fastkan_layer", "fastkan_bwd",
-                       [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P, F, I,
-                        I, I, P])
+    return (_build.bind("fastkan_layer", "fastkan_bwd_plan",
+                        [I, I, I, I, I, P], (G,)),
+            _build.bind("fastkan_layer", "fastkan_bwd_stats",
+                        [P, P, I, I, I, I, P], (G,)),
+            _build.bind("fastkan_layer", "fastkan_bwd_dx",
+                        [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P, F,
+                         I, I, P], (G,)),
+            _build.bind("fastkan_layer", "fastkan_bwd_dw",
+                        [P, P, P, P, P, P, P, I, I, I, I, P, F, I, I, I, P],
+                        (G,)))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(n: int, D: int, O: int, G: int, code: int):
+    """(rows a piece, chunks, output parts) of the backward's dx kernels
+    (csrc/fastkan_layer.cu `fastkan_bwd_plan`); raises where no output part
+    fits a block."""
+    plan = (ctypes.c_int * 4)()
+    if _bwd_fns(G)[0](n, D, O, G, code, plan) != 0:
+        raise ValueError(f"backward of a ({D}, {O}) layer with {G} centers: "
+                         f"no output part of its dx kernels fits the "
+                         f"{SMEM_LIMIT} bytes of shared memory of a block")
+    return plan[0], plan[1], plan[2]
+
+
+@functools.cache
+def _side_stream(device) -> torch.cuda.Stream:
+    """The second stream the backward runs its dx kernels on, one a
+    device."""
+    return torch.cuda.Stream(device)
 
 
 def fastkan_layer_fwd(x, lng, lnb, w, wb, bb, grid_min: float,
@@ -184,7 +221,7 @@ def fastkan_layer_fwd(x, lng, lnb, w, wb, bb, grid_min: float,
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb, bb)
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
-    err = _fwd_fn()(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+    err = _fwd_fn(G)(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
                     w.data_ptr(), wb.data_ptr(), bb.data_ptr(),
                     out.data_ptr(), n, D, O, G,
                     c_centers(grid_min, grid_max, G),
@@ -209,34 +246,51 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb)
     check_cuda("dout", dout, x.dtype, (n, O))
-    # the dx kernel's row tile (x, dxs, the SiLU' term, dout) and one output
-    # tile of the chunk's weights
-    smem = 4 * (3 * ROWS * D + ROWS * O + O_TILE * ((G + 1) * D_CHUNK + 1)
-                + 2 * ROWS)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"backward of a ({D}, {O}) layer with {G} centers "
-                         f"needs {smem} bytes of shared memory per block; "
-                         f"the H100 gives {SMEM_LIMIT}")
+    x, w, wb, dout = (aligned(t) for t in (x, w, wb, dout))
+    _, stats_fn, dx_fn, dw_fn = _bwd_fns(G)
+    rows, chunks, parts = _bwd_plan(n, D, O, G, code)
     tile = dw_tile(n)
     tiles = -(-n // tile)
     m_w = (G + 1) * D * O + O
     f32 = dict(dtype=torch.float32, device=x.device)
-    stats = torch.empty((max(n, 1), 2), **f32)
-    # the dx kernel's dlng/dlnb per 32-row piece, then per row tile
-    ln_partial = torch.empty((max(-(-n // ROWS) + tiles, 1), 2 * D), **f32)
+    # f32 scratch in one allocation, each piece 16-byte aligned (the kernels
+    # stage `stats` with cp.async): the rows' statistics; the dx kernels'
+    # row sums per (output part, chunk) and over all of them; their
+    # dlng/dlnb per (piece of `rows` rows, part), then per row tile
+    sizes = [2 * max(n, 1), (parts * chunks + 1) * n * 2 + 4,
+             ((-(-n // rows)) * parts + tiles) * 2 * D]
+    sizes = [-(-k // 4) * 4 for k in sizes]
+    stats, mbuf, ln_partial = torch.empty(sum(sizes), **f32).split(sizes)
+    # the output parts' shares of dx, when there are several
+    vbuf = (torch.empty((parts, n, D), **f32) if need_dx and parts > 1
+            else None)
     window = walk_window(tiles, m_w, x.element_size())
     w_partial = torch.empty((window, m_w), dtype=x.dtype, device=x.device)
     grads = torch.empty(m_w + 2 * D, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
-    err = _bwd_fn()(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
-                    w.data_ptr(), wb.data_ptr(), dout.data_ptr(),
-                    None if dx is None else dx.data_ptr(), stats.data_ptr(),
-                    ln_partial.data_ptr(), w_partial.data_ptr(),
-                    grads.data_ptr(), n, D, O, G,
-                    c_centers(grid_min, grid_max, G),
-                    inv_h(grid_min, grid_max, G), code, tile, window,
-                    stream_of(x))
-    _build.check(err, "fastkan_bwd")
+    c, ih = c_centers(grid_min, grid_max, G), inv_h(grid_min, grid_max, G)
+    main = torch.cuda.current_stream(x.device)
+    _build.check(stats_fn(x.data_ptr(), stats.data_ptr(), n, D, G, code,
+                          main.cuda_stream), "fastkan_bwd stats")
+    # dx and dlng/dlnb on a second stream beside the dW partials and their
+    # walk: they share only their inputs and the row statistics; the
+    # caller's stream waits for both
+    side = _side_stream(x.device)
+    side.wait_stream(main)
+    err = dx_fn(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(), w.data_ptr(),
+                wb.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+                mbuf.data_ptr(), ln_partial.data_ptr(),
+                None if vbuf is None else vbuf.data_ptr(),
+                None if dx is None else dx.data_ptr(),
+                grads[m_w:].data_ptr(), n, D, O, G, c, ih, code, tile,
+                side.cuda_stream)
+    _build.check(err, "fastkan_bwd dx")
+    err = dw_fn(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+                stats.data_ptr(), dout.data_ptr(), w_partial.data_ptr(),
+                grads.data_ptr(), n, D, O, G, c, ih, code, tile, window,
+                main.cuda_stream)
+    main.wait_stream(side)
+    _build.check(err, "fastkan_bwd dW")
     fastkan_layer_bwd.launches += 1
     dwb = grads[:D * O].view(D, O)
     dw = grads[D * O:(G + 1) * D * O].view(G * D, O)

@@ -72,7 +72,7 @@ def _check(h, asrc, adst, alpha, s, dout, idx, row_ptr):
     for name, t in (("alpha", alpha), ("S", s)):
         check_cuda(name, t, torch.float32, (n, heads))
     check_cuda("dout", dout, h.dtype, tuple(h.shape))
-    if dout.data_ptr() % 16:
+    if c % 8 == 0 and dout.data_ptr() % 16:
         raise ValueError("dout must be 16-byte aligned")
     check_cuda("index", idx, torch.int32, (None,))
     check_cuda("row_ptr", row_ptr, torch.int32, (n + 1,))

@@ -26,9 +26,11 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (check_cuda, dtype_code,
-                                             segment_ids, stream_of)
-from kagnn_tpu_torch.kernels.fastkan_layer import (c_centers, check_layer,
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+                                             dtype_code, segment_ids,
+                                             stream_of)
+from kagnn_tpu_torch.kernels.fastkan_layer import (ROWS, c_centers,
+                                                   check_layer, chunk,
                                                    fastkan_forward_f32,
                                                    fastkan_layer_bwd, inv_h,
                                                    weight_layouts)
@@ -49,11 +51,11 @@ def gin_fastkan_fwd_plain(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
 
 
 @functools.cache
-def _fn():
+def _fn(G: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gin_fastkan", "gin_fastkan_fwd",
-                       [P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P, F, I,
-                        P])
+                       [P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P, F,
+                        I, P], (G,))
 
 
 def gin_fastkan_fwd(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
@@ -70,11 +72,18 @@ def gin_fastkan_fwd(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
     check_cuda("senders", senders, torch.int32, (None,))
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     z = torch.empty_like(x)
-    err = _fn()(x.data_ptr(), senders.data_ptr(), recv_row_ptr.data_ptr(),
-                lng.data_ptr(), lnb.data_ptr(), w.data_ptr(), wb.data_ptr(),
-                bb.data_ptr(), out.data_ptr(), z.data_ptr(), n, D, O,
-                float(eps), G, c_centers(grid_min, grid_max, G),
-                inv_h(grid_min, grid_max, G), code, stream_of(x))
+    # the f32 z tile beside the basis chunk in shared memory, or (wide
+    # inputs) in a device scratch (csrc/gin_fastkan.cu)
+    zbuf = None
+    if 4 * ROWS * (D + (G + 1) * chunk(G) + 2) > SMEM_LIMIT:
+        zbuf = torch.empty((-(-n // ROWS) * ROWS, D), dtype=torch.float32,
+                           device=x.device)
+    err = _fn(G)(x.data_ptr(), senders.data_ptr(), recv_row_ptr.data_ptr(),
+                 lng.data_ptr(), lnb.data_ptr(), w.data_ptr(), wb.data_ptr(),
+                 bb.data_ptr(), out.data_ptr(), z.data_ptr(),
+                 None if zbuf is None else zbuf.data_ptr(), n, D, O,
+                 float(eps), G, c_centers(grid_min, grid_max, G),
+                 inv_h(grid_min, grid_max, G), code, stream_of(x))
     _build.check(err, "gin_fastkan_fwd")
     gin_fastkan_fwd.launches += 1
     return out, z

@@ -26,12 +26,15 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (check_cuda, dtype_code,
-                                             segment_ids, stream_of)
-from kagnn_tpu_torch.kernels.bspline_fused import (_check_layer,
+from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+                                             dtype_code, segment_ids,
+                                             stream_of)
+from kagnn_tpu_torch.kernels.bspline_fused import (D_CHUNK, _check_layer,
                                                    kan_forward_f32,
                                                    kan_linear_bwd,
                                                    weight_layouts)
+
+ROWS = 32  # csrc/kan_common.cuh kFwdRows
 from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum
 
 
@@ -46,10 +49,11 @@ def gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k, eps):
 
 
 @functools.cache
-def _fn():
+def _fn(k: int, grid: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gin_fused", "gin_fwd",
-                       [P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P])
+                       [P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
+                       (k, grid))
 
 
 def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float):
@@ -65,10 +69,17 @@ def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float):
     check_cuda("senders", senders, torch.int32, (None,))
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     z = torch.empty_like(x)
-    err = _fn()(x.data_ptr(), senders.data_ptr(), recv_row_ptr.data_ptr(),
-                knots.data_ptr(), wb.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), z.data_ptr(), n, D, O, float(eps), grid, k,
-                code, stream_of(x))
+    # the f32 z tile beside the basis chunk in shared memory, or (wide
+    # inputs) in a device scratch (csrc/gin_fused.cu)
+    zbuf = None
+    if 4 * ROWS * ((grid + k + 1) * D_CHUNK + D) > SMEM_LIMIT:
+        zbuf = torch.empty((-(-n // ROWS) * ROWS, D), dtype=torch.float32,
+                           device=x.device)
+    err = _fn(k, grid)(x.data_ptr(), senders.data_ptr(),
+                       recv_row_ptr.data_ptr(), knots.data_ptr(),
+                       wb.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                       z.data_ptr(), None if zbuf is None else zbuf.data_ptr(),
+                       n, D, O, float(eps), grid, k, code, stream_of(x))
     _build.check(err, "gin_fwd")
     gin_kan_fwd.launches += 1
     return out, z

@@ -38,8 +38,8 @@ from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
                                              dtype_code, dw_tile, stream_of,
                                              tiled_gram)
 from kagnn_tpu_torch.kernels._common import round_to as _round
-from kagnn_tpu_torch.kernels.fastkan_layer import (D_CHUNK, MAX_G, O_TILE,
-                                                   ROWS, centers, g_major,
+from kagnn_tpu_torch.kernels.fastkan_layer import (MAX_G, O_TILE, ROWS,
+                                                   centers, chunk, g_major,
                                                    inv_h, num_grids_of)
 
 
@@ -114,16 +114,18 @@ def _c_floats(t: torch.Tensor):
 
 
 @functools.cache
-def _fwd_fn():
+def _fwd_fn(G: int):
     P, I, F = _build.P, _build.I, _build.F
-    return _build.bind("rbf_fused", "rbf_fwd", [P, P, P, I, I, I, I, P, F, I, I, P])
+    return _build.bind("rbf_fused", "rbf_fwd",
+                       [P, P, P, I, I, I, I, P, F, I, I, P], (G,))
 
 
 @functools.cache
-def _bwd_fn():
+def _bwd_fn(G: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("rbf_fused", "rbf_bwd",
-                       [P, P, P, P, P, P, I, I, I, I, P, F, F, I, I, I, P])
+                       [P, P, P, P, P, P, I, I, I, I, P, F, F, I, I, I, P],
+                       (G,))
 
 
 def rbf_spline_fwd(x, w, grid_min: float, grid_max: float) -> torch.Tensor:
@@ -134,7 +136,7 @@ def rbf_spline_fwd(x, w, grid_min: float, grid_max: float) -> torch.Tensor:
     n, D, O, G = check_rbf(x, w)
     c, ih = constants(grid_min, grid_max, G, x.dtype)
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
-    err = _fwd_fn()(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, D, O, G,
+    err = _fwd_fn(G)(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, D, O, G,
                     _c_floats(c), ih, dtype_code(x), dtype_code(w), stream_of(x))
     _build.check(err, "rbf_fwd")
     rbf_spline_fwd.launches += 1
@@ -153,7 +155,7 @@ def rbf_spline_bwd(x, w, dout, grid_min: float, grid_max: float,
     n, D, O, G = check_rbf(x, w)
     check_cuda("dout", dout, x.dtype, (n, O))
     # the dx kernel's dout tile and one output tile of the chunk's weights
-    smem = 4 * (ROWS * O + O_TILE * (G * D_CHUNK + 1))
+    smem = 4 * (ROWS * O + O_TILE * (G * chunk(G) + 1))
     if need_dx and smem > SMEM_LIMIT:
         raise ValueError(f"dx of an RBF product with {O} outputs and {G} "
                          f"centers needs {smem} bytes of shared memory per "
@@ -164,7 +166,7 @@ def rbf_spline_bwd(x, w, dout, grid_min: float, grid_max: float,
                           device=x.device)
     dw = torch.empty_like(w)
     dx = torch.empty_like(x) if need_dx else None
-    err = _bwd_fn()(x.data_ptr(), w.data_ptr(), dout.data_ptr(),
+    err = _bwd_fn(G)(x.data_ptr(), w.data_ptr(), dout.data_ptr(),
                     None if dx is None else dx.data_ptr(), partial.data_ptr(),
                     dw.data_ptr(), n, D, O, G, _c_floats(c), ih,
                     -2.0 * inv_h(grid_min, grid_max, G), tile, dtype_code(x),

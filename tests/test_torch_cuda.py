@@ -293,6 +293,12 @@ def test_kernels_count_their_launches():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
+    """Dtypes, layouts and alignment the kernels do not take raise, and so
+    do the shapes the JAX kernels refuse too (one RBF center: its spacing
+    divides by zero). The shapes these kernels refused before they took
+    the experiment scripts' search spaces (spline order 1, 9 centers, 512 and 12-wide
+    GAT heads, a backward whose rows once needed too much shared memory)
+    now run and match their plain versions."""
     g = _graph(3, f=8)
     knots, wb, ws = _layer(torch.Generator(device="cuda").manual_seed(0),
                            8, 4, 4, torch.float32)
@@ -301,37 +307,48 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         bf.kan_linear_fwd(x.half(), knots.half(), wb.half(), ws.half(), 3)
     with pytest.raises(ValueError, match="contiguous"):
         bf.kan_linear_fwd(x.t().contiguous().t(), knots, wb, ws, 3)
-    with pytest.raises(ValueError, match="spline order"):
-        bf.kan_linear_fwd(x, knots[:-3].contiguous(), wb, ws, 3)
+    # spline order 1 (grid 4): the kernels run it
+    k1 = _layer(torch.Generator(device="cuda").manual_seed(1), 8, 4, 4,
+                torch.float32, k=1)
+    close(bf.kan_linear_fwd(x, *k1, 1), bf.kan_linear_fwd_plain(x, *k1, 1), "f32")
+    check_bspline_bwd("bspline_bwd order 1", x, *k1, torch.randn(
+        x.shape[0], 4, device="cuda"), 1, _closer("f32"), log=_quiet)
     with pytest.raises(TypeError):
         spmm.sorted_segment_sum(x, g.send_row_ptr.long())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for G in (1, 9):  # the FastKAN kernels take 2..8 centers
-        with pytest.raises(ValueError, match="centers"):
-            fk.fastkan_layer_fwd(x, *_fastkan_layer(gen, 8, 4, G, torch.float32),
-                                 -2.0, 2.0)
+    with pytest.raises(ValueError, match="centers"):  # one center
+        fk.fastkan_layer_fwd(x, *_fastkan_layer(gen, 8, 4, 1, torch.float32),
+                             -2.0, 2.0)
+    lw9 = _fastkan_layer(gen, 8, 4, 9, torch.float32)  # 9 centers run
+    close(fk.fastkan_layer_fwd(x, *lw9, -2.0, 2.0),
+          fk.fastkan_layer_fwd_plain(x, *lw9, -2.0, 2.0), "f32")
     with pytest.raises(TypeError):  # dinv reaches the kernel as f32
         ga.gcn_agg_fwd(x, torch.ones(x.shape[0], device="cuda").bfloat16(),
                        g.senders, g.recv_row_ptr, g.receivers)
-    with pytest.raises(ValueError, match="shared memory"):
-        fk.fastkan_layer_bwd(*_wide_layer(gen), -2.0, 2.0)
-    # the GAT kernels take f32 asrc/adst and C a power-of-two multiple of 8
-    # with H*C <= 256
+    # the layer that needed more shared memory than a block has runs
+    wide = _wide_layer(gen)
+    check_fastkan_bwd("fastkan_bwd (400, 128)", wide[0], *wide[1:5], wide[5],
+                      _closer("f32"), log=_quiet)
+    # the GAT kernels take f32 asrc/adst; heads of any width (12 and 128
+    # columns here) run
     h, a = torch.zeros(x.shape[0], 64, device="cuda"), torch.zeros(
         x.shape[0], 4, device="cuda")
     ga_args = (g.senders, g.recv_row_ptr, g.n_edge, 0.2)
     with pytest.raises(TypeError):
         gfu.gat_fwd(h, a.bfloat16(), a, *ga_args)
-    for hh, aa in ((torch.zeros(x.shape[0], 48, device="cuda"), a),
-                   (torch.zeros(x.shape[0], 512, device="cuda"), a),
-                   (torch.zeros(x.shape[0], 24, device="cuda"), a[:, :2])):
-        with pytest.raises(ValueError, match="GAT kernels"):
-            gfu.gat_fwd(hh, aa.contiguous(), aa.contiguous(), *ga_args)
-    # the RBF kernels take 2..8 centers, dout in x's dtype; the narrow sum
-    # at most 8 columns and int32 receivers
-    for G in (1, 9):
-        with pytest.raises(ValueError, match="centers"):
-            rf.rbf_spline_fwd(x, torch.zeros(G * 8, 4, device="cuda"), -2.0, 2.0)
+    for cols, heads in ((48, 4), (512, 4), (24, 2)):
+        hh = torch.randn(x.shape[0], cols, device="cuda")
+        aa = torch.randn(x.shape[0], heads, device="cuda")
+        for got, want in zip(gfu.gat_fwd(hh, aa, aa, *ga_args),
+                             gfu.gat_fwd_plain(hh, aa, aa, *ga_args)):
+            close(got, want, "f32")
+    # the RBF kernels take 2..32 centers (9 runs), dout in x's dtype; the
+    # narrow sum at most 8 columns and int32 receivers
+    with pytest.raises(ValueError, match="centers"):
+        rf.rbf_spline_fwd(x, torch.zeros(8, 4, device="cuda"), -2.0, 2.0)
+    w9 = torch.randn(9 * 8, 4, device="cuda") * 0.3
+    close(rf.rbf_spline_fwd(x, w9, -2.0, 2.0),
+          rf.rbf_spline_fwd_plain(x, w9, -2.0, 2.0), "f32")
     w = torch.zeros(4 * 8, 4, device="cuda")
     with pytest.raises(TypeError):
         rf.rbf_spline_bwd(x, w, torch.zeros(x.shape[0], 4, device="cuda").bfloat16(),
@@ -352,7 +369,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def _wide_layer(gen, n=64, d=400, o=128, G=8):
-    """A layer whose backward needs more shared memory than a block has."""
+    """A layer whose backward once needed more shared memory than a block
+    has (its dx kernel held whole rows): x, lng, lnb, w, wb, dout."""
     lng, lnb, w, wb, _ = _fastkan_layer(gen, d, o, G, torch.float32)
     x = torch.randn(n, d, device="cuda")
     return x, lng, lnb, w, wb, torch.randn(n, o, device="cuda")
@@ -461,6 +479,137 @@ def test_gcn_agg_splits_heavy_rows(dt, D, kind):
     got = ga.gcn_agg_fwd(*args, g.receivers)
     close(got, ga.gcn_agg_plain(*args), dt)
     assert torch.equal(got, ga.gcn_agg_fwd(*args, g.receivers))
+
+
+# (spline order, grid size) of the experiment scripts' search spaces: the smallest and
+# largest orders and grids
+KAN_CORNERS = [(1, 1), (2, 8), (4, 16), (1, 8)]
+
+
+@pytest.mark.parametrize("corner", KAN_CORNERS, ids=[f"{k}-{g}" for k, g in KAN_CORNERS])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_bspline_kernels_take_the_search_space(dt, corner):
+    """The B-spline forward, backward and gin_fused at spline order 1-4 and
+    grid 1-16 (each a library of its own) against their plain versions, on
+    a graph with a node of in-degree 301 and N off every tile, with ragged
+    widths and two output tiles."""
+    k, grid = corner
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    g = _graph(4, n=301, e=900, hub=301)
+    for D, O in ((40, 100), (64, 64)):
+        knots, wb, ws = _layer(gen, D, O, grid, td, k=k)
+        x = torch.randn(g.n_node_pad, D, generator=gen, device="cuda").to(td)
+        dout = torch.randn(g.n_node_pad, O, generator=gen, device="cuda").to(td)
+        fa = (x, knots, wb, ws, k)
+        close(bf.kan_linear_fwd(*fa), bf.kan_linear_fwd_plain(*fa), dt)
+        check_bspline_bwd(f"bspline_bwd {corner}", *fa[:4], dout, k, _closer(dt),
+                          log=_quiet)
+        ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.25)
+        for a, b in zip(gf.gin_kan_fwd(*ga), gf.gin_kan_fwd_plain(*ga)):
+            close(a[g.node_mask], b[g.node_mask], dt)
+
+
+@pytest.mark.parametrize("corner", [(3, 4), (4, 16)], ids=["3-4", "4-16"])
+def test_bspline_bf16_backward_takes_512_outputs(corner):
+    """The bf16 backward at a GAT transform's widest outputs (4 heads x
+    128): its dx kernel stages the weights in output parts where the whole
+    chunk does not fit, its dW kernel the outputs."""
+    k, grid = corner
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(300, 32, generator=gen, device="cuda").bfloat16()
+    dout = torch.randn(300, 512, generator=gen, device="cuda").bfloat16()
+    knots, wb, ws = _layer(gen, 32, 512, grid, torch.bfloat16, k=k)
+    check_bspline_bwd(f"bspline_bwd {corner} O=512", x, knots, wb, ws, dout, k,
+                      _closer("bf16"), log=_quiet)
+
+
+# (D, O, centers): 2, 16 and 32 centers (one library each) at ragged widths
+# and at PubMed's 500 features, CiteSeer's 3,703 at 32, and a GAT transform's
+# 512 outputs at 32 (the dx kernels then take the outputs in parts)
+FASTKAN_CORNERS = [(40, 100, 2), (40, 100, 16), (40, 100, 32), (500, 64, 2),
+                   (500, 64, 16), (500, 64, 32), (3703, 64, 32), (64, 512, 32)]
+
+
+@pytest.mark.parametrize("shape", FASTKAN_CORNERS,
+                         ids=[f"D{d}-O{o}-G{g}" for d, o, g in FASTKAN_CORNERS])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_fastkan_kernels_take_the_search_space(dt, shape):
+    """The FastKANLayer forward and backward (all six outputs), gin_fastkan
+    and the RBF product (forward, dx, dW) at 2-32 centers and up to 3,703
+    features against their plain versions, on a graph with a node of
+    in-degree 301 and N off every tile."""
+    D, O, G = shape
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = _graph(4, n=301, e=900, hub=301)
+    n = g.n_node_pad
+    x = torch.randn(n, D, generator=gen, device="cuda").to(td)
+    x[5] = 0.0
+    dout = torch.randn(n, O, generator=gen, device="cuda").to(td)
+    layer = _fastkan_layer(gen, D, O, G, td)
+    fa = (x, *layer, -2.0, 2.0)
+    close(fk.fastkan_layer_fwd(*fa), fk.fastkan_layer_fwd_plain(*fa), dt)
+    check_fastkan_bwd(f"fastkan_bwd {shape}", x, *layer[:4], dout, _closer(dt),
+                      log=_quiet)
+    gargs = (x, g.senders, g.recv_row_ptr, *layer, 0.25, -2.0, 2.0)
+    for a, b in zip(gfk.gin_fastkan_fwd(*gargs), gfk.gin_fastkan_fwd_plain(*gargs)):
+        close(a[g.node_mask], b[g.node_mask], dt)
+    w = layer[2]
+    close(rf.rbf_spline_fwd(x, w, -2.0, 2.0), rf.rbf_spline_fwd_plain(x, w, -2.0, 2.0), dt)
+    for a, b in zip(rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0),
+                    rf.rbf_spline_bwd_plain(x, w, dout, -2.0, 2.0)):
+        close(a, b, dt)
+
+
+# (H, C): the experiment scripts' 4 heads at hidden 2, 37, 96 and 128 (H*C up to
+# 512: two passes of 32 slots), one head of 37, and one head of 512
+GAT_CORNERS = [(4, 2), (4, 37), (4, 96), (4, 128), (1, 37), (1, 512)]
+
+
+@pytest.mark.parametrize("shape", GAT_CORNERS, ids=[f"{h}x{c}" for h, c in GAT_CORNERS])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gat_kernels_take_any_head_width(dt, shape):
+    """The GAT forward, dadst and sender kernels at heads of any width
+    against their plain versions, on the graph of
+    test_gat_kernels_match_plain."""
+    H, C = shape
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rng = np.random.default_rng(6)
+    snd = np.concatenate([rng.integers(0, 301, 900), np.arange(301)])
+    rcv = np.concatenate([rng.integers(0, 280, 900), np.zeros(301, np.int64)])
+    g = single_graph(snd, rcv, n_node=301, edge_pad_multiple=1024, device="cuda")
+    n = g.n_node_pad
+    h = torch.randn(n, H * C, generator=gen, device="cuda").to(td)
+    asrc, adst = (torch.randn(n, H, generator=gen, device="cuda") * 10 for _ in range(2))
+    dout = torch.randn(n, H * C, generator=gen, device="cuda").to(td)
+    fa = (h, asrc, adst, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+    out, alpha = gfu.gat_fwd(*fa)
+    for a, b in zip((out, alpha), gfu.gat_fwd_plain(*fa)):
+        close(a, b, dt if a.dtype == td else "f32")
+    s = (dout * out).float().reshape(n, H, C).sum(2).contiguous()
+    ba = (h, asrc, adst, alpha, s, dout)
+    close(gbw.gat_dadst(*ba, g.senders, g.recv_row_ptr, g.n_edge, 0.2),
+          gbw.gat_dadst_plain(*ba, g.senders, g.recv_row_ptr, g.n_edge, 0.2), "f32")
+    sa = (g.receivers_by_sender, g.send_row_ptr, g.n_edge, 0.2)
+    for a, b in zip(gbw.gat_sender(*ba, *sa), gbw.gat_sender_plain(*ba, *sa)):
+        close(a, b, "f32")
+
+
+@pytest.mark.parametrize("shape", [(128, 64), (256, 256)], ids=["128x64", "256x256"])
+def test_fastkan_bwd_walks_the_jax_tiles_at_the_transform_shapes(shape, no_tf32):
+    """The bf16 FastKAN backward at 169,344 rows and the GIN conv-0 and GAT
+    transform widths: each walked weight gradient meets the plain walk
+    within the walk bar, and a round-once and an unrounded-partials reduce
+    of the same partials fail it."""
+    D, O = shape
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(169_344, D, generator=gen, device="cuda").bfloat16()
+    dout = (torch.randn(169_344, O, generator=gen, device="cuda") * 0.1).bfloat16()
+    lw = _fastkan_layer(gen, D, O, 4, torch.bfloat16)
+    check_fastkan_bwd(f"fastkan_bwd {shape}", x, *lw[:4], dout, _closer("bf16"),
+                      wrong_must_fail=True, log=_quiet)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
