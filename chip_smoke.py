@@ -28,12 +28,17 @@ Phases (any failure raises, and the script exits non-zero):
      times (CUDA events) for the kernel, the plain version and, where one
      PyTorch call computes the same function, that call as the library
      yardstick (`torch.sparse.mm` on a CSR matrix; the port never calls it;
-     there is none for GAT attention or the RBF product); then the forward
-     and backward of the autograd Functions against the plain path; then
-     every kernel at the search-space corners of the experiment scripts
-     (`phase_corners`: spline order 1-4 and grid 1-16, 2-32 centers, 500
-     and 3,703 features, GAT heads of 2-128 columns, 512 outputs) against
-     its plain version;
+     there is none for GAT attention or the RBF product); at the main
+     shapes each layer forward's profiled kernel (the tensor-core kernel
+     in bf16, the CUDA-core one in f32: the phase fails otherwise), the
+     FastKAN forward's term-split error in bf16 ulps, and at (256, 256)
+     torch.matmul of a prebuilt bf16 basis by the weight (a yardstick of
+     the product alone); then the forward and backward of the autograd
+     Functions against the plain path; then every kernel at the
+     search-space corners of the experiment scripts (`phase_corners`:
+     spline order 1-4 and grid 1-16, 2-32 centers, 500 and 3,703
+     features, GAT heads of 2-128 columns, 512 outputs; the layer forwards
+     also at 1, 7, 40 and 512 outputs) against its plain version;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
      gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan), at five search-space
      corners (STEP_CORNERS) and for the base-free FastKAN and the
@@ -68,7 +73,7 @@ import numpy as np
 
 # the card's peaks (bound_ms(bytes, operations, dtype)) and the CUDA-event
 # timer, from the port; outside the repository this import fails first
-from kagnn_tpu_torch.utils.profiling import H100, time_ms
+from kagnn_tpu_torch.utils.profiling import H100, kernel_row_of, time_ms
 from kagnn_tpu_torch.kernels._common import dw_tile
 from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
                                                check_bspline_bwd,
@@ -110,6 +115,7 @@ def phase_device(torch):
 # main paths' in one parallel build
 KAN_CORNERS = ((1, 1), (2, 8), (4, 16), (1, 8))
 FASTKAN_CORNERS = (2, 16, 32)
+FWD_OUTPUTS = (1, 7, 40, 512)  # outputs the layer forwards mask or split
 
 
 def phase_build():
@@ -170,6 +176,33 @@ def log_kernel_split(torch, name, fn, calls=5):
         f"{s} {t:.4f}" for s, (_, t, _) in zip(short, prof.kernels)))
 
 
+def check_forward_kernel(torch, name, fn, want, calls=5):
+    """Profile a layer forward (as many calls as log_kernel_split: a profile
+    of one call read no device time on the H100 after a few): log the
+    kernels it launched and fail unless it is `want` alone (in bf16 the
+    tensor-core kernel; the CUDA-core one serves f32 only)."""
+    from kagnn_tpu_torch.utils.profiling import device_profile, kernel_base_name
+
+    prof = device_profile(lambda: [fn() for _ in range(calls)], calls)
+    if prof.ms is None:
+        log(f"  {name} kernel: not measured (the profiler saw no device time)")
+        return
+    names = sorted({kernel_base_name(key) for key, _, _ in prof.kernels})
+    log(f"  {name} kernel: {', '.join(names)}")
+    if names != [want]:
+        raise AssertionError(f"{name}: launched {names}, expected {want} alone")
+
+
+def bf16_ulps(torch, got, want):
+    """max |got - want| in bf16 ulps of the output's scale: elementwise, the
+    spacing of bf16 values (7 stored bits) at max(|want|, mean |want|). A
+    flipped final rounding reads 1."""
+    got, want = got.float(), want.float()
+    scale = torch.clamp(want.abs(), min=max(want.abs().mean().item(), 1e-30))
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
 def kernel_row(name, source, replaces):
     """One entry of the kernel list printed before the result line."""
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -183,6 +216,19 @@ def record_row(r, err, main, **times):
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if main:
         r.update(times)
+
+
+def matmul_yardstick(torch, name, basis, w):
+    """Time torch.matmul of a prebuilt bf16 basis (N, NG*D) by the stacked
+    weight (NG*D, O): the product alone at the tensor cores' library rate,
+    without building the basis. A yardstick for the layer forward, not its
+    library call (it skips the basis the kernel builds)."""
+    ms = time_ms(lambda: torch.matmul(basis, w))
+    n, k = basis.shape
+    bms, by = H100.bound_ms((basis.numel() + w.numel() + n * w.shape[1]) * 2,
+                            2 * n * k * w.shape[1], "bfloat16")
+    log(f"  {name} yardstick: torch.matmul of a prebuilt bf16 basis ({n}, {k}) "
+        f"by ({k}, {w.shape[1]}): ms={ms:.4f} bound_ms={bms:.4f} ({by})")
 
 
 def phase_kernels(torch, big):
@@ -302,6 +348,13 @@ def phase_kernels(torch, big):
                         2 * N * nb1 * D * O, dn)
                     log(f"  bspline_fwd main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    check_forward_kernel(
+                        torch, f"bspline_fwd main {dn} D={D} O={O}",
+                        lambda: bf.kan_linear_fwd(*fa),
+                        "bspline_fwd_mma_kernel" if main else "bspline_fwd_kernel")
+                    if main and (D, O) == (256, 256):
+                        matmul_yardstick(torch, "bspline_fwd", bf.dw_operand(x, knots, k),
+                                         torch.cat([wb, ws]))
                     record("bspline_fwd", err, main and (D, O) == (64, 64), ms, pms, bms, by)
                     ms = time_ms(lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
                     pms = time_ms(lambda: bf.kan_linear_bwd_plain(*fa[:4], dout, k))
@@ -417,6 +470,18 @@ def phase_gcn_split(torch, rows):
             record_row(rows["gcn_agg"], err, False)
 
 
+def log_split_reading(torch, tag, got, want):
+    """The bf16 FastKAN forward's error against its plain f32 product (both
+    rounded to bf16 once), in bf16 ulps of the output's scale, and the share
+    of outputs that differ: the kernel multiplies each f32 basis value as
+    bf16 terms (`fastkan_common.cuh::kFwdTerms`), so a reading of 1 is a
+    flipped final rounding."""
+    ulps = bf16_ulps(torch, got, want)
+    differ = (got != want).float().mean().item()
+    log(f"  fastkan_fwd term split at {tag}: {ulps:.3f} bf16 ulps of the "
+        f"output's scale, {differ:.2e} of the elements differ")
+
+
 def phase_new_kernels(torch, big, rows):
     """gcn_agg, the FastKANLayer forward and backward and gin_fastkan
     against their plain versions (`big` is the main paths' graph)."""
@@ -528,6 +593,22 @@ def phase_new_kernels(torch, big, rows):
                     bms, by = H100.bound_ms(nbytes, ops, dn)
                     log(f"  {name} main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+                    if name == "fastkan_fwd":
+                        check_forward_kernel(
+                            torch, f"fastkan_fwd main {dn} D={D} O={O}", fn,
+                            "fastkan_fwd_mma_kernel" if main else "fastkan_fwd_kernel")
+                    if name == "fastkan_fwd" and main and (D, O) == (256, 256):
+                        log_split_reading(torch, f"D={D} O={O}", fn(), plain())
+                        xs = x.float()
+                        xhat, _ = fk.layer_norm_f32(xs)
+                        basis, _ = fk.wide_basis(
+                            xhat * lw[0].float() + lw[1].float(),
+                            torch.from_numpy(fk.centers(-2.0, 2.0, G)).cuda(),
+                            fk.inv_h(-2.0, 2.0, G))
+                        matmul_yardstick(
+                            torch, "fastkan_fwd",
+                            torch.cat([xs * torch.sigmoid(xs), basis], 1).to(dtype),
+                            torch.cat([lw[3], lw[2]]))
                     if name == "fastkan_bwd" and main:
                         log_kernel_split(torch, f"fastkan_bwd main {dn} D={D} O={O}", fn)
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
@@ -820,9 +901,11 @@ def phase_corners(torch, rows):
             x, dout = rand((N, D), dtype), rand((N, O), dtype, 0.1)
             x[N - 1] = 0.0
             tag = f"G={G} D={D} O={O}"
-            cmp("fastkan_fwd", f"fastkan_fwd corner {tag}",
-                fk.fastkan_layer_fwd(x, *lw, -2.0, 2.0),
-                fk.fastkan_layer_fwd_plain(x, *lw, -2.0, 2.0))
+            got = fk.fastkan_layer_fwd(x, *lw, -2.0, 2.0)
+            want = fk.fastkan_layer_fwd_plain(x, *lw, -2.0, 2.0)
+            cmp("fastkan_fwd", f"fastkan_fwd corner {tag}", got, want)
+            if dtype == torch.bfloat16 and (G, D) == (32, 500):
+                log_split_reading(torch, tag, got, want)
             cmp_bwd("fastkan_bwd", check_fastkan_bwd(f"fastkan_bwd corner {tag}", x, *lw[:4],
                                                      dout, close, log=log))
             ga = (x, g.senders, g.recv_row_ptr, *lw, 0.25, -2.0, 2.0)
@@ -835,6 +918,21 @@ def phase_corners(torch, rows):
             for w, a, b in zip(("dx", "dW"), rf.rbf_spline_bwd(x, w_, dout, -2.0, 2.0),
                                rf.rbf_spline_bwd_plain(x, w_, dout, -2.0, 2.0)):
                 cmp("rbf_bwd", f"rbf_bwd corner {tag} {w}", a, b)
+        # the forwards' masked outputs: under one 8-wide n-tile (1, 7), the
+        # head's five (40), and two output parts of 256 (512)
+        for O in FWD_OUTPUTS:
+            D = 64
+            knots = make_grid(D, 4, 3, device="cuda").t().contiguous().to(dtype)
+            fa = (rand((N, D), dtype), knots, rand((D, O), dtype, 0.3),
+                  rand((7 * D, O), dtype, 0.3), 3)
+            cmp("bspline_fwd", f"bspline_fwd corner D={D} O={O}", bf.kan_linear_fwd(*fa),
+                bf.kan_linear_fwd_plain(*fa))
+            lw = (1.0 + rand((D,), dtype, 0.2), rand((D,), dtype, 0.1),
+                  rand((4 * D, O), dtype, 0.3), rand((D, O), dtype, 0.3), rand((O,), dtype, 0.1))
+            x = rand((N, D), dtype)
+            cmp("fastkan_fwd", f"fastkan_fwd corner D={D} O={O}",
+                fk.fastkan_layer_fwd(x, *lw, -2.0, 2.0),
+                fk.fastkan_layer_fwd_plain(x, *lw, -2.0, 2.0))
         for H, C in GAT_CORNERS:
             h, dout = rand((N, H * C), dtype), rand((N, H * C), dtype, 0.1)
             asrc, adst = rand((N, H), torch.float32, 2.0), rand((N, H), torch.float32, 2.0)
@@ -1175,30 +1273,6 @@ def profile_steps(torch, step, step_ms, steps=3):
     for key, t, calls in prof.host[:8]:
         log(f"  {t:8.4f} ms/step {calls:4d} calls/step  {key[:70]}")
     return {key: t for key, t, _ in prof.kernels}
-
-
-# The kernel rows by the CUDA function names of csrc/ (each library's
-# kernels carry its prefix): the first prefix a profiled name starts with
-# decides its row. The tile walk (kan::walk_tiles_kernel) is shared by the
-# three layer backwards and goes to the one the path launched.
-KERNEL_NAMES = (("bspline_fwd_kernel", "bspline_fwd"), ("bspline_", "bspline_bwd"),
-                ("gin_fwd_kernel", "gin_fused"), ("gin_fastkan_kernel", "gin_fastkan"),
-                ("fastkan_fwd_kernel", "fastkan_fwd"), ("fastkan_", "fastkan_bwd"),
-                ("rbf_fwd_kernel", "rbf_fwd"), ("rbf_", "rbf_bwd"),
-                ("gat_fwd_kernel", "gat_fwd"), ("gat_dadst_kernel", "gat_dadst"),
-                ("gat_sender_kernel", "gat_sender"), ("gcn_", "gcn_agg"),
-                ("spmm_csr_kernel", "spmm"), ("narrow_kernel", "spmm_narrow"))
-
-
-def kernel_row_of(key, launches):
-    """The kernel row of a profiled kernel name on a path with `launches`,
-    or None for PyTorch's own kernels."""
-    base = key.replace("void ", "").replace("(anonymous namespace)::", "")
-    base = base.replace("kan::", "").split("<")[0].split("(")[0].strip()
-    if base == "walk_tiles_kernel":
-        return next((r for r in ("bspline_bwd", "fastkan_bwd", "rbf_bwd")
-                     if launches.get(r)), None)
-    return next((row for prefix, row in KERNEL_NAMES if base.startswith(prefix)), None)
 
 
 def phase_fusion_point(torch, g):

@@ -1,9 +1,10 @@
 // Shared device code of the RBF kernels (fastkan_layer.cu, gin_fastkan.cu,
 // rbf_fused.cu): LayerNorm statistics, the RBF basis of one value, the
-// [SiLU |] RBF basis chunk, the chunked basis x weight product of a row
-// tile, the whole layer's forward on a row tile, and the dtype dispatch at
-// the number of centers a library is built for (FKAN_G, 2..32: one library
-// per count, built at its first use, kernels/_build.py).
+// [SiLU |] RBF basis chunk (f32, or as bf16 terms for the tensor cores), the
+// chunked basis x weight product of a row tile (on the CUDA cores, or on the
+// tensor cores), the whole layer's forward on a row tile, and the dtype
+// dispatch at the number of centers a library is built for (FKAN_G, 2..32:
+// one library per count, built at its first use, kernels/_build.py).
 //
 // The layer, as kagnn_tpu/pallas/fastkan_layer.py::_fwd_kernel computes it:
 //   xhat = (x - mean) * rsqrt(var + eps)          (f32 statistics over D)
@@ -15,6 +16,7 @@
 #pragma once
 
 #include "kan_common.cuh"
+#include "mma_common.cuh"
 
 namespace fkan {
 
@@ -84,6 +86,39 @@ __device__ __forceinline__ void ln_stats(XV xv, int rows, int D, float* mu_s, fl
     if (lane == 0) {
       mu_s[rr] = mu;
       rstd_s[rr] = rstd;
+    }
+  }
+}
+
+// ln_stats with four threads a row, kThreads / 4 rows at once: each thread
+// sums every fourth value of its row, then two shuffles join the four, for
+// the mean and then the variance (two passes, in f32, in another summation
+// order than row_stats'). Where a tile's rows are few and short (the
+// tensor-core forward's 64), one warp a row walks them one after another.
+template <typename XV>
+__device__ __forceinline__ void ln_stats_quad(XV xv, int rows, int D, float* mu_s,
+                                              float* rstd_s) {
+  const int part = threadIdx.x % 4;
+  for (int r0 = 0; r0 < rows; r0 += kThreads / 4) {  // every lane takes every pass
+    const int rr = r0 + threadIdx.x / 4;
+    const bool ok = rr < rows;
+    float s = 0.f;
+    if (ok)
+      for (int c = part; c < D; c += 4) s += xv(rr, c);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s / (float)D;
+    float q = 0.f;
+    if (ok)
+      for (int c = part; c < D; c += 4) {
+        const float xc = xv(rr, c) - mu;
+        q += xc * xc;
+      }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    if (ok && part == 0) {
+      mu_s[rr] = mu;
+      rstd_s[rr] = 1.f / sqrtf(q / (float)D + kLnEps);
     }
   }
 }
@@ -210,6 +245,76 @@ __device__ __forceinline__ void chunked_forward(Build build, float* A_s, int row
       if (row < n) out[(size_t)row * O + o] = from_f<TO>(BASE ? acc[i] + bias : acc[i]);
     }
   }
+}
+
+// ---- on the tensor cores --------------------------------------------------
+
+// bf16 terms of each f32 basis value in the tensor-core forward at G
+// centers: hi + lo (about 2^-17 of the value) up to 8 centers, hi + mid +
+// lo (the value whole: the JAX kernel's exact f32 products) past 8. Either
+// keeps a layer within an ulp of its plain version, but the next layer
+// amplifies this one's rounding differences by its basis's slope, which
+// grows with G (inv_h = (G-1) / (grid_max - grid_min)): a one-conv step at
+// 32 centers read its logits 4 ulps off the plain model's with two terms,
+// against a bar of 3.5, and 2.6 with three (my chip runs, PR 7, NVIDIA H100
+// 80GB HBM3, 700.00 W). The third term's tile costs a block an SM at wide
+// outputs, so the main path's 4 centers keep two.
+template <int G>
+constexpr int kFwdTerms = G > 8 ? 3 : 2;
+
+// basis_chunk's columns as TERMS bf16 terms (kan::split_terms) for the
+// tensor cores: term q of local row rr at A_s + q*tstride + rr*pa, column
+// g*FC + j = group g of feature d0 + j (with BASE, g = 0 is SiLU(x)), for
+// rows rr < rows, of which the first `valid` are data (the others, and
+// features past D, zeros). load(rr, row, d, x, xs) as basis_chunk's; each
+// value is computed in f32 as basis_chunk computes it, then split. Thread t
+// takes the features j and j + 1, j = 2 * (t % (FC / 2)).
+template <int G, bool BASE, int FC, int TERMS, typename Load>
+__device__ __forceinline__ void basis_terms(Load load, kan::bf16* A_s, int pa, size_t tstride,
+                                            int rows, int row0, int valid, int d0, int D,
+                                            const Centers& cs, float inv_h) {
+  constexpr int B0 = BASE ? 1 : 0, HP = FC / 2;
+  const int j = 2 * (threadIdx.x % HP), d = d0 + j;
+  for (int rr = threadIdx.x / HP; rr < rows; rr += kThreads / HP) {
+    const bool ok0 = rr < valid && d < D, ok1 = rr < valid && d + 1 < D;
+    float xv0 = 0.f, xs0 = 0.f, xv1 = 0.f, xs1 = 0.f;
+    if (ok0) load(rr, row0 + rr, d, xv0, xs0);
+    if (ok1) load(rr, row0 + rr, d + 1, xv1, xs1);
+    kan::bf16* a = A_s + (size_t)rr * pa + j;
+    if constexpr (BASE)
+      kan::split_terms<TERMS>(a, tstride, ok0 ? xv0 * sigmoid(xv0) : 0.f,
+                              ok1 ? xv1 * sigmoid(xv1) : 0.f);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float e0 = (xs0 - cs.c[g]) * inv_h, e1 = (xs1 - cs.c[g]) * inv_h;
+      kan::split_terms<TERMS>(a + (g + B0) * FC, tstride, ok0 ? expf(-(e0 * e0)) : 0.f,
+                              ok1 ? expf(-(e1 * e1)) : 0.f);
+    }
+  }
+}
+
+// The FastKAN forwards' tiles on the tensor cores: 64 rows (kFwdMT m-tiles
+// a warp) and chunks of about 128 basis columns (kan::FwdChunk: 16 features
+// at 4 centers).
+constexpr int kFwdMT = 2;
+template <int G, bool BASE = true>
+using FwdChunk = kan::FwdChunk<Shape<G, BASE>::NG, 128>;
+
+// chunked_forward on the tensor cores, for one row tile of 32*MT rows: per
+// chunk of FC features (FwdChunk), build(d0) fills the chunk's kFwdTerms<G>
+// bf16 terms in A_s (kFwdTerms<G> tiles of 32*MT x (KC + 8), basis_terms, which
+// takes basis_chunk's Load), and the warps multiply them with the chunk's
+// weight slab slab(c) (row g*FC + j = [Wb;] W row (g, c*FC + j), zeros past
+// the groups and past D) into acc. prefetch as in kan::forward_tile_mma.
+template <int G, bool BASE, int MT, int NPW, typename Build, typename Prefetch, typename Slab>
+__device__ __forceinline__ void chunked_forward_mma(kan::FwdAcc<MT, NPW>& acc, Build build,
+                                                    Prefetch prefetch, Slab slab,
+                                                    const kan::bf16* A_s, int D, int wp, int np) {
+  using C = FwdChunk<G, BASE>;
+  constexpr int pa = C::KC + 8;
+  kan::forward_tile_mma<kFwdTerms<G>, C::KC, MT, NPW>(
+      acc, (D + C::FC - 1) / C::FC, prefetch, [&](int c) { build(c * C::FC); }, slab, A_s, pa,
+      (size_t)32 * MT * pa, wp, np);
 }
 
 // The whole FastKANLayer forward of one tile of kFwdRows rows starting at

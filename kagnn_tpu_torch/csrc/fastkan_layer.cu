@@ -10,10 +10,17 @@
 // 128, O = 64 or 40, G = 4) each product is 2*N*(G+1)*D*O operations
 // against N*(D+O) elements moved, about 80-160 operations per byte, below
 // the bf16 tensor-core ridge of about 295: device-memory bytes bound it.
-// The forward computes its products on the CUDA cores in f32, so its time
-// is set by the rate the SMs execute instructions, not by bytes; the (N,
-// G*D) basis never leaves the SM. Moving them to the tensor cores is later
-// work.
+// The (N, G*D) basis never leaves the SM.
+//
+// The forward, under bf16, runs its products on the tensor cores
+// (fastkan_fwd_mma_kernel, the design of the B-spline forward's,
+// mma_common.cuh): the JAX kernel multiplies the f32 basis and SiLU(x) with
+// the bf16 weights, exact products summed in f32, so each f32 value is
+// split into bf16 terms (kan::split_terms, the dW kernel's split: hi + lo up
+// to 8 centers, hi + mid + lo, the value whole, past 8: kFwdTerms), built
+// once per block for all of its outputs; the products go to f32
+// accumulators and the output is rounded once. In f32 it stays on the CUDA
+// cores (fastkan_fwd_kernel).
 //
 // The backward, under bf16, runs its products on the tensor cores
 // (mma.sync.m16n8k16, bf16 operands from ldmatrix, f32 accumulators), with
@@ -116,6 +123,107 @@ fastkan_fwd_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* 
     return row0 + rr < n ? to_f(x[(size_t)(row0 + rr) * D + d]) : 0.f;
   };
   forward_tile<T, G>(xv, A_s, mu_s, rstd_s, row0, n, D, O, lng, lnb, cs, inv_h, w, wb, bb, out);
+}
+
+// The forward under bf16, on the tensor cores. grid (persistent row blocks,
+// output parts of plan.op). Each block walks row tiles of R = 64 rows: the
+// tile's LayerNorm statistics first (ln_stats_quad, four threads a row, from
+// the held rows or, for wide rows, from device memory), then per chunk of FC
+// features (FwdChunk: 16 at the main path's 4 centers) the chunk's f32
+// [SiLU(x) | B(LN(x))] split into kFwdTerms<G> bf16 terms once (basis_terms)
+// and multiplied with the chunk's weight slab for all of the block's outputs
+// (chunked_forward_mma); the f32 bias is added before the output is rounded
+// once. Shared memory: the weight slabs as bspline_fwd_mma_kernel's
+// (kan::plan_forward), the terms, the tile's statistics and, where the
+// layout holds them, two buffers of the tiles' x rows, the next tile's
+// copied while this one computes. NPW: output pairs a warp holds
+// (kan::fwd_pairs); one pair leaves registers for three blocks an SM.
+template <int G, int NPW>
+__global__ void __launch_bounds__(kThreads, NPW == 1 ? 3 : 2)
+fastkan_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lng,
+                       const bf16* __restrict__ lnb, const bf16* __restrict__ w,
+                       const bf16* __restrict__ wb, const bf16* __restrict__ bb,
+                       bf16* __restrict__ out, int n, int D, int O, Centers cs, float inv_h,
+                       kan::FwdPlan plan) {
+  constexpr int NG = G + 1, R = 32 * kFwdMT, TERMS = kFwdTerms<G>;
+  using C = FwdChunk<G>;
+  constexpr int FC = C::FC, KC = C::KC, pa = KC + 8;
+  constexpr size_t tstride = (size_t)R * pa;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunks = (D + FC - 1) / FC, tiles = (n + R - 1) / R;
+  const int wp = plan.wp, xp = plan.xp;
+  const int o0 = blockIdx.y * plan.op, ow = min(plan.op, O - o0), np = (ow + 15) / 16;
+  bf16* W_s = reinterpret_cast<bf16*>(smem_raw);                           // slabs, KC x wp
+  bf16* A_s = W_s + (size_t)(plan.resident ? chunks : 2) * KC * wp;       // TERMS x R x pa
+  float* mu_s = reinterpret_cast<float*>(A_s + TERMS * tstride);          // R
+  float* rstd_s = mu_s + R;                                                // R
+  bf16* x_s = reinterpret_cast<bf16*>(rstd_s + R);                         // 2 x R x xp
+  if constexpr (KC > NG * FC) {  // the columns past the groups stay zero
+    constexpr int padc = KC - NG * FC;
+    for (int i = threadIdx.x; i < TERMS * R * padc; i += kThreads)
+      A_s[(size_t)(i / padc) * pa + NG * FC + i % padc] = from_f<bf16>(0.f);
+  }
+  auto stage_w = [&](int c, int slot) {
+    stage_rows(W_s + (size_t)slot * KC * wp, wp, KC, ow, np * 16, O % 8 == 0,
+               [&](int k) -> const bf16* {
+                 const int g = k / FC, d = c * FC + k % FC;
+                 return g < NG && d < D ? weight_row<true>(wb, w, g, d, D, O) + o0 : nullptr;
+               });
+  };
+  auto stage_x = [&](int t, int b) {
+    stage_rows(x_s + (size_t)b * R * xp, xp, R, D, kan::round_up(D, 8), D % 8 == 0,
+               [&](int r) -> const bf16* {
+                 const int row = t * R + r;
+                 return row < n ? x + (size_t)row * D : nullptr;
+               });
+  };
+  int t = blockIdx.x;
+  if (t >= tiles) return;
+  if (plan.resident) {
+    for (int c = 0; c < chunks; ++c) stage_w(c, c);
+  } else {
+    stage_w(0, 0);
+  }
+  if (plan.hold) stage_x(t, 0);
+  cp_async_commit();
+  kan::FwdAcc<kFwdMT, NPW> acc;
+  kan::fwd_zero(acc);
+  for (int step = 0, xb = 0; t < tiles; t += gridDim.x, step += chunks, xb ^= 1) {
+    const int row0 = t * R, next = t + gridDim.x, valid = min(R, n - row0);
+    const bf16* xt = x_s + (size_t)xb * R * xp;
+    auto xv = [&](int rr, int d) -> float {
+      if (plan.hold) return to_f(xt[(size_t)rr * xp + d]);
+      return row0 + rr < n ? to_f(x[(size_t)(row0 + rr) * D + d]) : 0.f;
+    };
+    auto build = [&](int d0) {
+      if (d0 == 0) {  // the tile's statistics, before its first chunk
+        ln_stats_quad(xv, R, D, mu_s, rstd_s);
+        __syncthreads();
+      }
+      // this thread's two features (basis_terms) and their affine
+      const int dj = d0 + 2 * (threadIdx.x % (FC / 2));
+      const float g0 = dj < D ? to_f(lng[dj]) : 0.f, g1 = dj + 1 < D ? to_f(lng[dj + 1]) : 0.f;
+      const float b0 = dj < D ? to_f(lnb[dj]) : 0.f, b1 = dj + 1 < D ? to_f(lnb[dj + 1]) : 0.f;
+      auto load = [&](int rr, int, int d, float& v, float& xs) {
+        v = xv(rr, d);
+        const bool second = d != dj;
+        xs = ((v - mu_s[rr]) * rstd_s[rr]) * (second ? g1 : g0) + (second ? b1 : b0);
+      };
+      basis_terms<G, true, FC, TERMS>(load, A_s, pa, tstride, R, row0, valid, d0, D, cs, inv_h);
+    };
+    auto prefetch = [&](int c) {
+      const bool last = c + 1 == chunks;
+      if (!plan.resident && (!last || next < tiles)) stage_w(last ? 0 : c + 1, (step + c + 1) & 1);
+      if (plan.hold && last && next < tiles) stage_x(next, xb ^ 1);
+    };
+    auto slab = [&](int c) -> const bf16* {
+      return W_s + (size_t)(plan.resident ? c : (step + c) & 1) * KC * wp;
+    };
+    chunked_forward_mma<G, true, kFwdMT, NPW>(acc, build, prefetch, slab, A_s, D, wp, np);
+    kan::fwd_store<kFwdMT, NPW>(acc, out, row0, n, O, o0, np,
+                                [&](int o) { return o < O ? to_f(bb[o]) : 0.f; });
+  }
+  cp_async_wait<0>();  // the last, empty, commit group
 }
 
 // stats (n, 2) = each row's mean and 1/sqrt(var + eps), in row_stats'
@@ -620,17 +728,10 @@ fastkan_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lng,
     const float* st = st_s + (size_t)buf * 2 * kSub;
     for (int r = threadIdx.x / hw; r < kSub; r += kThreads / hw) {
       bf16* a = A3 + (size_t)r * pa + j;
-      // the values of features j, j + 1 (zeros past D or rend): the sum of
-      // their terms (exactly, with 3), stored in pairs
+      // the values of features j, j + 1 (zeros past D or rend) as their
+      // kTerms bf16 terms (exactly, with 3), stored in pairs
       auto put = [&](int g, float v0, float v1) {
-#pragma unroll
-        for (int q = 0; q < kTerms; ++q) {
-          const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(a + (size_t)q * kSub * pa + g * dcw) = h;
-          const float2 f = __bfloat1622float2(h);
-          v0 -= f.x;
-          v1 -= f.y;
-        }
+        kan::split_terms<kTerms>(a + g * dcw, (size_t)kSub * pa, v0, v1);
       };
       const bool row_ok = r0 + r < rend;
       const bool ok0 = row_ok && d < D, ok1 = row_ok && d + 1 < D;
@@ -836,10 +937,12 @@ fastkan_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ lng,
   }
 }
 
-template <typename T, int G>
-int launch_fwd(const void* x, const void* lng, const void* lnb, const void* w, const void* wb,
-               const void* bb, void* out, int n, int D, int O, Centers cs, float inv_h,
-               cudaStream_t stream) {
+// The f32 forward on the CUDA cores (fastkan_fwd_kernel).
+template <int G>
+int launch_fwd_f32(const void* x, const void* lng, const void* lnb, const void* w,
+                   const void* wb, const void* bb, void* out, int n, int D, int O, Centers cs,
+                   float inv_h, cudaStream_t stream) {
+  using T = float;
   // the tile's rows held in shared memory where they fit (every main path)
   const bool hold = forward_smem<G>(D, true) <= kSmemLimit;
   const size_t smem = forward_smem<G>(D, hold);
@@ -856,6 +959,65 @@ int launch_fwd(const void* x, const void* lng, const void* lnb, const void* w, c
     return (int)cudaGetLastError();
   };
   return hold ? go(fastkan_fwd_kernel<T, G, true>) : go(fastkan_fwd_kernel<T, G, false>);
+}
+
+// fastkan_fwd_mma_kernel's shared memory besides its weight slabs and held
+// rows: the basis terms and the tile's statistics.
+template <int G>
+constexpr size_t fwd_mma_fixed() {
+  constexpr int R = 32 * kFwdMT;
+  return sizeof(bf16) * kFwdTerms<G> * R * (FwdChunk<G>::KC + 8) + sizeof(float) * 2 * R;
+}
+
+// The bf16 forward at NPW output pairs a warp and part width op; the plan is
+// made at the first launch of each (D, O) and kept.
+template <int G, int NPW>
+int launch_fwd_mma(const bf16* x, const bf16* lng, const bf16* lnb, const bf16* w,
+                   const bf16* wb, const bf16* bb, bf16* out, int n, int D, int O, Centers cs,
+                   float inv_h, int op, cudaStream_t stream) {
+  using C = FwdChunk<G>;
+  constexpr int R = 32 * kFwdMT;
+  auto kernel = fastkan_fwd_mma_kernel<G, NPW>;
+  static std::unordered_map<uint64_t, kan::FwdPlan> plans;
+  kan::FwdPlan& plan = plans[(uint64_t)D << 32 | (uint32_t)O];
+  if (plan.smem == 0) {
+    const size_t xrows = sizeof(bf16) * 2 * R * (size_t)(round_up(D, 8) + 8);
+    plan = kan::plan_forward(kernel, op, D, C::KC, (D + C::FC - 1) / C::FC,
+                             fwd_mma_fixed<G>(), xrows);
+    if (plan.smem == 0) return (int)cudaErrorInvalidValue;
+  }
+  static const int sms = kan::sm_count();
+  const int tiles = (n + R - 1) / R;
+  dim3 grid(std::min(tiles, plan.per_sm * sms), (O + plan.op - 1) / plan.op);
+  kernel<<<grid, kThreads, plan.smem, stream>>>(x, lng, lnb, w, wb, bb, out, n, D, O, cs, inv_h,
+                                                plan);
+  return (int)cudaGetLastError();
+}
+
+// The forward's launch: bf16 on the tensor cores (fastkan_fwd_mma_kernel,
+// persistent blocks, the widest output part that fits), f32 on the CUDA
+// cores (fastkan_fwd_kernel: TF32 would miss the f32 bars).
+template <typename T, int G>
+int launch_fwd(const void* x, const void* lng, const void* lnb, const void* w, const void* wb,
+               const void* bb, void* out, int n, int D, int O, Centers cs, float inv_h,
+               cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const int op = kan::fwd_part_width(O, FwdChunk<G>::KC, fwd_mma_fixed<G>());
+    if (op == 0) return (int)cudaErrorInvalidValue;
+    if (n == 0 || O == 0) return 0;
+    auto go = [&](auto npw) {
+      return launch_fwd_mma<G, decltype(npw)::value>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(lng),
+          static_cast<const bf16*>(lnb), static_cast<const bf16*>(w), static_cast<const bf16*>(wb),
+          static_cast<const bf16*>(bb), static_cast<bf16*>(out), n, D, O, cs, inv_h, op, stream);
+    };
+    const int npw = kan::fwd_pairs(op);
+    return npw == 1 ? go(std::integral_constant<int, 1>{})
+                    : npw == 2 ? go(std::integral_constant<int, 2>{})
+                               : go(std::integral_constant<int, 4>{});
+  } else {
+    return launch_fwd_f32<G>(x, lng, lnb, w, wb, bb, out, n, D, O, cs, inv_h, stream);
+  }
 }
 
 // The dx kernels' plan: out = {R, chunks, parts, OW}; false if no output

@@ -2,8 +2,10 @@
 // warp-per-row CSR gather (spmm.cu, gin_fused.cu, gin_fastkan.cu), the
 // piece gather with wide loads (gcn_agg.cu), the tile-ordered walk of
 // weight-gradient partials (bspline_fused.cu, fastkan_layer.cu,
-// rbf_fused.cu), and for the KANLinear kernels the Cox-de Boor ladder and the
-// dtype dispatch at the (spline order, grid size) a library is built for.
+// rbf_fused.cu), and for the KANLinear kernels the Cox-de Boor ladder, the
+// basis tiles (f32 for the CUDA-core kernels, bf16 for the tensor-core ones)
+// and the dtype dispatch at the (spline order, grid size) a library is built
+// for.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,10 +46,12 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 // with the divisions as multiplications by reciprocals. Writes the NB =
 // NK-1-ORDER final bases and, when pen != nullptr, the NB+1 bases of order
 // ORDER-1 that the analytic derivative needs. Every index is a compile-time
-// constant after unrolling, so the arrays live in registers.
-template <int ORDER, int NK>
-__device__ __forceinline__ void ladder(float x, const float (&t)[NK],
-                                       float (&b)[NK - 1], float* pen) {
+// constant after unrolling, so the arrays live in registers. rcp(kk, j)
+// gives 1 / (t_{j+kk} - t_j) (ladder computes it; a caller that builds many
+// rows of one feature reads it from a table, rcp_table).
+template <int ORDER, int NK, typename Rcp>
+__device__ __forceinline__ void ladder_r(float x, const float (&t)[NK], Rcp rcp,
+                                         float (&b)[NK - 1], float* pen) {
   float xt[NK];
 #pragma unroll
   for (int j = 0; j < NK; ++j) xt[j] = x - t[j];
@@ -60,12 +64,26 @@ __device__ __forceinline__ void ladder(float x, const float (&t)[NK],
       for (int j = 0; j < NK - ORDER; ++j) pen[j] = b[j];
     }
 #pragma unroll
-    for (int j = 0; j < NK - 1 - kk; ++j) {
-      b[j] = xt[j] * (1.f / (t[j + kk] - t[j])) * b[j] -
-             xt[j + kk + 1] * (1.f / (t[j + kk + 1] - t[j + 1])) * b[j + 1];
-    }
+    for (int j = 0; j < NK - 1 - kk; ++j)
+      b[j] = xt[j] * rcp(kk, j) * b[j] - xt[j + kk + 1] * rcp(kk, j + 1) * b[j + 1];
   }
 }
+
+template <int ORDER, int NK>
+__device__ __forceinline__ void ladder(float x, const float (&t)[NK], float (&b)[NK - 1],
+                                       float* pen) {
+  ladder_r<ORDER, NK>(x, t, [&](int kk, int j) { return 1.f / (t[j + kk] - t[j]); }, b, pen);
+}
+
+// The reciprocals of the ladder's knot spans, 1 / (t_{j+kk} - t_j) for kk =
+// 1..ORDER and j = 0..NK-1-kk, indexed level by level: rcp_off(kk) + j;
+// kRcps<ORDER, NK> of them a feature.
+template <int NK>
+__host__ __device__ constexpr int rcp_off(int kk) {
+  return (kk - 1) * NK - (kk - 1) * kk / 2;
+}
+template <int ORDER, int NK>
+constexpr int kRcps = rcp_off<NK>(ORDER + 1);
 
 // d silu / dx with s = sigmoid(x)
 __device__ __forceinline__ float dsilu(float x, float s) { return s * (1.f + x * (1.f - s)); }
@@ -256,6 +274,65 @@ __device__ __forceinline__ void build_basis_chunk(Load load, float* A_s, int row
     } else {
 #pragma unroll
       for (int g = 0; g < S::NG; ++g) a[g * kDC] = 0.f;
+    }
+  }
+}
+
+// The bf16 basis tile of the tensor-core B-spline kernels (bspline_fused.cu:
+// the forward and the dW partials): row rr of A_s (pitch pa bf16), column
+// g*FC + j, holds group g (0: SiLU(x), g >= 1: B_{g-1}) of feature d0 + j of
+// row row0 + rr, for rows rr < rows, of which the first `valid` are data:
+// the others, and features past D, are zeros. load(rr, row, d) gives the f32
+// input, as kan_forward_tile's Load. Each value is rounded to bf16 once, as
+// the JAX kernels cast SiLU(x) and the bases before their products. Thread t
+// owns feature d0 + t % FC. r_s: the chunk's rcp_table, or null (each
+// ladder computes its reciprocals).
+// The span reciprocals of features d0 .. d0+FC-1 (the values ladder computes
+// for itself), once for all of a block's rows of those features:
+// r_s[(rcp_off(kk) + j) * FC + f]; features past D are left unwritten.
+template <int ORDER, int GRID, int FC>
+__device__ __forceinline__ void rcp_table(float* r_s, int d0, int D,
+                                          const __nv_bfloat16* __restrict__ knots) {
+  constexpr int NK = Shape<ORDER, GRID>::NK;
+  for (int i = threadIdx.x; i < (NK - 1) * FC; i += kThreads) {
+    const int j = i / FC, f = i % FC, d = d0 + f;
+    if (d >= D) continue;
+    const float tj = to_f(knots[(size_t)j * D + d]);
+#pragma unroll
+    for (int kk = 1; kk <= ORDER; ++kk)
+      if (j + kk < NK)
+        r_s[(rcp_off<NK>(kk) + j) * FC + f] =
+            1.f / (to_f(knots[(size_t)(j + kk) * D + d]) - tj);
+  }
+}
+
+template <int ORDER, int GRID, int FC, typename Load>
+__device__ __forceinline__ void basis_tile_bf16(Load load, __nv_bfloat16* A_s, int pa, int rows,
+                                                int row0, int valid, int d0, int D,
+                                                const __nv_bfloat16* __restrict__ knots,
+                                                const float* r_s = nullptr) {
+  using S = Shape<ORDER, GRID>;
+  const int j = threadIdx.x % FC, d = d0 + j;
+  float t[S::NK];
+#pragma unroll
+  for (int q = 0; q < S::NK; ++q) t[q] = d < D ? to_f(knots[(size_t)q * D + d]) : 0.f;
+  for (int rr = threadIdx.x / FC; rr < rows; rr += kThreads / FC) {
+    __nv_bfloat16* a = A_s + (size_t)rr * pa + j;
+    if (d < D && rr < valid) {
+      const float xv = load(rr, row0 + rr, d);
+      a[0] = from_f<__nv_bfloat16>(xv * sigmoid(xv));
+      float b[S::NK - 1];
+      if (r_s != nullptr)
+        ladder_r<ORDER, S::NK>(
+            xv, t, [&](int kk, int q) { return r_s[(rcp_off<S::NK>(kk) + q) * FC + j]; },
+            b, nullptr);
+      else
+        ladder<ORDER, S::NK>(xv, t, b, nullptr);
+#pragma unroll
+      for (int g = 0; g < S::NB; ++g) a[(g + 1) * FC] = from_f<__nv_bfloat16>(b[g]);
+    } else {
+#pragma unroll
+      for (int g = 0; g < S::NG; ++g) a[g * FC] = from_f<__nv_bfloat16>(0.f);
     }
   }
 }

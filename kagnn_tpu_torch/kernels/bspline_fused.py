@@ -17,11 +17,11 @@ weights' dtype (each partial and the running sum rounded after every tile;
 `_common.tiled_gram`).
 
 CUDA kernels: `csrc/bspline_fused.cu` (see its header for the bound on the
-H100 and the design; under bf16 the backward's products run on the tensor
-cores, and the backward's dx kernel runs on a second stream beside its dW
-kernels), one library per (spline order, grid size), built at its first
-use: any order 1-4 and grid 1-16 (`ORDERS`, `GRIDS`), the search spaces
-of the experiment scripts. On a CPU tensor the wrappers run the plain
+H100 and the design; under bf16 the forward's and the backward's products
+run on the tensor cores, in f32 on the CUDA cores, and the backward's dx
+kernel runs on a second stream beside its dW kernels), one library per
+(spline order, grid size), built at its first use: any order 1-4 and grid
+1-16 (`ORDERS`, `GRIDS`), the search spaces of the experiment scripts. On a CPU tensor the wrappers run the plain
 versions below; on a CUDA tensor they launch the kernels or raise.
 """
 from __future__ import annotations
@@ -156,11 +156,14 @@ def _side_stream(device) -> torch.cuda.Stream:
 
 def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
     """x (N, D), knots (K, D), wb (D, O), ws (n_basis*D, O), one dtype ->
-    (N, O)."""
+    (N, O). On the card the library routes by dtype: bf16 to the
+    tensor-core kernel (`bspline_fwd_mma_kernel`), f32 to the CUDA-core one
+    (`bspline_fwd_kernel`); a shape neither takes raises."""
     if x.device.type == "cpu":
         return kan_linear_fwd_plain(x, knots, wb, ws, k)
     code = dtype_code(x)
     n, D, O, grid = _check_layer(x, knots, wb, ws, k)
+    x, wb, ws = (aligned(t) for t in (x, wb, ws))  # staged with cp.async
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     err = _fwd_fn(k, grid)(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
                     ws.data_ptr(), out.data_ptr(), n, D, O, grid, k, code,

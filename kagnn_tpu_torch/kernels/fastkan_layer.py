@@ -16,8 +16,9 @@ g-major as w (G*D, O) with row g*D + d, wb (D, O), bb (O,), one dtype.
 with column d*G + g, base weight (O, D)) and maps them.
 
 CUDA kernels: `csrc/fastkan_layer.cu` (see its header for the bound on the
-H100 and the design: under bf16 the backward's products run on the tensor
-cores, its dx kernels on a second stream beside its dW kernels), one
+H100 and the design: under bf16 the forward's and the backward's products
+run on the tensor cores, each f32 basis value split into bf16 terms, and
+the backward's dx kernels on a second stream beside its dW kernels), one
 library per number of centers, built at its first use: any G from 2 to
 MAX_G, any D, O up to the staged tiles' shared memory. On a CPU tensor the
 wrappers run the plain versions below; on a CUDA tensor they launch the
@@ -214,12 +215,15 @@ def _side_stream(device) -> torch.cuda.Stream:
 def fastkan_layer_fwd(x, lng, lnb, w, wb, bb, grid_min: float,
                       grid_max: float) -> torch.Tensor:
     """x (N, D), lng/lnb (D,), w (G*D, O), wb (D, O), bb (O,), one dtype ->
-    (N, O)."""
+    (N, O). On the card the library routes by dtype: bf16 to the
+    tensor-core kernel (`fastkan_fwd_mma_kernel`, the f32 basis as two or
+    three bf16 terms), f32 to the CUDA-core one (`fastkan_fwd_kernel`)."""
     if x.device.type == "cpu":
         return fastkan_layer_fwd_plain(x, lng, lnb, w, wb, bb, grid_min,
                                        grid_max)
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb, bb)
+    x, w, wb = (aligned(t) for t in (x, w, wb))  # staged with cp.async
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     err = _fwd_fn(G)(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
                     w.data_ptr(), wb.data_ptr(), bb.data_ptr(),

@@ -11,7 +11,9 @@
   * `kernel_report(...)` — the fused KAN kernels and their eager torch paths
     at given shapes, one roofline row each;
   * `device_profile(run, n_calls)` — device kernel time per call, in all
-    and by kernel, and the host operators' self time, from torch.profiler.
+    and by kernel, and the host operators' self time, from torch.profiler;
+  * `kernel_row_of(key, launches)` — the kernel row (PERF.md §6) of a
+    profiled CUDA kernel name.
 
 Nothing here times the CPU: `time_ms` and `kernel_report` raise without a
 CUDA device, where there is no kernel to time.
@@ -253,3 +255,36 @@ def device_profile(run: Callable[[], None], n_calls: int) -> DeviceProfile:
     total = sum(ms for _, ms, _ in kernels)
     return DeviceProfile(total if total else None, kernels,
                          per_call(DeviceType.CPU, "self_cpu_time_total"))
+
+
+# The kernel rows by the CUDA function names of csrc/: each library's
+# kernels carry its prefix, and a layer forward's kernels (on the CUDA cores
+# or the tensor cores) the stem `<prefix>_fwd`. The first prefix a profiled
+# name starts with decides its row. The tile walk (kan::walk_tiles_kernel)
+# is shared by the three layer backwards and goes to the one the path
+# launched.
+KERNEL_NAMES = (("bspline_fwd", "bspline_fwd"), ("bspline_", "bspline_bwd"),
+                ("gin_fwd_kernel", "gin_fused"), ("gin_fastkan_kernel", "gin_fastkan"),
+                ("fastkan_fwd", "fastkan_fwd"), ("fastkan_", "fastkan_bwd"),
+                ("rbf_fwd", "rbf_fwd"), ("rbf_", "rbf_bwd"),
+                ("gat_fwd_kernel", "gat_fwd"), ("gat_dadst_kernel", "gat_dadst"),
+                ("gat_sender_kernel", "gat_sender"), ("gcn_", "gcn_agg"),
+                ("spmm_csr_kernel", "spmm"), ("narrow_kernel", "spmm_narrow"))
+
+
+def kernel_base_name(key: str) -> str:
+    """A profiled kernel name without its namespace, template arguments and
+    parameters: `void (anonymous namespace)::bspline_fwd_mma_kernel<3,
+    4>(...)` -> `bspline_fwd_mma_kernel`."""
+    base = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return base.replace("kan::", "").split("<")[0].split("(")[0].strip()
+
+
+def kernel_row_of(key: str, launches: dict) -> Optional[str]:
+    """The kernel row of a profiled kernel name on a path with `launches`
+    (launches per kernel row), or None for PyTorch's own kernels."""
+    base = kernel_base_name(key)
+    if base == "walk_tiles_kernel":
+        return next((r for r in ("bspline_bwd", "fastkan_bwd", "rbf_bwd")
+                     if launches.get(r)), None)
+    return next((row for prefix, row in KERNEL_NAMES if base.startswith(prefix)), None)

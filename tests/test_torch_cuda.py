@@ -481,6 +481,86 @@ def test_gcn_agg_splits_heavy_rows(dt, D, kind):
     assert torch.equal(got, ga.gcn_agg_fwd(*args, g.receivers))
 
 
+# (D, O) of the layer forwards: the main paths' shapes (hidden, head, conv
+# 0, the GAT transforms and head) and outputs the tensor-core kernels mask
+# (1, 7: under one 8-wide n-tile; 40: five n-tiles) or split into parts of
+# 256 (512), D off the 16-feature chunk (40)
+FWD_SHAPES = [(64, 64), (64, 40), (128, 64), (128, 256), (256, 256), (256, 40),
+              (64, 1), (64, 7), (40, 40), (64, 512)]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=[f"{d}x{o}" for d, o in FWD_SHAPES])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_layer_forwards_match_plain(dt, shape):
+    """The B-spline and FastKAN layer forwards (bf16: the tensor-core
+    kernels; f32: the CUDA-core ones) against their plain versions over
+    1,000 rows (15 tiles of 64 and a ragged one), with a row of zeros."""
+    D, O = shape
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(1000, D, generator=gen, device="cuda").to(td)
+    x[3] = 0.0
+    knots, wb, ws = _layer(gen, D, O, 4, td)
+    fa = (x, knots, wb, ws, 3)
+    close(bf.kan_linear_fwd(*fa), bf.kan_linear_fwd_plain(*fa), dt)
+    fk_args = (x, *_fastkan_layer(gen, D, O, 4, td), -2.0, 2.0)
+    close(fk.fastkan_layer_fwd(*fk_args), fk.fastkan_layer_fwd_plain(*fk_args), dt)
+
+
+FWD_KAN_CORNERS = [(1, 1), (2, 8), (4, 16)]
+
+
+@pytest.mark.parametrize("corner", FWD_KAN_CORNERS,
+                         ids=[f"{k}-{g}" for k, g in FWD_KAN_CORNERS])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_bspline_forward_takes_the_corners(dt, corner):
+    """The B-spline forward at spline order/grid (1, 1), (2, 8) and (4, 16)
+    (2 to 21 groups: chunks of 32, 16 and 8 features on the tensor cores)
+    at 500 features, at 7 and 512 outputs, and at D 40 over 301 rows."""
+    k, grid = corner
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for D, O in ((500, 64), (40, 7), (64, 512)):
+        knots, wb, ws = _layer(gen, D, O, grid, td, k=k)
+        x = torch.randn(301, D, generator=gen, device="cuda").to(td)
+        fa = (x, knots, wb, ws, k)
+        close(bf.kan_linear_fwd(*fa), bf.kan_linear_fwd_plain(*fa), dt)
+
+
+@pytest.mark.parametrize("G", [2, 16, 32])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_fastkan_forward_takes_the_corners(dt, G):
+    """The FastKAN forward at 2, 16 and 32 centers at PubMed's 500 and (32
+    centers) CiteSeer's 3,703 features, at 7 and 512 outputs, over 301
+    rows with a row of zeros."""
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    shapes = [(500, 64), (40, 7), (64, 512)] + ([(3703, 64)] if G == 32 else [])
+    for D, O in shapes:
+        x = torch.randn(301, D, generator=gen, device="cuda").to(td)
+        x[5] = 0.0
+        fa = (x, *_fastkan_layer(gen, D, O, G, td), -2.0, 2.0)
+        close(fk.fastkan_layer_fwd(*fa), fk.fastkan_layer_fwd_plain(*fa), dt)
+
+
+def test_forwards_route_by_dtype():
+    """bf16 layer forwards launch the tensor-core kernels, f32 ones the
+    CUDA-core kernels: the profiled kernel names (utils/profiling)."""
+    from kagnn_tpu_torch.utils.profiling import device_profile, kernel_base_name
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for td, suffix in ((torch.bfloat16, "_fwd_mma_kernel"), (torch.float32, "_fwd_kernel")):
+        x = torch.randn(500, 64, generator=gen, device="cuda").to(td)
+        knots, wb, ws = _layer(gen, 64, 64, 4, td)
+        lw = _fastkan_layer(gen, 64, 64, 4, td)
+        for prefix, fn in (("bspline", lambda: bf.kan_linear_fwd(x, knots, wb, ws, 3)),
+                           ("fastkan", lambda: fk.fastkan_layer_fwd(x, *lw, -2.0, 2.0))):
+            fn()
+            prof = device_profile(fn, 1)
+            names = {kernel_base_name(key) for key, _, _ in prof.kernels}
+            assert names == {prefix + suffix}, names
+
+
 # (spline order, grid size) of the experiment scripts' search spaces: the smallest and
 # largest orders and grids
 KAN_CORNERS = [(1, 1), (2, 8), (4, 16), (1, 8)]

@@ -4,6 +4,8 @@ Chrome trace of a CPU region, and the timers refusing the CPU (they time
 CUDA kernels; the numbers they give come only from a card, through
 chip_smoke.py)."""
 import json
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -11,6 +13,27 @@ import torch
 from kagnn_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
+
+CSRC = Path(profiling.__file__).resolve().parent.parent / "csrc"
+# each CUDA kernel of csrc/ and its row of the kernel table (PERF.md §6);
+# the tile walk is shared by the layer backwards (kernel_row_of gives it to
+# the one the path launched)
+KERNEL_ROWS = {
+    "bspline_fwd_kernel": "bspline_fwd", "bspline_fwd_mma_kernel": "bspline_fwd",
+    "bspline_dx_kernel": "bspline_bwd", "bspline_dx_mma_kernel": "bspline_bwd",
+    "bspline_dw_partial_kernel": "bspline_bwd", "bspline_dw_mma_kernel": "bspline_bwd",
+    "fastkan_fwd_kernel": "fastkan_fwd", "fastkan_fwd_mma_kernel": "fastkan_fwd",
+    "fastkan_stats_kernel": "fastkan_bwd", "fastkan_dx_kernel": "fastkan_bwd",
+    "fastkan_tile_sums_kernel": "fastkan_bwd", "fastkan_row_sums_kernel": "fastkan_bwd",
+    "fastkan_dx_sum_kernel": "fastkan_bwd", "fastkan_dw_mma_kernel": "fastkan_bwd",
+    "fastkan_dw_partial_kernel": "fastkan_bwd",
+    "gin_fwd_kernel": "gin_fused", "gin_fastkan_kernel": "gin_fastkan",
+    "rbf_fwd_kernel": "rbf_fwd", "rbf_dx_kernel": "rbf_bwd",
+    "rbf_dw_partial_kernel": "rbf_bwd",
+    "gat_fwd_kernel": "gat_fwd", "gat_dadst_kernel": "gat_dadst",
+    "gat_sender_kernel": "gat_sender", "gcn_rows_kernel": "gcn_agg",
+    "gcn_combine_kernel": "gcn_agg", "spmm_csr_kernel": "spmm",
+    "narrow_kernel": "spmm_narrow", "walk_tiles_kernel": None}
 
 
 def test_roofline_arithmetic_and_row_fields():
@@ -65,3 +88,27 @@ def test_device_profile_without_device_time_is_none():
     assert ("aten::mm", 2) in [(k, n) for k, _, n in prof.host]
     assert [ms for _, ms, _ in prof.host] == sorted(
         (ms for _, ms, _ in prof.host), reverse=True)
+
+
+def test_every_cuda_kernel_name_finds_its_row():
+    """Each `__global__` function of csrc/, as torch.profiler names it (in
+    an anonymous namespace or kan::, with template arguments and
+    parameters), goes to its kernel row: the tensor-core forwards to the
+    forwards' rows, not to the backwards' that share their library's
+    prefix; the tile walk to the backward the path launched."""
+    text = "\n".join(f.read_text() for f in sorted(CSRC.glob("*.cu*")))
+    names = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)", text))
+    assert names == set(KERNEL_ROWS)
+    for name in names:
+        ns = "kan::" if name == "walk_tiles_kernel" else "(anonymous namespace)::"
+        key = f"void {ns}{name}<float, 4>(float const*, int)"
+        assert profiling.kernel_base_name(key) == name
+        if name == "walk_tiles_kernel":
+            for row in ("bspline_bwd", "fastkan_bwd", "rbf_bwd"):
+                assert profiling.kernel_row_of(key, {row: 4, "spmm": 2}) == row
+            assert profiling.kernel_row_of(key, {"spmm": 2}) is None
+        else:
+            assert profiling.kernel_row_of(key, {}) == KERNEL_ROWS[name], name
+    assert profiling.kernel_row_of("void at::native::vectorized_elementwise_kernel<4>()",
+                                   {}) is None
