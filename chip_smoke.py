@@ -20,7 +20,10 @@ Phases (any failure raises, and the script exits non-zero):
      widths with x/w in f32/f32, f32/bf16 and bf16/bf16; the narrow sum at
      k = 4 over the arxiv-sized graph's receivers; gcn_agg also on a hub row
      of 100,000 in-edges, on a graph of light rows and on the main graph's
-     hub row alone, timed, and at D 42, one value a lane), in f32 and bf16
+     hub row alone, timed, and at D 42, one value a lane; gat_fwd and
+     gat_dadst, which split rows of more than 64 valid edges, also on
+     graphs built for each branch of that split, bit for bit twice, and on
+     the main graph's hub row and light rows apart, timed), in f32 and bf16
      (a bf16 weight gradient summed over more than one row tile against
      the plain walk, `selfcheck.dw_walk_check`, with two wrong reduces that
      must fail it at the main shapes' 1,323 B-spline and 331 FastKAN and RBF
@@ -73,11 +76,15 @@ import numpy as np
 
 # the card's peaks (bound_ms(bytes, operations, dtype)) and the CUDA-event
 # timer, from the port; outside the repository this import fails first
-from kagnn_tpu_torch.utils.profiling import H100, kernel_row_of, time_ms
-from kagnn_tpu_torch.kernels._common import dw_tile
+from kagnn_tpu_torch.utils.profiling import (H100, kernel_base_name,
+                                             kernel_row_of, time_ms)
+from kagnn_tpu_torch.utils.time_gat import hub_row_alone, light_rows_alone
+from kagnn_tpu_torch.kernels._common import GAT_PIECE, dw_tile
 from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
+                                               GAT_SPLIT_CASES,
                                                check_bspline_bwd,
-                                               check_fastkan_bwd, dw_walk_check)
+                                               check_fastkan_bwd,
+                                               check_gat_split, dw_walk_check)
 
 NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
                num_classes=40, grid_size=4, spline_order=3, skip=False,
@@ -160,10 +167,13 @@ def compare(torch, name, got, want, dtype):
     return err
 
 
-def log_kernel_split(torch, name, fn, calls=5):
+def log_kernel_split(torch, name, fn, calls=5, row=None):
     """Device ms per call of each kernel fn() launches, from torch.profiler
     (`utils/profiling.device_profile`); the kernels of a call may overlap
-    (the B-spline backward runs its dx kernel on a second stream)."""
+    (the B-spline backward runs its dx kernel on a second stream). With
+    `row`, fails unless each profiled kernel of the row's library (its
+    name begins as the row's does: `gat` for gat_fwd) goes to that row of
+    the kernel table."""
     from kagnn_tpu_torch.utils.profiling import device_profile
 
     prof = device_profile(lambda: [fn() for _ in range(calls)], calls)
@@ -174,6 +184,12 @@ def log_kernel_split(torch, name, fn, calls=5):
              for key, _, _ in prof.kernels]
     log(f"  {name} by kernel, ms per call: " + ", ".join(
         f"{s} {t:.4f}" for s, (_, t, _) in zip(short, prof.kernels)))
+    if row is not None:
+        found = {kernel_row_of(key, {row: 1}) for key, _, _ in prof.kernels
+                 if kernel_base_name(key).startswith(row.split("_")[0])}
+        if found != {row}:
+            raise AssertionError(f"{name}: profiled kernels went to rows {found}, "
+                                 f"expected {row} alone")
 
 
 def check_forward_kernel(torch, name, fn, want, calls=5):
@@ -626,7 +642,13 @@ def phase_gat_kernels(torch, big, rows):
     Bytes of the bound: h and dout read once, out or dh written once, the
     (N, H) f32 arrays, and the indices of the valid edges; operations: the
     products of the valid edges. No PyTorch call computes GAT attention, so
-    there is no library time."""
+    there is no library time. On the main graph also: gat_fwd and gat_dadst
+    on its hub row alone and on its light rows alone (timed), and their
+    launches profiled, each kernel on its own row of the kernel table (the
+    phase fails otherwise). Then both split kernels on the graphs of
+    `selfcheck.gat_split_case` (rows of 63-65 edges, two heavy rows in one
+    chunk, n_edge cut inside a heavy row, a 2,748-edge hub row), twice each
+    and equal bit for bit."""
     from kagnn_tpu_torch.graphs import single_graph
     from kagnn_tpu_torch.kernels import gat_bwd as gbw
     from kagnn_tpu_torch.kernels import gat_fused as gfu
@@ -691,21 +713,33 @@ def phase_gat_kernels(torch, big, rows):
                     f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms=none")
                 record_row(rows[name], e, main, ms=ms, plain_ms=pms,
                            bound_ms=bms, bound_by=by, library_ms=None)
-            # the longest receiver row alone (every other row empty): the
-            # time its one warp needs, a floor under the launches above
-            deg = g.recv_row_ptr[1:] - g.recv_row_ptr[:-1]
-            hub = int(deg[:g.n_node].argmax())
-            d_hub = int(deg[hub])
-            e0 = int(g.recv_row_ptr[hub])
-            snd = g.senders[e0:e0 + d_hub].contiguous()
-            rp = torch.zeros_like(g.recv_row_ptr)
-            rp[hub + 1:] = d_hub
-            hub_fwd = time_ms(lambda: gfu.gat_fwd(h, asrc, adst, snd, rp,
-                                                         d_hub, slope))
-            hub_dadst = time_ms(lambda: gbw.gat_dadst(
-                h, asrc, adst, alpha, S, dout, snd, rp, d_hub, slope))
-            log(f"  GAT hub row alone {dn} (node {hub}, in-degree {d_hub}): "
-                f"gat_fwd {hub_fwd:.4f} ms, gat_dadst {hub_dadst:.4f} ms")
+            # the longest receiver row alone (every other row empty; its
+            # pieces and combine), and the light rows alone (the heavy
+            # rows' edges dropped): the two parts of the launches above
+            snd, rp, d_hub, hub = hub_row_alone(g)
+            for part, (ps, prp, pn) in (
+                    (f"hub row alone (node {hub}, in-degree {d_hub})", (snd, rp, d_hub)),
+                    ("light rows alone", light_rows_alone(g))):
+                t_fwd = time_ms(lambda: gfu.gat_fwd(h, asrc, adst, ps, prp, pn, slope))
+                t_dadst = time_ms(lambda: gbw.gat_dadst(
+                    h, asrc, adst, alpha, S, dout, ps, prp, pn, slope))
+                log(f"  GAT {part} {dn} ({pn} edges): gat_fwd {t_fwd:.4f} ms, "
+                    f"gat_dadst {t_dadst:.4f} ms")
+            # each launch of the two split kernels, profiled, must find its
+            # row of the kernel table (the redesign order reads it)
+            for name, fn in (("gat_fwd", lambda: gfu.gat_fwd(*fa)),
+                             ("gat_dadst", lambda: gbw.gat_dadst(*da))):
+                log_kernel_split(torch, f"{name} main {dn}", fn, row=name)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for kind in GAT_SPLIT_CASES:
+            errs = check_gat_split(
+                kind, H, C, dtype,
+                lambda name, a, b, k: compare(torch, name, a, b, "float32" if k else dn),
+                gen)
+            for name, err in zip(("gat_fwd", "gat_dadst"), errs):
+                record_row(rows[name], err, False)
 
 
 # (D, O) of the RBF kernels on the base-free FastKAN([128, 64, 64, 40]) and
@@ -933,6 +967,9 @@ def phase_corners(torch, rows):
             cmp("fastkan_fwd", f"fastkan_fwd corner D={D} O={O}",
                 fk.fastkan_layer_fwd(x, *lw, -2.0, 2.0),
                 fk.fastkan_layer_fwd_plain(x, *lw, -2.0, 2.0))
+        # node 0's 301 valid in-edges: every corner runs the GAT kernels'
+        # split of heavy rows
+        assert int(g.recv_row_ptr[1].clamp(max=g.n_edge)) > GAT_PIECE
         for H, C in GAT_CORNERS:
             h, dout = rand((N, H * C), dtype), rand((N, H * C), dtype, 0.1)
             asrc, adst = rand((N, H), torch.float32, 2.0), rand((N, H), torch.float32, 2.0)
@@ -1407,6 +1444,8 @@ def main() -> int:
     for launches, by_kernel in profiled:
         for key, t in by_kernel.items():
             row = kernel_row_of(key, launches)
+            if row is None and kernel_base_name(key).startswith("gat"):
+                raise AssertionError(f"a profiled GAT kernel found no row: {key}")
             if row is None:
                 other += t
             else:

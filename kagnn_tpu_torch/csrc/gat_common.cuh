@@ -1,6 +1,7 @@
 // Shared device code of the GAT kernels (gat_fused.cu, gat_bwd.cu): the
 // leaky ReLU and its derivative, 8-column row loads and stores, the slot
-// layout of a row, the per-head reduction and the valid edges of a row.
+// layout of a row, the per-head reduction, the valid edges of a row and
+// the row of an edge (for the split of heavy receiver rows, kPiece).
 //
 // Layout: one warp owns one node row of H*C columns, the C columns of head h
 // contiguous at h*C (the JAX layout). A head's columns are cut into
@@ -31,6 +32,16 @@ using kan::to_f;
 constexpr int kWarps = 8;       // rows (one warp each) per block
 constexpr int kCols = 8;        // columns per slot
 constexpr float kClamp = 80.f;  // the JAX backward's clamp of the exp argument
+// edges a chunk of the receiver CSR's piece schedule (kan_common.cuh): a
+// row of more valid edges is split into pieces that chunk warps walk in
+// parallel
+constexpr int kPiece = 64;
+// The row kernels (gat_fwd_kernel, gat_dadst_kernel) ask the compiler, by
+// __launch_bounds__, to fit a number of blocks an SM in registers at one
+// pass a row (J = 1: the main path's H = 4, C = 64): a light row is a short
+// chain of dependent gathers, so the launch is bound by the warps an SM
+// holds in flight. Wider rows keep the registers they need. Each kernel's
+// count is the fastest of 1, 4, 5, 6 and 8 on the H100 (PERF.md §6).
 
 // edges whose rows a warp has in flight at once, by passes a row
 template <int J> __host__ __device__ constexpr int unroll() {
@@ -151,6 +162,24 @@ __device__ __forceinline__ void row_edges(const int* __restrict__ row_ptr, int r
                                           int& e0, int& e1) {
   e0 = min(row_ptr[row], n_edge);
   e1 = min(row_ptr[row + 1], n_edge);
+}
+
+// The row of edge e of a CSR of n rows (the last row r with row_ptr[r] <=
+// e; 0 <= e < row_ptr[n]), found by the whole warp: each round its 32
+// lanes probe 32 points of the range left, so 4 rounds cover a million
+// rows. The GAT wrappers take no `receivers`, so the chunk warps find their
+// rows here. Every lane of the warp must call it with the same e.
+__device__ __forceinline__ int row_of_edge(const int* __restrict__ row_ptr, int n, int e) {
+  const int lane = threadIdx.x % 32;
+  int lo = 0, hi = n;  // the row is in [lo, hi) and row_ptr[lo] <= e
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int q = lo + lane * step;
+    const unsigned ok = __ballot_sync(0xffffffffu, q < hi && __ldg(row_ptr + q) <= e);
+    lo += (31 - __clz(ok)) * step;  // lane 0 probes lo itself, so ok != 0
+    hi = min(hi, lo + step);
+  }
+  return lo;
 }
 
 // slots a head and passes a row for heads of C columns: P = the power of

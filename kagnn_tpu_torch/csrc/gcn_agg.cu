@@ -30,7 +30,8 @@
 //     into an f32 partial (two slots per chunk: the heavy row holding the
 //     chunk's first edge, and one that starts inside the chunk); launch 2
 //     then adds a heavy row's pieces in chunk order, its self term, and
-//     applies dinv once. The chunk of an edge is known from its index and
+//     applies dinv once (kan_common.cuh's piece schedule, which the GAT
+//     kernels share). The chunk of an edge is known from its index and
 //     the row of an edge from `receivers`, so no schedule is stored and the
 //     wrapper never waits on the host. No float atomics: deterministic.
 // kPiece = 64: the longest walk of one lane group is then 64 edges (16
@@ -71,17 +72,14 @@ gcn_rows_kernel(const T* __restrict__ hs, const float* __restrict__ dinv,
   const int group = lane / L, gl = lane % L;
   if ((int)blockIdx.x < chunk_blocks) {
     const int ch = blockIdx.x * kWarps + warp;
-    const int cs = ch * kPiece;
-    if (cs >= n_edges) return;
-    const int ce = min(cs + kPiece, n_edges);
-    const int cand[2] = {receivers[cs], receivers[ce - 1]};
+    int cs, ce;
+    if (!kan::chunk_edges<kPiece>(ch, n_edges, cs, ce)) return;
+    const int first = receivers[cs], last = receivers[ce - 1];
 #pragma unroll
     for (int slot = 0; slot < 2; ++slot) {
-      const int row = cand[slot];
-      if (slot == 1 && row == cand[0]) break;
-      const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
-      if (e1 - e0 <= kPiece) continue;  // a light row: the row part sums it
-      const int lo = max(e0, cs), hi = min(e1, ce);
+      kan::Piece p;
+      if (!kan::chunk_piece<kPiece>(slot, cs, ce, first, last, n_edges, row_ptr, p)) continue;
+      const int lo = p.lo, hi = p.hi;
       float* part = partial + ((size_t)ch * 2 + slot) * d;
       for (int c0 = 0; c0 < d; c0 += L * V) {
         const int c = c0 + gl * V;
@@ -134,20 +132,17 @@ gcn_combine_kernel(const T* __restrict__ hs, const float* __restrict__ dinv,
                    const float* __restrict__ partial, T* __restrict__ out, int d, int n_edges) {
   const int ch = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int cs = ch * kPiece;
-  if (cs >= n_edges) return;
+  int cs, ce, e0, e1;
+  if (!kan::chunk_edges<kPiece>(ch, n_edges, cs, ce)) return;
   const int row = receivers[cs];
-  const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
-  if (e1 - e0 <= kPiece || e1 > cs + kPiece) return;
-  const int first = e0 / kPiece;
+  if (!kan::ends_heavy<kPiece>(cs, row, n_edges, row_ptr, e0, e1)) return;
   const float scale = dinv[row];
+  const kan::PieceSlots slot = kan::piece_slots<kPiece>(e0);
   for (int c = lane; c < d; c += 32) {
     float s = 0.f;
-#pragma unroll 4
-    for (int k = first; k <= ch; ++k) {
-      const int slot = (k == first && e0 % kPiece) ? 1 : 0;
-      s += partial[((size_t)k * 2 + slot) * d + c];
-    }
+    // 8 loads in flight through the read-only path: the adds keep the order
+#pragma unroll 8
+    for (int k = slot.first; k <= ch; ++k) s += __ldg(partial + slot(k) * d + c);
     out[(size_t)row * d + c] = kan::from_f<T>((s + to_f(hs[(size_t)row * d + c])) * scale);
   }
 }

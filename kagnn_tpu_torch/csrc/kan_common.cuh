@@ -1,11 +1,12 @@
 // Shared device code of the port's kernels: element conversions, SiLU, the
 // warp-per-row CSR gather (spmm.cu, gin_fused.cu, gin_fastkan.cu), the
-// piece gather with wide loads (gcn_agg.cu), the tile-ordered walk of
-// weight-gradient partials (bspline_fused.cu, fastkan_layer.cu,
-// rbf_fused.cu), and for the KANLinear kernels the Cox-de Boor ladder, the
-// basis tiles (f32 for the CUDA-core kernels, bf16 for the tensor-core ones)
-// and the dtype dispatch at the (spline order, grid size) a library is built
-// for.
+// piece gather with wide loads (gcn_agg.cu), the piece schedule of the
+// kernels that split heavy CSR rows (gcn_agg.cu, gat_fused.cu, gat_bwd.cu),
+// the tile-ordered walk of weight-gradient partials (bspline_fused.cu,
+// fastkan_layer.cu, rbf_fused.cu), and for the KANLinear kernels the
+// Cox-de Boor ladder, the basis tiles (f32 for the CUDA-core kernels, bf16
+// for the tensor-core ones) and the dtype dispatch at the (spline order,
+// grid size) a library is built for.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -194,6 +195,81 @@ __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
     for (int u = 0; u < U; ++u)
       if (row[u] >= 0) add_pack<T, V>(r[u], acc);
   }
+}
+
+// The piece schedule of the CSR kernels that split heavy rows (gcn_agg.cu,
+// gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks of
+// PIECE; a row's range is clipped at `end` (gcn_agg passes every edge, the
+// GAT kernels the valid ones, whose padding is the tail of the edges), and
+// a row is heavy when more than PIECE of its edges remain. One warp a chunk
+// sums the heavy rows' pieces inside its chunk into partials, two slots a
+// chunk: slot 0 the heavy row holding the chunk's first edge, slot 1 a
+// heavy row that starts inside the chunk (such a row runs past the chunk's
+// end, so there is at most one). A combine then walks each heavy row's
+// pieces in chunk order, from the chunk holding its last edge. The rows
+// of a chunk's first and last edge are the caller's (from `receivers`, or
+// a search of row_ptr), so no schedule is built on the host.
+struct Piece {
+  int row;
+  int lo, hi;  // the piece: the row's edges inside the chunk
+};
+
+// [cs, ce): chunk ch's edges below `end`; false when the chunk has none
+template <int PIECE>
+__device__ __forceinline__ bool chunk_edges(int ch, int end, int& cs, int& ce) {
+  cs = ch * PIECE;
+  ce = min(cs + PIECE, end);
+  return cs < end;
+}
+
+// [e0, e1): row `row`'s edges below `end`
+__device__ __forceinline__ void clipped_row(const int* __restrict__ row_ptr, int row, int end,
+                                            int& e0, int& e1) {
+  e0 = min(row_ptr[row], end);
+  e1 = min(row_ptr[row + 1], end);
+}
+
+// Slot `slot` of the chunk [cs, ce), whose first edge is in row `first`
+// and last edge in row `last`: true, with the piece, when a heavy row holds
+// it (a light row is summed whole elsewhere).
+template <int PIECE>
+__device__ __forceinline__ bool chunk_piece(int slot, int cs, int ce, int first, int last,
+                                            int end, const int* __restrict__ row_ptr,
+                                            Piece& p) {
+  if (slot == 1 && last == first) return false;
+  const int row = slot == 0 ? first : last;
+  int e0, e1;
+  clipped_row(row_ptr, row, end, e0, e1);
+  if (e1 - e0 <= PIECE) return false;
+  p = {row, max(e0, cs), min(e1, ce)};
+  return true;
+}
+
+// Whether the combine of chunk cs / PIECE owns row `row` (the row of the
+// chunk's first edge): a heavy row whose last edge lies in the chunk. Its
+// clipped range is [e0, e1) and its pieces are those of the chunks
+// e0 / PIECE .. cs / PIECE.
+template <int PIECE>
+__device__ __forceinline__ bool ends_heavy(int cs, int row, int end,
+                                           const int* __restrict__ row_ptr, int& e0, int& e1) {
+  clipped_row(row_ptr, row, end, e0, e1);
+  return e1 - e0 > PIECE && e1 <= cs + PIECE;
+}
+
+// The partial slots of a heavy row's pieces: slots(k) is chunk k's; the
+// row's first chunk e0 / PIECE and whether it starts inside it are found
+// once, out of the combines' loops over the chunks.
+struct PieceSlots {
+  int first;  // the chunk of the row's first edge
+  int head;   // 1 when the row starts inside it (slot 1 there), else 0
+  __device__ __forceinline__ size_t operator()(int k) const {
+    return 2 * (size_t)k + (k == first ? head : 0);
+  }
+};
+
+template <int PIECE>
+__device__ __forceinline__ PieceSlots piece_slots(int e0) {
+  return {e0 / PIECE, e0 % PIECE ? 1 : 0};
 }
 
 // The weight-gradient walk of the layer backwards (bspline_fused.cu,

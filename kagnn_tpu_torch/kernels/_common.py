@@ -107,6 +107,15 @@ def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
 # --- GAT (kernels/gat_fused.py, kernels/gat_bwd.py) -------------------------
 
 GAT_MAX_SLOTS = 256  # csrc/gat_common.cuh: at most 8 passes of 32 slots a row
+# csrc/gat_common.cuh kPiece: a receiver row of more valid edges is split
+# into pieces of the edges' chunks of GAT_PIECE
+GAT_PIECE = 64
+
+
+def gat_chunks(n_edge: int) -> int:
+    """Chunks of GAT_PIECE edges that the valid edges make (the split's
+    scratch holds two piece slots a chunk)."""
+    return -(-int(n_edge) // GAT_PIECE)
 
 
 def gat_slots(heads: int, c: int) -> int:

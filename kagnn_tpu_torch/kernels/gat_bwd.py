@@ -20,8 +20,10 @@ kernels'. The self-loop terms are added by the caller. Padded edges take no
 part.
 
 CUDA kernels: `csrc/gat_bwd.cu` (see its header for the bound on the H100
-and the design). On a CPU tensor the wrappers run the plain versions below;
-on a CUDA tensor they launch the kernels or raise.
+and the design: gat_dadst splits a receiver row of more than GAT_PIECE = 64
+valid edges into pieces, combined in chunk order). On a CPU tensor the
+wrappers run the plain versions below; on a CUDA tensor they launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ import torch
 
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (check_cuda, check_gat, dleaky,
-                                             dtype_code, gat_edges, leaky,
-                                             stream_of)
+                                             dtype_code, gat_chunks, gat_edges,
+                                             leaky, stream_of)
 
 CLAMP = 80.0
 
@@ -83,7 +85,7 @@ def _check(h, asrc, adst, alpha, s, dout, idx, row_ptr):
 def _dadst_fn():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gat_bwd", "gat_dadst",
-                       [P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P])
+                       [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P])
 
 
 @functools.cache
@@ -104,11 +106,15 @@ def gat_dadst(h, asrc, adst, alpha, s, dout, senders, recv_row_ptr,
     code = dtype_code(h)
     n, heads, c = _check(h, asrc, adst, alpha, s, dout, senders, recv_row_ptr)
     out = torch.empty((n, heads), dtype=torch.float32, device=h.device)
+    # the heavy rows' pieces (two slots of H values a chunk) and each
+    # chunk's first row
+    scratch = torch.empty(gat_chunks(n_edge) * (2 * heads + 1),
+                          dtype=torch.float32, device=h.device)
     err = _dadst_fn()(h.data_ptr(), asrc.data_ptr(), adst.data_ptr(),
                       alpha.data_ptr(), s.data_ptr(), dout.data_ptr(),
                       senders.data_ptr(), recv_row_ptr.data_ptr(),
-                      out.data_ptr(), n, heads, c, int(n_edge), float(slope),
-                      code, stream_of(h))
+                      out.data_ptr(), scratch.data_ptr(), n, heads, c,
+                      int(n_edge), float(slope), code, stream_of(h))
     _build.check(err, "gat_dadst")
     gat_dadst.launches += 1
     return out

@@ -24,9 +24,12 @@ dw_e = <dout_r, h[s_e]> per head, dz_e = dl_e leaky'(z_e); the kernels of
 kernels/gat_bwd.py sum dz_e per receiver (dadst) and w_e dout_r, dz_e per
 sender (dh, dasrc); the self-loop terms are node-space PyTorch here.
 
-CUDA kernel: `csrc/gat_fused.cu` (see its header for the bound on the H100
-and the design). On a CPU tensor the wrapper runs the plain version below;
-on a CUDA tensor it launches the kernel or raises.
+CUDA kernels: `csrc/gat_fused.cu` (see its header for the bound on the
+H100 and the design: a receiver row of more than GAT_PIECE = 64 valid edges
+is split into pieces that separate warps sum with the row's one shift, and
+combined in chunk order; three launches, no host sync). On a CPU tensor the
+wrapper runs the plain version below; on a CUDA tensor it launches the
+kernels or raises.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ import torch
 
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (check_cuda, check_gat, dleaky,
-                                             dtype_code, gat_edges, leaky,
-                                             stream_of)
+                                             dtype_code, gat_chunks, gat_edges,
+                                             leaky, stream_of)
 from kagnn_tpu_torch.kernels.gat_bwd import gat_dadst, gat_sender
 
 
@@ -69,7 +72,14 @@ def gat_fwd_plain(h, asrc, adst, senders, recv_row_ptr, n_edge: int,
 def _fn():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gat_fused", "gat_fwd",
-                       [P, P, P, P, P, P, P, I, I, I, I, F, I, P])
+                       [P, P, P, P, P, P, P, P, I, I, I, I, F, I, P])
+
+
+def scratch_floats(n_edge: int, heads: int, c: int) -> int:
+    """f32 values of the forward's scratch: per piece slot (two a chunk)
+    the numerator (H*C), the piece's max (H) and denominator (H); per chunk
+    its first and last row."""
+    return 2 * gat_chunks(n_edge) * (heads * c + 2 * heads + 1)
 
 
 def gat_fwd(h, asrc, adst, senders, recv_row_ptr, n_edge: int, slope: float):
@@ -85,10 +95,12 @@ def gat_fwd(h, asrc, adst, senders, recv_row_ptr, n_edge: int, slope: float):
     check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
     out = torch.empty_like(h)
     alpha = torch.empty((n, heads), dtype=torch.float32, device=h.device)
+    scratch = torch.empty(scratch_floats(n_edge, heads, c), dtype=torch.float32,
+                          device=h.device)
     err = _fn()(h.data_ptr(), asrc.data_ptr(), adst.data_ptr(),
                 senders.data_ptr(), recv_row_ptr.data_ptr(), out.data_ptr(),
-                alpha.data_ptr(), n, heads, c, int(n_edge), float(slope), code,
-                stream_of(h))
+                alpha.data_ptr(), scratch.data_ptr(), n, heads, c, int(n_edge),
+                float(slope), code, stream_of(h))
     _build.check(err, "gat_fwd")
     gat_fwd.launches += 1
     return out, alpha

@@ -1,7 +1,8 @@
 """On-card checks shared by `chip_smoke.py` and `tests/test_torch_cuda.py`:
 the autograd Functions of the FastKAN, GCN, GAT and RBF kernels, the bar of
-a bf16 weight gradient summed over row tiles (`dw_walk_check`), and the
-graphs of the split gcn_agg (`gcn_split_graph`)."""
+a bf16 weight gradient summed over row tiles (`dw_walk_check`), the
+graphs of the split gcn_agg (`gcn_split_graph`) and the GAT kernels' split
+of heavy receiver rows (`gat_split_case`, `check_gat_split`)."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +18,8 @@ from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
-from kagnn_tpu_torch.kernels._common import dw_tile, round_to, tile_partials
+from kagnn_tpu_torch.kernels._common import (GAT_PIECE, dw_tile, round_to,
+                                             tile_partials)
 
 BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
 # A bf16 weight gradient that a kernel walks over row tiles (the RBF,
@@ -298,3 +300,65 @@ def gcn_split_graph(kind: str, device="cuda"):
     if (top < hub) if hub else top > ga.PIECE:
         raise AssertionError(f"gcn_split_graph({kind}): largest in-degree {top}")
     return g
+
+
+# (receiver, valid in-edges) of gat_split_case's rows around the GAT
+# kernels' piece: the main graph's hub in-degree at node 0 (43 pieces), and
+# past the light rows one short of a piece, a piece, one past it, and a
+# heavy row of 300 that starts inside the chunk where the 65-edge row ends
+# (two heavy rows in one chunk, both starting mid-chunk)
+GAT_SPLIT_ROWS = ((0, 2748), (300, GAT_PIECE - 1), (301, GAT_PIECE),
+                  (302, GAT_PIECE + 1), (303, 300))
+GAT_SPLIT_CASES = ("all", "heavy", "light")
+
+
+def gat_split_case(kind: str, device="cuda"):
+    """(graph, n_edge) for the GAT kernels' split: the rows of
+    GAT_SPLIT_ROWS, 2,000 edges over the light rows 1-299 between them,
+    isolated nodes, and padding to a multiple of 1,024 edges (the pad row
+    holds it); "all" takes every valid edge, "heavy" and "light" cut n_edge
+    inside the 300-edge row, the last in the receiver order, leaving it 200
+    edges (still heavy, its range running past n_edge) or 40 (light by its
+    valid edges). The light rows stay valid in every case: they set the
+    mean that floors the bar of `close` (dadst sums cancel: node 0's is
+    about 1e-6 of the sum of its terms' magnitudes)."""
+    rng = np.random.default_rng(21)
+    rcv = np.concatenate([np.full(GAT_SPLIT_ROWS[0][1], 0), rng.integers(1, 300, 2000)]
+                         + [np.full(d, r) for r, d in GAT_SPLIT_ROWS[1:]])
+    n = 320
+    g = single_graph(rng.integers(0, n, rcv.size), rcv, n_node=n,
+                     edge_pad_multiple=1024, device=device)
+    start = int(g.recv_row_ptr[GAT_SPLIT_ROWS[-1][0]])
+    return g, {"all": g.n_edge, "heavy": start + 200, "light": start + 40}[kind]
+
+
+def check_gat_split(kind: str, heads: int, c: int, dtype, close, gen):
+    """gat_fwd (out, alpha) and gat_dadst against their plain versions on
+    gat_split_case(kind) at H heads of C columns, logits of a few tens;
+    each kernel called twice and equal bit for bit (no atomics). close(name,
+    got, want, kind) holds a pair to the kernels' bar ("f32" for alpha and
+    dadst, else the dtype's). Returns the largest error of each kernel."""
+    g, n_edge = gat_split_case(kind)
+    n, hc = g.n_node_pad, heads * c
+
+    def rand(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    h, dout = rand((n, hc), dtype), rand((n, hc), dtype)
+    asrc, adst = rand((n, heads), torch.float32, 10.0), rand((n, heads), torch.float32, 10.0)
+    fa = (h, asrc, adst, g.senders, g.recv_row_ptr, n_edge, 0.2)
+    out, alpha = gfu.gat_fwd(*fa)
+    want = gfu.gat_fwd_plain(*fa)
+    tag = f"{kind} H={heads} C={c}"
+    err = max(close(f"gat_fwd split {tag} out", out, want[0], None),
+              close(f"gat_fwd split {tag} alpha", alpha, want[1], "f32"))
+    again = gfu.gat_fwd(*fa)
+    if not (torch.equal(out, again[0]) and torch.equal(alpha, again[1])):
+        raise AssertionError(f"gat_fwd split {tag}: two calls differ")
+    s = (dout * out).float().reshape(n, heads, c).sum(2).contiguous()
+    da = (h, asrc, adst, alpha, s, dout, g.senders, g.recv_row_ptr, n_edge, 0.2)
+    got = gbw.gat_dadst(*da)
+    err_dadst = close(f"gat_dadst split {tag}", got, gbw.gat_dadst_plain(*da), "f32")
+    if not torch.equal(got, gbw.gat_dadst(*da)):
+        raise AssertionError(f"gat_dadst split {tag}: two calls differ")
+    return err, err_dadst

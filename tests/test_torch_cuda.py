@@ -33,8 +33,10 @@ from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import gin_fused as gf
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
-from kagnn_tpu_torch.kernels.selfcheck import (check_bspline_bwd,
+from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
+                                               check_bspline_bwd,
                                                check_fastkan_bwd,
+                                               check_gat_split,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
                                                gcn_split_graph, rbf_chain)
@@ -219,6 +221,22 @@ def test_gat_kernels_match_plain(dt, shape):
     lonely = (g.in_degrees == 0).nonzero()[:, 0]
     assert int(lonely[-1]) == n - 1  # the pad row: only its self-loop
     close(out[lonely], h[lonely], dt)
+
+
+@pytest.mark.parametrize("kind", GAT_SPLIT_CASES)
+@pytest.mark.parametrize("shape", GAT_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gat_kernels_split_heavy_rows(dt, shape, kind):
+    """gat_fwd and gat_dadst against their plain versions where they split
+    receiver rows of more than 64 valid edges (kernels/selfcheck.py
+    gat_split_case, which chip_smoke.py runs too): rows of 63, 64 and 65
+    edges, two heavy rows starting inside one chunk, node 0's 2,748 edges,
+    1,024-edge padding; n_edge cut inside a heavy row ("heavy": still
+    heavy, its range running past n_edge; "light": 40 valid edges left).
+    Each kernel twice, equal bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    check_gat_split(kind, *shape, DTYPES[dt],
+                    lambda name, got, want, k: close(got, want, k or dt), gen)
 
 
 def test_gat_attention_function_uses_its_kernels():

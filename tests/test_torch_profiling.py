@@ -31,6 +31,8 @@ KERNEL_ROWS = {
     "rbf_fwd_kernel": "rbf_fwd", "rbf_dx_kernel": "rbf_bwd",
     "rbf_dw_partial_kernel": "rbf_bwd",
     "gat_fwd_kernel": "gat_fwd", "gat_dadst_kernel": "gat_dadst",
+    "gat_fwd_max_kernel": "gat_fwd", "gat_fwd_combine_kernel": "gat_fwd",
+    "gat_dadst_combine_kernel": "gat_dadst",
     "gat_sender_kernel": "gat_sender", "gcn_rows_kernel": "gcn_agg",
     "gcn_combine_kernel": "gcn_agg", "spmm_csr_kernel": "spmm",
     "narrow_kernel": "spmm_narrow", "walk_tiles_kernel": None}
