@@ -18,7 +18,11 @@ Phases (any failure raises, and the script exits non-zero):
      the main paths' shapes (the layer kernels also at the GAT transform's
      widths, 256 = 4 heads x 64; the RBF kernels at the base-free FastKAN's
      widths with x/w in f32/f32, f32/bf16 and bf16/bf16; the narrow sum at
-     k = 4 over the arxiv-sized graph's receivers; gcn_agg also on a hub row
+     k = 4 over the arxiv-sized graph's receivers; spmm also over the
+     receiver CSR with idx = senders at the gin/fastkan step's widths, timed
+     beside torch.sparse.mm and on its hub row alone and its light rows
+     alone, and on a graph whose both CSRs hold heavy rows, at 1-300
+     columns, bit for bit twice; gcn_agg also on a hub row
      of 100,000 in-edges, on a graph of light rows and on the main graph's
      hub row alone, timed, and at D 42, one value a lane; gat_fwd and
      gat_dadst, which split rows of more than 64 valid edges, also on
@@ -33,7 +37,8 @@ Phases (any failure raises, and the script exits non-zero):
      yardstick (`torch.sparse.mm` on a CSR matrix; the port never calls it;
      there is none for GAT attention or the RBF product); at the main
      shapes each layer forward's profiled kernel (the tensor-core kernel
-     in bf16, the CUDA-core one in f32: the phase fails otherwise), the
+     in bf16, the CUDA-core one in f32: the phase fails otherwise) and the
+     RBF backward's kernels by the dtype of w (likewise), the
      FastKAN forward's term-split error in bf16 ulps, and at (256, 256)
      torch.matmul of a prebuilt bf16 basis by the weight (a yardstick of
      the product alone); then the forward and backward of the autograd
@@ -41,7 +46,8 @@ Phases (any failure raises, and the script exits non-zero):
      search-space corners of the experiment scripts (`phase_corners`:
      spline order 1-4 and grid 1-16, 2-32 centers, 500 and 3,703
      features, GAT heads of 2-128 columns, 512 outputs; the layer forwards
-     also at 1, 7, 40 and 512 outputs) against its plain version;
+     also at 1, 7, 40 and 512 outputs, the RBF backward at 2,048) against
+     its plain version;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
      gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan), at five search-space
      corners (STEP_CORNERS) and for the base-free FastKAN and the
@@ -79,6 +85,7 @@ import numpy as np
 from kagnn_tpu_torch.utils.profiling import (H100, kernel_base_name,
                                              kernel_row_of, time_ms)
 from kagnn_tpu_torch.utils.time_gat import hub_row_alone, light_rows_alone
+from kagnn_tpu_torch.utils.time_spmm_rbf import csr_matrix, spmm_cases
 from kagnn_tpu_torch.kernels._common import GAT_PIECE, dw_tile
 from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
                                                GAT_SPLIT_CASES,
@@ -173,13 +180,14 @@ def log_kernel_split(torch, name, fn, calls=5, row=None):
     (the B-spline backward runs its dx kernel on a second stream). With
     `row`, fails unless each profiled kernel of the row's library (its
     name begins as the row's does: `gat` for gat_fwd) goes to that row of
-    the kernel table."""
+    the kernel table. Returns the profiled kernels' base names (None when the
+    profiler saw no device time)."""
     from kagnn_tpu_torch.utils.profiling import device_profile
 
     prof = device_profile(lambda: [fn() for _ in range(calls)], calls)
     if prof.ms is None:
         log(f"  {name} by kernel: not measured (the profiler saw no device time)")
-        return
+        return None
     short = [key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
              for key, _, _ in prof.kernels]
     log(f"  {name} by kernel, ms per call: " + ", ".join(
@@ -190,6 +198,7 @@ def log_kernel_split(torch, name, fn, calls=5, row=None):
         if found != {row}:
             raise AssertionError(f"{name}: profiled kernels went to rows {found}, "
                                  f"expected {row} alone")
+    return {kernel_base_name(key) for key, _, _ in prof.kernels}
 
 
 def check_forward_kernel(torch, name, fn, want, calls=5):
@@ -409,8 +418,72 @@ def phase_kernels(torch, big):
                     record("gin_fused", err, main and D == 64, ms, pms, bms, by)
                 else:
                     record("gin_fused", err, False)
+    phase_spmm(torch, big, rows)
     phase_new_kernels(torch, big, rows)
     return rows
+
+
+# spmm: widths of spmm_split_graph's checks (one column, odd widths, the
+# head's 40, whole 16-byte packs at 64 and 128, several slabs at 300) and of
+# the gin/fastkan step's sums of z over the receiver CSR (conv 0: 128, convs
+# 1-2: 64)
+SPMM_SPLIT_WIDTHS = (1, 7, 40, 42, 64, 128, 300)
+SPMM_RECEIVER_WIDTHS = (128, 64)
+
+
+def phase_spmm(torch, big, rows):
+    """spmm on a graph whose both CSRs hold heavy rows (a 2,748-edge receiver
+    row, rows of 63-65, a 316-edge sender row, the pad row heavy by its
+    padding; `selfcheck.spmm_split_graph`), over both CSRs with their gather
+    index and the receiver CSR without one, at SPMM_SPLIT_WIDTHS, twice and
+    equal bit for bit; then over the main graph's receiver CSR with idx =
+    senders at the gin/fastkan step's widths, against its plain version and
+    timed, beside torch.sparse.mm of a CSR of the same matrix (the library
+    yardstick; the port never calls it) and its bound (msgs read once, out
+    written once, idx and row_ptr read; E*D adds), and on that CSR's longest
+    row alone and its light rows alone (`utils/time_spmm_rbf.spmm_cases`)."""
+    from kagnn_tpu_torch.kernels import spmm
+    from kagnn_tpu_torch.kernels.selfcheck import check_spmm_split, spmm_split_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sg = spmm_split_graph()
+    cases = spmm_cases(big)
+    N, E = big.n_node_pad, big.n_edge_pad
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        s = torch.tensor([], dtype=dtype).element_size()
+        for D in SPMM_SPLIT_WIDTHS:
+            record_row(rows["spmm"], check_spmm_split(
+                sg, D, dtype, lambda name, a, b: compare(torch, name, a, b, dn), gen), False)
+        for D in SPMM_RECEIVER_WIDTHS:
+            msgs = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+            rp, idx = cases["receiver"]
+            plain = spmm.sorted_segment_sum_plain(msgs, rp, idx)
+            err = compare(torch, f"spmm receiver CSR main ({N},{D})",
+                          spmm.sorted_segment_sum(msgs, rp, idx), plain, dn)
+            record_row(rows["spmm"], err, False)
+            times = {}
+            for case in ("receiver", "hub", "light"):
+                args = (msgs, *cases[case])
+                if case != "receiver":
+                    compare(torch, f"spmm receiver CSR {case} ({N},{D})",
+                            spmm.sorted_segment_sum(*args),
+                            spmm.sorted_segment_sum_plain(*args), dn)
+                times[case] = time_ms(lambda: spmm.sorted_segment_sum(*args))
+            pms = time_ms(lambda: spmm.sorted_segment_sum_plain(msgs, rp, idx), iters=5)
+            a = csr_matrix(rp, idx, N, dtype)
+            lib = torch.sparse.mm(a, msgs).float()
+            lib_err = ((lib - plain.float()).abs().max() / plain.float().abs().max()).item()
+            if dn == "float32":  # the bf16 CSR product rounds its sums to bf16
+                torch.testing.assert_close(lib, plain, rtol=1e-4, atol=1e-3)
+            lms = time_ms(lambda: torch.sparse.mm(a, msgs))
+            bms, by = H100.bound_ms(2 * N * D * s + 4 * (E + N + 1), E * D, dn)
+            ms = times["receiver"]
+            log(f"  spmm receiver CSR main {dn} D={D}: ms={ms:.4f} plain_ms={pms:.4f} "
+                f"library_ms={lms:.4f} (torch.sparse.mm, max error {lib_err:.2e} of "
+                f"the scale) bound_ms={bms:.4f} ({by}); hub row alone "
+                f"{times['hub']:.4f} ms, light rows alone {times['light']:.4f} ms; "
+                f"{ms / lms:.2f}x the library's time")
 
 
 def ragged_graph(torch):
@@ -817,6 +890,9 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                     log(f"  {name} main {xn}/{wn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
                         f"library_ms=none")
+                    if name == "rbf_bwd":
+                        check_rbf_bwd_route(torch, f"rbf_bwd main {xn}/{wn} D={D} O={O}",
+                                            x, w, dout, ops)
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
                                bound_ms=bms, bound_by=by, library_ms=None)
 
@@ -865,6 +941,38 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                            library_ms=lms)
 
 
+def check_rbf_bwd_route(torch, name, x, w, dout, ops):
+    """Log the RBF backward's time by kernel and fail unless it launched the
+    kernels of its dtypes (`selfcheck.rbf_bwd_expected`: the tensor-core
+    kernels where w is bf16, the CUDA-core ones where it is f32); where w
+    is bf16, also the bound of the design's own work: its bf16 products (dx:
+    three terms of an f32 dout, one of a bf16 one; dW: six products of an
+    f32 dout, three of a bf16 one; `ops` = 2*N*G*D*O a product) at the
+    tensor cores' peak."""
+    from kagnn_tpu_torch.kernels import rbf_fused as rf
+    from kagnn_tpu_torch.kernels.selfcheck import rbf_bwd_expected, rbf_bwd_kernels
+
+    fn = lambda: rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0)  # noqa: E731
+    (n, D), O = x.shape, w.shape[1]
+    parts = rf._bwd_plan(n, D, O, w.shape[0] // D, rf.dtype_code(x), rf.dtype_code(w))
+    want = rbf_bwd_expected(x, w, parts)
+    names = log_kernel_split(torch, name, fn)
+    if names != want:  # profiled again where events went missing
+        names = rbf_bwd_kernels(x, w, dout, want)
+    if not names:
+        log(f"  {name} kernels: not measured (the profiler saw no device time)")
+        return
+    log(f"  {name} kernels: {', '.join(sorted(names))}")
+    if names != want:
+        raise AssertionError(f"{name}: launched {sorted(names)}, expected {sorted(want)}")
+    if w.dtype == torch.bfloat16:
+        f32 = x.dtype == torch.float32
+        products = (3 if f32 else 1) + (6 if f32 else 3)
+        tc_ms, _ = H100.bound_ms(0, products * ops, "bfloat16")
+        log(f"  {name} design: {products} bf16 products of {ops / 1e9:.2f} GFLOP "
+            f"each, {tc_ms:.4f} ms at the bf16 peak")
+
+
 # (heads, columns a head) of the GAT corner: hidden 2, 37, 96 and 128 with
 # the experiment scripts' 4 heads (H*C up to 512), and one head of 37
 GAT_CORNERS = ((4, 2), (4, 37), (4, 96), (4, 128), (1, 37))
@@ -879,8 +987,9 @@ def phase_corners(torch, rows):
     layer forward and backward, gin_fastkan and the RBF product at 2, 16
     and 32 centers and at 500 features, and with 32 centers at 3,703
     features (CiteSeer's width) and at 512 outputs (the dx kernels' output
-    parts); the three GAT kernels at GAT_CORNERS. Errors join each kernel's
-    row; no time is taken."""
+    parts), the RBF backward also at 2,048 outputs with 2 and 32 centers
+    (several output parts of dx); the three GAT kernels at GAT_CORNERS.
+    Errors join each kernel's row; no time is taken."""
     from kagnn_tpu_torch.kan.bspline import make_grid
     from kagnn_tpu_torch.kernels import bspline_fused as bf
     from kagnn_tpu_torch.kernels import fastkan_layer as fk
@@ -952,6 +1061,15 @@ def phase_corners(torch, rows):
             for w, a, b in zip(("dx", "dW"), rf.rbf_spline_bwd(x, w_, dout, -2.0, 2.0),
                                rf.rbf_spline_bwd_plain(x, w_, dout, -2.0, 2.0)):
                 cmp("rbf_bwd", f"rbf_bwd corner {tag} {w}", a, b)
+        # the RBF backward at 2,048 outputs: its dx kernels cut them into
+        # parts whose shares a sum kernel adds
+        for G in (2, 32):
+            D, O = 37, 2048
+            x, dout = rand((N, D), dtype, 1.5), rand((N, O), dtype)
+            w_ = rand((G * D, O), dtype, 0.3)
+            for w, a, b in zip(("dx", "dW"), rf.rbf_spline_bwd(x, w_, dout, -2.0, 2.0),
+                               rf.rbf_spline_bwd_plain(x, w_, dout, -2.0, 2.0)):
+                cmp("rbf_bwd", f"rbf_bwd corner G={G} D={D} O={O} {w}", a, b)
         # the forwards' masked outputs: under one 8-wide n-tile (1, 7), the
         # head's five (40), and two output parts of 256 (512)
         for O in FWD_OUTPUTS:

@@ -1,7 +1,8 @@
 // Shared device code of the GAT kernels (gat_fused.cu, gat_bwd.cu): the
 // leaky ReLU and its derivative, 8-column row loads and stores, the slot
 // layout of a row, the per-head reduction, the valid edges of a row and
-// the row of an edge (for the split of heavy receiver rows, kPiece).
+// the piece size of the split of heavy receiver rows (kPiece; the row of an
+// edge is kan_common.cuh's row_of_edge).
 //
 // Layout: one warp owns one node row of H*C columns, the C columns of head h
 // contiguous at h*C (the JAX layout). A head's columns are cut into
@@ -164,23 +165,9 @@ __device__ __forceinline__ void row_edges(const int* __restrict__ row_ptr, int r
   e1 = min(row_ptr[row + 1], n_edge);
 }
 
-// The row of edge e of a CSR of n rows (the last row r with row_ptr[r] <=
-// e; 0 <= e < row_ptr[n]), found by the whole warp: each round its 32
-// lanes probe 32 points of the range left, so 4 rounds cover a million
-// rows. The GAT wrappers take no `receivers`, so the chunk warps find their
-// rows here. Every lane of the warp must call it with the same e.
-__device__ __forceinline__ int row_of_edge(const int* __restrict__ row_ptr, int n, int e) {
-  const int lane = threadIdx.x % 32;
-  int lo = 0, hi = n;  // the row is in [lo, hi) and row_ptr[lo] <= e
-  while (hi - lo > 1) {
-    const int step = (hi - lo + 31) / 32;
-    const int q = lo + lane * step;
-    const unsigned ok = __ballot_sync(0xffffffffu, q < hi && __ldg(row_ptr + q) <= e);
-    lo += (31 - __clz(ok)) * step;  // lane 0 probes lo itself, so ok != 0
-    hi = min(hi, lo + step);
-  }
-  return lo;
-}
+// the row of an edge (kan_common.cuh): the GAT wrappers take no
+// `receivers`, so the chunk warps find their rows by this warp search
+using kan::row_of_edge;
 
 // slots a head and passes a row for heads of C columns: P = the power of
 // two >= ceil(C / 8), J = the power of two >= H*P / 32; false past 8 passes

@@ -1,7 +1,8 @@
 // Shared device code of the port's kernels: element conversions, SiLU, the
-// warp-per-row CSR gather (spmm.cu, gin_fused.cu, gin_fastkan.cu), the
-// piece gather with wide loads (gcn_agg.cu), the piece schedule of the
-// kernels that split heavy CSR rows (gcn_agg.cu, gat_fused.cu, gat_bwd.cu),
+// warp-per-row CSR gather (gin_fused.cu, gin_fastkan.cu), the piece gather
+// with wide loads (gcn_agg.cu, spmm.cu), the piece schedule of the kernels
+// that split heavy CSR rows (gcn_agg.cu, spmm.cu, gat_fused.cu, gat_bwd.cu)
+// and the warp search of a CSR's row_ptr for the row of an edge,
 // the tile-ordered walk of weight-gradient partials (bspline_fused.cu,
 // fastkan_layer.cu, rbf_fused.cu), and for the KANLinear kernels the
 // Cox-de Boor ladder, the basis tiles (f32 for the CUDA-core kernels, bf16
@@ -171,7 +172,8 @@ __device__ __forceinline__ void store_pack(T* p, const float (&v)[V]) {
 
 // The CSR gather of a lane group with wide loads, for rows split into
 // pieces: acc[j] = the f32 sum, in edge order, of column c + j of row idx[e]
-// of src (rows of d values) over e = e0, e0 + step, ... < e1. Each lane
+// (row e when idx is null) of src (rows of d values) over e = e0, e0 +
+// step, ... < e1. Each lane
 // loads V columns at once (16 bytes, or one value when V == 1; the caller
 // keeps c + V <= d and the rows 16-byte aligned) and keeps U edges in
 // flight; edges past e1 are masked, not left to a serial tail. The fixed
@@ -186,7 +188,10 @@ __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
   for (int e = e0; e < e1; e += U * step) {
     int row[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) row[u] = e + u * step < e1 ? __ldg(idx + e + u * step) : -1;
+    for (int u = 0; u < U; ++u) {
+      const int eu = e + u * step;
+      row[u] = eu < e1 ? (idx != nullptr ? __ldg(idx + eu) : eu) : -1;
+    }
     Pack<T, V> r[U];
 #pragma unroll
     for (int u = 0; u < U; ++u)
@@ -198,9 +203,10 @@ __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
 }
 
 // The piece schedule of the CSR kernels that split heavy rows (gcn_agg.cu,
-// gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks of
-// PIECE; a row's range is clipped at `end` (gcn_agg passes every edge, the
-// GAT kernels the valid ones, whose padding is the tail of the edges), and
+// spmm.cu, gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks
+// of PIECE; a row's range is clipped at `end` (gcn_agg and spmm pass every
+// edge, the GAT kernels the valid ones, whose padding is the tail of the
+// edges), and
 // a row is heavy when more than PIECE of its edges remain. One warp a chunk
 // sums the heavy rows' pieces inside its chunk into partials, two slots a
 // chunk: slot 0 the heavy row holding the chunk's first edge, slot 1 a
@@ -208,7 +214,7 @@ __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
 // end, so there is at most one). A combine then walks each heavy row's
 // pieces in chunk order, from the chunk holding its last edge. The rows
 // of a chunk's first and last edge are the caller's (from `receivers`, or
-// a search of row_ptr), so no schedule is built on the host.
+// a search of row_ptr, row_of_edge), so no schedule is built on the host.
 struct Piece {
   int row;
   int lo, hi;  // the piece: the row's edges inside the chunk
@@ -270,6 +276,25 @@ struct PieceSlots {
 template <int PIECE>
 __device__ __forceinline__ PieceSlots piece_slots(int e0) {
   return {e0 / PIECE, e0 % PIECE ? 1 : 0};
+}
+
+// The row of edge e of a CSR of n rows (the last row r with row_ptr[r] <=
+// e; 0 <= e < row_ptr[n], row_ptr[0] == 0), found by the whole warp: each
+// round its 32 lanes probe 32 points of the range left, so 4 rounds cover a
+// million rows. The kernels that split heavy rows without the edges'
+// `receivers` (the GAT kernels, spmm) find their chunks' rows here. Every
+// lane of the warp must call it with the same e.
+__device__ __forceinline__ int row_of_edge(const int* __restrict__ row_ptr, int n, int e) {
+  const int lane = threadIdx.x % 32;
+  int lo = 0, hi = n;  // the row is in [lo, hi) and row_ptr[lo] <= e
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int q = lo + lane * step;
+    const unsigned ok = __ballot_sync(0xffffffffu, q < hi && __ldg(row_ptr + q) <= e);
+    lo += (31 - __clz(ok)) * step;  // lane 0 probes lo itself, so ok != 0
+    hi = min(hi, lo + step);
+  }
+  return lo;
 }
 
 // The weight-gradient walk of the layer backwards (bspline_fused.cu,

@@ -22,8 +22,12 @@ Rounding, as the JAX kernel has it in interpret mode (tests/test_torch_rbf.py):
     `dw_ref += partial.astype(dw.dtype)` does.
 
 CUDA kernels: `csrc/rbf_fused.cu` (see its header for the bound on the H100
-and the design). On a CPU tensor the wrappers run the plain versions below;
-on a CUDA tensor they launch the kernels or raise.
+and the design; where w is bf16 the backward multiplies on the tensor
+cores, an f32 operand split into three bf16 terms, and where w is f32 on
+the CUDA cores). The backward takes any O: its dx kernel cuts the outputs
+into parts that fit in shared memory (`_bwd_plan`). On a CPU tensor the
+wrappers run the plain versions below; on a CUDA tensor they launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -34,12 +38,11 @@ import numpy as np
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+from kagnn_tpu_torch.kernels._common import (aligned, check_cuda,
                                              dtype_code, dw_tile, stream_of,
                                              tiled_gram)
 from kagnn_tpu_torch.kernels._common import round_to as _round
-from kagnn_tpu_torch.kernels.fastkan_layer import (MAX_G, O_TILE, ROWS,
-                                                   centers, chunk, g_major,
+from kagnn_tpu_torch.kernels.fastkan_layer import (MAX_G, centers, g_major,
                                                    inv_h, num_grids_of)
 
 
@@ -124,8 +127,19 @@ def _fwd_fn(G: int):
 def _bwd_fn(G: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("rbf_fused", "rbf_bwd",
-                       [P, P, P, P, P, P, I, I, I, I, P, F, F, I, I, I, P],
+                       [P, P, P, P, P, P, P, I, I, I, I, P, F, F, I, I, I, P],
                        (G,))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(n: int, D: int, O: int, G: int, xcode: int, wcode: int) -> int:
+    """The output parts of the backward's dx kernel (csrc/rbf_fused.cu
+    `rbf_bwd_plan`): 1 unless the outputs' rows do not fit in a block."""
+    P, I = _build.P, _build.I
+    plan = (ctypes.c_int * 2)()
+    fn = _build.bind("rbf_fused", "rbf_bwd_plan", [I, I, I, I, I, I, P], (G,))
+    _build.check(fn(n, D, O, G, xcode, wcode, plan), "rbf_bwd_plan")
+    return plan[0]
 
 
 def rbf_spline_fwd(x, w, grid_min: float, grid_max: float) -> torch.Tensor:
@@ -154,23 +168,24 @@ def rbf_spline_bwd(x, w, dout, grid_min: float, grid_max: float,
         return rbf_spline_bwd_plain(x, w, dout, grid_min, grid_max, need_dx)
     n, D, O, G = check_rbf(x, w)
     check_cuda("dout", dout, x.dtype, (n, O))
-    # the dx kernel's dout tile and one output tile of the chunk's weights
-    smem = 4 * (ROWS * O + O_TILE * (G * chunk(G) + 1))
-    if need_dx and smem > SMEM_LIMIT:
-        raise ValueError(f"dx of an RBF product with {O} outputs and {G} "
-                         f"centers needs {smem} bytes of shared memory per "
-                         f"block; the H100 gives {SMEM_LIMIT}")
+    x, w, dout = (aligned(t) for t in (x, w, dout))  # staged with cp.async
+    xcode, wcode = dtype_code(x), dtype_code(w)
     c, ih = constants(grid_min, grid_max, G, x.dtype)
     tile = dw_tile(n)
-    partial = torch.empty((-(-n // tile), G * D * O), dtype=torch.float32,
-                          device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((-(-n // tile), G * D * O), **f32)
     dw = torch.empty_like(w)
     dx = torch.empty_like(x) if need_dx else None
+    # the dx kernel's output parts' shares, when there are several
+    parts = _bwd_plan(n, D, O, G, xcode, wcode) if need_dx else 1
+    vbuf = torch.empty((parts, n, D), **f32) if parts > 1 else None
     err = _bwd_fn(G)(x.data_ptr(), w.data_ptr(), dout.data_ptr(),
-                    None if dx is None else dx.data_ptr(), partial.data_ptr(),
-                    dw.data_ptr(), n, D, O, G, _c_floats(c), ih,
-                    -2.0 * inv_h(grid_min, grid_max, G), tile, dtype_code(x),
-                    dtype_code(w), stream_of(x))
+                    None if dx is None else dx.data_ptr(),
+                    None if vbuf is None else vbuf.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), n, D, O, G,
+                    _c_floats(c), ih,
+                    -2.0 * inv_h(grid_min, grid_max, G), tile, xcode, wcode,
+                    stream_of(x))
     _build.check(err, "rbf_bwd")
     rbf_spline_bwd.launches += 1
     return dx, dw

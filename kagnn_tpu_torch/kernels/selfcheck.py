@@ -1,8 +1,10 @@
 """On-card checks shared by `chip_smoke.py` and `tests/test_torch_cuda.py`:
 the autograd Functions of the FastKAN, GCN, GAT and RBF kernels, the bar of
 a bf16 weight gradient summed over row tiles (`dw_walk_check`), the
-graphs of the split gcn_agg (`gcn_split_graph`) and the GAT kernels' split
-of heavy receiver rows (`gat_split_case`, `check_gat_split`)."""
+graphs of the split gcn_agg (`gcn_split_graph`), the GAT kernels' split
+of heavy receiver rows (`gat_split_case`, `check_gat_split`), spmm's split
+of heavy rows of either CSR (`spmm_split_graph`, `check_spmm_split`) and the
+kernels the RBF backward launches by dtype (`rbf_bwd_kernels`)."""
 from __future__ import annotations
 
 import torch
@@ -362,3 +364,83 @@ def check_gat_split(kind: str, heads: int, c: int, dtype, close, gen):
     if not torch.equal(got, gbw.gat_dadst(*da)):
         raise AssertionError(f"gat_dadst split {tag}: two calls differ")
     return err, err_dadst
+
+
+# (row, edges) of spmm_split_graph's rows around spmm's piece: the main
+# graph's hub in-degree at node 0 (43 pieces), one short of a piece, a piece
+# and one past it; node 1 sends SPMM_SPLIT_SENDS edges (a heavy row of the
+# sender CSR)
+SPMM_SPLIT_ROWS = ((0, 2748), (2, spmm.PIECE - 1), (3, spmm.PIECE),
+                   (4, spmm.PIECE + 1))
+SPMM_SPLIT_SENDS = 300
+
+
+def spmm_split_graph(device="cuda"):
+    """A graph whose both CSRs hold rows spmm splits into pieces: the
+    receiver rows of SPMM_SPLIT_ROWS, node 1's SPMM_SPLIT_SENDS out-edges,
+    3,000 light edges over nodes 5-379, isolated nodes 380-399, and padding
+    to a multiple of 1,024 edges, 928 padded edges that make the pad row
+    heavy in both CSRs."""
+    rng = np.random.default_rng(31)
+    n = 400
+    rcv = np.concatenate([np.full(d, r) for r, d in SPMM_SPLIT_ROWS]
+                         + [rng.integers(5, 380, 3000),
+                            rng.integers(5, 380, SPMM_SPLIT_SENDS)])
+    snd = np.concatenate([rng.integers(0, 380, rcv.size - SPMM_SPLIT_SENDS),
+                          np.ones(SPMM_SPLIT_SENDS, np.int64)])
+    g = single_graph(snd, rcv, n_node=n, edge_pad_multiple=1024, device=device)
+    if g.n_edge_pad - g.n_edge <= spmm.PIECE:
+        raise AssertionError("spmm_split_graph: the pad row is light")
+    return g
+
+
+def check_spmm_split(g, d: int, dtype, close, gen):
+    """sorted_segment_sum against its plain version at D = d over g's
+    receiver CSR with idx = senders (the gin/fastkan sum), its sender CSR
+    with idx = receivers_by_sender (A^T dz) and the receiver CSR over
+    messages without idx; each called twice and equal bit for bit (no
+    atomics). close(name, got, want) holds a pair to the kernels' bar.
+    Returns the largest error."""
+    n, e = g.n_node_pad, g.n_edge_pad
+
+    def rand(rows):
+        return torch.randn((rows, d), generator=gen, device=gen.device).to(dtype)
+
+    err = 0.0
+    for name, args in (("receiver CSR", (rand(n), g.recv_row_ptr, g.senders)),
+                       ("sender CSR", (rand(n), g.send_row_ptr, g.receivers_by_sender)),
+                       ("receiver CSR, no idx", (rand(e), g.recv_row_ptr))):
+        got = spmm.sorted_segment_sum(*args)
+        err = max(err, close(f"spmm split {name} D={d}", got,
+                             spmm.sorted_segment_sum_plain(*args)))
+        if not torch.equal(got, spmm.sorted_segment_sum(*args)):
+            raise AssertionError(f"spmm split {name} D={d}: two calls differ")
+    return err
+
+
+def rbf_bwd_kernels(x, w, dout, want: set) -> set:
+    """The kernel names (utils/profiling.kernel_base_name) that rbf_spline_bwd
+    launches on the card, from torch.profiler: three calls a profile, profiled
+    again, up to three times, while the names are not `want` (after many
+    profiles in one process, profiles on the H100 came back without some or
+    all of their kernels' events); the last profile's names."""
+    from kagnn_tpu_torch.utils.profiling import device_profile, kernel_base_name
+
+    for _ in range(3):
+        prof = device_profile(lambda: [rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0)
+                                       for _ in range(3)], 3)
+        names = {kernel_base_name(key) for key, _, _ in prof.kernels}
+        if names == want:
+            break
+    return names
+
+
+def rbf_bwd_expected(x, w, parts: int) -> set:
+    """The kernels rbf_spline_bwd launches for x and w: on the tensor cores
+    where w is bf16, on the CUDA cores where it is f32; the sum of the dx
+    shares where the outputs come in several parts; the tile walk."""
+    mma = w.dtype == torch.bfloat16
+    names = {"rbf_dx_mma_kernel" if mma else "rbf_dx_kernel",
+             "rbf_dw_mma_kernel" if mma else "rbf_dw_partial_kernel",
+             "walk_tiles_kernel"}
+    return names | ({"rbf_dx_sum_kernel"} if parts > 1 else set())

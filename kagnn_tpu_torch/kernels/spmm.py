@@ -9,10 +9,13 @@ kernel. On the main path it computes A^T·dz in every conv backward but the
 first, over the sender CSR with `idx = receivers_by_sender`
 (kernels/gin_fused.py), so the (E, D) cotangent tensor is never formed.
 
-CUDA kernel: `csrc/spmm.cu` (one warp per row, f32 sum in registers, no
-atomics: deterministic; bound by device-memory bytes). On a CPU tensor the
-wrapper runs `sorted_segment_sum_plain`; on a CUDA tensor it launches the
-kernel or raises.
+CUDA kernel: `csrc/spmm.cu` (bound by device-memory bytes): a row of at
+most 64 edges is summed whole by a group of lanes with 16-byte loads, in
+edge order; a heavier row (the receiver CSR's hub rows, or a pad row made
+heavy by padding) is split into pieces at 64-edge chunks of the edge array
+that separate warps sum, then added in chunk order. f32 sums, no atomics:
+deterministic. On a CPU tensor the wrapper runs `sorted_segment_sum_plain`;
+on a CUDA tensor it launches the kernel or raises.
 
 `sorted_segment_sum_narrow` ports `spmm.py::_narrow_kernel` (the JAX
 `sorted_segment_sum_narrow`): the segment sum of narrow (E, k <= 8) rows
@@ -42,16 +45,20 @@ def sorted_segment_sum_plain(msgs: torch.Tensor, row_ptr: torch.Tensor,
     return out.to(msgs.dtype)
 
 
+PIECE = 64  # csrc/spmm.cu kPiece: edges per chunk of the row split
+
+
 @functools.cache
 def _fn():
     P, I = _build.P, _build.I
-    return _build.bind("spmm", "spmm_csr", [P, P, P, P, I, I, I, P])
+    return _build.bind("spmm", "spmm_csr", [P, P, P, P, P, P, I, I, I, I, P])
 
 
 def sorted_segment_sum(msgs: torch.Tensor, row_ptr: torch.Tensor,
                        idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """msgs (M, D) f32/bf16, row_ptr (n+1,) int32, idx (row_ptr[-1],) int32
-    or None -> (n, D) in msgs' dtype."""
+    """msgs (M, D) f32/bf16, row_ptr (n+1,) int32 with row_ptr[0] == 0,
+    idx (row_ptr[-1],) int32 or None (then M >= row_ptr[-1]) -> (n, D) in
+    msgs' dtype."""
     if msgs.device.type == "cpu":
         return sorted_segment_sum_plain(msgs, row_ptr, idx)
     code = dtype_code(msgs)
@@ -60,10 +67,16 @@ def sorted_segment_sum(msgs: torch.Tensor, row_ptr: torch.Tensor,
     n, d = row_ptr.numel() - 1, msgs.shape[1]
     if idx is not None:
         check_cuda("idx", idx, torch.int32, (None,))
+    # the edges' count bounds the chunks without reading row_ptr[-1] here
+    edges = msgs.shape[0] if idx is None else idx.numel()
+    chunks = -(-edges // PIECE)
     out = torch.empty((n, d), dtype=msgs.dtype, device=msgs.device)
+    partial = torch.empty((2 * chunks, d), dtype=torch.float32, device=msgs.device)
+    first_row = torch.empty((chunks,), dtype=torch.int32, device=msgs.device)
     err = _fn()(msgs.data_ptr(), row_ptr.data_ptr(),
                 None if idx is None else idx.data_ptr(), out.data_ptr(),
-                n, d, code, stream_of(msgs))
+                partial.data_ptr(), first_row.data_ptr(), n, d, edges, code,
+                stream_of(msgs))
     _build.check(err, "spmm_csr")
     sorted_segment_sum.launches += 1
     return out

@@ -37,9 +37,12 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                check_bspline_bwd,
                                                check_fastkan_bwd,
                                                check_gat_split,
+                                               check_spmm_split,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
-                                               gcn_split_graph, rbf_chain)
+                                               gcn_split_graph, rbf_bwd_expected,
+                                               rbf_bwd_kernels, rbf_chain,
+                                               spmm_split_graph)
 from kagnn_tpu_torch.ops.segment import gcn_aggregate
 
 pytestmark = pytest.mark.usefixtures("card")
@@ -729,3 +732,52 @@ def test_layer_backwards_walk_the_jax_tiles_at_the_main_shape(dt, no_tf32):
     lw = _fastkan_layer(gen, D, O, 4, td)
     check_fastkan_bwd("fastkan_bwd", x, *lw[:4], dout, _closer(dt),
                       wrong_must_fail=wrong, log=_quiet)
+
+
+@pytest.mark.parametrize("D", [1, 7, 40, 42, 64, 128, 300])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_spmm_splits_heavy_rows(dt, D):
+    """The segment sum against its plain version on a graph whose both CSRs
+    hold rows of more than 64 edges (summed in pieces that separate warps
+    sum, then combined in chunk order): a receiver row of 2,748 edges and
+    rows of 63-65, a sender row of 316, the pad row heavy by its 928 padded
+    edges; over the receiver CSR with idx = senders, the sender CSR with
+    idx = receivers_by_sender and the receiver CSR without idx; D from one
+    column to 300 (16-byte loads at 8-32 lanes a row where D fills whole
+    packs, one value a lane where it does not); twice, equal bit for bit."""
+    check_spmm_split(spmm_split_graph(), D, DTYPES[dt],
+                     lambda name, got, want: close(got, want, dt),
+                     torch.Generator(device="cuda").manual_seed(23))
+
+
+# (rows, D, O, centers) of the RBF backward: 2-32 centers at odd D, one and
+# 40 outputs, 2,048 outputs (several output parts of dx at every center
+# count), and the base-free FastKAN's widths at 8 centers over 3 tiles
+RBF_TC_SHAPES = [(300, 37, 1, 2), (300, 37, 40, 9), (300, 37, 2048, 2),
+                 (300, 37, 2048, 32), (1300, 64, 64, 8), (1300, 128, 64, 8)]
+
+
+@pytest.mark.parametrize("shape", RBF_TC_SHAPES,
+                         ids=[f"n{n}-D{d}-O{o}-G{g}" for n, d, o, g in RBF_TC_SHAPES])
+@pytest.mark.parametrize("xw", RBF_DTYPES, ids=["-".join(p) for p in RBF_DTYPES])
+def test_rbf_bwd_tensor_cores(xw, shape, no_tf32):
+    """The RBF backward (dx and the tile-ordered dW) against its plain
+    version where its products run on the tensor cores (w bf16: x f32, the
+    base-free FastKAN's dtypes, and x bf16) and on the CUDA cores (w f32),
+    with the kernels each launches (profiled names): dx kernels cut wide
+    outputs into parts and sum the parts' shares."""
+    n, D, O, G = shape
+    xd, wd = xw
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = (torch.randn(n, D, generator=gen, device="cuda") * 1.5).to(DTYPES[xd])
+    w = (torch.randn(G * D, O, generator=gen, device="cuda") * 0.3).to(DTYPES[wd])
+    dout = torch.randn(n, O, generator=gen, device="cuda").to(DTYPES[xd])
+    bf = "bf16" if "bf16" in xw else "f32"
+    (dx, dw), (pdx, pdw) = (f(x, w, dout, -2.0, 2.0) for f in (
+        rf.rbf_spline_bwd, rf.rbf_spline_bwd_plain))
+    close(dx, pdx, bf)
+    close(dw, pdw, wd if xd == wd else bf)
+    parts = rf._bwd_plan(n, D, O, G, *(rf.dtype_code(t) for t in (x, w)))
+    want = rbf_bwd_expected(x, w, parts)
+    assert rbf_bwd_kernels(x, w, dout, want) == want
+    assert (parts > 1) == (O == 2048)
