@@ -22,12 +22,18 @@ Phases (any failure raises, and the script exits non-zero):
      receiver CSR with idx = senders at the gin/fastkan step's widths, timed
      beside torch.sparse.mm and on its hub row alone and its light rows
      alone, and on a graph whose both CSRs hold heavy rows, at 1-300
-     columns, bit for bit twice; gcn_agg also on a hub row
+     columns, bit for bit twice; gin_fused, which splits receiver rows of
+     more than 64 edges, on that graph at 7-300 columns, bit for bit twice,
+     with the kernels it launches by dtype, and on the main graph's hub row
+     alone and light rows alone, timed; gcn_agg also on a hub row
      of 100,000 in-edges, on a graph of light rows and on the main graph's
      hub row alone, timed, and at D 42, one value a lane; gat_fwd and
      gat_dadst, which split rows of more than 64 valid edges, also on
      graphs built for each branch of that split, bit for bit twice, and on
-     the main graph's hub row and light rows apart, timed), in f32 and bf16
+     the main graph's hub row and light rows apart, timed; gat_sender, which
+     splits heavy sender rows, on those graphs reversed, bit for bit twice,
+     and over the main graph's receiver CSR walked as a sender CSR, whole,
+     hub row and light rows apart, timed), in f32 and bf16
      (a bf16 weight gradient summed over more than one row tile against
      the plain walk, `selfcheck.dw_walk_check`, with two wrong reduces that
      must fail it at the main shapes' 1,323 B-spline and 331 FastKAN and RBF
@@ -88,10 +94,15 @@ from kagnn_tpu_torch.utils.time_gat import hub_row_alone, light_rows_alone
 from kagnn_tpu_torch.utils.time_spmm_rbf import csr_matrix, spmm_cases
 from kagnn_tpu_torch.kernels._common import GAT_PIECE, dw_tile
 from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
+                                               GAT_SENDER_KERNELS,
                                                GAT_SPLIT_CASES,
+                                               GIN_SPLIT_SHAPES,
                                                check_bspline_bwd,
                                                check_fastkan_bwd,
-                                               check_gat_split, dw_walk_check)
+                                               check_gat_sender_split,
+                                               check_gat_split, check_gin_split,
+                                               dw_walk_check, gin_fused_expected,
+                                               profiled_kernels)
 
 NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
                num_classes=40, grid_size=4, spline_order=3, skip=False,
@@ -256,6 +267,33 @@ def matmul_yardstick(torch, name, basis, w):
         f"by ({k}, {w.shape[1]}): ms={ms:.4f} bound_ms={bms:.4f} ({by})")
 
 
+def log_gin_parts(torch, g, ga, dn, D, O):
+    """gin_fused on the main graph: the kernels it launches for its dtype
+    (the phase fails otherwise), each profiled kernel on the gin_fused row of
+    the kernel table, and the call's time over the receiver CSR's longest row
+    alone and its light rows alone (every other row empty), with the split
+    aggregate's kernels profiled there: its hub row is theirs alone."""
+    from kagnn_tpu_torch.kernels import gin_fused as gf
+
+    x = ga[0]
+    want = gin_fused_expected(x)
+    names = profiled_kernels(lambda: gf.gin_kan_fwd(*ga), want)
+    log(f"  gin_fused main {dn} D={D} O={O} kernels: {', '.join(sorted(names))}")
+    if names != want:
+        raise AssertionError(f"gin_fused {dn}: launched {names}, expected {want}")
+    log_kernel_split(torch, f"gin_fused main {dn} D={D} O={O}",
+                     lambda: gf.gin_kan_fwd(*ga), row="gin_fused")
+    hub_idx, hub_ptr, d_hub, hub = hub_row_alone(g)
+    for part, (idx, rp) in ((f"hub row alone (node {hub}, in-degree {d_hub})",
+                             (hub_idx, hub_ptr)),
+                            ("light rows alone", light_rows_alone(g)[:2])):
+        args = (x, idx, rp, *ga[3:])
+        ms = time_ms(lambda: gf.gin_kan_fwd(*args))
+        log(f"  gin_fused {part} {dn} D={D} O={O}: {ms:.4f} ms")
+        log_kernel_split(torch, f"gin_fused {part} {dn} D={D} O={O}",
+                         lambda: gf.gin_kan_fwd(*args))
+
+
 def phase_kernels(torch, big):
     """Each kernel against its plain version; `big` is the main path's graph."""
     from kagnn_tpu_torch.graphs import single_graph
@@ -416,9 +454,11 @@ def phase_kernels(torch, big):
                     log(f"  gin_fused main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record("gin_fused", err, main and D == 64, ms, pms, bms, by)
+                    log_gin_parts(torch, g, ga, dn, D, O)
                 else:
                     record("gin_fused", err, False)
     phase_spmm(torch, big, rows)
+    phase_gin_split(torch, rows)
     phase_new_kernels(torch, big, rows)
     return rows
 
@@ -437,13 +477,16 @@ def phase_spmm(torch, big, rows):
     padding; `selfcheck.spmm_split_graph`), over both CSRs with their gather
     index and the receiver CSR without one, at SPMM_SPLIT_WIDTHS, twice and
     equal bit for bit; then over the main graph's receiver CSR with idx =
-    senders at the gin/fastkan step's widths, against its plain version and
-    timed, beside torch.sparse.mm of a CSR of the same matrix (the library
-    yardstick; the port never calls it) and its bound (msgs read once, out
-    written once, idx and row_ptr read; E*D adds), and on that CSR's longest
-    row alone and its light rows alone (`utils/time_spmm_rbf.spmm_cases`)."""
+    senders at the gin/fastkan step's widths, against its plain function
+    evaluated in f64 (`selfcheck.spmm_f64`: the plain version's atomics add
+    the hub row's terms in a new order each run) and timed, beside
+    torch.sparse.mm of a CSR of the same matrix (the library yardstick; the
+    port never calls it) and its bound (msgs read once, out written once,
+    idx and row_ptr read; E*D adds), and on that CSR's longest row alone and
+    its light rows alone (`utils/time_spmm_rbf.spmm_cases`)."""
     from kagnn_tpu_torch.kernels import spmm
-    from kagnn_tpu_torch.kernels.selfcheck import check_spmm_split, spmm_split_graph
+    from kagnn_tpu_torch.kernels.selfcheck import (check_spmm_split, spmm_f64,
+                                                   spmm_split_graph)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     sg = spmm_split_graph()
@@ -460,15 +503,15 @@ def phase_spmm(torch, big, rows):
             rp, idx = cases["receiver"]
             plain = spmm.sorted_segment_sum_plain(msgs, rp, idx)
             err = compare(torch, f"spmm receiver CSR main ({N},{D})",
-                          spmm.sorted_segment_sum(msgs, rp, idx), plain, dn)
+                          spmm.sorted_segment_sum(msgs, rp, idx),
+                          spmm_f64(msgs, rp, idx), dn)
             record_row(rows["spmm"], err, False)
             times = {}
             for case in ("receiver", "hub", "light"):
                 args = (msgs, *cases[case])
                 if case != "receiver":
                     compare(torch, f"spmm receiver CSR {case} ({N},{D})",
-                            spmm.sorted_segment_sum(*args),
-                            spmm.sorted_segment_sum_plain(*args), dn)
+                            spmm.sorted_segment_sum(*args), spmm_f64(*args), dn)
                 times[case] = time_ms(lambda: spmm.sorted_segment_sum(*args))
             pms = time_ms(lambda: spmm.sorted_segment_sum_plain(msgs, rp, idx), iters=5)
             a = csr_matrix(rp, idx, N, dtype)
@@ -484,6 +527,29 @@ def phase_spmm(torch, big, rows):
                 f"the scale) bound_ms={bms:.4f} ({by}); hub row alone "
                 f"{times['hub']:.4f} ms, light rows alone {times['light']:.4f} ms; "
                 f"{ms / lms:.2f}x the library's time")
+
+
+# gin_fused: widths of check_gin_split (one value a lane, the main paths'
+# 64 and 128, several column slabs at 300)
+GIN_SPLIT_WIDTHS = (7, 64, 128, 300)
+
+
+def phase_gin_split(torch, rows):
+    """gin_fused on spmm_split_graph (a 2,748-edge receiver row, rows of
+    63-65, the pad row heavy by its padding), out and z of every row against
+    its plain version at GIN_SPLIT_WIDTHS and GIN_SPLIT_SHAPES, in f32 and
+    bf16, twice and equal bit for bit (`selfcheck.check_gin_split`)."""
+    from kagnn_tpu_torch.kernels.selfcheck import spmm_split_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sg = spmm_split_graph()
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for shape in GIN_SPLIT_SHAPES:
+            for D in GIN_SPLIT_WIDTHS:
+                record_row(rows["gin_fused"], check_gin_split(
+                    sg, D, 64, dtype, lambda name, a, b: compare(torch, name, a, b, dn), gen,
+                    shape), False)
 
 
 def ragged_graph(torch):
@@ -522,6 +588,7 @@ def gcn_hub_alone(torch, g, hs, dinv, dn):
     combine, a floor under the whole launch."""
     from kagnn_tpu_torch.graphs import single_graph
     from kagnn_tpu_torch.kernels import gcn_agg as ga
+    from kagnn_tpu_torch.kernels.selfcheck import gcn_agg_f64
 
     deg = g.recv_row_ptr[1:] - g.recv_row_ptr[:-1]
     hub = int(deg[:g.n_node].argmax())
@@ -530,18 +597,18 @@ def gcn_hub_alone(torch, g, hs, dinv, dn):
                      n_node=g.n_node, edge_pad_multiple=1024, device="cuda")
     args = (hs, dinv, h.senders, h.recv_row_ptr)
     compare(torch, "gcn_agg hub row alone", ga.gcn_agg_fwd(*args, h.receivers),
-            ga.gcn_agg_plain(*args), dn)
+            gcn_agg_f64(*args), dn)
     ms = time_ms(lambda: ga.gcn_agg_fwd(*args, h.receivers))
     log(f"  gcn_agg hub row alone {dn} (node {hub}, in-degree {d_hub}): {ms:.4f} ms")
 
 
 def phase_gcn_split(torch, rows):
-    """gcn_agg against its plain version on a hub row of 100,000 in-edges
-    and on a graph of light rows, D 64 (16-byte loads) and D 42 (rows not
-    whole 16-byte packs: one value a lane), f32 and bf16, twice each and
-    equal bit for bit (no atomics)."""
+    """gcn_agg against its plain function evaluated in f64 (`gcn_agg_f64`)
+    on a hub row of 100,000 in-edges and on a graph of light rows, D 64
+    (16-byte loads) and D 42 (rows not whole 16-byte packs: one value a
+    lane), f32 and bf16, twice each and equal bit for bit (no atomics)."""
     from kagnn_tpu_torch.kernels import gcn_agg as ga
-    from kagnn_tpu_torch.kernels.selfcheck import gcn_split_graph
+    from kagnn_tpu_torch.kernels.selfcheck import gcn_agg_f64, gcn_split_graph
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     for kind, D in (("hub", 64), ("light", 64), ("hub", 42), ("light", 42)):
@@ -553,7 +620,7 @@ def phase_gcn_split(torch, rows):
             args = (hs, dinv, g.senders, g.recv_row_ptr)
             got = ga.gcn_agg_fwd(*args, g.receivers)
             err = compare(torch, f"gcn_agg {kind} ({g.n_node_pad},{D})", got,
-                          ga.gcn_agg_plain(*args), dn)
+                          gcn_agg_f64(*args), dn)
             if not torch.equal(got, ga.gcn_agg_fwd(*args, g.receivers)):
                 raise AssertionError(f"gcn_agg {kind} {dn}: two runs differ")
             record_row(rows["gcn_agg"], err, False)
@@ -716,12 +783,16 @@ def phase_gat_kernels(torch, big, rows):
     (N, H) f32 arrays, and the indices of the valid edges; operations: the
     products of the valid edges. No PyTorch call computes GAT attention, so
     there is no library time. On the main graph also: gat_fwd and gat_dadst
-    on its hub row alone and on its light rows alone (timed), and their
-    launches profiled, each kernel on its own row of the kernel table (the
-    phase fails otherwise). Then both split kernels on the graphs of
-    `selfcheck.gat_split_case` (rows of 63-65 edges, two heavy rows in one
-    chunk, n_edge cut inside a heavy row, a 2,748-edge hub row), twice each
-    and equal bit for bit."""
+    on its hub row alone and on its light rows alone (timed); gat_sender
+    over its receiver CSR walked as a sender CSR (node 0 sending 2,748
+    edges), whole, that row alone and the light rows alone (timed), and the
+    kernels it launches (the phase fails unless they are its two); and the
+    three kernels' launches profiled, each kernel on its own row of the
+    kernel table (the phase fails otherwise). Then the split kernels on the
+    graphs of `selfcheck.gat_split_case` (rows of 63-65 edges, two heavy rows
+    in one chunk, n_edge cut inside a heavy row, a 2,748-edge hub row) and,
+    for gat_sender, of `gat_sender_split_case` (the same edges reversed),
+    twice each and equal bit for bit."""
     from kagnn_tpu_torch.graphs import single_graph
     from kagnn_tpu_torch.kernels import gat_bwd as gbw
     from kagnn_tpu_torch.kernels import gat_fused as gfu
@@ -798,10 +869,24 @@ def phase_gat_kernels(torch, big, rows):
                     h, asrc, adst, alpha, S, dout, ps, prp, pn, slope))
                 log(f"  GAT {part} {dn} ({pn} edges): gat_fwd {t_fwd:.4f} ms, "
                     f"gat_dadst {t_dadst:.4f} ms")
-            # each launch of the two split kernels, profiled, must find its
+            # gat_sender over the receiver CSR walked as a sender CSR (node
+            # 0 then sends 2,748 edges, as where edges run both ways):
+            # whole, its longest row alone and its light rows alone
+            for part, (ps, prp, pn) in (
+                    ("receiver CSR as senders", (g.senders, g.recv_row_ptr, nv)),
+                    (f"its hub row alone (node {hub}, {d_hub} edges)", (snd, rp, d_hub)),
+                    ("its light rows alone", light_rows_alone(g))):
+                t_snd = time_ms(lambda: gbw.gat_sender(
+                    h, asrc, adst, alpha, S, dout, ps, prp, pn, slope))
+                log(f"  gat_sender {part} {dn} ({pn} edges): {t_snd:.4f} ms")
+            names = profiled_kernels(lambda: gbw.gat_sender(*sa), GAT_SENDER_KERNELS)
+            if names != GAT_SENDER_KERNELS:
+                raise AssertionError(f"gat_sender {dn}: launched {names}")
+            # each launch of the three split kernels, profiled, must find its
             # row of the kernel table (the redesign order reads it)
             for name, fn in (("gat_fwd", lambda: gfu.gat_fwd(*fa)),
-                             ("gat_dadst", lambda: gbw.gat_dadst(*da))):
+                             ("gat_dadst", lambda: gbw.gat_dadst(*da)),
+                             ("gat_sender", lambda: gbw.gat_sender(*sa))):
                 log_kernel_split(torch, f"{name} main {dn}", fn, row=name)
     gen = torch.Generator(device="cuda").manual_seed(3)
     for dtype in (torch.float32, torch.bfloat16):
@@ -813,6 +898,9 @@ def phase_gat_kernels(torch, big, rows):
                 gen)
             for name, err in zip(("gat_fwd", "gat_dadst"), errs):
                 record_row(rows[name], err, False)
+            record_row(rows["gat_sender"], check_gat_sender_split(
+                kind, H, C, dtype, lambda name, a, b: compare(torch, name, a, b, "float32"),
+                gen), False)
 
 
 # (D, O) of the RBF kernels on the base-free FastKAN([128, 64, 64, 40]) and
@@ -1562,8 +1650,8 @@ def main() -> int:
     for launches, by_kernel in profiled:
         for key, t in by_kernel.items():
             row = kernel_row_of(key, launches)
-            if row is None and kernel_base_name(key).startswith("gat"):
-                raise AssertionError(f"a profiled GAT kernel found no row: {key}")
+            if row is None and kernel_base_name(key).startswith(("gat", "gin")):
+                raise AssertionError(f"a profiled GAT or GIN kernel found no row: {key}")
             if row is None:
                 other += t
             else:

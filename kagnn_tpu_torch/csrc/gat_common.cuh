@@ -1,8 +1,9 @@
 // Shared device code of the GAT kernels (gat_fused.cu, gat_bwd.cu): the
 // leaky ReLU and its derivative, 8-column row loads and stores, the slot
 // layout of a row, the per-head reduction, the valid edges of a row and
-// the piece size of the split of heavy receiver rows (kPiece; the row of an
-// edge is kan_common.cuh's row_of_edge).
+// the piece size of the split of heavy rows (kPiece, receiver rows and, in
+// gat_sender, sender rows; the row of an edge is kan_common.cuh's
+// row_of_edge).
 //
 // Layout: one warp owns one node row of H*C columns, the C columns of head h
 // contiguous at h*C (the JAX layout). A head's columns are cut into
@@ -33,9 +34,8 @@ using kan::to_f;
 constexpr int kWarps = 8;       // rows (one warp each) per block
 constexpr int kCols = 8;        // columns per slot
 constexpr float kClamp = 80.f;  // the JAX backward's clamp of the exp argument
-// edges a chunk of the receiver CSR's piece schedule (kan_common.cuh): a
-// row of more valid edges is split into pieces that chunk warps walk in
-// parallel
+// edges a chunk of a CSR's piece schedule (kan_common.cuh): a row of more
+// valid edges is split into pieces that chunk warps walk in parallel
 constexpr int kPiece = 64;
 // The row kernels (gat_fwd_kernel, gat_dadst_kernel) ask the compiler, by
 // __launch_bounds__, to fit a number of blocks an SM in registers at one

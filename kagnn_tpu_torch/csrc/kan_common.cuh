@@ -1,10 +1,11 @@
 // Shared device code of the port's kernels: element conversions, SiLU, the
-// warp-per-row CSR gather (gin_fused.cu, gin_fastkan.cu), the piece gather
-// with wide loads (gcn_agg.cu, spmm.cu), the piece schedule of the kernels
-// that split heavy CSR rows (gcn_agg.cu, spmm.cu, gat_fused.cu, gat_bwd.cu)
-// and the warp search of a CSR's row_ptr for the row of an edge,
-// the tile-ordered walk of weight-gradient partials (bspline_fused.cu,
-// fastkan_layer.cu, rbf_fused.cu), and for the KANLinear kernels the
+// warp-per-row CSR gather (gin_fastkan.cu), the piece gather with wide loads
+// (gcn_agg.cu, spmm.cu, gin_fused.cu), the piece schedule of the kernels
+// that split heavy CSR rows (gcn_agg.cu, spmm.cu, gin_fused.cu, gat_fused.cu,
+// gat_bwd.cu), the warp search of a CSR's row_ptr for the row of an edge,
+// the split row sum of spmm.cu and gin_fused.cu, the tile-ordered walk of
+// weight-gradient partials (bspline_fused.cu, fastkan_layer.cu,
+// rbf_fused.cu), and for the KANLinear kernels the
 // Cox-de Boor ladder, the basis tiles (f32 for the CUDA-core kernels, bf16
 // for the tensor-core ones) and the dtype dispatch at the (spline order,
 // grid size) a library is built for.
@@ -203,7 +204,7 @@ __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
 }
 
 // The piece schedule of the CSR kernels that split heavy rows (gcn_agg.cu,
-// spmm.cu, gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks
+// spmm.cu, gin_fused.cu, gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks
 // of PIECE; a row's range is clipped at `end` (gcn_agg and spmm pass every
 // edge, the GAT kernels the valid ones, whose padding is the tail of the
 // edges), and
@@ -295,6 +296,145 @@ __device__ __forceinline__ int row_of_edge(const int* __restrict__ row_ptr, int 
     hi = min(hi, lo + step);
   }
   return lo;
+}
+
+// ---- the split row sum of a CSR (spmm.cu, gin_fused.cu) ---------------------
+//
+// sum_{e in row r} src[idx[e]] (src[e] without idx) for every row of a CSR, in
+// f32, with 16-byte loads in 128-byte column slabs (grid.y) and the rows of
+// more than PIECE edges split into pieces at the PIECE-edge chunks of the
+// edge array (the schedule above): launch 1 (split_row_sum) sums the light
+// rows whole, one lane group a row in edge order, and the heavy rows'
+// pieces, one warp a chunk, into f32 partials; launch 2
+// (split_row_combine) adds each heavy row's pieces in chunk order. A chunk
+// warp finds the rows of its first and last edge by row_of_edge (no
+// `receivers`), and slab 0 keeps the first one for launch 2. No atomics:
+// deterministic. What each caller does with a row's sums is its store.
+
+constexpr int kSplitWarps = 8;  // warps a block of both launches
+
+// V columns a lane (16 / sizeof(T), or 1 where d does not fill whole
+// 16-byte packs); L lanes a row cover its slab of L * V columns (128 bytes);
+// R lane groups a warp; U edges in flight a lane group.
+template <int V>
+struct SlabCfg {
+  static constexpr int L = V == 1 ? 32 : 8;
+  static constexpr int SLAB = L * V;
+  static constexpr int R = 32 / L;
+  static constexpr int U = L / 2 > 4 ? L / 2 : 4;  // R * U >= 16 gathers a warp
+};
+
+// Launch 1, kSplitWarps warps a block. Blocks [0, chunk_blocks) of slab 0
+// sum the heavy rows' pieces, one warp a chunk and every slab in turn (the
+// chunk's rows are searched once), into partial (2 slots of d floats a
+// chunk), and keep the row of each chunk's first edge in first_row (those
+// blocks of the other slabs return at once); the rest take columns [c0, c0
+// + SLAB) of slab blockIdx.y of the light rows whole, one lane group a row,
+// and call light(row, c, acc) with the row's sums of columns c .. c+V-1.
+template <typename T, int V, int PIECE, typename Light>
+__device__ __forceinline__ void split_row_sum(const T* __restrict__ src,
+                                              const int* __restrict__ row_ptr,
+                                              const int* __restrict__ idx,
+                                              float* __restrict__ partial,
+                                              int* __restrict__ first_row, int n_rows, int d,
+                                              int chunk_blocks, Light light) {
+  using C = SlabCfg<V>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane / C::L, gl = lane % C::L;
+  if ((int)blockIdx.x < chunk_blocks) {
+    if (blockIdx.y != 0) return;
+    const int ch = blockIdx.x * kSplitWarps + warp;
+    const int n_edges = __ldg(row_ptr + n_rows);
+    int cs, ce;
+    if (!chunk_edges<PIECE>(ch, n_edges, cs, ce)) return;
+    const int first = row_of_edge(row_ptr, n_rows, cs);
+    const int last = row_of_edge(row_ptr, n_rows, ce - 1);
+    if (lane == 0) first_row[ch] = first;
+#pragma unroll 1
+    for (int slot = 0; slot < 2; ++slot) {
+      Piece p;
+      if (!chunk_piece<PIECE>(slot, cs, ce, first, last, n_edges, row_ptr, p)) continue;
+      float* part = partial + ((size_t)ch * 2 + slot) * d;
+      for (int c = gl * V; c < d + gl * V; c += C::SLAB) {  // slab by slab
+        float acc[V];
+        if (c < d) {
+          csr_piece_sum<T, V, C::U>(src, idx, p.lo + group, p.hi, C::R, c, d, acc);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] = 0.f;
+        }
+        // the groups' sums meet in a fixed butterfly (the same order every run)
+#pragma unroll
+        for (int off = C::L; off < 32; off <<= 1)
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+        if (group == 0 && c < d) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) part[c + j] = acc[j];
+        }
+      }
+    }
+    return;
+  }
+  const int c = blockIdx.y * C::SLAB + gl * V;  // this lane's columns
+  const int row = ((blockIdx.x - chunk_blocks) * kSplitWarps + warp) * C::R + group;
+  if (row >= n_rows || c >= d) return;
+  const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
+  if (e1 - e0 > PIECE) return;  // a heavy row: launch 2 writes it
+  float acc[V];
+  csr_piece_sum<T, V, C::U>(src, idx, e0, e1, 1, c, d, acc);
+  light(row, c, acc);
+}
+
+// The column parts of a combine over d columns: blockIdx.y = part, a warp's
+// lanes take columns part*32 + lane, + 32*parts, ..., so that a heavy row's
+// columns are added by up to kCombineParts warps at once (one warp walked
+// a 2,748-edge row's 43 pieces of 260 columns in 0.12 ms on the H100).
+constexpr int kCombineParts = 8;
+inline int combine_parts(int d) { return std::max(1, std::min(kCombineParts, (d + 31) / 32)); }
+
+// Launch 2, one warp a chunk (kSplitWarps a block) and column part
+// blockIdx.y of gridDim.y (combine_parts): the heavy row holding the
+// chunk's first edge and ending inside the chunk has all its pieces
+// written; add them in chunk order and call store(row, c, sum) for each of
+// the part's columns c.
+template <int PIECE, typename Store>
+__device__ __forceinline__ void split_row_combine(const int* __restrict__ row_ptr,
+                                                  const float* __restrict__ partial,
+                                                  const int* __restrict__ first_row,
+                                                  int n_rows, int d, Store store) {
+  const int ch = blockIdx.x * kSplitWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int n_edges = __ldg(row_ptr + n_rows);
+  int cs, ce, e0, e1;
+  if (!chunk_edges<PIECE>(ch, n_edges, cs, ce)) return;
+  const int row = first_row[ch];
+  if (!ends_heavy<PIECE>(cs, row, n_edges, row_ptr, e0, e1)) return;
+  const PieceSlots slot = piece_slots<PIECE>(e0);
+  for (int c = blockIdx.y * 32 + lane; c < d; c += 32 * gridDim.y) {
+    float s = 0.f;
+    // 8 loads in flight through the read-only path: the adds keep the order
+#pragma unroll 8
+    for (int k = slot.first; k <= ch; ++k) s += __ldg(partial + slot(k) * d + c);
+    store(row, c, s);
+  }
+}
+
+// The grid of launch 1 at V columns a lane: the chunk blocks, then the row
+// blocks; grid.y the column slabs.
+template <int V>
+inline dim3 split_grid(int chunk_blocks, int n_rows, int d) {
+  using C = SlabCfg<V>;
+  constexpr int rows_per_block = kSplitWarps * C::R;
+  return dim3(chunk_blocks + (n_rows + rows_per_block - 1) / rows_per_block,
+              (d + C::SLAB - 1) / C::SLAB);
+}
+
+// Blocks of kSplitWarps chunk warps over the chunks of max_edges edges.
+template <int PIECE>
+inline int split_chunk_blocks(int max_edges) {
+  const int chunks = (max_edges + PIECE - 1) / PIECE;
+  return (chunks + kSplitWarps - 1) / kSplitWarps;
 }
 
 // The weight-gradient walk of the layer backwards (bspline_fused.cu,

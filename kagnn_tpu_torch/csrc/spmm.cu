@@ -29,9 +29,10 @@
 //     the arxiv-sized graph), which stays in L2 where the whole table (43 MB
 //     at D 128 in bf16) does not: whole rows at D 128 gathered from device
 //     memory took 0.12 ms of light rows against 0.05 at D 64 (H100);
-//   * rows split into pieces: the edge array is cut into chunks of kPiece
-//     edges. A row of at most kPiece edges is summed whole by one lane group
-//     in edge order (launch 1, row part: the result of the first version,
+//   * rows split into pieces (kan_common.cuh's split row sum, shared with
+//     gin_fused.cu): the edge array is cut into chunks of kPiece edges. A
+//     row of at most kPiece edges is summed whole by one lane group in edge
+//     order (launch 1, row part: the result of the first version,
 //     bit for bit). A heavier row is summed chunk by chunk: in launch 1 one
 //     warp a chunk sums the row's edges inside the chunk, its lane groups
 //     splitting them and meeting in a fixed shuffle tree, into an f32
@@ -49,116 +50,46 @@
 
 namespace {
 
-constexpr int kWarps = 8;   // warps per block
 constexpr int kPiece = 64;  // edges per chunk: rows above it are split
 
-using kan::csr_piece_sum;
-
-// V columns a lane; L lanes a row cover its slab of L * V columns; U edges
-// in flight per lane group.
-template <int V>
-struct Cfg {
-  static constexpr int L = V == 1 ? 32 : 8;
-  static constexpr int SLAB = L * V;
-  static constexpr int R = 32 / L;                  // lane groups per warp
-  static constexpr int U = L / 2 > 4 ? L / 2 : 4;   // R * U >= 16 gathers a warp
-};
-
-// Launch 1, columns [c0, c0 + SLAB) of slab blockIdx.y. Blocks [0,
-// chunk_blocks) sum the heavy rows' pieces, one warp a chunk, and slab 0's
-// keep the row of each chunk's first edge in `first_row`; the rest sum the
-// light rows whole, one lane group a row.
+// Launch 1 (kan_common.cuh split_row_sum): a light row's sums cast to T.
 template <typename T, int V>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kan::kSplitWarps * 32)
 spmm_csr_kernel(const T* __restrict__ msgs, const int* __restrict__ row_ptr,
                 const int* __restrict__ idx, T* __restrict__ out, float* __restrict__ partial,
                 int* __restrict__ first_row, int n_rows, int d, int chunk_blocks) {
-  using C = Cfg<V>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = lane / C::L, gl = lane % C::L;
-  const int c = blockIdx.y * C::SLAB + gl * V;  // this lane's columns
-  if ((int)blockIdx.x < chunk_blocks) {
-    const int ch = blockIdx.x * kWarps + warp;
-    const int n_edges = __ldg(row_ptr + n_rows);
-    int cs, ce;
-    if (!kan::chunk_edges<kPiece>(ch, n_edges, cs, ce)) return;
-    const int first = kan::row_of_edge(row_ptr, n_rows, cs);
-    const int last = kan::row_of_edge(row_ptr, n_rows, ce - 1);
-    if (lane == 0 && blockIdx.y == 0) first_row[ch] = first;
-#pragma unroll
-    for (int slot = 0; slot < 2; ++slot) {
-      kan::Piece p;
-      if (!kan::chunk_piece<kPiece>(slot, cs, ce, first, last, n_edges, row_ptr, p)) continue;
-      float acc[V];
-      if (c < d) {
-        csr_piece_sum<T, V, C::U>(msgs, idx, p.lo + group, p.hi, C::R, c, d, acc);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] = 0.f;
-      }
-      // the groups' sums meet in a fixed butterfly (the same order every run)
-#pragma unroll
-      for (int off = C::L; off < 32; off <<= 1)
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
-      if (group == 0 && c < d) {
-        float* part = partial + ((size_t)ch * 2 + slot) * d;
-#pragma unroll
-        for (int j = 0; j < V; ++j) part[c + j] = acc[j];
-      }
-    }
-    return;
-  }
-  const int row = ((blockIdx.x - chunk_blocks) * kWarps + warp) * C::R + group;
-  if (row >= n_rows || c >= d) return;
-  const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
-  if (e1 - e0 > kPiece) return;  // a heavy row: launch 2 writes it
-  float acc[V];
-  csr_piece_sum<T, V, C::U>(msgs, idx, e0, e1, 1, c, d, acc);
-  kan::store_pack<T, V>(out + (size_t)row * d + c, acc);
+  kan::split_row_sum<T, V, kPiece>(msgs, row_ptr, idx, partial, first_row, n_rows, d,
+                                   chunk_blocks, [&](int row, int c, const float (&acc)[V]) {
+                                     kan::store_pack<T, V>(out + (size_t)row * d + c, acc);
+                                   });
 }
 
-// Launch 2: one warp a chunk. The heavy row holding the chunk's first edge
-// and ending inside the chunk has all its pieces written: add them in chunk
-// order and cast.
+// Launch 2 (kan_common.cuh split_row_combine): a heavy row's pieces added in
+// chunk order, cast to T.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kan::kSplitWarps * 32)
 spmm_csr_combine_kernel(const int* __restrict__ row_ptr, const float* __restrict__ partial,
                         const int* __restrict__ first_row, T* __restrict__ out, int n_rows,
                         int d) {
-  const int ch = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int n_edges = __ldg(row_ptr + n_rows);
-  int cs, ce, e0, e1;
-  if (!kan::chunk_edges<kPiece>(ch, n_edges, cs, ce)) return;
-  const int row = first_row[ch];
-  if (!kan::ends_heavy<kPiece>(cs, row, n_edges, row_ptr, e0, e1)) return;
-  const kan::PieceSlots slot = kan::piece_slots<kPiece>(e0);
-  for (int c = lane; c < d; c += 32) {
-    float s = 0.f;
-    // 8 loads in flight through the read-only path: the adds keep the order
-#pragma unroll 8
-    for (int k = slot.first; k <= ch; ++k) s += __ldg(partial + slot(k) * d + c);
-    out[(size_t)row * d + c] = kan::from_f<T>(s);
-  }
+  kan::split_row_combine<kPiece>(row_ptr, partial, first_row, n_rows, d,
+                                 [&](int row, int c, float s) {
+                                   out[(size_t)row * d + c] = kan::from_f<T>(s);
+                                 });
 }
 
 template <typename T, int V>
 int launch(const T* msgs, const int* row_ptr, const int* idx, T* out, float* partial,
            int* first_row, int n_rows, int d, int max_edges, cudaStream_t stream) {
-  using C = Cfg<V>;
-  const int chunks = (max_edges + kPiece - 1) / kPiece;
-  const int chunk_blocks = (chunks + kWarps - 1) / kWarps;
-  const int rows_per_block = kWarps * C::R;
-  const dim3 grid(chunk_blocks + (n_rows + rows_per_block - 1) / rows_per_block,
-                  (d + C::SLAB - 1) / C::SLAB);
+  const int chunk_blocks = kan::split_chunk_blocks<kPiece>(max_edges);
+  const dim3 grid = kan::split_grid<V>(chunk_blocks, n_rows, d);
   if (grid.x > 0 && d > 0)
-    spmm_csr_kernel<T, V><<<grid, kWarps * 32, 0, stream>>>(msgs, row_ptr, idx, out, partial,
-                                                           first_row, n_rows, d, chunk_blocks);
+    spmm_csr_kernel<T, V><<<grid, kan::kSplitWarps * 32, 0, stream>>>(
+        msgs, row_ptr, idx, out, partial, first_row, n_rows, d, chunk_blocks);
   if (int e = (int)cudaGetLastError()) return e;
   if (chunk_blocks > 0 && d > 0)
-    spmm_csr_combine_kernel<T><<<chunk_blocks, kWarps * 32, 0, stream>>>(
-        row_ptr, partial, first_row, out, n_rows, d);
+    spmm_csr_combine_kernel<T><<<dim3(chunk_blocks, kan::combine_parts(d)),
+                                 kan::kSplitWarps * 32, 0, stream>>>(row_ptr, partial,
+                                                                     first_row, out, n_rows, d);
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,11 @@ kernels'. The self-loop terms are added by the caller. Padded edges take no
 part.
 
 CUDA kernels: `csrc/gat_bwd.cu` (see its header for the bound on the H100
-and the design: gat_dadst splits a receiver row of more than GAT_PIECE = 64
-valid edges into pieces, combined in chunk order). On a CPU tensor the
-wrappers run the plain versions below; on a CUDA tensor they launch the
-kernels or raise.
+and the design: gat_dadst splits a receiver row, gat_sender a sender row,
+of more than GAT_PIECE = 64 valid edges into pieces, combined in chunk
+order; gat_sender keeps the next round's receivers in flight beside each
+round's gathers). On a CPU tensor the wrappers run the plain versions
+below; on a CUDA tensor they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -92,7 +93,13 @@ def _dadst_fn():
 def _sender_fn():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gat_bwd", "gat_sender",
-                       [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P])
+                       [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P])
+
+
+def sender_partial_width(heads: int, c: int) -> int:
+    """Floats of a heavy sender row's piece partial (csrc/gat_bwd.cu): its
+    H*C columns of dh, then its H of dasrc, rounded up to 16 bytes."""
+    return -(-(heads * c + heads) // 4) * 4
 
 
 def gat_dadst(h, asrc, adst, alpha, s, dout, senders, recv_row_ptr,
@@ -137,11 +144,15 @@ def gat_sender(h, asrc, adst, alpha, s, dout, receivers_by_sender,
                          send_row_ptr)
     dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
     dasrc = torch.empty((n, heads), dtype=torch.float32, device=h.device)
+    # the heavy sender rows' pieces (two slots a chunk) and each chunk's
+    # first row
+    scratch = torch.empty(gat_chunks(n_edge) * (2 * sender_partial_width(heads, c) + 1),
+                          dtype=torch.float32, device=h.device)
     err = _sender_fn()(h.data_ptr(), asrc.data_ptr(), adst.data_ptr(),
                        alpha.data_ptr(), s.data_ptr(), dout.data_ptr(),
                        receivers_by_sender.data_ptr(), send_row_ptr.data_ptr(),
-                       dh.data_ptr(), dasrc.data_ptr(), n, heads, c,
-                       int(n_edge), float(slope), code, stream_of(h))
+                       dh.data_ptr(), dasrc.data_ptr(), scratch.data_ptr(), n,
+                       heads, c, int(n_edge), float(slope), code, stream_of(h))
     _build.check(err, "gat_sender")
     gat_sender.launches += 1
     return dh, dasrc

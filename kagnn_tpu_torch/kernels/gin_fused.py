@@ -15,9 +15,13 @@ with the gather index `receivers_by_sender` (kernels/spmm.py), then
 dx = (1 + eps) * dz + A^T dz. When x needs no gradient (the node features of
 the first conv) the dz and A^T dz work is skipped.
 
-CUDA kernel: `csrc/gin_fused.cu` (see its header for the bound on the H100
-and the design). On a CPU tensor the wrapper runs the plain version below;
-on a CUDA tensor it launches the kernel or raises.
+CUDA kernels: `csrc/gin_fused.cu` (see its header for the bound on the H100
+and the design): the aggregate as spmm's split row sum (a receiver row of
+more than PIECE = 64 edges summed in pieces, added in chunk order) writing
+z and, under bf16, the f32 z to scratch; then the KANLinear on the f32 z,
+on the tensor cores under bf16 (the B-spline forward's tile), on the CUDA
+cores in f32. On a CPU tensor the wrapper runs the plain version below; on
+a CUDA tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -26,16 +30,14 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
+from kagnn_tpu_torch.kernels._common import (aligned, check_cuda,
                                              dtype_code, segment_ids,
                                              stream_of)
-from kagnn_tpu_torch.kernels.bspline_fused import (D_CHUNK, _check_layer,
+from kagnn_tpu_torch.kernels.bspline_fused import (_check_layer,
                                                    kan_forward_f32,
                                                    kan_linear_bwd,
                                                    weight_layouts)
-
-ROWS = 32  # csrc/kan_common.cuh kFwdRows
-from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum
+from kagnn_tpu_torch.kernels.spmm import PIECE, sorted_segment_sum
 
 
 def gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k, eps):
@@ -52,8 +54,8 @@ def gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k, eps):
 def _fn(k: int, grid: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gin_fused", "gin_fwd",
-                       [P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
-                       (k, grid))
+                       [P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, I,
+                        I, P], (k, grid))
 
 
 def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float):
@@ -67,19 +69,23 @@ def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float):
     n, D, O, grid = _check_layer(x, knots, wb, ws, k)
     check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
     check_cuda("senders", senders, torch.int32, (None,))
+    wb, ws = aligned(wb), aligned(ws)  # staged with cp.async under bf16
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     z = torch.empty_like(x)
-    # the f32 z tile beside the basis chunk in shared memory, or (wide
-    # inputs) in a device scratch (csrc/gin_fused.cu)
-    zbuf = None
-    if 4 * ROWS * ((grid + k + 1) * D_CHUNK + D) > SMEM_LIMIT:
-        zbuf = torch.empty((-(-n // ROWS) * ROWS, D), dtype=torch.float32,
-                           device=x.device)
+    # under bf16 the unrounded f32 z that the forward reads; the heavy rows'
+    # pieces (two slots of D a chunk) and each chunk's first row
+    z32 = (None if x.dtype == torch.float32 else
+           torch.empty((n, D), dtype=torch.float32, device=x.device))
+    edges = senders.numel()
+    chunks = -(-edges // PIECE)
+    partial = torch.empty((2 * chunks, D), dtype=torch.float32, device=x.device)
+    first_row = torch.empty((chunks,), dtype=torch.int32, device=x.device)
     err = _fn(k, grid)(x.data_ptr(), senders.data_ptr(),
                        recv_row_ptr.data_ptr(), knots.data_ptr(),
                        wb.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                       z.data_ptr(), None if zbuf is None else zbuf.data_ptr(),
-                       n, D, O, float(eps), grid, k, code, stream_of(x))
+                       z.data_ptr(), None if z32 is None else z32.data_ptr(),
+                       partial.data_ptr(), first_row.data_ptr(), n, D, O,
+                       float(eps), edges, grid, k, code, stream_of(x))
     _build.check(err, "gin_fwd")
     gin_kan_fwd.launches += 1
     return out, z

@@ -2,9 +2,14 @@
 the autograd Functions of the FastKAN, GCN, GAT and RBF kernels, the bar of
 a bf16 weight gradient summed over row tiles (`dw_walk_check`), the
 graphs of the split gcn_agg (`gcn_split_graph`), the GAT kernels' split
-of heavy receiver rows (`gat_split_case`, `check_gat_split`), spmm's split
-of heavy rows of either CSR (`spmm_split_graph`, `check_spmm_split`) and the
-kernels the RBF backward launches by dtype (`rbf_bwd_kernels`)."""
+of heavy receiver rows (`gat_split_case`, `check_gat_split`) and of heavy
+sender rows (`gat_sender_split_case`, `check_gat_sender_split`), spmm's
+split of heavy rows of either CSR (`spmm_split_graph`, `check_spmm_split`;
+the f64 references of the spmm and gcn_agg checks on heavy rows,
+`spmm_f64`, `gcn_agg_f64`),
+gin_fused's split of heavy receiver rows on the same graph
+(`check_gin_split`) and the kernels the RBF backward launches by dtype
+(`rbf_bwd_kernels`)."""
 from __future__ import annotations
 
 import torch
@@ -12,16 +17,19 @@ import torch
 import numpy as np
 
 from kagnn_tpu_torch.graphs import single_graph
+from kagnn_tpu_torch.kan.bspline import make_grid
 from kagnn_tpu_torch.kernels import bspline_fused as bf
 from kagnn_tpu_torch.kernels import fastkan_layer as fk
 from kagnn_tpu_torch.kernels import gat_bwd as gbw
 from kagnn_tpu_torch.kernels import gat_fused as gfu
 from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+from kagnn_tpu_torch.kernels import gin_fused as gf
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
-from kagnn_tpu_torch.kernels._common import (GAT_PIECE, dw_tile, round_to,
-                                             tile_partials)
+from kagnn_tpu_torch.kernels._common import (GAT_PIECE, dleaky, dw_tile,
+                                             gat_edges, leaky, round_to,
+                                             segment_ids, tile_partials)
 
 BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
 # A bf16 weight gradient that a kernel walks over row tiles (the RBF,
@@ -366,6 +374,76 @@ def check_gat_split(kind: str, heads: int, c: int, dtype, close, gen):
     return err, err_dadst
 
 
+def gat_sender_split_case(kind: str, device="cuda"):
+    """(graph, n_edge) for gat_sender's split of heavy sender rows:
+    gat_split_case's edges reversed, so that node 0 sends 2,748 valid edges
+    and nodes 300-303 send 63, 64, 65 and 300 (two heavy rows starting inside
+    one chunk of the sender order), with the same light rows, isolated
+    nodes and 1,024-edge padding; "heavy" and "light" cut n_edge inside
+    node 303's out-edges, the last of the sender order, leaving it 200
+    (still heavy, its range running past n_edge) or 40 (light by its valid
+    edges)."""
+    g, _ = gat_split_case("all", device="cpu")
+    valid = slice(0, g.n_edge)
+    rcv = torch.repeat_interleave(
+        torch.arange(g.n_node_pad), torch.diff(g.recv_row_ptr).long())[valid]
+    rg = single_graph(rcv.numpy(), g.senders[valid].long().numpy(), n_node=g.n_node,
+                      edge_pad_multiple=1024, device=device)
+    row = GAT_SPLIT_ROWS[-1][0]
+    start = int(rg.send_row_ptr[row])
+    if int(rg.send_row_ptr[row + 1]) != rg.n_edge:
+        raise AssertionError("gat_sender_split_case: node 303 is not the last sender")
+    return rg, {"all": rg.n_edge, "heavy": start + 200, "light": start + 40}[kind]
+
+
+def gat_sender_f64(h, asrc, adst, alpha, s, dout, receivers_by_sender, send_row_ptr,
+                   n_edge: int, slope: float):
+    """gat_sender_plain's function with every product and sum in f64, rounded
+    once to f32: (dh, dasrc)."""
+    snd, rcv = gat_edges(send_row_ptr, receivers_by_sender, n_edge)
+    heads, d = asrc.shape[1], torch.float64
+    c = h.shape[1] // heads
+    z = asrc.to(d)[snd] + adst.to(d)[rcv]
+    w = torch.exp(torch.clamp_max(leaky(z, slope) - alpha.to(d)[rcv], gbw.CLAMP))
+    dw = (dout[rcv].to(d) * h[snd].to(d)).reshape(snd.numel(), heads, c).sum(2)
+    dz = w * (dw - s.to(d)[rcv]) * dleaky(z, slope)
+    dh = torch.zeros(h.shape, dtype=d, device=h.device).index_add_(
+        0, snd, w.repeat_interleave(c, 1) * dout[rcv].to(d))
+    dasrc = torch.zeros(alpha.shape, dtype=d, device=h.device).index_add_(0, snd, dz)
+    return dh.float(), dasrc.float()
+
+
+def check_gat_sender_split(kind: str, heads: int, c: int, dtype, close, gen):
+    """gat_sender (dh, dasrc) on gat_sender_split_case(kind) at H heads of C
+    columns, logits of a few units, alpha and S from the plain forward over
+    the same graph's receiver CSR, against its plain function evaluated in
+    f64 (`gat_sender_f64`); called twice and equal bit for bit (no
+    atomics). close(name, got, want) holds a pair to the f32 bar of the
+    backward's sums. The f64 evaluation, not the plain version's f32 one:
+    its sums of node 0's 2,748 out-edges read up to 1.02 of that bar against
+    the f64 ones on this graph, the kernel's split order up to 0.70 (CPU,
+    PERF.md §6). Returns the largest error."""
+    g, n_edge = gat_sender_split_case(kind)
+    n, hc = g.n_node_pad, heads * c
+
+    def rand(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    h, dout = rand((n, hc), dtype), rand((n, hc), dtype)
+    asrc, adst = rand((n, heads), torch.float32, 2.0), rand((n, heads), torch.float32, 2.0)
+    out, alpha = gfu.gat_fwd_plain(h, asrc, adst, g.senders, g.recv_row_ptr, g.n_edge, 0.2)
+    s = (dout * out).float().reshape(n, heads, c).sum(2).contiguous()
+    sa = (h, asrc, adst, alpha, s, dout, g.receivers_by_sender, g.send_row_ptr, n_edge, 0.2)
+    got = gbw.gat_sender(*sa)
+    tag = f"{kind} H={heads} C={c}"
+    err = max(close(f"gat_sender split {tag} {w}", a, b)
+              for w, a, b in zip(("dh", "dasrc"), got, gat_sender_f64(*sa)))
+    again = gbw.gat_sender(*sa)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"gat_sender split {tag}: two calls differ")
+    return err
+
+
 # (row, edges) of spmm_split_graph's rows around spmm's piece: the main
 # graph's hub in-degree at node 0 (43 pieces), one short of a piece, a piece
 # and one past it; node 1 sends SPMM_SPLIT_SENDS edges (a heavy row of the
@@ -394,13 +472,36 @@ def spmm_split_graph(device="cuda"):
     return g
 
 
+def spmm_f64(msgs, row_ptr, idx=None):
+    """sorted_segment_sum_plain's function with its sum in f64, rounded once
+    to msgs' dtype: the reference of the spmm checks on heavy rows. The plain
+    version's f32 `index_add_` adds a row's terms in the order its atomics
+    land, which changes from run to run on the card: against the kernel's
+    fixed order, the main graph's 2,748-term hub row alone read 0.22, 0.75
+    and 1.34 of the f32 bar in three runs of the same inputs and kernel
+    (H100, PERF.md §6 PR 10)."""
+    n = row_ptr.numel() - 1
+    src = msgs if idx is None else msgs.index_select(0, idx.long())
+    out = torch.zeros((n,) + tuple(msgs.shape[1:]), dtype=torch.float64,
+                      device=msgs.device)
+    return out.index_add_(0, segment_ids(row_ptr), src.double()).to(msgs.dtype)
+
+
+def gcn_agg_f64(hs, dinv, senders, recv_row_ptr):
+    """gcn_agg_plain's function with its sum, self term and scale in f64,
+    rounded once to hs' dtype (the reference of the gcn_agg checks on heavy
+    rows, for the reason `spmm_f64` gives)."""
+    agg = spmm_f64(hs.double(), recv_row_ptr, senders)
+    return ((agg + hs.double()) * dinv.double()[:, None]).to(hs.dtype)
+
+
 def check_spmm_split(g, d: int, dtype, close, gen):
-    """sorted_segment_sum against its plain version at D = d over g's
-    receiver CSR with idx = senders (the gin/fastkan sum), its sender CSR
-    with idx = receivers_by_sender (A^T dz) and the receiver CSR over
-    messages without idx; each called twice and equal bit for bit (no
-    atomics). close(name, got, want) holds a pair to the kernels' bar.
-    Returns the largest error."""
+    """sorted_segment_sum against its plain function evaluated in f64
+    (`spmm_f64`) at D = d over g's receiver CSR with idx = senders (the
+    gin/fastkan sum), its sender CSR with idx = receivers_by_sender (A^T dz)
+    and the receiver CSR over messages without idx; each called twice and
+    equal bit for bit (no atomics). close(name, got, want) holds a pair to
+    the kernels' bar. Returns the largest error."""
     n, e = g.n_node_pad, g.n_edge_pad
 
     def rand(rows):
@@ -411,28 +512,83 @@ def check_spmm_split(g, d: int, dtype, close, gen):
                        ("sender CSR", (rand(n), g.send_row_ptr, g.receivers_by_sender)),
                        ("receiver CSR, no idx", (rand(e), g.recv_row_ptr))):
         got = spmm.sorted_segment_sum(*args)
-        err = max(err, close(f"spmm split {name} D={d}", got,
-                             spmm.sorted_segment_sum_plain(*args)))
+        err = max(err, close(f"spmm split {name} D={d}", got, spmm_f64(*args)))
         if not torch.equal(got, spmm.sorted_segment_sum(*args)):
             raise AssertionError(f"spmm split {name} D={d}: two calls differ")
     return err
 
 
-def rbf_bwd_kernels(x, w, dout, want: set) -> set:
-    """The kernel names (utils/profiling.kernel_base_name) that rbf_spline_bwd
-    launches on the card, from torch.profiler: three calls a profile, profiled
-    again, up to three times, while the names are not `want` (after many
-    profiles in one process, profiles on the H100 came back without some or
-    all of their kernels' events); the last profile's names."""
+# (spline order, grid size) of check_gin_split: the main paths' and the
+# search space's largest
+GIN_SPLIT_SHAPES = ((3, 4), (4, 16))
+
+
+def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4)):
+    """gin_kan_fwd at D = d, O = o and (spline order, grid size) `shape`
+    over g's receiver CSR (spmm_split_graph: a 2,748-edge row, rows of
+    63-65, the pad row heavy by its padding) against the plain KANLinear
+    (`kan_forward_f32`) of the exactly summed z (the aggregate summed in f64,
+    then (1+eps)*x, rounded once to f32): z of every row, the pad row's too,
+    and out of the graph's rows (the pad row's output is unspecified, as in
+    the JAX kernel); called twice and equal bit for bit (no atomics).
+    close(name, got, want) holds a pair to the kernels' bar. The exact sum,
+    not the plain version's own f32 one: on this graph, through the layer,
+    the plain version's sum of node 0's 2,748 terms in edge order reads up
+    to 1.16 of the f32 bar against the exact one, the kernel's pieces 0.06
+    (CPU, PERF.md §6). Returns the largest error."""
+    k, grid = shape
+    n = g.n_node_pad
+
+    def rand(shape_, scale=1.0):
+        return (torch.randn(shape_, generator=gen, device=gen.device) * scale).to(dtype)
+
+    knots = make_grid(d, grid, k, device="cuda").t().contiguous().to(dtype)
+    x, wb, ws = rand((n, d)), rand((d, o), 0.3), rand(((grid + k) * d, o), 0.3)
+    ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.25)
+    got = gf.gin_kan_fwd(*ga)
+    agg = torch.zeros((n, d), dtype=torch.float64, device=x.device).index_add_(
+        0, segment_ids(g.recv_row_ptr), x.index_select(0, g.senders.long()).double())
+    z32 = (agg + 1.25 * x.double()).float()
+    want = bf.kan_forward_f32(z32, knots, wb, ws, k, dtype), z32.to(dtype)
+    tag = f"order {k} grid {grid} D={d} O={o}"
+    err = max(close(f"gin_fused split {tag} out", got[0][g.node_mask], want[0][g.node_mask]),
+              close(f"gin_fused split {tag} z", got[1], want[1]))
+    again = gf.gin_kan_fwd(*ga)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"gin_fused split {tag}: two calls differ")
+    return err
+
+
+def profiled_kernels(fn, want: set) -> set:
+    """The kernel names (utils/profiling.kernel_base_name) that fn() launches
+    on the card, from torch.profiler: three calls a profile, profiled again,
+    up to three times, while the names are not `want` (after many profiles
+    in one process, profiles on the H100 came back without some or all of
+    their kernels' events); the last profile's names."""
     from kagnn_tpu_torch.utils.profiling import device_profile, kernel_base_name
 
     for _ in range(3):
-        prof = device_profile(lambda: [rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0)
-                                       for _ in range(3)], 3)
+        prof = device_profile(lambda: [fn() for _ in range(3)], 3)
         names = {kernel_base_name(key) for key, _, _ in prof.kernels}
         if names == want:
             break
     return names
+
+
+def rbf_bwd_kernels(x, w, dout, want: set) -> set:
+    """profiled_kernels of rbf_spline_bwd(x, w, dout)."""
+    return profiled_kernels(lambda: rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0), want)
+
+
+def gin_fused_expected(x) -> set:
+    """The kernels gin_kan_fwd launches for x: the split aggregate's two, then
+    the forward on the tensor cores where x is bf16, on the CUDA cores where
+    it is f32."""
+    fwd = "gin_fwd_mma_kernel" if x.dtype == torch.bfloat16 else "gin_fwd_kernel"
+    return {"gin_sum_kernel", "gin_sum_combine_kernel", fwd}
+
+
+GAT_SENDER_KERNELS = {"gat_sender_kernel", "gat_sender_combine_kernel"}
 
 
 def rbf_bwd_expected(x, w, parts: int) -> set:

@@ -260,12 +260,14 @@ def device_profile(run: Callable[[], None], n_calls: int) -> DeviceProfile:
 # The kernel rows by the CUDA function names of csrc/: each library's
 # kernels carry its prefix, a layer forward's kernels (on the CUDA cores
 # or the tensor cores) the stem `<prefix>_fwd`, and each GAT kernel's
-# launches (the split rows' piece and combine kernels too) its row's stem.
+# launches (the split rows' piece and combine kernels too) its row's stem;
+# gin_fused's four kernels (the split aggregate's two, the forwards on the
+# tensor cores and the CUDA cores) carry `gin_`, after gin_fastkan's.
 # The first prefix a profiled name starts with decides its row. The tile walk (kan::walk_tiles_kernel)
 # is shared by the three layer backwards and goes to the one the path
 # launched.
 KERNEL_NAMES = (("bspline_fwd", "bspline_fwd"), ("bspline_", "bspline_bwd"),
-                ("gin_fwd_kernel", "gin_fused"), ("gin_fastkan_kernel", "gin_fastkan"),
+                ("gin_fastkan", "gin_fastkan"), ("gin_", "gin_fused"),
                 ("fastkan_fwd", "fastkan_fwd"), ("fastkan_", "fastkan_bwd"),
                 ("rbf_fwd", "rbf_fwd"), ("rbf_", "rbf_bwd"),
                 ("gat_fwd", "gat_fwd"), ("gat_dadst", "gat_dadst"),

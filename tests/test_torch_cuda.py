@@ -34,13 +34,17 @@ from kagnn_tpu_torch.kernels import gin_fused as gf
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
 from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
+                                               GIN_SPLIT_SHAPES,
                                                check_bspline_bwd,
                                                check_fastkan_bwd,
+                                               check_gat_sender_split,
                                                check_gat_split,
+                                               check_gin_split,
                                                check_spmm_split,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
-                                               gcn_split_graph, rbf_bwd_expected,
+                                               gcn_agg_f64, gcn_split_graph,
+                                               rbf_bwd_expected,
                                                rbf_bwd_kernels, rbf_chain,
                                                spmm_split_graph)
 from kagnn_tpu_torch.ops.segment import gcn_aggregate
@@ -485,8 +489,9 @@ def test_rbf_function_uses_its_kernels():
 @pytest.mark.parametrize("D", [64, 128, 40, 42])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_gcn_agg_splits_heavy_rows(dt, D, kind):
-    """gcn_agg against its plain version with a hub row of 100,000
-    in-edges (split into pieces that separate warps sum) and with every row
+    """gcn_agg against its plain function evaluated in f64 (`gcn_agg_f64`:
+    the plain version's atomics add the hub row's terms in a new order each
+    run) with a hub row of 100,000 in-edges (split into pieces that separate warps sum) and with every row
     light, at D 64 (16-byte loads, 8 lanes a bf16 row), 128, 40 (the head's
     width: 5 packs of 8 in bf16, 10 of 4 in f32) and 42 (not whole 16-byte
     packs in either dtype: one value a lane, 32 lanes a row); twice, equal
@@ -498,7 +503,7 @@ def test_gcn_agg_splits_heavy_rows(dt, D, kind):
     dinv = torch.rsqrt(g.in_degrees.float() + 1.0)
     args = (hs, dinv, g.senders, g.recv_row_ptr)
     got = ga.gcn_agg_fwd(*args, g.receivers)
-    close(got, ga.gcn_agg_plain(*args), dt)
+    close(got, gcn_agg_f64(*args), dt)
     assert torch.equal(got, ga.gcn_agg_fwd(*args, g.receivers))
 
 
@@ -737,7 +742,8 @@ def test_layer_backwards_walk_the_jax_tiles_at_the_main_shape(dt, no_tf32):
 @pytest.mark.parametrize("D", [1, 7, 40, 42, 64, 128, 300])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_spmm_splits_heavy_rows(dt, D):
-    """The segment sum against its plain version on a graph whose both CSRs
+    """The segment sum against its plain function evaluated in f64 on a
+    graph whose both CSRs
     hold rows of more than 64 edges (summed in pieces that separate warps
     sum, then combined in chunk order): a receiver row of 2,748 edges and
     rows of 63-65, a sender row of 316, the pad row heavy by its 928 padded
@@ -781,3 +787,35 @@ def test_rbf_bwd_tensor_cores(xw, shape, no_tf32):
     want = rbf_bwd_expected(x, w, parts)
     assert rbf_bwd_kernels(x, w, dout, want) == want
     assert (parts > 1) == (O == 2048)
+
+
+@pytest.mark.parametrize("shape", GIN_SPLIT_SHAPES, ids=[f"{k}-{g}" for k, g in GIN_SPLIT_SHAPES])
+@pytest.mark.parametrize("D", [7, 64, 128, 300])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gin_fused_splits_heavy_rows(dt, D, shape):
+    """gin_kan_fwd (out and z of every row) against its plain version where
+    its aggregate splits receiver rows of more than 64 edges into pieces
+    (kernels/selfcheck.py check_gin_split on spmm_split_graph, which
+    chip_smoke.py runs too): a row of 2,748 edges, rows of 63-65, the pad
+    row heavy by its 928 padded edges; D from 7 (one value a lane) to 300
+    (several column slabs), at the main paths' (spline order, grid size)
+    and the largest; twice, equal bit for bit."""
+    check_gin_split(spmm_split_graph(), D, 64, DTYPES[dt],
+                    lambda name, got, want: close(got, want, dt),
+                    torch.Generator(device="cuda").manual_seed(37), shape)
+
+
+@pytest.mark.parametrize("kind", GAT_SPLIT_CASES)
+@pytest.mark.parametrize("shape", GAT_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gat_sender_splits_heavy_sender_rows(dt, shape, kind):
+    """gat_sender against its plain version where it splits sender rows of
+    more than 64 valid edges (kernels/selfcheck.py gat_sender_split_case,
+    which chip_smoke.py runs too): gat_split_case's edges reversed, node 0
+    sending 2,748, rows sending 63-65 and 300, n_edge cut inside the last
+    ("heavy": 200 valid, "light": 40); at heads of 8-128 columns (rows of
+    several slabs where they pass a warp's 32 slots); twice, equal bit for
+    bit. (chip_smoke.py checks the kernels it launches by name.)"""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    check_gat_sender_split(kind, *shape, DTYPES[dt],
+                           lambda name, got, want: close(got, want, "f32"), gen)

@@ -19,6 +19,18 @@ max, the row's one rounded shift, the sums per piece, the self term first
 and the pieces in chunk order) must match the JAX kernels within the same
 bars as the plain versions: the split keeps the JAX rounding points.
 
+gat_sender's split of heavy sender rows, on a second graph
+(`_sender_graph`): the hub graph's rows reversed, so node 0 sends 2,500
+edges and nodes 1-3 send 63, 64 and 65, with node 200 sending 300 last in
+the sender order and n_edge cut inside its out-edges (200 left: still heavy,
+its range running past n_edge). There the plain `gat_sender` and the
+CUDA kernel's design computed in torch step by step (csrc/gat_bwd.cu: the
+heads in slabs that fill a warp's 32 slots, `_sender_layout`, several rows
+a warp where a row is narrower; a light row summed whole in edge order; a
+heavy row's pieces each summed by the warp's lane groups taking every R-th
+edge and met in a butterfly, then added in chunk order) against `gat_bwd_sender` in interpret mode with the edges past
+n_edge masked, and the schedule over the sender CSR.
+
 Bars (test_torch_gat.py's): f32 1e-4 of the output's scale (1e-3 for the
 backward's sums), bf16 4 bf16 ulps of the output's scale."""
 import functools
@@ -35,7 +47,7 @@ from kagnn_tpu.pallas.gat_fused import CHUNK, IMAX, _gat_fwd_parts
 from kagnn_tpu_torch.graphs import single_graph
 from kagnn_tpu_torch.kernels import gat_bwd as gbw
 from kagnn_tpu_torch.kernels import gat_fused as gfu
-from kagnn_tpu_torch.kernels._common import GAT_PIECE, leaky
+from kagnn_tpu_torch.kernels._common import GAT_PIECE, gat_edges, leaky
 
 torch.set_num_threads(1)
 
@@ -171,11 +183,12 @@ def _schedule(row_ptr, n_edge, piece=GAT_PIECE):
     return pieces, combines
 
 
-def _split_edges(g, n_edge):
+def _split_edges(g, n_edge, row_ptr=None):
     """Per valid edge the piece it is summed in: its slot for a heavy row,
     -1 - row for a light row (summed whole by its row's warp); and per row
-    its pieces in the combine's order (chunk order), or None."""
-    rp = g.recv_row_ptr.tolist()
+    its pieces in the combine's order (chunk order), or None. Over the
+    receiver CSR, or the CSR of `row_ptr`."""
+    rp = (g.recv_row_ptr if row_ptr is None else row_ptr).tolist()
     pieces, combines = _schedule(rp, n_edge)
     of_edge = np.full(n_edge, 0, np.int64)
     for r in range(len(rp) - 1):
@@ -304,3 +317,147 @@ def test_split_rows_keep_the_jax_rounding_points(dt):
     a, s = (torch.from_numpy(want[k]) for k in ("alpha", "s"))
     dadst = _split_dadst(h, asrc, adst, a, s, dout, g, g.n_edge)
     close(dadst, want["dadst"], "f32", grad=True, err_msg="split dadst", scaled=True)
+
+
+# --- gat_sender's split of heavy sender rows --------------------------------
+
+SENDS = ((0, HUB), (1, GAT_PIECE - 1), (2, GAT_PIECE), (3, GAT_PIECE + 1))
+LAST = (200, 300)  # the last sender row, heavy, cut by n_edge
+CUT = 200  # its valid edges left
+
+
+def _sender_graph(n=220, light=1000, isolated=10):
+    """(JAX graph, port graph, n_edge) of the module docstring's second
+    graph."""
+    rng = np.random.default_rng(13)
+    snd = np.concatenate([np.full(d, r) for r, d in SENDS]
+                         + [rng.integers(len(SENDS), LAST[0], light), np.full(LAST[1], LAST[0])])
+    rcv = rng.integers(0, n - isolated, snd.size)
+    kw = dict(n_node=n, edge_pad_multiple=1024)
+    gt = single_graph(snd, rcv, device="cpu", **kw)
+    n_edge = int(gt.send_row_ptr[LAST[0]]) + CUT
+    assert int(gt.send_row_ptr[LAST[0] + 1]) == gt.n_edge > n_edge
+    return jax_single_graph(snd, rcv, **kw), gt, n_edge
+
+
+def _sender_layout(heads, c):
+    """csrc/gat_bwd.cu sender_plan: (heads a slab, lanes a row, rows a
+    warp): P slots of 8 columns a head, the power of two >= C / 8; slabs of
+    HS heads, doubled while under a warp's 32 slots and fewer heads than H;
+    L = min(32, HS * P) lanes a row."""
+    p = 1
+    while p * 8 < c:
+        p *= 2
+    hs = 1
+    while hs < heads and hs * p < 32:
+        hs *= 2
+    lanes = min(32, hs * p)
+    return hs, lanes, 32 // lanes
+
+
+@functools.cache
+def _sender_case(dt):
+    """The second graph, its inputs, alpha and S from the JAX forward over
+    every valid edge, and dh and dasrc of the JAX sender kernel with the
+    sender-order edges past n_edge masked."""
+    jd, _ = DTYPES[dt]
+    gj, gt, n_edge = _sender_graph()
+    rng = np.random.default_rng(14)
+    n, hc = gt.n_node_pad, HEADS * C
+    h, amat, asrc, adst = _attention_inputs(rng, n, HEADS, C, jd)
+    dout = _np32(jnp.asarray(rng.normal(size=(n, hc)), jd))
+    hj, dj = jnp.asarray(h, jd), jnp.asarray(dout, jd)
+    out, (_, alpha) = _gat_fwd_parts(
+        hj, jnp.asarray(asrc), jnp.asarray(adst), jnp.asarray(amat),
+        gj.senders, gj.receivers, gj.edge_mask, HEADS, SLOPE, True)
+    s = jnp.sum((dj * out).astype(jnp.float32).reshape(n, HEADS, C), axis=2)
+
+    def hilo(x):
+        hi = x.astype(jnp.bfloat16)
+        lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+        return hi.astype(jd), lo.astype(jd)
+
+    nrw = jnp.concatenate([*hilo(jnp.asarray(adst)), *hilo(alpha), *hilo(s)], axis=1)
+    rbs = gj.receivers_by_sender
+    keep = gj.edge_mask_by_sender & (jnp.arange(rbs.shape[0]) < n_edge)
+    snd_m = jnp.where(keep, gj.senders_sorted, IMAX)
+    dh, dasrc = gat_bwd_sender(
+        (jnp.take(dj, rbs, axis=0),), jnp.take(nrw, rbs, axis=0), snd_m, hj,
+        jnp.asarray(amat), HEADS, hc, SLOPE, interpret=True, part_widths=(hc,))
+    x = dict(h=h, asrc=asrc, adst=adst, dout=dout, alpha=_np32(alpha), s=_np32(s))
+    return gt, n_edge, x, dict(dh=_np32(dh), dasrc=_np32(dasrc))
+
+
+def _split_sender(h, asrc, adst, alpha, s, dout, g, n_edge):
+    """csrc/gat_bwd.cu's gat_sender in torch on the schedule over the sender
+    CSR, slab by slab of heads: light rows whole in edge order; a heavy
+    row's pieces each summed by R lane groups taking every R-th edge and
+    met in the butterfly, then added in chunk order. Returns (dh, dasrc)."""
+    n, hc = h.shape
+    heads = asrc.shape[1]
+    c = hc // heads
+    hs, _, groups = _sender_layout(heads, c)
+    snd, rcv = gat_edges(g.send_row_ptr, g.receivers_by_sender, n_edge)
+    w, dz = gbw._edge_terms(h, asrc, adst, alpha, s, dout, snd, rcv, SLOPE)
+    vals = torch.cat([w.repeat_interleave(c, 1) * dout[rcv].float(), dz], 1)
+    pieces, of_edge, walks = _split_edges(g, n_edge, g.send_row_ptr)
+    rp = g.send_row_ptr.clamp(max=n_edge).tolist()
+    out = torch.zeros(n, hc + heads)
+    for slab in range(-(-heads // hs)):
+        heads_s = range(slab * hs, min(heads, slab * hs + hs))
+        cols = [hh * c + j for hh in heads_s for j in range(c)] + [hc + hh for hh in heads_s]
+        v = vals[:, cols]
+        for row in range(n):
+            if row not in walks:
+                out[row, cols] = functools.reduce(lambda a, e: a + v[e], range(rp[row], rp[row + 1]),
+                                                  torch.zeros(len(cols)))
+        part = {}
+        for slot, (_, lo, hi) in pieces.items():
+            sums = [functools.reduce(lambda a, e: a + v[e], range(lo + q, hi, groups),
+                                     torch.zeros(len(cols))) for q in range(groups)]
+            off = 1
+            while off < groups:  # lane q adds lane q ^ off's sum
+                sums = [sums[q] + sums[q ^ off] for q in range(groups)]
+                off *= 2
+            part[slot] = sums[0]
+        for row, walk in walks.items():
+            out[row, cols] = functools.reduce(lambda a, k: a + part[k], walk,
+                                              torch.zeros(len(cols)))
+    assert (of_edge >= 0).sum() == sum(hi - lo for _, lo, hi in pieces.values())
+    return out[:, :hc], out[:, hc:]
+
+
+def test_sender_split_schedule_covers_every_heavy_sender_row():
+    """The schedule over the sender CSR clipped at n_edge: the heavy rows are
+    node 0, node 3 and node 200 (300 out-edges, 200 of them valid); each is
+    combined once from pieces of its own covering each of its valid edges
+    once; node 200's pieces stop at n_edge; the pad row (no valid edge) and
+    the rows of 63 and 64 are light."""
+    _, g, n_edge = _sender_graph()
+    pieces, of_edge, walks = _split_edges(g, n_edge, g.send_row_ptr)
+    rp = g.send_row_ptr.clamp(max=n_edge).tolist()
+    assert set(walks) == {0, 3, LAST[0]}
+    for row, walk in walks.items():
+        covered = sorted(e for s_ in walk for e in range(pieces[s_][1], pieces[s_][2]))
+        assert covered == list(range(rp[row], rp[row + 1]))
+        assert all(pieces[s_][0] == row for s_ in walk)
+    assert max(hi for _, _, hi in pieces.values()) == n_edge
+    assert len(of_edge) == n_edge
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_sender_split_matches_jax(dt):
+    """dh and dasrc of the plain gat_sender and of the split, slab by slab,
+    against the JAX sender kernel with the same edges masked; the split
+    against the plain version within the same bar."""
+    _, td = DTYPES[dt]
+    g, n_edge, x, want = _sender_case(dt)
+    h, dout = (torch.from_numpy(x[k]).to(td) for k in ("h", "dout"))
+    asrc, adst, alpha, s = (torch.from_numpy(x[k]) for k in ("asrc", "adst", "alpha", "s"))
+    args = (h, asrc, adst, alpha, s, dout)
+    plain = gbw.gat_sender(*args, g.receivers_by_sender, g.send_row_ptr, n_edge, SLOPE)
+    split = _split_sender(*args, g, n_edge)
+    for name, p, sp, w in zip(("dh", "dasrc"), plain, split, (want["dh"], want["dasrc"])):
+        close(p, w, "f32", grad=True, err_msg=f"plain {name}", scaled=True)
+        close(sp, w, "f32", grad=True, err_msg=f"split {name}", scaled=True)
+        close(sp, p, "f32", grad=True, err_msg=f"split vs plain {name}", scaled=True)

@@ -27,14 +27,17 @@ KERNEL_ROWS = {
     "fastkan_tile_sums_kernel": "fastkan_bwd", "fastkan_row_sums_kernel": "fastkan_bwd",
     "fastkan_dx_sum_kernel": "fastkan_bwd", "fastkan_dw_mma_kernel": "fastkan_bwd",
     "fastkan_dw_partial_kernel": "fastkan_bwd",
-    "gin_fwd_kernel": "gin_fused", "gin_fastkan_kernel": "gin_fastkan",
+    "gin_sum_kernel": "gin_fused", "gin_sum_combine_kernel": "gin_fused",
+    "gin_fwd_kernel": "gin_fused", "gin_fwd_mma_kernel": "gin_fused",
+    "gin_fastkan_kernel": "gin_fastkan",
     "rbf_fwd_kernel": "rbf_fwd", "rbf_dx_kernel": "rbf_bwd",
     "rbf_dw_partial_kernel": "rbf_bwd", "rbf_dx_mma_kernel": "rbf_bwd",
     "rbf_dx_sum_kernel": "rbf_bwd", "rbf_dw_mma_kernel": "rbf_bwd",
     "gat_fwd_kernel": "gat_fwd", "gat_dadst_kernel": "gat_dadst",
     "gat_fwd_max_kernel": "gat_fwd", "gat_fwd_combine_kernel": "gat_fwd",
     "gat_dadst_combine_kernel": "gat_dadst",
-    "gat_sender_kernel": "gat_sender", "gcn_rows_kernel": "gcn_agg",
+    "gat_sender_kernel": "gat_sender", "gat_sender_combine_kernel": "gat_sender",
+    "gcn_rows_kernel": "gcn_agg",
     "gcn_combine_kernel": "gcn_agg", "spmm_csr_kernel": "spmm",
     "spmm_csr_combine_kernel": "spmm",
     "narrow_kernel": "spmm_narrow", "walk_tiles_kernel": None}

@@ -122,6 +122,12 @@ def _piece_sum(src, lo, hi):
 def _split_sum(msgs, row_ptr, idx):
     """The CUDA kernel's split in torch: light rows whole in edge order,
     heavy rows as pieces combined in chunk order, f32 sums, one cast."""
+    return _split_sum32(msgs, row_ptr, idx).to(msgs.dtype)
+
+
+def _split_sum32(msgs, row_ptr, idx):
+    """_split_sum before its cast: the f32 sums (kan_common.cuh's split row
+    sum, which gin_fused.cu shares)."""
     src = (msgs if idx is None else msgs.index_select(0, idx.long())).float()
     rp = row_ptr.numpy().astype(np.int64)
     n = rp.size - 1
@@ -136,7 +142,7 @@ def _split_sum(msgs, row_ptr, idx):
     for row, keys in combines.items():
         out[row] = functools.reduce(lambda a, k: a + part[k], keys,
                                     torch.zeros(msgs.shape[1]))
-    return out.to(msgs.dtype)
+    return out
 
 
 @pytest.mark.parametrize("kind", CSRS)
