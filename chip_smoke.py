@@ -17,7 +17,8 @@ Phases (any failure raises, and the script exits non-zero):
      nodes, a node of in-degree 301, receivers past the last segment) and
      the main paths' shapes (the layer kernels also at the GAT transform's
      widths, 256 = 4 heads x 64; the RBF kernels at the base-free FastKAN's
-     widths with x/w in f32/f32, f32/bf16 and bf16/bf16; the narrow sum at
+     widths with x/w in f32/f32, f32/bf16 and bf16/bf16, with the kernel
+     each launches by its profiled name; the narrow sum at
      k = 4 over the arxiv-sized graph's receivers; spmm also over the
      receiver CSR with idx = senders at the gin/fastkan step's widths, timed
      beside torch.sparse.mm and on its hub row alone and its light rows
@@ -25,7 +26,10 @@ Phases (any failure raises, and the script exits non-zero):
      columns, bit for bit twice; gin_fused, which splits receiver rows of
      more than 64 edges, on that graph at 7-300 columns, bit for bit twice,
      with the kernels it launches by dtype, and on the main graph's hub row
-     alone and light rows alone, timed; gcn_agg also on a hub row
+     alone and light rows alone, timed; gin_fastkan, split the same way, on
+     that graph at 7-300 columns and 4 and 32 centers against its plain
+     function on the exactly summed z, bit for bit twice, and like gin_fused
+     on the main graph; gcn_agg also on a hub row
      of 100,000 in-edges, on a graph of light rows and on the main graph's
      hub row alone, timed, and at D 42, one value a lane; gat_fwd and
      gat_dadst, which split rows of more than 64 valid edges, also on
@@ -52,8 +56,8 @@ Phases (any failure raises, and the script exits non-zero):
      search-space corners of the experiment scripts (`phase_corners`:
      spline order 1-4 and grid 1-16, 2-32 centers, 500 and 3,703
      features, GAT heads of 2-128 columns, 512 outputs; the layer forwards
-     also at 1, 7, 40 and 512 outputs, the RBF backward at 2,048) against
-     its plain version;
+     also at 1, 7, 40 and 512 outputs, the RBF and B-spline backwards at
+     2,048, in output parts) against its plain version;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
      gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan), at five search-space
      corners (STEP_CORNERS) and for the base-free FastKAN and the
@@ -100,9 +104,14 @@ from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
                                                check_bspline_bwd,
                                                check_fastkan_bwd,
                                                check_gat_sender_split,
-                                               check_gat_split, check_gin_split,
-                                               dw_walk_check, gin_fused_expected,
-                                               profiled_kernels)
+                                               check_gat_split,
+                                               check_gin_fastkan_split,
+                                               check_gin_split, dw_walk_check,
+                                               gin_fastkan_expected,
+                                               gin_fastkan_f64,
+                                               gin_fused_expected,
+                                               profiled_kernels,
+                                               rbf_fwd_expected)
 
 NODE_KW = dict(mp_layers=3, num_features=128, hidden_channels=64,
                num_classes=40, grid_size=4, spline_order=3, skip=False,
@@ -141,6 +150,7 @@ def phase_device(torch):
 KAN_CORNERS = ((1, 1), (2, 8), (4, 16), (1, 8))
 FASTKAN_CORNERS = (2, 16, 32)
 FWD_OUTPUTS = (1, 7, 40, 512)  # outputs the layer forwards mask or split
+BSPLINE_WIDE_O = 2048  # outputs of the B-spline backward's corner in parts
 
 
 def phase_build():
@@ -212,6 +222,17 @@ def log_kernel_split(torch, name, fn, calls=5, row=None):
     return {kernel_base_name(key) for key, _, _ in prof.kernels}
 
 
+def log_resources(name, fn):
+    """Log the registers a thread, shared memory a block and estimated
+    occupancy of each kernel fn() launches, from the profiler's trace
+    (`utils/profiling.launch_resources`)."""
+    from kagnn_tpu_torch.utils.profiling import launch_resources
+
+    res = launch_resources(fn)
+    log(f"  {name} resources (registers, shared memory B, est. occupancy %): " + (
+        ", ".join(f"{k} {v}" for k, v in sorted(res.items())) or "not recorded"))
+
+
 def check_forward_kernel(torch, name, fn, want, calls=5):
     """Profile a layer forward (as many calls as log_kernel_split: a profile
     of one call read no device time on the H100 after a few): log the
@@ -267,31 +288,29 @@ def matmul_yardstick(torch, name, basis, w):
         f"by ({k}, {w.shape[1]}): ms={ms:.4f} bound_ms={bms:.4f} ({by})")
 
 
-def log_gin_parts(torch, g, ga, dn, D, O):
-    """gin_fused on the main graph: the kernels it launches for its dtype
-    (the phase fails otherwise), each profiled kernel on the gin_fused row of
-    the kernel table, and the call's time over the receiver CSR's longest row
-    alone and its light rows alone (every other row empty), with the split
-    aggregate's kernels profiled there: its hub row is theirs alone."""
-    from kagnn_tpu_torch.kernels import gin_fused as gf
-
+def log_gin_parts(torch, g, row, fn, ga, want, dn, D, O):
+    """A fused GIN kernel (`row`: gin_fused or gin_fastkan, its wrapper fn
+    with arguments ga = (x, senders, row_ptr, ...)) on the main graph: the
+    kernels it launches for its dtype (`want`; the phase fails otherwise),
+    each profiled kernel on its row of the kernel table, and the call's time
+    over the receiver CSR's longest row alone and its light rows alone
+    (every other row empty), with the split aggregate's kernels profiled
+    there: its hub row is theirs alone."""
     x = ga[0]
-    want = gin_fused_expected(x)
-    names = profiled_kernels(lambda: gf.gin_kan_fwd(*ga), want)
-    log(f"  gin_fused main {dn} D={D} O={O} kernels: {', '.join(sorted(names))}")
+    names = profiled_kernels(lambda: fn(*ga), want)
+    log(f"  {row} main {dn} D={D} O={O} kernels: {', '.join(sorted(names))}")
     if names != want:
-        raise AssertionError(f"gin_fused {dn}: launched {names}, expected {want}")
-    log_kernel_split(torch, f"gin_fused main {dn} D={D} O={O}",
-                     lambda: gf.gin_kan_fwd(*ga), row="gin_fused")
+        raise AssertionError(f"{row} {dn}: launched {names}, expected {want}")
+    log_kernel_split(torch, f"{row} main {dn} D={D} O={O}", lambda: fn(*ga), row=row)
+    log_resources(f"{row} main {dn} D={D} O={O}", lambda: fn(*ga))
     hub_idx, hub_ptr, d_hub, hub = hub_row_alone(g)
     for part, (idx, rp) in ((f"hub row alone (node {hub}, in-degree {d_hub})",
                              (hub_idx, hub_ptr)),
                             ("light rows alone", light_rows_alone(g)[:2])):
         args = (x, idx, rp, *ga[3:])
-        ms = time_ms(lambda: gf.gin_kan_fwd(*args))
-        log(f"  gin_fused {part} {dn} D={D} O={O}: {ms:.4f} ms")
-        log_kernel_split(torch, f"gin_fused {part} {dn} D={D} O={O}",
-                         lambda: gf.gin_kan_fwd(*args))
+        ms = time_ms(lambda: fn(*args))
+        log(f"  {row} {part} {dn} D={D} O={O}: {ms:.4f} ms")
+        log_kernel_split(torch, f"{row} {part} {dn} D={D} O={O}", lambda: fn(*args))
 
 
 def phase_kernels(torch, big):
@@ -429,6 +448,8 @@ def phase_kernels(torch, big):
                     if main:
                         log_kernel_split(torch, f"bspline_bwd main {dn} D={D} O={O}",
                                          lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
+                        log_resources(f"bspline_bwd main {dn} D={D} O={O}",
+                                      lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
                     record("bspline_bwd", errb, main and (D, O) == (64, 64), ms, pms,
                            bms, by)
                 else:
@@ -454,7 +475,8 @@ def phase_kernels(torch, big):
                     log(f"  gin_fused main {dn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
                     record("gin_fused", err, main and D == 64, ms, pms, bms, by)
-                    log_gin_parts(torch, g, ga, dn, D, O)
+                    log_gin_parts(torch, g, "gin_fused", gf.gin_kan_fwd, ga,
+                                  gin_fused_expected(x), dn, D, O)
                 else:
                     record("gin_fused", err, False)
     phase_spmm(torch, big, rows)
@@ -534,22 +556,32 @@ def phase_spmm(torch, big, rows):
 GIN_SPLIT_WIDTHS = (7, 64, 128, 300)
 
 
+# gin_fastkan: centers of check_gin_fastkan_split (the main paths', the
+# search space's most)
+GIN_FASTKAN_SPLIT_G = (4, 32)
+
+
 def phase_gin_split(torch, rows):
-    """gin_fused on spmm_split_graph (a 2,748-edge receiver row, rows of
-    63-65, the pad row heavy by its padding), out and z of every row against
-    its plain version at GIN_SPLIT_WIDTHS and GIN_SPLIT_SHAPES, in f32 and
-    bf16, twice and equal bit for bit (`selfcheck.check_gin_split`)."""
+    """gin_fused and gin_fastkan on spmm_split_graph (a 2,748-edge receiver
+    row, rows of 63-65, the pad row heavy by its padding), out and z of every
+    row against their plain functions on the exactly summed z at
+    GIN_SPLIT_WIDTHS and at GIN_SPLIT_SHAPES (gin_fused) or
+    GIN_FASTKAN_SPLIT_G (gin_fastkan), in f32 and bf16, twice and equal bit
+    for bit (`selfcheck.check_gin_split`, `check_gin_fastkan_split`)."""
     from kagnn_tpu_torch.kernels.selfcheck import spmm_split_graph
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     sg = spmm_split_graph()
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for shape in GIN_SPLIT_SHAPES:
-            for D in GIN_SPLIT_WIDTHS:
+        close = lambda name, a, b: compare(torch, name, a, b, dn)  # noqa: E731
+        for D in GIN_SPLIT_WIDTHS:
+            for shape in GIN_SPLIT_SHAPES:
                 record_row(rows["gin_fused"], check_gin_split(
-                    sg, D, 64, dtype, lambda name, a, b: compare(torch, name, a, b, dn), gen,
-                    shape), False)
+                    sg, D, 64, dtype, close, gen, shape), False)
+            for G in GIN_FASTKAN_SPLIT_G:
+                record_row(rows["gin_fastkan"], check_gin_fastkan_split(
+                    sg, D, 64, dtype, close, gen, G), False)
 
 
 def ragged_graph(torch):
@@ -714,11 +746,14 @@ def phase_new_kernels(torch, big, rows):
                     lambda name, a, b: compare(torch, name, a, b, dn),
                     wrong_must_fail=timed, log=log)
                 ga_args = (x, g.senders, g.recv_row_ptr, *lw, 0.0, -2.0, 2.0)
+                # against the plain function on the exactly summed z (the
+                # plain version's atomics add node 0's 2,748 terms in a new
+                # order each run)
                 errg = max((compare(torch, f"gin_fastkan {gname} D={D} O={O} {w}",
                                     a[nm], b[nm], dn)
                             for w, a, b in zip(("out", "z"),
                                                gfk.gin_fastkan_fwd(*ga_args),
-                                               gfk.gin_fastkan_fwd_plain(*ga_args))),
+                                               gin_fastkan_f64(*ga_args[:-2]))),
                            default=0.0) if gin else 0.0
                 rep = main and (D, O) == (64, 64)
                 if not timed:
@@ -767,6 +802,9 @@ def phase_new_kernels(torch, big, rows):
                             torch.cat([lw[3], lw[2]]))
                     if name == "fastkan_bwd" and main:
                         log_kernel_split(torch, f"fastkan_bwd main {dn} D={D} O={O}", fn)
+                    if name == "gin_fastkan" and O == 64:
+                        log_gin_parts(torch, g, "gin_fastkan", gfk.gin_fastkan_fwd, ga_args,
+                                      gin_fastkan_expected(x), dn, D, O)
                     record_row(rows[name], e, rep, ms=ms, plain_ms=pms,
                                bound_ms=bms, bound_by=by)
     phase_gcn_split(torch, rows)
@@ -978,6 +1016,9 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                     log(f"  {name} main {xn}/{wn} D={D} O={O}: ms={ms:.4f} "
                         f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
                         f"library_ms=none")
+                    if name == "rbf_fwd":
+                        check_rbf_fwd_route(torch, f"rbf_fwd main {xn}/{wn} D={D} O={O}",
+                                            fn, x, w, ops)
                     if name == "rbf_bwd":
                         check_rbf_bwd_route(torch, f"rbf_bwd main {xn}/{wn} D={D} O={O}",
                                             x, w, dout, ops)
@@ -1027,6 +1068,25 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                 record_row(rows["spmm_narrow"], err, dn == "float32", ms=ms,
                            plain_ms=pms, bound_ms=bms, bound_by=by,
                            library_ms=lms)
+
+
+def check_rbf_fwd_route(torch, name, fn, x, w, ops):
+    """Fail unless the RBF forward fn() launched the kernel of w's dtype
+    (`selfcheck.rbf_fwd_expected`: the tensor-core kernel where w is bf16,
+    the CUDA-core one where it is f32); where w is bf16, log the bound of
+    the design's own work: its bf16 products (`rbf_fused.fwd_terms`: three
+    of an f32 basis, one of a bf16 x's; `ops` = 2*N*G*D*O a product) at the
+    tensor cores' peak."""
+    from kagnn_tpu_torch.kernels import rbf_fused as rf
+
+    (want,) = rbf_fwd_expected(w)
+    check_forward_kernel(torch, name, fn, want)
+    log_resources(name, fn)
+    if w.dtype == torch.bfloat16:
+        terms = rf.fwd_terms(x.dtype)
+        tc_ms, _ = H100.bound_ms(0, terms * ops, "bfloat16")
+        log(f"  {name} design: {terms} bf16 products of {ops / 1e9:.2f} GFLOP each, "
+            f"{tc_ms:.4f} ms at the bf16 peak")
 
 
 def check_rbf_bwd_route(torch, name, x, w, dout, ops):
@@ -1110,8 +1170,11 @@ def phase_corners(torch, rows):
 
         close = lambda name, a, b: compare(torch, name, a, b, dn)  # noqa: E731
         shapes = [(k, gs, D, O) for k, gs in KAN_CORNERS for D, O in ((40, 100), (64, 64))]
-        if dtype == torch.bfloat16:  # the backward's output parts
+        if dtype == torch.bfloat16:  # the backward's output pieces
             shapes += [(4, 16, 32, 512), (3, 4, 64, 512)]
+        # 2,048 outputs: the backward's dx kernels take them in parts
+        # (bspline_fused.bwd_parts), except f32 at (4, 16), which fits whole
+        shapes += [(3, 4, 40, BSPLINE_WIDE_O), (4, 16, 40, BSPLINE_WIDE_O)]
         for k, gs, D, O in shapes:
             knots = make_grid(D, gs, k, device="cuda").t().contiguous().to(dtype)
             wb, ws = rand((D, O), dtype, 0.3), rand(((gs + k) * D, O), dtype, 0.3)
@@ -1122,6 +1185,9 @@ def phase_corners(torch, rows):
                 bf.kan_linear_fwd_plain(*fa))
             cmp_bwd("bspline_bwd", check_bspline_bwd(f"bspline_bwd corner {tag}", *fa[:4],
                                                      dout, k, close, log=log))
+            if O == BSPLINE_WIDE_O:
+                log_resources(f"bspline_bwd corner {tag} {dn}",
+                              lambda: bf.kan_linear_bwd(*fa[:4], dout, k))
             ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.25)
             for w, a, b in zip(("out", "z"), gf.gin_kan_fwd(*ga), gf.gin_kan_fwd_plain(*ga)):
                 cmp("gin_fused", f"gin_fused corner {tag} {w}", a[nm], b[nm])
@@ -1141,7 +1207,7 @@ def phase_corners(torch, rows):
                                                      dout, close, log=log))
             ga = (x, g.senders, g.recv_row_ptr, *lw, 0.25, -2.0, 2.0)
             for w, a, b in zip(("out", "z"), gfk.gin_fastkan_fwd(*ga),
-                               gfk.gin_fastkan_fwd_plain(*ga)):
+                               gin_fastkan_f64(*ga[:-2])):
                 cmp("gin_fastkan", f"gin_fastkan corner {tag} {w}", a[nm], b[nm])
             w_ = rand((G * D, O), dtype, 0.3)
             cmp("rbf_fwd", f"rbf_fwd corner {tag}", rf.rbf_spline_fwd(x, w_, -2.0, 2.0),

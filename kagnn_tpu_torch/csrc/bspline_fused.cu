@@ -44,10 +44,16 @@
 //      tiles' dout and x go through two shared-memory buffers, the next
 //      tile's copied with cp.async while this one computes. Where the
 //      chunk's weights do not fit beside the tiles (wide outputs at large
-//      basis counts) they are staged in output parts per tile instead. f32:
+//      basis counts) they are staged in output pieces per tile instead. f32:
 //      bspline_dx_kernel, the same function on the CUDA cores, 64-row tiles (16 or
 //      32 at large basis counts), the chunk's weights staged one 64-wide
-//      (or 32-wide) output tile at a time;
+//      (or 32-wide) output tile at a time. Both stage whole rows of dout;
+//      where those do not fit in a block (past about 650 outputs in f32 and
+//      1,650 in bf16 at the main path's basis count) the outputs are cut into
+//      parts of a width the caller plans (kernels/bspline_fused.py
+//      `bwd_parts`), each part's f32 share of dx goes to scratch, and
+//      bspline_dx_sum_kernel adds the parts in order (rbf_fused.cu's
+//      design). With one part nothing changes: no scratch, no extra launch;
 //   2. dW partials, one per row tile of the JAX backward (128 rows): the
 //      TPU kernel adds them across its sequential grid; Hopper blocks run in
 //      parallel, so each (feature chunk, tile) block writes its partial of
@@ -69,8 +75,8 @@
 // Shapes: each library is built for one (spline order, grid size), any
 // order 1-4 and grid 1-16 (KAN_ORDER, KAN_GRID; kernels/_build.py), as the
 // JAX kernels take the order and basis count as parameters. D and O are
-// free up to the shared memory the staged tiles need
-// (kernels/bspline_fused.py::bwd_smem).
+// free: the dx kernels cut wide outputs into parts, the dW kernels stage
+// them in parts (kernels/bspline_fused.py::bwd_smem sizes a part).
 
 #include "kan_fwd.cuh"
 
@@ -113,25 +119,29 @@ bspline_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knot
   kan_fwd_mma_body<bf16, ORDER, GRID, NPW>(x, knots, wb, ws, out, n, D, O, plan);
 }
 
+// grid (row tiles of X::ROWS, output parts of OP): the block stages its
+// rows' dout over the part's outputs once. With one part (OP = O) it writes
+// dx, with several the part's f32 share into vbuf.
 template <typename T, int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
 bspline_dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T* __restrict__ wb,
-                  const T* __restrict__ ws, const T* __restrict__ dout, T* __restrict__ dx, int n,
-                  int D, int O) {
+                  const T* __restrict__ ws, const T* __restrict__ dout, T* __restrict__ dx,
+                  float* __restrict__ vbuf, int n, int D, int O, int OP) {
   using S = Shape<ORDER, GRID>;
   using X = DxF32<S::NG>;
   constexpr int RPT = X::RPT;
   constexpr int pitch = S::AC + 1;  // odd pitch: conflict-free staging stores
   extern __shared__ __align__(16) float smem[];
-  float* dout_s = smem;                 // ROWS x O
-  float* w_s = smem + X::ROWS * O;      // OTX x pitch, [o - o0][g*kDC + j]
+  float* dout_s = smem;                 // ROWS x OP
+  float* w_s = smem + X::ROWS * OP;     // OTX x pitch, [o - o0][g*kDC + j]
   const int row0 = blockIdx.x * X::ROWS;
   const int dd = threadIdx.x % kDC;
   const int rg = threadIdx.x / kDC;  // 8 row groups of RPT rows
+  const int part = blockIdx.y, op = part * OP, kw = min(OP, O - op);
 
-  for (int i = threadIdx.x; i < X::ROWS * O; i += kThreads) {
-    const int row = row0 + i / O;
-    dout_s[i] = row < n ? to_f(dout[(size_t)row0 * O + i]) : 0.f;
+  for (int i = threadIdx.x; i < X::ROWS * kw; i += kThreads) {
+    const int r = i / kw, row = row0 + r;
+    dout_s[r * OP + i % kw] = row < n ? to_f(dout[(size_t)row * O + op + i % kw]) : 0.f;
   }
   for (int d0 = 0; d0 < D; d0 += kDC) {
     float acc[RPT][S::NG];
@@ -141,15 +151,15 @@ bspline_dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T*
       for (int g = 0; g < S::NG; ++g) acc[i][g] = 0.f;
     // the chunk's weights one OTX-wide tile of outputs at a time, so that
     // shared memory does not grow with O; acc sums over o in order
-    for (int o0 = 0; o0 < O; o0 += X::OTX) {
-      const int on = min(X::OTX, O - o0);
+    for (int o0 = 0; o0 < kw; o0 += X::OTX) {
+      const int on = min(X::OTX, kw - o0);
       __syncthreads();  // dout_s is complete; the previous tile is consumed
       for (int i = threadIdx.x; i < on * S::AC; i += kThreads) {
         const int o = i % on, rest = i / on;
         const int j = rest % kDC, g = rest / kDC;
         const int d = d0 + j;
         w_s[o * pitch + g * kDC + j] =
-            d < D ? to_f(weight_row(wb, ws, g, d, D, O)[o0 + o]) : 0.f;
+            d < D ? to_f(weight_row(wb, ws, g, d, D, O)[op + o0 + o]) : 0.f;
       }
       __syncthreads();
       for (int o = 0; o < on; ++o) {
@@ -158,7 +168,7 @@ bspline_dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T*
         for (int g = 0; g < S::NG; ++g) w[g] = w_s[o * pitch + g * kDC + dd];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
-          const float dv = dout_s[(rg * RPT + i) * O + o0 + o];
+          const float dv = dout_s[(rg * RPT + i) * OP + o0 + o];
 #pragma unroll
           for (int g = 0; g < S::NG; ++g) acc[i][g] += dv * w[g];
         }
@@ -183,7 +193,10 @@ bspline_dx_kernel(const T* __restrict__ x, const T* __restrict__ knots, const T*
           const float right = pen[g + 1] * (1.f / (t[g + ORDER + 1] - t[g + 1]));
           v += acc[i][g + 1] * ((float)ORDER * (left - right));
         }
-        dx[(size_t)row * D + d] = from_f<T>(v);
+        if (vbuf != nullptr)
+          vbuf[((size_t)part * n + row) * D + d] = v;
+        else
+          dx[(size_t)row * D + d] = from_f<T>(v);
       }
     }
   }
@@ -261,31 +274,37 @@ bspline_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ knots,
 
 constexpr int kXPitch = kDC + 8;  // bf16 a row of the dx kernel's staged x tile
 
-// dx under bf16. grid (persistent row blocks, D chunks). Shared memory:
-// W_s (AC x (OW + 8)): row n = nw*NG*8 + g*8 + l holds columns o0..o0+OW-1
-// of [Wb; Ws] row (g, d0 + nw*8 + l), so warp (mw, nw) (8 warps: 2 x 4)
-// computes rows mw*16.. of the 32-row tile against NG n-tiles that are the
-// NG groups of its 8 features; two buffers of the tile's dout (32 x (O16 +
-// 8)) and of its x chunk (32 x kXPitch). The next tile's dout and x are
-// copied with cp.async while this one computes, so the epilogue reads x
-// from shared memory. When the chunk's weights fit (OW = O16, every main
-// path) W_s is staged once, with the first tile, and stays; otherwise (wide
-// outputs at large basis counts) the tile's product walks O in OW-wide
-// parts, each staged in turn, and acc sums over them in order. One block an
-// SM at the main path's shape (about 170 registers a thread): two at 128
-// registers, with the knots in shared memory and x loaded ahead of the
-// barrier, measured slower on the H100.
+// dx under bf16. grid (persistent row blocks, D chunks, output parts of
+// OP). A block takes the outputs o0p .. o0p + OP - 1 of its part (all of
+// them, OP = O16, unless two buffers of the tile's dout rows do not fit:
+// very wide outputs). Shared memory: W_s (AC x (OW + 8)): row n = nw*NG*8 +
+// g*8 + l holds columns o0..o0+OW-1 of the part's [Wb; Ws] row (g, d0 +
+// nw*8 + l), so warp (mw, nw) (8 warps: 2 x 4) computes rows mw*16.. of the
+// 32-row tile against NG n-tiles that are the NG groups of its 8 features;
+// two buffers of the tile's dout (32 x (OP + 8)) and of its x chunk (32 x
+// kXPitch). The next tile's dout and x are copied with cp.async while this
+// one computes, so the epilogue reads x from shared memory. When the
+// chunk's weights fit (OW = the part's width, every main path) W_s is
+// staged once, with the first tile, and stays; otherwise (wide outputs at
+// large basis counts) the tile's product walks the part in OW-wide pieces,
+// each staged in turn, and acc sums over them in order. With one part the
+// block writes dx, with several the part's f32 share (linear in its dbasis)
+// into vbuf. One block an SM at the main path's shape (about 170 registers
+// a thread): two at 128 registers, with the knots in shared memory and x
+// loaded ahead of the barrier, measured slower on the H100.
 template <int ORDER, int GRID>
 __global__ void __launch_bounds__(kThreads)
 bspline_dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
                       const bf16* __restrict__ wb, const bf16* __restrict__ ws,
-                      const bf16* __restrict__ dout, bf16* __restrict__ dx, int n, int D, int O,
-                      int OW) {
+                      const bf16* __restrict__ dout, bf16* __restrict__ dx,
+                      float* __restrict__ vbuf, int n, int D, int O, int OP, int OW) {
   using S = Shape<ORDER, GRID>;
   constexpr int NG = S::NG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int O16 = round_up(O, 16), pitch = O16 + 8, wpitch = OW + 8;
-  const bool resident = OW >= O16;
+  const int part = blockIdx.z, o0p = part * OP;
+  const int kw = min(OP, O - o0p), k16 = round_up(kw, 16);  // the part's outputs
+  const int pitch = OP + 8, wpitch = OW + 8;
+  const bool resident = OW >= k16;
   bf16* W_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* dout_s = W_s + (size_t)S::AC * wpitch;        // 2 buffers
   bf16* x_s = dout_s + (size_t)2 * kMmaRows * pitch;  // 2 buffers
@@ -296,21 +315,21 @@ bspline_dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
   const int stride = gridDim.x * kMmaRows;
   // the tile at rows r0.. into buffer b
   auto stage = [&](int r0, int b) {
-    stage_rows(dout_s + (size_t)b * kMmaRows * pitch, pitch, kMmaRows, O, O16, O % 8 == 0,
+    stage_rows(dout_s + (size_t)b * kMmaRows * pitch, pitch, kMmaRows, kw, k16, O % 8 == 0,
                [&](int r) -> const bf16* {
-                 return r0 + r < n ? dout + (size_t)(r0 + r) * O : nullptr;
+                 return r0 + r < n ? dout + (size_t)(r0 + r) * O + o0p : nullptr;
                });
     stage_rows(x_s + (size_t)b * kMmaRows * kXPitch, kXPitch, kMmaRows, min(kDC, D - d0), kDC,
                D % 8 == 0, [&](int r) -> const bf16* {
                  return r0 + r < n ? x + (size_t)(r0 + r) * D + d0 : nullptr;
                });
   };
-  // columns o0.. of the chunk's weights
+  // columns o0.. of the part's weights of the chunk
   auto stage_w = [&](int o0) {
-    stage_rows(W_s, wpitch, S::AC, min(OW, O - o0), OW, O % 8 == 0, [&](int r) -> const bf16* {
+    stage_rows(W_s, wpitch, S::AC, min(OW, kw - o0), OW, O % 8 == 0, [&](int r) -> const bf16* {
       const int q = r / (NG * 8), g = (r % (NG * 8)) / 8, l = r % 8;
       const int d = d0 + q * 8 + l;
-      return d < D ? weight_row(wb, ws, g, d, D, O) + o0 : nullptr;
+      return d < D ? weight_row(wb, ws, g, d, D, O) + o0p + o0 : nullptr;
     });
   };
   if (resident) stage_w(0);
@@ -338,7 +357,7 @@ bspline_dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
-    for (int o0 = 0; o0 < O16; o0 += OW) {
+    for (int o0 = 0; o0 < k16; o0 += OW) {
       if (!resident) {
         __syncthreads();  // the previous part's products are done with W_s
         stage_w(o0);
@@ -346,7 +365,7 @@ bspline_dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
         cp_async_wait<0>();
         __syncthreads();
       }
-      const int kend = min(OW, O16 - o0);
+      const int kend = min(OW, k16 - o0);
       for (int k0 = 0; k0 < kend; k0 += 16) {
         unsigned a[4];
         ldmatrix_x4<false>(a, dt + (size_t)(mw * 16 + (lane / 8 % 2) * 8 + lane % 8) * pitch +
@@ -380,11 +399,21 @@ bspline_dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
           const float right = pen[g + 1] * (1.f / (t[p][g + ORDER + 1] - t[p][g + 1]));
           v += acc[g + 1][2 * h + p] * ((float)ORDER * (left - right));
         }
-        dx[(size_t)row * D + d] = from_f<bf16>(v);
+        if (vbuf != nullptr)
+          vbuf[((size_t)part * n + row) * D + d] = v;
+        else
+          dx[(size_t)row * D + d] = from_f<bf16>(v);
       }
     }
   }
   cp_async_wait<0>();  // the last, empty, commit group
+}
+
+// dx = the sum over the output parts, in order, of their shares
+template <typename T>
+__global__ void bspline_dx_sum_kernel(const float* __restrict__ vbuf, T* __restrict__ dx,
+                                      size_t m, int parts) {
+  sum_parts<T>(vbuf, dx, m, parts);
 }
 
 // dW partials under bf16. grid (D chunks, row tiles t0.. of one window).
@@ -511,46 +540,62 @@ int launch_fwd(const void* x, const void* knots, const void* wb, const void* ws,
   return (int)cudaGetLastError();
 }
 
-// shared memory of bspline_dx_mma_kernel with OW-wide weight parts
+// shared memory of bspline_dx_mma_kernel with OP-wide output parts and
+// OW-wide weight pieces (kernels/bspline_fused.py::bwd_smem mirrors it)
 template <int ORDER, int GRID>
-size_t dx_mma_smem(int O, int OW) {
+size_t dx_mma_smem(int OP, int OW) {
   return sizeof(bf16) * ((size_t)Shape<ORDER, GRID>::AC * (OW + 8) +
-                         (size_t)2 * kMmaRows * (round_up(O, 16) + 8) + 2 * kMmaRows * kXPitch);
+                         (size_t)2 * kMmaRows * (OP + 8) + 2 * kMmaRows * kXPitch);
 }
 
-// dx (the caller may put it on a stream of its own: it shares nothing with
-// the dW launches but their inputs).
+// dx in output parts of OP (the caller's plan, kernels/bspline_fused.py
+// `bwd_parts`: one part of every output where its staged rows fit; in bf16
+// OP is a multiple of 16), the parts' shares in vbuf summed in order where
+// there are several. The caller may put it on a stream of its own: it
+// shares nothing with the dW launches but their inputs.
 template <typename T, int ORDER, int GRID>
 int launch_dx(const void* x, const void* knots, const void* wb, const void* ws,
-              const void* dout, void* dx, int n, int D, int O, cudaStream_t stream) {
+              const void* dout, void* dx, float* vbuf, int n, int D, int O, int OP,
+              cudaStream_t stream) {
   using S = Shape<ORDER, GRID>;
   const T* xt = static_cast<const T*>(x);
   const T* kt = static_cast<const T*>(knots);
   const T* gt = static_cast<const T*>(dout);
   if (n == 0) return 0;
+  if (OP <= 0) return (int)cudaErrorInvalidValue;
+  const int parts = (O + OP - 1) / OP;
+  if (parts > 1 && vbuf == nullptr) return (int)cudaErrorInvalidValue;
+  float* shares = parts > 1 ? vbuf : nullptr;
   if constexpr (std::is_same_v<T, bf16>) {
+    if (OP % 16 != 0) return (int)cudaErrorInvalidValue;
     const int chunks = (D + kDC - 1) / kDC;
-    int OW = round_up(O, 16);  // the widest weight part that fits
-    while (OW > 16 && dx_mma_smem<ORDER, GRID>(O, OW) > kSmemLimit) OW -= 16;
-    const size_t smem = dx_mma_smem<ORDER, GRID>(O, OW);
+    int OW = std::min(OP, round_up(O, 16));  // the widest weight piece that fits
+    while (OW > 16 && dx_mma_smem<ORDER, GRID>(OP, OW) > kSmemLimit) OW -= 16;
+    const size_t smem = dx_mma_smem<ORDER, GRID>(OP, OW);
     if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
     if (int e = set_smem(bspline_dx_mma_kernel<ORDER, GRID>, smem)) return e;
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int sms = sm_count();
     const int tiles = (n + kMmaRows - 1) / kMmaRows;
-    dim3 grid(std::max(1, std::min(tiles, (2 * sms + chunks - 1) / chunks)), chunks);
+    const int blocks = chunks * parts;
+    dim3 grid(std::max(1, std::min(tiles, (2 * sms + blocks - 1) / blocks)), chunks, parts);
     bspline_dx_mma_kernel<ORDER, GRID><<<grid, kThreads, smem, stream>>>(
         xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt, static_cast<T*>(dx),
-        n, D, O, OW);
+        shares, n, D, O, OP, OW);
   } else {
     using X = DxF32<S::NG>;
-    const size_t smem = sizeof(float) * ((size_t)X::ROWS * O + (size_t)X::OTX * (S::AC + 1));
+    const size_t smem = sizeof(float) * ((size_t)X::ROWS * OP + (size_t)X::OTX * (S::AC + 1));
     if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
     if (int e = set_smem(bspline_dx_kernel<T, ORDER, GRID>, smem)) return e;
-    bspline_dx_kernel<T, ORDER, GRID><<<(n + X::ROWS - 1) / X::ROWS, kThreads, smem, stream>>>(
-        xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt, static_cast<T*>(dx),
-        n, D, O);
+    bspline_dx_kernel<T, ORDER, GRID>
+        <<<dim3((n + X::ROWS - 1) / X::ROWS, parts), kThreads, smem, stream>>>(
+            xt, kt, static_cast<const T*>(wb), static_cast<const T*>(ws), gt,
+            static_cast<T*>(dx), shares, n, D, O, OP);
+  }
+  if (int e = (int)cudaGetLastError()) return e;
+  if (parts > 1) {
+    const size_t m = (size_t)n * D;
+    bspline_dx_sum_kernel<T><<<sum_parts_blocks(m), kThreads, 0, stream>>>(
+        vbuf, static_cast<T*>(dx), m, parts);
   }
   return (int)cudaGetLastError();
 }
@@ -613,12 +658,15 @@ extern "C" int bspline_fwd(const void* x, const void* knots, const void* wb, con
 }
 
 // dx (n, D) from dout (n, O); x (n, D), knots (K, D), wb (D, O), ws
-// (NB*D, O), all of one dtype, device memory, contiguous.
+// (NB*D, O), all of one dtype, device memory, contiguous. op: the width of
+// the outputs' parts (kernels/bspline_fused.py `bwd_parts`); vbuf: f32
+// scratch of ceil(o / op) * n * d floats where that is more than one part,
+// else unused.
 extern "C" int bspline_bwd_dx(const void* x, const void* knots, const void* wb, const void* ws,
-                              const void* dout, void* dx, int n, int d, int o, int grid,
-                              int order, int dtype, void* stream) {
+                              const void* dout, void* dx, float* vbuf, int n, int d, int o,
+                              int op, int grid, int order, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KAN_DISPATCH(dtype, order, grid, launch_dx, x, knots, wb, ws, dout, dx, n, d, o, s);
+  KAN_DISPATCH(dtype, order, grid, launch_dx, x, knots, wb, ws, dout, dx, vbuf, n, d, o, op, s);
 }
 
 // dw (NG*D, O) = [dWb; dWs] from dout (n, O), summed over row tiles of 128

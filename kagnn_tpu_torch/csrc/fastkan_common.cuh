@@ -267,9 +267,12 @@ constexpr int kFwdTerms = G > 8 ? 3 : 2;
 // g*FC + j = group g of feature d0 + j (with BASE, g = 0 is SiLU(x)), for
 // rows rr < rows, of which the first `valid` are data (the others, and
 // features past D, zeros). load(rr, row, d, x, xs) as basis_chunk's; each
-// value is computed in f32 as basis_chunk computes it, then split. Thread t
-// takes the features j and j + 1, j = 2 * (t % (FC / 2)).
-template <int G, bool BASE, int FC, int TERMS, typename Load>
+// value is computed in f32 as basis_chunk computes it (TR and ROUND_EXP as
+// in rbf: the RBF product of a bf16 x rounds its distance and its basis to
+// bf16, which one term then carries whole), then split. Thread t takes the
+// features j and j + 1, j = 2 * (t % (FC / 2)).
+template <int G, bool BASE, int FC, int TERMS, typename TR = float, bool ROUND_EXP = false,
+          typename Load>
 __device__ __forceinline__ void basis_terms(Load load, kan::bf16* A_s, int pa, size_t tstride,
                                             int rows, int row0, int valid, int d0, int D,
                                             const Centers& cs, float inv_h) {
@@ -286,9 +289,14 @@ __device__ __forceinline__ void basis_terms(Load load, kan::bf16* A_s, int pa, s
                               ok1 ? xv1 * sigmoid(xv1) : 0.f);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float e0 = (xs0 - cs.c[g]) * inv_h, e1 = (xs1 - cs.c[g]) * inv_h;
-      kan::split_terms<TERMS>(a + (g + B0) * FC, tstride, ok0 ? expf(-(e0 * e0)) : 0.f,
-                              ok1 ? expf(-(e1 * e1)) : 0.f);
+      const float e0 = kan::round_t<TR>(kan::round_t<TR>(xs0 - cs.c[g]) * inv_h);
+      const float e1 = kan::round_t<TR>(kan::round_t<TR>(xs1 - cs.c[g]) * inv_h);
+      float b0 = expf(-kan::round_t<TR>(e0 * e0)), b1 = expf(-kan::round_t<TR>(e1 * e1));
+      if constexpr (ROUND_EXP) {
+        b0 = kan::round_t<TR>(b0);
+        b1 = kan::round_t<TR>(b1);
+      }
+      kan::split_terms<TERMS>(a + (g + B0) * FC, tstride, ok0 ? b0 : 0.f, ok1 ? b1 : 0.f);
     }
   }
 }
@@ -301,18 +309,19 @@ template <int G, bool BASE = true>
 using FwdChunk = kan::FwdChunk<Shape<G, BASE>::NG, 128>;
 
 // chunked_forward on the tensor cores, for one row tile of 32*MT rows: per
-// chunk of FC features (FwdChunk), build(d0) fills the chunk's kFwdTerms<G>
-// bf16 terms in A_s (kFwdTerms<G> tiles of 32*MT x (KC + 8), basis_terms, which
-// takes basis_chunk's Load), and the warps multiply them with the chunk's
-// weight slab slab(c) (row g*FC + j = [Wb;] W row (g, c*FC + j), zeros past
-// the groups and past D) into acc. prefetch as in kan::forward_tile_mma.
-template <int G, bool BASE, int MT, int NPW, typename Build, typename Prefetch, typename Slab>
+// chunk of FC features (FwdChunk), build(d0) fills the chunk's TERMS bf16
+// terms in A_s (TERMS tiles of 32*MT x (KC + 8), basis_terms, which takes
+// basis_chunk's Load), and the warps multiply them with the chunk's weight
+// slab slab(c) (row g*FC + j = [Wb;] W row (g, c*FC + j), zeros past the
+// groups and past D) into acc. prefetch as in kan::forward_tile_mma.
+template <int G, bool BASE, int TERMS, int MT, int NPW, typename Build, typename Prefetch,
+          typename Slab>
 __device__ __forceinline__ void chunked_forward_mma(kan::FwdAcc<MT, NPW>& acc, Build build,
                                                     Prefetch prefetch, Slab slab,
                                                     const kan::bf16* A_s, int D, int wp, int np) {
   using C = FwdChunk<G, BASE>;
   constexpr int pa = C::KC + 8;
-  kan::forward_tile_mma<kFwdTerms<G>, C::KC, MT, NPW>(
+  kan::forward_tile_mma<TERMS, C::KC, MT, NPW>(
       acc, (D + C::FC - 1) / C::FC, prefetch, [&](int c) { build(c * C::FC); }, slab, A_s, pa,
       (size_t)32 * MT * pa, wp, np);
 }

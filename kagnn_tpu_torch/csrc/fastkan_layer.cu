@@ -13,7 +13,8 @@
 // The (N, G*D) basis never leaves the SM.
 //
 // The forward, under bf16, runs its products on the tensor cores
-// (fastkan_fwd_mma_kernel, the design of the B-spline forward's,
+// (fastkan_fwd_mma_kernel, fastkan_fwd.cuh's body, which gin_fastkan.cu and
+// rbf_fused.cu share; the design of the B-spline forward's,
 // mma_common.cuh): the JAX kernel multiplies the f32 basis and SiLU(x) with
 // the bf16 weights, exact products summed in f32, so each f32 value is
 // split into bf16 terms (kan::split_terms, the dW kernel's split: hi + lo up
@@ -81,8 +82,7 @@
 // the JAX kernel. Shapes: any number of centers 2-32 (one library each,
 // FKAN_G), any D, O up to the staged tiles' shared memory (thousands).
 
-#include "fastkan_common.cuh"
-#include "mma_common.cuh"
+#include "fastkan_fwd.cuh"
 
 namespace {
 
@@ -100,44 +100,19 @@ constexpr int kSub = 64;     // rows per step of the bf16 dW kernel
 constexpr int kTasks = 2;    // 16 x 64 output blocks a warp of the bf16 dW kernel holds
 constexpr int kTerms = 3;    // bf16 terms of each f32 basis value in the bf16 dW kernel
 
-template <typename T, int G, bool HOLD>
+// The forward in f32, on the CUDA cores (fastkan_fwd.cuh).
+template <int G, bool HOLD>
 __global__ void __launch_bounds__(kThreads)
-fastkan_fwd_kernel(const T* __restrict__ x, const T* __restrict__ lng, const T* __restrict__ lnb,
-                   const T* __restrict__ w, const T* __restrict__ wb, const T* __restrict__ bb,
-                   T* __restrict__ out, int n, int D, int O, Centers cs, float inv_h) {
-  extern __shared__ __align__(16) float smem[];
-  float* A_s = smem;  // kFwdRows x AC
-  float* mu_s = A_s + (size_t)kFwdRows * Shape<G>::AC;
-  float* rstd_s = mu_s + kFwdRows;
-  float* x_s = rstd_s + kFwdRows;  // kFwdRows x D, with HOLD
-  const int row0 = blockIdx.x * kFwdRows;
-  if constexpr (HOLD) {
-    for (int i = threadIdx.x; i < kFwdRows * D; i += kThreads) {
-      const int row = row0 + i / D;
-      x_s[i] = row < n ? to_f(x[(size_t)row0 * D + i]) : 0.f;
-    }
-  }
-  // the tile's rows from shared memory, or (wide rows) from device memory
-  auto xv = [&](int rr, int d) -> float {
-    if constexpr (HOLD) return x_s[(size_t)rr * D + d];
-    return row0 + rr < n ? to_f(x[(size_t)(row0 + rr) * D + d]) : 0.f;
-  };
-  forward_tile<T, G>(xv, A_s, mu_s, rstd_s, row0, n, D, O, lng, lnb, cs, inv_h, w, wb, bb, out);
+fastkan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ lng,
+                   const float* __restrict__ lnb, const float* __restrict__ w,
+                   const float* __restrict__ wb, const float* __restrict__ bb,
+                   float* __restrict__ out, int n, int D, int O, Centers cs, float inv_h) {
+  layer_fwd_f32_body<float, G, HOLD>(x, lng, lnb, w, wb, bb, out, n, D, O, cs, inv_h);
 }
 
-// The forward under bf16, on the tensor cores. grid (persistent row blocks,
-// output parts of plan.op). Each block walks row tiles of R = 64 rows: the
-// tile's LayerNorm statistics first (ln_stats_quad, four threads a row, from
-// the held rows or, for wide rows, from device memory), then per chunk of FC
-// features (FwdChunk: 16 at the main path's 4 centers) the chunk's f32
-// [SiLU(x) | B(LN(x))] split into kFwdTerms<G> bf16 terms once (basis_terms)
-// and multiplied with the chunk's weight slab for all of the block's outputs
-// (chunked_forward_mma); the f32 bias is added before the output is rounded
-// once. Shared memory: the weight slabs as bspline_fwd_mma_kernel's
-// (kan::plan_forward), the terms, the tile's statistics and, where the
-// layout holds them, two buffers of the tiles' x rows, the next tile's
-// copied while this one computes. NPW: output pairs a warp holds
-// (kan::fwd_pairs); one pair leaves registers for three blocks an SM.
+// The forward under bf16, on the tensor cores: fastkan_fwd.cuh's body on x
+// (the layer: statistics, [SiLU(x) | B(LN(x))] split into kFwdTerms<G> bf16
+// terms, the bias). grid (persistent row blocks, output parts of plan.op).
 template <int G, int NPW>
 __global__ void __launch_bounds__(kThreads, NPW == 1 ? 3 : 2)
 fastkan_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lng,
@@ -145,85 +120,7 @@ fastkan_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lng,
                        const bf16* __restrict__ wb, const bf16* __restrict__ bb,
                        bf16* __restrict__ out, int n, int D, int O, Centers cs, float inv_h,
                        kan::FwdPlan plan) {
-  constexpr int NG = G + 1, R = 32 * kFwdMT, TERMS = kFwdTerms<G>;
-  using C = FwdChunk<G>;
-  constexpr int FC = C::FC, KC = C::KC, pa = KC + 8;
-  constexpr size_t tstride = (size_t)R * pa;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int chunks = (D + FC - 1) / FC, tiles = (n + R - 1) / R;
-  const int wp = plan.wp, xp = plan.xp;
-  const int o0 = blockIdx.y * plan.op, ow = min(plan.op, O - o0), np = (ow + 15) / 16;
-  bf16* W_s = reinterpret_cast<bf16*>(smem_raw);                           // slabs, KC x wp
-  bf16* A_s = W_s + (size_t)(plan.resident ? chunks : 2) * KC * wp;       // TERMS x R x pa
-  float* mu_s = reinterpret_cast<float*>(A_s + TERMS * tstride);          // R
-  float* rstd_s = mu_s + R;                                                // R
-  bf16* x_s = reinterpret_cast<bf16*>(rstd_s + R);                         // 2 x R x xp
-  if constexpr (KC > NG * FC) {  // the columns past the groups stay zero
-    constexpr int padc = KC - NG * FC;
-    for (int i = threadIdx.x; i < TERMS * R * padc; i += kThreads)
-      A_s[(size_t)(i / padc) * pa + NG * FC + i % padc] = from_f<bf16>(0.f);
-  }
-  auto stage_w = [&](int c, int slot) {
-    stage_rows(W_s + (size_t)slot * KC * wp, wp, KC, ow, np * 16, O % 8 == 0,
-               [&](int k) -> const bf16* {
-                 const int g = k / FC, d = c * FC + k % FC;
-                 return g < NG && d < D ? weight_row<true>(wb, w, g, d, D, O) + o0 : nullptr;
-               });
-  };
-  auto stage_x = [&](int t, int b) {
-    stage_rows(x_s + (size_t)b * R * xp, xp, R, D, kan::round_up(D, 8), D % 8 == 0,
-               [&](int r) -> const bf16* {
-                 const int row = t * R + r;
-                 return row < n ? x + (size_t)row * D : nullptr;
-               });
-  };
-  int t = blockIdx.x;
-  if (t >= tiles) return;
-  if (plan.resident) {
-    for (int c = 0; c < chunks; ++c) stage_w(c, c);
-  } else {
-    stage_w(0, 0);
-  }
-  if (plan.hold) stage_x(t, 0);
-  cp_async_commit();
-  kan::FwdAcc<kFwdMT, NPW> acc;
-  kan::fwd_zero(acc);
-  for (int step = 0, xb = 0; t < tiles; t += gridDim.x, step += chunks, xb ^= 1) {
-    const int row0 = t * R, next = t + gridDim.x, valid = min(R, n - row0);
-    const bf16* xt = x_s + (size_t)xb * R * xp;
-    auto xv = [&](int rr, int d) -> float {
-      if (plan.hold) return to_f(xt[(size_t)rr * xp + d]);
-      return row0 + rr < n ? to_f(x[(size_t)(row0 + rr) * D + d]) : 0.f;
-    };
-    auto build = [&](int d0) {
-      if (d0 == 0) {  // the tile's statistics, before its first chunk
-        ln_stats_quad(xv, R, D, mu_s, rstd_s);
-        __syncthreads();
-      }
-      // this thread's two features (basis_terms) and their affine
-      const int dj = d0 + 2 * (threadIdx.x % (FC / 2));
-      const float g0 = dj < D ? to_f(lng[dj]) : 0.f, g1 = dj + 1 < D ? to_f(lng[dj + 1]) : 0.f;
-      const float b0 = dj < D ? to_f(lnb[dj]) : 0.f, b1 = dj + 1 < D ? to_f(lnb[dj + 1]) : 0.f;
-      auto load = [&](int rr, int, int d, float& v, float& xs) {
-        v = xv(rr, d);
-        const bool second = d != dj;
-        xs = ((v - mu_s[rr]) * rstd_s[rr]) * (second ? g1 : g0) + (second ? b1 : b0);
-      };
-      basis_terms<G, true, FC, TERMS>(load, A_s, pa, tstride, R, row0, valid, d0, D, cs, inv_h);
-    };
-    auto prefetch = [&](int c) {
-      const bool last = c + 1 == chunks;
-      if (!plan.resident && (!last || next < tiles)) stage_w(last ? 0 : c + 1, (step + c + 1) & 1);
-      if (plan.hold && last && next < tiles) stage_x(next, xb ^ 1);
-    };
-    auto slab = [&](int c) -> const bf16* {
-      return W_s + (size_t)(plan.resident ? c : (step + c) & 1) * KC * wp;
-    };
-    chunked_forward_mma<G, true, kFwdMT, NPW>(acc, build, prefetch, slab, A_s, D, wp, np);
-    kan::fwd_store<kFwdMT, NPW>(acc, out, row0, n, O, o0, np,
-                                [&](int o) { return o < O ? to_f(bb[o]) : 0.f; });
-  }
-  cp_async_wait<0>();  // the last, empty, commit group
+  fwd_mma_body<bf16, bf16, G, true, NPW>(x, lng, lnb, w, wb, bb, out, n, D, O, cs, inv_h, plan);
 }
 
 // stats (n, 2) = each row's mean and 1/sqrt(var + eps), in row_stats'
@@ -627,13 +524,8 @@ __global__ void fastkan_row_sums_kernel(const float* __restrict__ mbuf,
 // dx[i] = the sum over the output parts, in order, of their shares
 template <typename T>
 __global__ void fastkan_dx_sum_kernel(const float* __restrict__ vbuf, T* __restrict__ dx, size_t m,
-                              int parts) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += vbuf[p * m + i];
-    dx[i] = from_f<T>(s);
-  }
+                                      int parts) {
+  kan::sum_parts<T>(vbuf, dx, m, parts);
 }
 
 // dW partials under bf16. grid (chunks of dcw features, row tiles t0.. of
@@ -937,63 +829,6 @@ fastkan_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ lng,
   }
 }
 
-// The f32 forward on the CUDA cores (fastkan_fwd_kernel).
-template <int G>
-int launch_fwd_f32(const void* x, const void* lng, const void* lnb, const void* w,
-                   const void* wb, const void* bb, void* out, int n, int D, int O, Centers cs,
-                   float inv_h, cudaStream_t stream) {
-  using T = float;
-  // the tile's rows held in shared memory where they fit (every main path)
-  const bool hold = forward_smem<G>(D, true) <= kSmemLimit;
-  const size_t smem = forward_smem<G>(D, hold);
-  dim3 grid((n + kFwdRows - 1) / kFwdRows, (O + kOT - 1) / kOT);
-  const T* args[6] = {static_cast<const T*>(x), static_cast<const T*>(lng),
-                      static_cast<const T*>(lnb), static_cast<const T*>(w),
-                      static_cast<const T*>(wb), static_cast<const T*>(bb)};
-  auto go = [&](auto kernel) {
-    if (int e = set_smem(kernel, smem)) return e;
-    if (grid.x > 0)
-      kernel<<<grid, kThreads, smem, stream>>>(args[0], args[1], args[2], args[3], args[4],
-                                               args[5], static_cast<T*>(out), n, D, O, cs,
-                                               inv_h);
-    return (int)cudaGetLastError();
-  };
-  return hold ? go(fastkan_fwd_kernel<T, G, true>) : go(fastkan_fwd_kernel<T, G, false>);
-}
-
-// fastkan_fwd_mma_kernel's shared memory besides its weight slabs and held
-// rows: the basis terms and the tile's statistics.
-template <int G>
-constexpr size_t fwd_mma_fixed() {
-  constexpr int R = 32 * kFwdMT;
-  return sizeof(bf16) * kFwdTerms<G> * R * (FwdChunk<G>::KC + 8) + sizeof(float) * 2 * R;
-}
-
-// The bf16 forward at NPW output pairs a warp and part width op; the plan is
-// made at the first launch of each (D, O) and kept.
-template <int G, int NPW>
-int launch_fwd_mma(const bf16* x, const bf16* lng, const bf16* lnb, const bf16* w,
-                   const bf16* wb, const bf16* bb, bf16* out, int n, int D, int O, Centers cs,
-                   float inv_h, int op, cudaStream_t stream) {
-  using C = FwdChunk<G>;
-  constexpr int R = 32 * kFwdMT;
-  auto kernel = fastkan_fwd_mma_kernel<G, NPW>;
-  static std::unordered_map<uint64_t, kan::FwdPlan> plans;
-  kan::FwdPlan& plan = plans[(uint64_t)D << 32 | (uint32_t)O];
-  if (plan.smem == 0) {
-    const size_t xrows = sizeof(bf16) * 2 * R * (size_t)(round_up(D, 8) + 8);
-    plan = kan::plan_forward(kernel, op, D, C::KC, (D + C::FC - 1) / C::FC,
-                             fwd_mma_fixed<G>(), xrows);
-    if (plan.smem == 0) return (int)cudaErrorInvalidValue;
-  }
-  static const int sms = kan::sm_count();
-  const int tiles = (n + R - 1) / R;
-  dim3 grid(std::min(tiles, plan.per_sm * sms), (O + plan.op - 1) / plan.op);
-  kernel<<<grid, kThreads, plan.smem, stream>>>(x, lng, lnb, w, wb, bb, out, n, D, O, cs, inv_h,
-                                                plan);
-  return (int)cudaGetLastError();
-}
-
 // The forward's launch: bf16 on the tensor cores (fastkan_fwd_mma_kernel,
 // persistent blocks, the widest output part that fits), f32 on the CUDA
 // cores (fastkan_fwd_kernel: TF32 would miss the f32 bars).
@@ -1002,21 +837,25 @@ int launch_fwd(const void* x, const void* lng, const void* lnb, const void* w, c
                const void* bb, void* out, int n, int D, int O, Centers cs, float inv_h,
                cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>) {
-    const int op = kan::fwd_part_width(O, FwdChunk<G>::KC, fwd_mma_fixed<G>());
-    if (op == 0) return (int)cudaErrorInvalidValue;
-    if (n == 0 || O == 0) return 0;
-    auto go = [&](auto npw) {
-      return launch_fwd_mma<G, decltype(npw)::value>(
+    return with_fwd_mma_part<bf16, G, true>(n, O, [&](auto npw, int op) {
+      auto kernel = fastkan_fwd_mma_kernel<G, decltype(npw)::value>;
+      dim3 grid;
+      const kan::FwdPlan* plan = fwd_mma_plan<bf16, G, true>(kernel, n, D, O, op, grid);
+      if (plan == nullptr) return (int)cudaErrorInvalidValue;
+      kernel<<<grid, kThreads, plan->smem, stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(lng),
-          static_cast<const bf16*>(lnb), static_cast<const bf16*>(w), static_cast<const bf16*>(wb),
-          static_cast<const bf16*>(bb), static_cast<bf16*>(out), n, D, O, cs, inv_h, op, stream);
-    };
-    const int npw = kan::fwd_pairs(op);
-    return npw == 1 ? go(std::integral_constant<int, 1>{})
-                    : npw == 2 ? go(std::integral_constant<int, 2>{})
-                               : go(std::integral_constant<int, 4>{});
+          static_cast<const bf16*>(lnb), static_cast<const bf16*>(w),
+          static_cast<const bf16*>(wb), static_cast<const bf16*>(bb), static_cast<bf16*>(out), n,
+          D, O, cs, inv_h, *plan);
+      return (int)cudaGetLastError();
+    });
   } else {
-    return launch_fwd_f32<G>(x, lng, lnb, w, wb, bb, out, n, D, O, cs, inv_h, stream);
+    return launch_layer_fwd_f32<G>(
+        [](auto hold) { return fastkan_fwd_kernel<G, decltype(hold)::value>; },
+        static_cast<const float*>(x), static_cast<const float*>(lng),
+        static_cast<const float*>(lnb), static_cast<const float*>(w),
+        static_cast<const float*>(wb), static_cast<const float*>(bb), static_cast<float*>(out),
+        n, D, O, cs, inv_h, stream);
   }
 }
 
@@ -1091,9 +930,8 @@ int launch_dx(const void* x, const void* lng, const void* lnb, const void* w, co
     }
     if (dx != nullptr && parts > 1) {
       const size_t m = (size_t)n * D;
-      const int blocks = (int)std::min<size_t>((m + kThreads - 1) / kThreads, 4096);
-      fastkan_dx_sum_kernel<T>
-          <<<blocks, kThreads, 0, stream>>>(vbuf, static_cast<T*>(dx), m, parts);
+      fastkan_dx_sum_kernel<T><<<kan::sum_parts_blocks(m), kThreads, 0, stream>>>(
+          vbuf, static_cast<T*>(dx), m, parts);
       if (int e = (int)cudaGetLastError()) return e;
     }
   }

@@ -19,14 +19,15 @@
 // epilogue built its basis and multiplied on the CUDA cores, once for every
 // 64 outputs (0.742 ms at (D 64, O 64) in bf16, 1.469 at (128, 64) against
 // bounds of 0.021 and 0.034). This design is two passes:
-//   1. the aggregate: kan_common.cuh's split row sum (spmm.cu's design),
-//      16-byte loads in 128-byte column slabs (grid.y), so each slab's
-//      gathered table stays in L2; a receiver row of more than kPiece
-//      edges (node 0, the pad row heavy by its padding) is cut at the
-//      kPiece-edge chunks of the edge array into pieces that separate warps
-//      sum into f32 partials (gin_sum_kernel), added in chunk order by
-//      gin_sum_combine_kernel. Each row's sum plus (1+eps)*x is written as
-//      z in x's dtype and, under bf16, as f32 z in the scratch z32;
+//   1. the aggregate (gin_sum.cuh, shared with gin_fastkan.cu):
+//      kan_common.cuh's split row sum (spmm.cu's design), 16-byte loads in
+//      128-byte column slabs (grid.y), so each slab's gathered table stays
+//      in L2; a receiver row of more than 64 edges (node 0, the pad row
+//      heavy by its padding) is cut at the 64-edge chunks of the edge array
+//      into pieces that separate warps sum into f32 partials
+//      (gin_sum_kernel), added in chunk order by gin_sum_combine_kernel.
+//      Each row's sum plus (1+eps)*x is written as z in x's dtype and,
+//      under bf16, as f32 z in the scratch z32;
 //   2. the KANLinear on the f32 z: under bf16 on the tensor cores
 //      (gin_fwd_mma_kernel, kan_fwd.cuh's body, the one bspline_fwd_mma_kernel
 //      runs: persistent blocks of 128-row tiles holding all outputs, up to
@@ -45,62 +46,30 @@
 // Shapes: one library per (spline order, grid size), as bspline_fused.cu;
 // any D and O (the forward stages its f32 z a feature chunk at a time).
 
+#include "gin_sum.cuh"
 #include "kan_fwd.cuh"
 
 namespace {
 
 using namespace kan;
 
-constexpr int kPiece = 64;  // edges per chunk: rows above it are split
-
-template <int V>
-__device__ __forceinline__ void store_f32(float* p, const float (&v)[V]) {
-  if constexpr (V == 1) {
-    *p = v[0];
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; j += 4)
-      *reinterpret_cast<float4*>(p + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-  }
-}
-
-// Pass 1, launch 1 (kan_common.cuh split_row_sum over the rows of x):
-// a light row's z = sum + self * x, in T into z and, when z32 is not null,
-// in f32 into z32.
+// Pass 1 (gin_sum.cuh): the light rows and the heavy rows' pieces ...
 template <typename T, int V>
 __global__ void __launch_bounds__(kSplitWarps * 32)
 gin_sum_kernel(const T* __restrict__ x, const int* __restrict__ senders,
                const int* __restrict__ row_ptr, T* __restrict__ z, float* __restrict__ z32,
                float* __restrict__ partial, int* __restrict__ first_row, int n, int d,
                float self, int chunk_blocks) {
-  split_row_sum<T, V, kPiece>(
-      x, row_ptr, senders, partial, first_row, n, d, chunk_blocks,
-      [&](int row, int c, const float (&acc)[V]) {
-        const size_t at = (size_t)row * d + c;
-        float v[V];
-#pragma unroll
-        for (int j = 0; j < V; ++j) v[j] = 0.f;
-        add_pack<T, V>(__ldg(reinterpret_cast<const Pack<T, V>*>(x + at)), v);
-#pragma unroll
-        for (int j = 0; j < V; ++j) v[j] = acc[j] + self * v[j];
-        if (z32 != nullptr) store_f32<V>(z32 + at, v);
-        store_pack<T, V>(z + at, v);
-      });
+  gin::sum_body<T, V>(x, senders, row_ptr, z, z32, partial, first_row, n, d, self, chunk_blocks);
 }
 
-// Pass 1, launch 2 (kan_common.cuh split_row_combine): a heavy row's pieces
-// added in chunk order, then self * x, stored as gin_sum_kernel stores.
+// ... and the heavy rows' combine.
 template <typename T>
 __global__ void __launch_bounds__(kSplitWarps * 32)
 gin_sum_combine_kernel(const T* __restrict__ x, const int* __restrict__ row_ptr,
                        const float* __restrict__ partial, const int* __restrict__ first_row,
                        T* __restrict__ z, float* __restrict__ z32, int n, int d, float self) {
-  split_row_combine<kPiece>(row_ptr, partial, first_row, n, d, [&](int row, int c, float s) {
-    const size_t at = (size_t)row * d + c;
-    const float v = s + self * to_f(x[at]);
-    if (z32 != nullptr) z32[at] = v;
-    z[at] = from_f<T>(v);
-  });
+  gin::combine_body<T>(x, row_ptr, partial, first_row, z, z32, n, d, self);
 }
 
 // Pass 2 under bf16: kan_fwd.cuh's tensor-core forward on the f32 z.
@@ -125,26 +94,6 @@ gin_fwd_kernel(const float* __restrict__ z, const float* __restrict__ knots,
                                        ws, out);
 }
 
-// Pass 1 at V columns a lane.
-template <typename T, int V>
-int launch_sum(const T* x, const int* senders, const int* row_ptr, T* z, float* z32,
-               float* partial, int* first_row, int n, int D, float self, int max_edges,
-               cudaStream_t stream) {
-  const int chunk_blocks = split_chunk_blocks<kPiece>(max_edges);
-  const dim3 grid = split_grid<V>(chunk_blocks, n, D);
-  if (grid.x > 0 && D > 0)
-    gin_sum_kernel<T, V><<<grid, kSplitWarps * 32, 0, stream>>>(
-        x, senders, row_ptr, z, z32, partial, first_row, n, D, self, chunk_blocks);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (chunk_blocks > 0 && D > 0)
-    gin_sum_combine_kernel<T><<<dim3(chunk_blocks, combine_parts(D)), kSplitWarps * 32, 0,
-                                stream>>>(x, row_ptr, partial, first_row, z, z32, n, D,
-                                          self);
-  return (int)cudaGetLastError();
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 template <typename T, int ORDER, int GRID>
 int launch(const void* x, const int* senders, const int* row_ptr, const void* knots,
            const void* wb, const void* ws, void* out, void* z, float* z32, float* partial,
@@ -152,18 +101,12 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* kn
   using S = Shape<ORDER, GRID>;
   constexpr bool kMma = std::is_same_v<T, bf16>;
   if (kMma != (z32 != nullptr)) return (int)cudaErrorInvalidValue;
-  constexpr int V = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
   T* zt = static_cast<T*>(z);
-  const float self = 1.f + eps;
-  // V columns a lane where every row is 16-byte aligned and D fills whole
-  // packs, else one value
-  const bool wide = D % V == 0 && aligned16(x) && aligned16(z) && (!kMma || aligned16(z32));
-  int e = wide ? launch_sum<T, V>(xt, senders, row_ptr, zt, z32, partial, first_row, n, D, self,
-                                  max_edges, stream)
-               : launch_sum<T, 1>(xt, senders, row_ptr, zt, z32, partial, first_row, n, D,
-                                  self, max_edges, stream);
-  if (e) return e;
+  if (int e = gin::launch_sum<T>([](auto v) { return gin_sum_kernel<T, decltype(v)::value>; },
+                                 gin_sum_combine_kernel<T>, xt, senders, row_ptr, zt, z32,
+                                 partial, first_row, n, D, 1.f + eps, max_edges, stream))
+    return e;
   if constexpr (kMma) {
     return launch_fwd_mma<float, ORDER, GRID>(
         [](auto npw) { return gin_fwd_mma_kernel<ORDER, GRID, decltype(npw)::value>; }, z32,

@@ -1,11 +1,11 @@
 // Shared device code of the port's kernels: element conversions, SiLU, the
-// warp-per-row CSR gather (gin_fastkan.cu), the piece gather with wide loads
-// (gcn_agg.cu, spmm.cu, gin_fused.cu), the piece schedule of the kernels
-// that split heavy CSR rows (gcn_agg.cu, spmm.cu, gin_fused.cu, gat_fused.cu,
-// gat_bwd.cu), the warp search of a CSR's row_ptr for the row of an edge,
-// the split row sum of spmm.cu and gin_fused.cu, the tile-ordered walk of
-// weight-gradient partials (bspline_fused.cu, fastkan_layer.cu,
-// rbf_fused.cu), and for the KANLinear kernels the
+// piece gather with wide loads (gcn_agg.cu, spmm.cu, gin_sum.cuh), the piece
+// schedule of the kernels that split heavy CSR rows (gcn_agg.cu, spmm.cu,
+// gin_sum.cuh, gat_fused.cu, gat_bwd.cu), the warp search of a CSR's row_ptr
+// for the row of an edge, the split row sum of spmm.cu and gin_sum.cuh, the
+// tile-ordered walk of weight-gradient partials and the sum of the dx
+// kernels' output parts (bspline_fused.cu, fastkan_layer.cu, rbf_fused.cu),
+// and for the KANLinear kernels the
 // Cox-de Boor ladder, the basis tiles (f32 for the CUDA-core kernels, bf16
 // for the tensor-core ones) and the dtype dispatch at the (spline order,
 // grid size) a library is built for.
@@ -91,49 +91,6 @@ constexpr int kRcps = rcp_off<NK>(ORDER + 1);
 // d silu / dx with s = sigmoid(x)
 __device__ __forceinline__ float dsilu(float x, float s) { return s * (1.f + x * (1.f - s)); }
 
-constexpr int kCpl = 4;  // columns per lane per pass of a CSR gather: 128 a pass
-
-// The CSR gather of one output row by one warp: acc[j] = the f32 sum, in edge
-// order, of column c0 + lane + 32*j of row (idx ? idx[e] : e) of src (rows of
-// d values) over e in [e0, e1); columns at or past d stay 0. Edges are
-// unrolled by four so that four rows are in flight per warp. The fixed order
-// makes the sum deterministic without atomics.
-template <typename T>
-__device__ __forceinline__ void csr_row_sum(const T* __restrict__ src,
-                                            const int* __restrict__ idx, int e0, int e1,
-                                            int c0, int lane, int d, float (&acc)[kCpl]) {
-#pragma unroll
-  for (int j = 0; j < kCpl; ++j) acc[j] = 0.f;
-  int e = e0;
-  for (; e + 4 <= e1; e += 4) {
-    int row[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) row[u] = idx ? __ldg(idx + e + u) : e + u;
-    float v[4][kCpl];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const T* rowp = src + (size_t)row[u] * d;
-#pragma unroll
-      for (int j = 0; j < kCpl; ++j) {
-        const int c = c0 + lane + 32 * j;
-        v[u][j] = c < d ? to_f(rowp[c]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int j = 0; j < kCpl; ++j) acc[j] += v[u][j];
-  }
-  for (; e < e1; ++e) {
-    const T* rowp = src + (size_t)(idx ? __ldg(idx + e) : e) * d;
-#pragma unroll
-    for (int j = 0; j < kCpl; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c < d) acc[j] += to_f(rowp[c]);
-    }
-  }
-}
-
 // V values of T that one lane loads at once: 16 bytes (V = 16 / sizeof(T)),
 // or one value when V == 1.
 template <typename T, int V>
@@ -178,8 +135,7 @@ __device__ __forceinline__ void store_pack(T* p, const float (&v)[V]) {
 // loads V columns at once (16 bytes, or one value when V == 1; the caller
 // keeps c + V <= d and the rows 16-byte aligned) and keeps U edges in
 // flight; edges past e1 are masked, not left to a serial tail. The fixed
-// order makes the sum deterministic without atomics. (csr_row_sum above is
-// the warp-per-row walk of the kernels not yet moved to this one.)
+// order makes the sum deterministic without atomics.
 template <typename T, int V, int U>
 __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
                                               const int* __restrict__ idx, int e0, int e1,
@@ -204,7 +160,7 @@ __device__ __forceinline__ void csr_piece_sum(const T* __restrict__ src,
 }
 
 // The piece schedule of the CSR kernels that split heavy rows (gcn_agg.cu,
-// spmm.cu, gin_fused.cu, gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks
+// spmm.cu, gin_sum.cuh, gat_fused.cu, gat_bwd.cu). The edges [0, end) are cut into chunks
 // of PIECE; a row's range is clipped at `end` (gcn_agg and spmm pass every
 // edge, the GAT kernels the valid ones, whose padding is the tail of the
 // edges), and
@@ -298,7 +254,7 @@ __device__ __forceinline__ int row_of_edge(const int* __restrict__ row_ptr, int 
   return lo;
 }
 
-// ---- the split row sum of a CSR (spmm.cu, gin_fused.cu) ---------------------
+// ---- the split row sum of a CSR (spmm.cu, gin_sum.cuh) ---------------------
 //
 // sum_{e in row r} src[idx[e]] (src[e] without idx) for every row of a CSR, in
 // f32, with 16-byte loads in 128-byte column slabs (grid.y) and the rows of
@@ -471,6 +427,27 @@ constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block may use
 constexpr int kFwdRows = 32;   // rows per forward tile: 4 row groups of 8
 constexpr int kDC = 32;        // features per chunk of the basis matrix
 constexpr int kOT = 64;        // output columns per block (blockIdx.y tiles O)
+
+// The dx kernels of the layer backwards (bspline_fused.cu, fastkan_layer.cu,
+// rbf_fused.cu) cut outputs whose staged rows do not fit in a block into
+// parts; each part's f32 share of dx (linear in its dbasis) goes to vbuf,
+// parts x m floats, and each library's sum kernel runs this body:
+// dx[i] = the sum over the parts, in order, of their shares.
+template <typename T>
+__device__ __forceinline__ void sum_parts(const float* __restrict__ vbuf, T* __restrict__ dx,
+                                          size_t m, int parts) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p) s += vbuf[p * m + i];
+    dx[i] = from_f<T>(s);
+  }
+}
+
+// blocks of kThreads of a sum_parts kernel over m values
+inline int sum_parts_blocks(size_t m) {
+  return (int)std::min<size_t>((m + kThreads - 1) / kThreads, 4096);
+}
 
 // Columns of one feature chunk of the basis matrix A = [SiLU(x) | B_0 .. B_NB-1]:
 // column g*kDC + j holds feature d0 + j of group g (g = 0 is SiLU).

@@ -278,12 +278,13 @@ __device__ __forceinline__ void fwd_zero(FwdAcc<MT, NPW>& acc) {
         for (int q = 0; q < 4; ++q) acc[mt][p][nt][q] = 0.f;
 }
 
-// out[row0 + r, o0 + c] = bf16(acc + bias(o)) for the rows below n and the
-// outputs below O of this thread's accumulators, which are then zeroed.
+// out[row0 + r, o0 + c] = TO(acc + bias(o)) (bf16, or f32 where the
+// forward's input is: the RBF product of an f32 x) for the rows below n and
+// the outputs below O of this thread's accumulators, which are then zeroed.
 // acc[mt][p][nt][2*h + e]: row mw*16*MT + mt*16 + gid + 8*h, output
 // o0 + (nw + 4*p)*16 + nt*8 + tig*2 + e.
-template <int MT, int NPW, typename Bias>
-__device__ __forceinline__ void fwd_store(FwdAcc<MT, NPW>& acc, bf16* __restrict__ out, int row0,
+template <int MT, int NPW, typename TO, typename Bias>
+__device__ __forceinline__ void fwd_store(FwdAcc<MT, NPW>& acc, TO* __restrict__ out, int row0,
                                           int n, int O, int o0, int np, Bias bias) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int mw = warp / 4, nw = warp % 4, gid = lane / 4, tig = lane % 4;
@@ -302,12 +303,15 @@ __device__ __forceinline__ void fwd_store(FwdAcc<MT, NPW>& acc, bf16* __restrict
           const int row = row0 + mw * 16 * MT + mt * 16 + gid + 8 * h;
           if (row >= n) continue;
           const float v0 = acc[mt][p][nt][2 * h] + b0, v1 = acc[mt][p][nt][2 * h + 1] + b1;
-          bf16* orow = out + (size_t)row * O;
+          TO* orow = out + (size_t)row * O;
           if (pairs && o + 1 < O) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + o) = __floats2bfloat162_rn(v0, v1);
+            if constexpr (std::is_same_v<TO, bf16>)
+              *reinterpret_cast<__nv_bfloat162*>(orow + o) = __floats2bfloat162_rn(v0, v1);
+            else
+              *reinterpret_cast<float2*>(orow + o) = make_float2(v0, v1);
           } else {
-            if (o < O) orow[o] = from_f<bf16>(v0);
-            if (o + 1 < O) orow[o + 1] = from_f<bf16>(v1);
+            if (o < O) orow[o] = from_f<TO>(v0);
+            if (o + 1 < O) orow[o + 1] = from_f<TO>(v1);
           }
         }
     }

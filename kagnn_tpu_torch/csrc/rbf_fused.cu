@@ -25,16 +25,24 @@
 // Bound on the H100: at the slice's shapes (N = 169,344 rows, (D, O) =
 // (128, 64) or (64, 64), G = 8) the forward does 2*N*G*D*O operations
 // against N*(D + O) elements moved: about 340 and 260 operations per byte
-// in bf16, around the tensor cores' ridge of about 295. The forward runs
-// its products on the CUDA cores in f32 (as csrc/fastkan_layer.cu did
-// before its redesign), so the SMs' instruction rate sets its time; the
-// (N, G*D) basis never leaves the SM.
-//
-// Design: the forward gives each block a 32-row tile and a 64-wide output
-// tile and builds the basis a 32-feature chunk at a time in shared memory:
-// the basis builder and tile product of the FastKANLayer kernels
-// (fastkan_common.cuh) without the layernorm and the SiLU column, with the
-// distance rounded to x's type.
+// in bf16, around the tensor cores' ridge of about 295; the (N, G*D) basis
+// never leaves the SM. Where w is bf16 (the base-free FastKAN under bf16, x
+// f32; the layernorm-free layer, x bf16) the forward runs its products on
+// the tensor cores (rbf_fwd_mma_kernel, fastkan_fwd.cuh's body without the
+// layer, the design of the FastKAN forward's: persistent blocks of 64-row
+// tiles owning all of their outputs, weight slabs staged with cp.async, each
+// (row, feature) basis built once for every output). The JAX kernel builds
+// the basis in x's type and takes jnp.dot(basis, w) in f32: an f32 basis is
+// split into three bf16 terms, the value whole (the output is f32; two
+// terms, the FastKAN forward's split, miss the f32 bar), a bf16 x's rounded
+// basis is one term, exact; the products go to f32
+// accumulators and the output, in x's type, is rounded once. Before this
+// design it multiplied on the CUDA cores in f32, where the SMs' instruction
+// rate set its time (0.551 ms at (64, 64), x f32 / w bf16, on the H100,
+// PERF.md §6). Where w is f32 the forward stays on the CUDA cores
+// (rbf_fwd_kernel: a 32-row tile x 64 outputs a block, the basis built a
+// chunk at a time in shared memory with the distance rounded to x's type):
+// TF32 products would miss the f32 bars.
 //
 // The backward runs as up to four launches on the caller's stream. Where W
 // is bf16 (the base-free FastKAN under bf16, x f32; the layernorm-free
@@ -77,7 +85,7 @@
 // chunk narrows past 8 centers, fastkan_common.cuh), any D, and any O: the
 // dx kernels cut the outputs into parts that fit in shared memory.
 
-#include "fastkan_common.cuh"
+#include "fastkan_fwd.cuh"
 
 namespace {
 
@@ -109,8 +117,8 @@ struct LoadX {
   }
 };
 
-// grid (row tiles, output tiles); the basis is rounded to x's type before
-// the product, as the JAX forward has it.
+// w in f32, on the CUDA cores. grid (row tiles, output tiles); the basis is
+// rounded to x's type before the product, as the JAX forward has it.
 template <typename TX, typename TW, int G>
 __global__ void __launch_bounds__(kThreads)
 rbf_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out, int n,
@@ -122,6 +130,17 @@ rbf_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restric
     basis_chunk<G, false, TX, true>(LoadX<TX>{x, D}, A_s, kFwdRows, row0, n, d0, D, cs, inv_h);
   };
   fkan::chunked_forward<G, false, TW, TX>(build, A_s, row0, n, D, O, nullptr, w, nullptr, out);
+}
+
+// w in bf16, on the tensor cores: fastkan_fwd.cuh's body without the
+// layer (no LayerNorm, SiLU or bias), out in x's type. grid (persistent row
+// blocks, output parts of plan.op).
+template <typename TX, int G, int NPW>
+__global__ void __launch_bounds__(kThreads, NPW == 1 ? 3 : 2)
+rbf_fwd_mma_kernel(const TX* __restrict__ x, const bf16* __restrict__ w, TX* __restrict__ out,
+                   int n, int D, int O, Centers cs, float inv_h, kan::FwdPlan plan) {
+  fkan::fwd_mma_body<TX, TX, G, false, NPW>(x, nullptr, nullptr, w, nullptr, nullptr, out, n, D,
+                                            O, cs, inv_h, plan);
 }
 
 // ---- the backward on the CUDA cores (W in f32) -----------------------------
@@ -486,12 +505,7 @@ rbf_dx_mma_kernel(const TX* __restrict__ x, const bf16* __restrict__ w,
 template <typename TX>
 __global__ void rbf_dx_sum_kernel(const float* __restrict__ vbuf, TX* __restrict__ dx, size_t m,
                                   int parts) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < m;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += vbuf[p * m + i];
-    dx[i] = from_f<TX>(s);
-  }
+  kan::sum_parts<TX>(vbuf, dx, m, parts);
 }
 
 constexpr int kSub = 64;    // rows per step of the dW kernel
@@ -730,16 +744,33 @@ rbf_dw_mma_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
   }
 }
 
+// The forward: on the tensor cores where w is bf16 (rbf_fwd_mma_kernel,
+// persistent blocks, the widest output part that fits), else on the CUDA
+// cores (rbf_fwd_kernel: TF32 would miss the f32 bars).
 template <typename TX, typename TW, int G>
 int launch_fwd(const void* x, const void* w, void* out, int n, int D, int O, Centers cs,
                float inv_h, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kFwdRows * fkan::Shape<G, false>::AC;
-  if (int e = set_smem(rbf_fwd_kernel<TX, TW, G>, smem)) return e;
-  dim3 grid((n + kFwdRows - 1) / kFwdRows, (O + kOT - 1) / kOT);
-  if (grid.x > 0 && grid.y > 0)
-    rbf_fwd_kernel<TX, TW, G><<<grid, kThreads, smem, stream>>>(
-        static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), n, D, O,
-        cs, inv_h);
+  if constexpr (std::is_same_v<TW, bf16>) {
+    return fkan::with_fwd_mma_part<TX, G, false>(n, O, [&](auto npw, int op) {
+      auto kernel = rbf_fwd_mma_kernel<TX, G, decltype(npw)::value>;
+      dim3 grid;
+      const kan::FwdPlan* plan = fkan::fwd_mma_plan<TX, G, false>(kernel, n, D, O, op, grid);
+      if (plan == nullptr) return (int)cudaErrorInvalidValue;
+      kernel<<<grid, kThreads, plan->smem, stream>>>(static_cast<const TX*>(x),
+                                                     static_cast<const bf16*>(w),
+                                                     static_cast<TX*>(out), n, D, O, cs, inv_h,
+                                                     *plan);
+      return (int)cudaGetLastError();
+    });
+  } else {
+    const size_t smem = sizeof(float) * kFwdRows * fkan::Shape<G, false>::AC;
+    if (int e = set_smem(rbf_fwd_kernel<TX, TW, G>, smem)) return e;
+    dim3 grid((n + kFwdRows - 1) / kFwdRows, (O + kOT - 1) / kOT);
+    if (grid.x > 0 && grid.y > 0)
+      rbf_fwd_kernel<TX, TW, G><<<grid, kThreads, smem, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), n, D, O,
+          cs, inv_h);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -793,8 +824,7 @@ int launch_dx(const TX* x, const TW* w, const TX* dout, TX* dx, float* vbuf, int
   if (int e = (int)cudaGetLastError()) return e;
   if (parts > 1) {
     const size_t m = (size_t)n * D;
-    const int blocks = (int)std::min<size_t>((m + kThreads - 1) / kThreads, 4096);
-    rbf_dx_sum_kernel<TX><<<blocks, kThreads, 0, stream>>>(vbuf, dx, m, parts);
+    rbf_dx_sum_kernel<TX><<<kan::sum_parts_blocks(m), kThreads, 0, stream>>>(vbuf, dx, m, parts);
   }
   return (int)cudaGetLastError();
 }

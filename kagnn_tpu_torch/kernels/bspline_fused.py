@@ -138,7 +138,7 @@ def _fwd_fn(k: int, grid: int):
 def _dx_fn(k: int, grid: int):
     P, I = _build.P, _build.I
     return _build.bind("bspline_fused", "bspline_bwd_dx",
-                       [P, P, P, P, P, P, I, I, I, I, I, I, P], (k, grid))
+                       [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P], (k, grid))
 
 
 @functools.cache
@@ -176,46 +176,71 @@ def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
 kan_linear_fwd.launches = 0
 
 
-def bwd_smem(D: int, O: int, grid: int, k: int, dtype) -> int:
-    """Shared memory per block of the backward's largest kernel at its
-    narrowest staging (csrc/bspline_fused.cu): under bf16 the dx kernel's
-    16-wide part of the chunk weights beside two buffers of its 32-row dout
-    and x tiles, and the dW kernel's basis beside a 64-wide part of its dout
-    tile (both kernels take wider parts where they fit); in f32 the dx
-    kernel's rows of dout and one output tile of the chunk's weights
-    (`DxF32`)."""
+def _dx_f32_tiling(grid: int, k: int):
+    """(rows a tile, outputs a staged weight tile, basis columns a chunk) of
+    the f32 dx kernel (csrc/bspline_fused.cu `DxF32`)."""
     ng = grid + k + 1
+    rpt = 8 if ng <= 9 else 4 if ng <= 14 else 2
     ac = ng * D_CHUNK
+    return 8 * rpt, (O_TILE if ac <= 320 else 32), ac
+
+
+def bwd_smem(width: int, grid: int, k: int, dtype) -> int:
+    """Shared memory per block of the backward's largest kernel at its
+    narrowest staging (csrc/bspline_fused.cu) for an output part of `width`
+    (`bwd_parts`): under bf16 the dx kernel's 16-wide piece of the chunk
+    weights beside two buffers of its 32-row dout (the part's outputs) and x
+    tiles, and the dW kernel's basis beside a 64-wide part of its dout tile
+    (both kernels take wider pieces where they fit); in f32 the dx kernel's
+    rows of dout and one output tile of the chunk's weights (`DxF32`)."""
+    rows, otx, ac = _dx_f32_tiling(grid, k)
     if dtype == torch.bfloat16:
-        return max(2 * (ac * 24 + 2 * MMA_ROWS * (-(-O // 16) * 16 + 8)
+        return max(2 * (ac * 24 + 2 * MMA_ROWS * (-(-width // 16) * 16 + 8)
                         + 2 * MMA_ROWS * X_PITCH),
                    2 * JAX_TILE * (ac + 8 + 64 + 8))
-    rpt = 8 if ng <= 9 else 4 if ng <= 14 else 2
-    otx = O_TILE if ac <= 320 else 32
-    return 4 * (8 * rpt * O + otx * (ac + 1))
+    return 4 * (rows * width + otx * (ac + 1))
+
+
+def bwd_parts(O: int, grid: int, k: int, dtype):
+    """(parts, width) of the backward's dx kernel: all O outputs in one part
+    (width O, or O rounded up to 16 in bf16) where its staged dout rows fit
+    in a block (every experiment script's shape), else the fewest parts of
+    equal width (a multiple of 64 in f32, of 16 in bf16) that fit
+    (csrc/bspline_fused.cu `launch_dx`: each part's share of dx goes to f32
+    scratch, summed in order)."""
+    step = 16 if dtype == torch.bfloat16 else O_TILE
+    whole = -(-O // 16) * 16 if dtype == torch.bfloat16 else O
+    if bwd_smem(whole, grid, k, dtype) <= SMEM_LIMIT:
+        return 1, whole
+    widest = step
+    while bwd_smem(widest + step, grid, k, dtype) <= SMEM_LIMIT:
+        widest += step
+    per = -(-O // -(-O // widest))  # the outputs of each of the fewest parts
+    width = -(-per // step) * step
+    return -(-O // width), width
 
 
 def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
     """-> (dx or None, dwb (D, O), dws (n_basis*D, O)), in the inputs'
     dtype. dx is skipped when `need_dx` is False. dWb and dWs are summed
     over the JAX kernel's 128-row tiles in tile order (module docstring of
-    csrc/bspline_fused.cu)."""
+    csrc/bspline_fused.cu). Any O: the dx kernel takes wide outputs in parts
+    (`bwd_parts`)."""
     if x.device.type == "cpu":
         dx, dwb, dws = kan_linear_bwd_plain(x, knots, wb, ws, dout, k)
         return (dx if need_dx else None), dwb, dws
     code = dtype_code(x)
     n, D, O, grid = _check_layer(x, knots, wb, ws, k)
-    smem = bwd_smem(D, O, grid, k, x.dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"backward of a layer with {O} outputs needs {smem} "
-                         f"bytes of shared memory per block; the H100 gives "
-                         f"{SMEM_LIMIT}")
     check_cuda("dout", dout, x.dtype, (n, O))
     x, wb, ws, dout = (aligned(t) for t in (x, wb, ws, dout))
     n_groups = grid + k + 1
     m = n_groups * D * O
     window = walk_window(-(-n // JAX_TILE), m, x.element_size())
     dx = torch.empty_like(x) if need_dx else None
+    # the dx kernel's output parts' shares, when there are several
+    parts, width = bwd_parts(O, grid, k, x.dtype)
+    vbuf = (torch.empty((parts, n, D), dtype=torch.float32, device=x.device)
+            if need_dx and parts > 1 else None)
     partial = torch.empty((window, m), dtype=x.dtype, device=x.device)
     dw = torch.empty((n_groups * D, O), dtype=x.dtype, device=x.device)
     # dx on a second stream beside the dW partials and their walk: they
@@ -225,8 +250,9 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
         side = _side_stream(x.device)
         side.wait_stream(main)
         err = _dx_fn(k, grid)(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
-                       ws.data_ptr(), dout.data_ptr(), dx.data_ptr(), n, D, O,
-                       grid, k, code, side.cuda_stream)
+                       ws.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+                       None if vbuf is None else vbuf.data_ptr(), n, D, O,
+                       width, grid, k, code, side.cuda_stream)
         _build.check(err, "bspline_bwd dx")
     err = _dw_fn(k, grid)(x.data_ptr(), knots.data_ptr(), dout.data_ptr(),
                    partial.data_ptr(), dw.data_ptr(), n, D, O, grid, k, code,

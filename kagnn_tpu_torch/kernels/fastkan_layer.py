@@ -40,13 +40,6 @@ from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, aligned,
 
 LN_EPS = 1e-5
 MAX_G = 32  # csrc/fastkan_common.cuh kMaxG; the kernels take 2..MAX_G centers
-O_TILE, ROWS = 64, 32  # kOT, kFwdRows of the kernels
-
-
-def chunk(num_grids: int) -> int:
-    """Features of a chunk of the basis matrix (csrc/fastkan_common.cuh
-    Shape::DC): 32 up to 8 centers, 16 up to 16, 8 past."""
-    return 32 if num_grids <= 8 else 16 if num_grids <= 16 else 8
 
 
 def centers(grid_min: float, grid_max: float, num_grids: int) -> np.ndarray:

@@ -4,10 +4,10 @@
     z   = (1 + eps) * x_i + sum_{j in N(i)} x_j
     out = FastKANLayer(z)
 
-in one launch, which also emits z (in x's dtype) for the backward. As in the
-JAX kernel the layer runs on the unrounded f32 z, the backward rebuilds it
-from the stored z, and padded edges are not masked: they point at the masked
-last row, whose output every consumer masks.
+which also emits z (in x's dtype) for the backward. As in the JAX kernel the
+layer runs on the unrounded f32 z, the backward rebuilds it from the stored
+z, and padded edges are not masked: they point at the masked last row, whose
+output every consumer masks.
 
 The backward (`_gf_bwd`) is the FastKANLayer backward kernel on z
 (kernels/fastkan_layer.py), then the segment-sum kernel over the sender CSR
@@ -15,9 +15,14 @@ with the gather index `receivers_by_sender` (kernels/spmm.py), then
 dx = (1 + eps) * dz + A^T dz. When x needs no gradient (the node features of
 the first conv) the dz and A^T dz work is skipped.
 
-CUDA kernel: `csrc/gin_fastkan.cu` (see its header for the bound on the H100
-and the design). On a CPU tensor the wrapper runs the plain version below;
-on a CUDA tensor it launches the kernel or raises.
+CUDA kernels: `csrc/gin_fastkan.cu` (see its header for the bound on the
+H100 and the design), gin_fused's two passes: the aggregate as spmm's split
+row sum (a receiver row of more than PIECE = 64 edges summed in pieces,
+added in chunk order) writing z and, under bf16, the f32 z to scratch; then
+the FastKANLayer on the f32 z, on the tensor cores under bf16 (the layer
+forward's body), on the CUDA cores in f32. On a CPU tensor the wrapper runs
+the plain version below; on a CUDA tensor it launches the kernels or
+raises.
 """
 from __future__ import annotations
 
@@ -26,15 +31,13 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, check_cuda,
-                                             dtype_code, segment_ids,
-                                             stream_of)
-from kagnn_tpu_torch.kernels.fastkan_layer import (ROWS, c_centers,
-                                                   check_layer, chunk,
+from kagnn_tpu_torch.kernels._common import (aligned, check_cuda, dtype_code,
+                                             segment_ids, stream_of)
+from kagnn_tpu_torch.kernels.fastkan_layer import (c_centers, check_layer,
                                                    fastkan_forward_f32,
                                                    fastkan_layer_bwd, inv_h,
                                                    weight_layouts)
-from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum
+from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum, split_scratch
 
 
 def gin_fastkan_fwd_plain(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
@@ -54,8 +57,8 @@ def gin_fastkan_fwd_plain(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
 def _fn(G: int):
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("gin_fastkan", "gin_fastkan_fwd",
-                       [P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P, F,
-                        I, P], (G,))
+                       [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I,
+                        I, P, F, I, P], (G,))
 
 
 def gin_fastkan_fwd(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
@@ -70,19 +73,21 @@ def gin_fastkan_fwd(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
     n, D, O, G = check_layer(x, lng, lnb, w, wb, bb)
     check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
     check_cuda("senders", senders, torch.int32, (None,))
+    w, wb = aligned(w), aligned(wb)  # staged with cp.async under bf16
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     z = torch.empty_like(x)
-    # the f32 z tile beside the basis chunk in shared memory, or (wide
-    # inputs) in a device scratch (csrc/gin_fastkan.cu)
-    zbuf = None
-    if 4 * ROWS * (D + (G + 1) * chunk(G) + 2) > SMEM_LIMIT:
-        zbuf = torch.empty((-(-n // ROWS) * ROWS, D), dtype=torch.float32,
-                           device=x.device)
+    # under bf16 the unrounded f32 z that the layer reads; the heavy rows'
+    # pieces (two slots of D a chunk) and each chunk's first row
+    z32 = (None if x.dtype == torch.float32 else
+           torch.empty((n, D), dtype=torch.float32, device=x.device))
+    edges = senders.numel()
+    partial, first_row = split_scratch(edges, D, x.device)
     err = _fn(G)(x.data_ptr(), senders.data_ptr(), recv_row_ptr.data_ptr(),
                  lng.data_ptr(), lnb.data_ptr(), w.data_ptr(), wb.data_ptr(),
                  bb.data_ptr(), out.data_ptr(), z.data_ptr(),
-                 None if zbuf is None else zbuf.data_ptr(), n, D, O,
-                 float(eps), G, c_centers(grid_min, grid_max, G),
+                 None if z32 is None else z32.data_ptr(), partial.data_ptr(),
+                 first_row.data_ptr(), n, D, O, float(eps), edges, G,
+                 c_centers(grid_min, grid_max, G),
                  inv_h(grid_min, grid_max, G), code, stream_of(x))
     _build.check(err, "gin_fastkan_fwd")
     gin_fastkan_fwd.launches += 1

@@ -37,7 +37,7 @@ from kagnn_tpu_torch.kernels.bspline_fused import (_check_layer,
                                                    kan_forward_f32,
                                                    kan_linear_bwd,
                                                    weight_layouts)
-from kagnn_tpu_torch.kernels.spmm import PIECE, sorted_segment_sum
+from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum, split_scratch
 
 
 def gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k, eps):
@@ -77,9 +77,7 @@ def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float):
     z32 = (None if x.dtype == torch.float32 else
            torch.empty((n, D), dtype=torch.float32, device=x.device))
     edges = senders.numel()
-    chunks = -(-edges // PIECE)
-    partial = torch.empty((2 * chunks, D), dtype=torch.float32, device=x.device)
-    first_row = torch.empty((chunks,), dtype=torch.int32, device=x.device)
+    partial, first_row = split_scratch(edges, D, x.device)
     err = _fn(k, grid)(x.data_ptr(), senders.data_ptr(),
                        recv_row_ptr.data_ptr(), knots.data_ptr(),
                        wb.data_ptr(), ws.data_ptr(), out.data_ptr(),

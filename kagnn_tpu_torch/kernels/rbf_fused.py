@@ -22,11 +22,11 @@ Rounding, as the JAX kernel has it in interpret mode (tests/test_torch_rbf.py):
     `dw_ref += partial.astype(dw.dtype)` does.
 
 CUDA kernels: `csrc/rbf_fused.cu` (see its header for the bound on the H100
-and the design; where w is bf16 the backward multiplies on the tensor
-cores, an f32 operand split into three bf16 terms, and where w is f32 on
-the CUDA cores). The backward takes any O: its dx kernel cuts the outputs
-into parts that fit in shared memory (`_bwd_plan`). On a CPU tensor the
-wrappers run the plain versions below; on a CUDA tensor they launch the
+and the design; where w is bf16 the forward and the backward multiply on
+the tensor cores, an f32 operand split into three bf16 terms, and where w
+is f32 on the CUDA cores). The backward takes any O: its dx kernel cuts the
+outputs into parts that fit in shared memory (`_bwd_plan`). On a CPU tensor
+the wrappers run the plain versions below; on a CUDA tensor they launch the
 kernels or raise.
 """
 from __future__ import annotations
@@ -74,6 +74,16 @@ def basis_plain(x: torch.Tensor, c: torch.Tensor, ih: float,
     d = _round(t * ih, x.dtype)
     e = torch.exp(-_round(d * d, x.dtype))
     return (_round(e, x.dtype) if round_exp else e), d
+
+
+def fwd_terms(x_dtype) -> int:
+    """bf16 terms of each basis value in the tensor-core forward (w bf16;
+    csrc/fastkan_fwd.cuh `kMmaTerms`): one for a bf16 x, whose basis is
+    rounded to bf16; three for an f32 x, the value whole: its output is f32,
+    and two terms (about 2^-17 of each value, the FastKAN forward's split up
+    to 8 centers) read about 1.1 of the f32 bar against the JAX kernel at
+    4-16 centers (tests/test_torch_rbf_terms.py)."""
+    return 1 if x_dtype == torch.bfloat16 else 3
 
 
 def rbf_spline_fwd_plain(x, w, grid_min: float, grid_max: float):
@@ -148,6 +158,7 @@ def rbf_spline_fwd(x, w, grid_min: float, grid_max: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rbf_spline_fwd_plain(x, w, grid_min, grid_max)
     n, D, O, G = check_rbf(x, w)
+    x, w = aligned(x), aligned(w)  # staged with cp.async where w is bf16
     c, ih = constants(grid_min, grid_max, G, x.dtype)
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     err = _fwd_fn(G)(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, D, O, G,

@@ -7,9 +7,12 @@ sender rows (`gat_sender_split_case`, `check_gat_sender_split`), spmm's
 split of heavy rows of either CSR (`spmm_split_graph`, `check_spmm_split`;
 the f64 references of the spmm and gcn_agg checks on heavy rows,
 `spmm_f64`, `gcn_agg_f64`),
-gin_fused's split of heavy receiver rows on the same graph
-(`check_gin_split`) and the kernels the RBF backward launches by dtype
-(`rbf_bwd_kernels`)."""
+gin_fused's and gin_fastkan's split of heavy receiver rows on the same graph
+(`check_gin_split`, `check_gin_fastkan_split`; the GIN aggregate summed in
+f64, `gin_z_f64`), the f64 references of the GAT kernels on heavy rows
+(`gat_fwd_f64`, `gat_dadst_f64`, `gat_sender_f64`) and the kernels the RBF
+forward and backward and the GIN kernels launch by dtype (`rbf_fwd_expected`,
+`rbf_bwd_kernels`, `gin_fused_expected`, `gin_fastkan_expected`)."""
 from __future__ import annotations
 
 import torch
@@ -342,12 +345,49 @@ def gat_split_case(kind: str, device="cuda"):
     return g, {"all": g.n_edge, "heavy": start + 200, "light": start + 40}[kind]
 
 
+def gat_fwd_f64(h, asrc, adst, senders, recv_row_ptr, n_edge: int, slope: float):
+    """gat_fwd_plain's function with its sums in f64, rounded once: (out in
+    h's dtype, alpha f32). Each edge's terms are the plain version's f32
+    values (logits, shifted exponentials, the weight rounded to h's dtype,
+    its products with h); only the row sums, the division and the log run in
+    f64."""
+    n, hc = h.shape
+    heads = asrc.shape[1]
+    c = hc // heads
+    rcv, snd = gat_edges(recv_row_ptr, senders, n_edge)
+    a_s, a_d = asrc.float(), adst.float()
+    sl, lg = leaky(a_s + a_d, slope), leaky(a_s[snd] + a_d[rcv], slope)
+    mx = sl.scatter_reduce(0, rcv[:, None].expand(-1, heads), lg, "amax")
+    mx = mx.to(torch.bfloat16).float()
+    es, w = torch.exp(sl - mx), torch.exp(lg - mx[rcv])
+    d = torch.float64
+    den = es.to(d).index_add(0, rcv, w.to(d))
+    wq = w.to(h.dtype).float()
+    acc = (es.repeat_interleave(c, 1) * h.float()).to(d)
+    acc.index_add_(0, rcv, (wq.repeat_interleave(c, 1) * h[snd].float()).to(d))
+    out = (acc / den.repeat_interleave(c, 1)).to(h.dtype)
+    return out, (mx.to(d) + torch.log(den)).float()
+
+
+def gat_dadst_f64(h, asrc, adst, alpha, s, dout, senders, recv_row_ptr, n_edge: int,
+                  slope: float):
+    """gat_dadst_plain's function with its sums in f64, rounded once to f32:
+    each edge's term is the plain version's f32 value."""
+    rcv, snd = gat_edges(recv_row_ptr, senders, n_edge)
+    _, dz = gbw._edge_terms(h, asrc, adst, alpha, s, dout, snd, rcv, slope)
+    out = torch.zeros(alpha.shape, dtype=torch.float64, device=h.device)
+    return out.index_add_(0, rcv, dz.double()).float()
+
+
 def check_gat_split(kind: str, heads: int, c: int, dtype, close, gen):
-    """gat_fwd (out, alpha) and gat_dadst against their plain versions on
-    gat_split_case(kind) at H heads of C columns, logits of a few tens;
-    each kernel called twice and equal bit for bit (no atomics). close(name,
-    got, want, kind) holds a pair to the kernels' bar ("f32" for alpha and
-    dadst, else the dtype's). Returns the largest error of each kernel."""
+    """gat_fwd (out, alpha) and gat_dadst on gat_split_case(kind) at H heads
+    of C columns, logits of a few tens, against their plain functions
+    summed in f64 (`gat_fwd_f64`, `gat_dadst_f64`: the plain versions' f32
+    `index_add_` adds node 0's 2,748 terms in its atomics' order, new each
+    run); each kernel called twice and equal bit for bit (no atomics).
+    close(name, got, want, kind) holds a pair to the kernels' bar ("f32" for
+    alpha and dadst, else the dtype's). Returns the largest error of each
+    kernel."""
     g, n_edge = gat_split_case(kind)
     n, hc = g.n_node_pad, heads * c
 
@@ -358,7 +398,7 @@ def check_gat_split(kind: str, heads: int, c: int, dtype, close, gen):
     asrc, adst = rand((n, heads), torch.float32, 10.0), rand((n, heads), torch.float32, 10.0)
     fa = (h, asrc, adst, g.senders, g.recv_row_ptr, n_edge, 0.2)
     out, alpha = gfu.gat_fwd(*fa)
-    want = gfu.gat_fwd_plain(*fa)
+    want = gat_fwd_f64(*fa)
     tag = f"{kind} H={heads} C={c}"
     err = max(close(f"gat_fwd split {tag} out", out, want[0], None),
               close(f"gat_fwd split {tag} alpha", alpha, want[1], "f32"))
@@ -368,7 +408,7 @@ def check_gat_split(kind: str, heads: int, c: int, dtype, close, gen):
     s = (dout * out).float().reshape(n, heads, c).sum(2).contiguous()
     da = (h, asrc, adst, alpha, s, dout, g.senders, g.recv_row_ptr, n_edge, 0.2)
     got = gbw.gat_dadst(*da)
-    err_dadst = close(f"gat_dadst split {tag}", got, gbw.gat_dadst_plain(*da), "f32")
+    err_dadst = close(f"gat_dadst split {tag}", got, gat_dadst_f64(*da), "f32")
     if not torch.equal(got, gbw.gat_dadst(*da)):
         raise AssertionError(f"gat_dadst split {tag}: two calls differ")
     return err, err_dadst
@@ -523,6 +563,23 @@ def check_spmm_split(g, d: int, dtype, close, gen):
 GIN_SPLIT_SHAPES = ((3, 4), (4, 16))
 
 
+def gin_z_f64(x, senders, recv_row_ptr, eps: float):
+    """The GIN kernels' f32 z exactly: the aggregate summed in f64, then
+    (1+eps)*x, rounded once to f32 (their plain versions' f32 `index_add_`
+    adds a heavy row's terms in its atomics' order, new each run)."""
+    agg = spmm_f64(x.double(), recv_row_ptr, senders)
+    return (agg + (1.0 + eps) * x.double()).float()
+
+
+def gin_fastkan_f64(x, senders, recv_row_ptr, lng, lnb, w, wb, bb, eps: float,
+                    grid_min: float = -2.0, grid_max: float = 2.0):
+    """gin_fastkan_fwd_plain's function on the exactly summed z
+    (`gin_z_f64`): (out, z) in x's dtype."""
+    z32 = gin_z_f64(x, senders, recv_row_ptr, eps)
+    return (fk.fastkan_forward_f32(z32, lng, lnb, w, wb, bb, grid_min, grid_max, x.dtype),
+            z32.to(x.dtype))
+
+
 def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4)):
     """gin_kan_fwd at D = d, O = o and (spline order, grid size) `shape`
     over g's receiver CSR (spmm_split_graph: a 2,748-edge row, rows of
@@ -546,9 +603,7 @@ def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4)):
     x, wb, ws = rand((n, d)), rand((d, o), 0.3), rand(((grid + k) * d, o), 0.3)
     ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.25)
     got = gf.gin_kan_fwd(*ga)
-    agg = torch.zeros((n, d), dtype=torch.float64, device=x.device).index_add_(
-        0, segment_ids(g.recv_row_ptr), x.index_select(0, g.senders.long()).double())
-    z32 = (agg + 1.25 * x.double()).float()
+    z32 = gin_z_f64(x, g.senders, g.recv_row_ptr, 0.25)
     want = bf.kan_forward_f32(z32, knots, wb, ws, k, dtype), z32.to(dtype)
     tag = f"order {k} grid {grid} D={d} O={o}"
     err = max(close(f"gin_fused split {tag} out", got[0][g.node_mask], want[0][g.node_mask]),
@@ -556,6 +611,36 @@ def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4)):
     again = gf.gin_kan_fwd(*ga)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"gin_fused split {tag}: two calls differ")
+    return err
+
+
+def check_gin_fastkan_split(g, d: int, o: int, dtype, close, gen, num_grids: int = 4):
+    """gin_fastkan_fwd at D = d, O = o and `num_grids` centers over g's
+    receiver CSR (spmm_split_graph: a 2,748-edge row, rows of 63-65, the
+    pad row heavy by its padding) against its plain function on the exactly
+    summed z (`gin_fastkan_f64`): z of every row, the pad row's too, and out
+    of the graph's rows (the pad row's output is unspecified, as in the JAX
+    kernel); called twice and equal bit for bit (no atomics). close(name,
+    got, want) holds a pair to the kernels' bar. Returns the largest
+    error."""
+    n, G = g.n_node_pad, num_grids
+
+    def rand(shape_, scale=1.0):
+        return (torch.randn(shape_, generator=gen, device=gen.device) * scale).to(dtype)
+
+    x = rand((n, d))
+    lw = (1.0 + rand((d,), 0.2), rand((d,), 0.1), rand((G * d, o), 0.3), rand((d, o), 0.3),
+          rand((o,), 0.1))
+    ga = (x, g.senders, g.recv_row_ptr, *lw, 0.25, -2.0, 2.0)
+    got = gfk.gin_fastkan_fwd(*ga)
+    want = gin_fastkan_f64(x, g.senders, g.recv_row_ptr, *lw, 0.25)
+    tag = f"G={G} D={d} O={o}"
+    err = max(close(f"gin_fastkan split {tag} out", got[0][g.node_mask],
+                    want[0][g.node_mask]),
+              close(f"gin_fastkan split {tag} z", got[1], want[1]))
+    again = gfk.gin_fastkan_fwd(*ga)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"gin_fastkan split {tag}: two calls differ")
     return err
 
 
@@ -586,6 +671,20 @@ def gin_fused_expected(x) -> set:
     it is f32."""
     fwd = "gin_fwd_mma_kernel" if x.dtype == torch.bfloat16 else "gin_fwd_kernel"
     return {"gin_sum_kernel", "gin_sum_combine_kernel", fwd}
+
+
+def gin_fastkan_expected(x) -> set:
+    """The kernels gin_fastkan_fwd launches for x: the split aggregate's two,
+    then the layer on the tensor cores where x is bf16, on the CUDA cores
+    where it is f32."""
+    fwd = "gin_fastkan_fwd_mma_kernel" if x.dtype == torch.bfloat16 else "gin_fastkan_fwd_kernel"
+    return {"gin_fastkan_sum_kernel", "gin_fastkan_sum_combine_kernel", fwd}
+
+
+def rbf_fwd_expected(w) -> set:
+    """The kernel rbf_spline_fwd launches for w: on the tensor cores where w
+    is bf16 (x f32 or bf16), on the CUDA cores where it is f32."""
+    return {"rbf_fwd_mma_kernel" if w.dtype == torch.bfloat16 else "rbf_fwd_kernel"}
 
 
 GAT_SENDER_KERNELS = {"gat_sender_kernel", "gat_sender_combine_kernel"}

@@ -48,6 +48,17 @@ def sorted_segment_sum_plain(msgs: torch.Tensor, row_ptr: torch.Tensor,
 PIECE = 64  # csrc/spmm.cu kPiece: edges per chunk of the row split
 
 
+def split_scratch(edges: int, d: int, device):
+    """The scratch of the split row sum (csrc/kan_common.cuh; spmm, gin_fused
+    and gin_fastkan) over `edges` edges of d columns: the heavy rows'
+    pieces, two f32 slots of d a chunk of PIECE edges, and each chunk's first
+    row (int32). `edges` is a count the host holds (the gather index's
+    length), so that nothing waits for the device."""
+    chunks = -(-edges // PIECE)
+    return (torch.empty((2 * chunks, d), dtype=torch.float32, device=device),
+            torch.empty((chunks,), dtype=torch.int32, device=device))
+
+
 @functools.cache
 def _fn():
     P, I = _build.P, _build.I
@@ -69,10 +80,8 @@ def sorted_segment_sum(msgs: torch.Tensor, row_ptr: torch.Tensor,
         check_cuda("idx", idx, torch.int32, (None,))
     # the edges' count bounds the chunks without reading row_ptr[-1] here
     edges = msgs.shape[0] if idx is None else idx.numel()
-    chunks = -(-edges // PIECE)
     out = torch.empty((n, d), dtype=msgs.dtype, device=msgs.device)
-    partial = torch.empty((2 * chunks, d), dtype=torch.float32, device=msgs.device)
-    first_row = torch.empty((chunks,), dtype=torch.int32, device=msgs.device)
+    partial, first_row = split_scratch(edges, d, msgs.device)
     err = _fn()(msgs.data_ptr(), row_ptr.data_ptr(),
                 None if idx is None else idx.data_ptr(), out.data_ptr(),
                 partial.data_ptr(), first_row.data_ptr(), n, d, edges, code,

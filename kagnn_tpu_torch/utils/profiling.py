@@ -257,6 +257,32 @@ def device_profile(run: Callable[[], None], n_calls: int) -> DeviceProfile:
                          per_call(DeviceType.CPU, "self_cpu_time_total"))
 
 
+def launch_resources(run: Callable[[], None]) -> dict:
+    """Each CUDA kernel that `run()` launches, by `kernel_base_name`: the
+    registers a thread, the shared memory a block (bytes) and the estimated
+    occupancy (%) of its last launch, as the profiler's trace records them
+    (None where it records none)."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import profile
+
+    with profile(activities=_activities()) as prof:
+        run()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return {kernel_base_name(e.get("name", "")): tuple(
+                e.get("args", {}).get(k) for k in (
+                    "registers per thread", "shared memory", "est. achieved occupancy %"))
+            for e in events if e.get("cat") == "kernel"}
+
+
 # The kernel rows by the CUDA function names of csrc/: each library's
 # kernels carry its prefix, a layer forward's kernels (on the CUDA cores
 # or the tensor cores) the stem `<prefix>_fwd`, and each GAT kernel's

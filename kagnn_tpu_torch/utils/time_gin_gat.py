@@ -1,14 +1,16 @@
-"""Times of the fused GIN aggregate + KANLinear (`gin_fused`) and of the GAT
-sender backward (`gat_sender`) on the card at the main paths' shapes, one
-line each:
+"""Times of the fused GIN aggregate + KANLinear (`gin_fused`), of the fused
+GIN aggregate + FastKANLayer (`gin_fastkan`) and of the GAT sender backward
+(`gat_sender`) on the card at the main paths' shapes, one line:
 
-    python -m kagnn_tpu_torch.utils.time_gin_gat [label] [gin|gat]
+    python -m kagnn_tpu_torch.utils.time_gin_gat [label] [gin|fastkan|gat]
 
 ms per call from CUDA events (`profiling.time_ms`) on the arxiv-sized
 graph, with each launched kernel's profiled ms beside it:
   * gin_fused (`gin_kan_fwd`) at (D, O) = (64, 64) and (128, 64), spline
     order 3, grid 4, over the receiver CSR whole, its longest row alone and
     its light rows alone (`time_gat.hub_row_alone`, `light_rows_alone`);
+  * gin_fastkan (`gin_fastkan_fwd`) at the same (D, O), 4 centers, over the
+    same three CSRs;
   * gat_sender at 4 heads of 64 columns over the sender CSR (out-degree at
     most 23: no heavy row), and over the receiver CSR walked as a sender
     CSR (idx = senders: node 0 then sends 2,748 edges, as in a graph whose
@@ -45,6 +47,7 @@ def main(label: str = "", only: str = "") -> str:
     from kagnn_tpu_torch.kan.bspline import make_grid
     from kagnn_tpu_torch.kernels import gat_bwd as gbw
     from kagnn_tpu_torch.kernels import gat_fused as gfu
+    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
     from kagnn_tpu_torch.kernels import gin_fused as gf
     from kagnn_tpu_torch.utils.time_gat import hub_row_alone, light_rows_alone
 
@@ -64,14 +67,22 @@ def main(label: str = "", only: str = "") -> str:
     cells = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
-        for D, O in GIN_SHAPES if only != "gat" else ():
+        for D, O in GIN_SHAPES if only in ("", "gin") else ():
             knots = make_grid(D, 4, 3, device="cuda").t().contiguous().to(dtype)
             wb, ws = rnd(D, O, scale=0.3, dtype=dtype), rnd(7 * D, O, scale=0.3, dtype=dtype)
             x = rnd(n, D, dtype=dtype)
             for name, (idx, rp, _) in receiver_csrs.items():
                 t = _timed(lambda: gf.gin_kan_fwd(x, idx, rp, knots, wb, ws, 3, 0.0))
                 cells.append(f"gin_fused {dn} ({D},{O}) {name} {t}")
-        if only == "gin":
+        for D, O in GIN_SHAPES if only in ("", "fastkan") else ():
+            lw = (1.0 + rnd(D, scale=0.2, dtype=dtype), rnd(D, scale=0.1, dtype=dtype),
+                  rnd(4 * D, O, scale=0.3, dtype=dtype), rnd(D, O, scale=0.3, dtype=dtype),
+                  rnd(O, scale=0.1, dtype=dtype))
+            x = rnd(n, D, dtype=dtype)
+            for name, (idx, rp, _) in receiver_csrs.items():
+                t = _timed(lambda: gfk.gin_fastkan_fwd(x, idx, rp, *lw, 0.0, -2.0, 2.0))
+                cells.append(f"gin_fastkan {dn} ({D},{O}) {name} {t}")
+        if only not in ("", "gat"):
             continue
         h, dout = rnd(n, HEADS * C, dtype=dtype), rnd(n, HEADS * C, scale=0.1, dtype=dtype)
         asrc, adst = rnd(n, HEADS, scale=2.0), rnd(n, HEADS, scale=2.0)

@@ -1,7 +1,7 @@
-"""Times of the segment sum (`spmm`) and the RBF backward (`rbf_bwd`) on the
-card at the main paths' shapes, one line each:
+"""Times of the segment sum (`spmm`), the RBF backward (`rbf_bwd`) and the
+RBF forward (`rbf_fwd`) on the card at the main paths' shapes, one line:
 
-    python -m kagnn_tpu_torch.utils.time_spmm_rbf [label] [spmm|rbf]
+    python -m kagnn_tpu_torch.utils.time_spmm_rbf [label] [spmm|rbf|rbf_fwd]
 
 ms per call from CUDA events (`profiling.time_ms`) on the arxiv-sized
 graph: spmm over the receiver CSR with idx = senders (the gin/fastkan step's
@@ -14,7 +14,8 @@ and (64, 40) at 8 centers for x / w in f32 / bf16, bf16 / bf16 and f32 /
 f32, with each launched kernel's profiled ms and, where w is bf16, the
 reading of its walked dW against the plain walk
 (`selfcheck.dw_walk_check`, reported, not raised: a variant of the kernel
-that fails the bar is timed too). Random inputs from a fixed seed
+that fails the bar is timed too); rbf_fwd at the same widths and dtypes,
+with each launched kernel's profiled ms. Random inputs from a fixed seed
 (chip_smoke.py and tests/test_torch_cuda.py hold the kernels to their
 plain versions). It calls only the wrappers' public functions, so a
 checkout of another commit can be timed with this file:
@@ -66,7 +67,14 @@ def main(label: str = "", only: str = "") -> str:
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = g.n_node_pad
     cells = []
-    for dtype in (torch.bfloat16, torch.float32) if only != "rbf" else ():
+
+    def timed(fn) -> str:
+        ms = time_ms(fn)
+        prof = device_profile(lambda: [fn() for _ in range(3)], 3)
+        return f"{ms:.4f} [" + ", ".join(f"{kernel_base_name(k)} {t:.4f}"
+                                          for k, t, _ in prof.kernels) + "]"
+
+    for dtype in (torch.bfloat16, torch.float32) if only in ("", "spmm") else ():
         for name, (rp, idx) in spmm_cases(g).items():
             for D in ((128, 64) if name != "sender" else (64,)):
                 msgs = torch.randn(n, D, generator=gen, device="cuda").to(dtype)
@@ -76,16 +84,21 @@ def main(label: str = "", only: str = "") -> str:
                     a = csr_matrix(rp, idx, n, dtype)
                     lib = f" (sparse.mm {time_ms(lambda: torch.sparse.mm(a, msgs)):.4f})"
                 cells.append(f"spmm {str(dtype)[6:]} {name} D{D} {ms:.4f}{lib}")
-    for xn, wn in RBF_DTYPES if only != "spmm" else ():
+    for xn, wn in RBF_DTYPES if only in ("", "rbf_fwd") else ():
+        for D, O in RBF_SHAPES:
+            x = (torch.randn(n, D, generator=gen, device="cuda") * 1.5).to(getattr(torch, xn))
+            w = (torch.randn(RBF_G * D, O, generator=gen, device="cuda") * 0.3).to(
+                getattr(torch, wn))
+            t = timed(lambda: rf.rbf_spline_fwd(x, w, -2.0, 2.0))
+            cells.append(f"rbf_fwd {xn[:4]}/{wn[:4]} ({D},{O}) {t}")
+    for xn, wn in RBF_DTYPES if only in ("", "rbf") else ():
         for D, O in RBF_SHAPES:
             x = (torch.randn(n, D, generator=gen, device="cuda") * 1.5).to(getattr(torch, xn))
             w = (torch.randn(RBF_G * D, O, generator=gen, device="cuda") * 0.3).to(
                 getattr(torch, wn))
             dout = torch.randn(n, O, generator=gen, device="cuda").to(x.dtype)
             fn = lambda: rf.rbf_spline_bwd(x, w, dout, -2.0, 2.0)  # noqa: E731
-            ms = time_ms(fn)
-            prof = device_profile(lambda: [fn() for _ in range(3)], 3)
-            split = ", ".join(f"{kernel_base_name(k)} {t:.4f}" for k, t, _ in prof.kernels)
+            t = timed(fn)
             walk = ""
             if wn == "bfloat16":
                 c, ih = rf.constants(-2.0, 2.0, RBF_G, x.dtype)
@@ -99,7 +112,7 @@ def main(label: str = "", only: str = "") -> str:
                     pass  # the logged line says FAIL
                 walk = " " + lines[0].strip()
                 del basis
-            cells.append(f"rbf_bwd {xn[:4]}/{wn[:4]} ({D},{O}) {ms:.4f} [{split}]{walk}")
+            cells.append(f"rbf_bwd {xn[:4]}/{wn[:4]} ({D},{O}) {t}{walk}")
     return f"{label}: " + " | ".join(cells)
 
 

@@ -39,6 +39,7 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                check_fastkan_bwd,
                                                check_gat_sender_split,
                                                check_gat_split,
+                                               check_gin_fastkan_split,
                                                check_gin_split,
                                                check_spmm_split,
                                                fastkan_gcn_chain,
@@ -819,3 +820,58 @@ def test_gat_sender_splits_heavy_sender_rows(dt, shape, kind):
     gen = torch.Generator(device="cuda").manual_seed(41)
     check_gat_sender_split(kind, *shape, DTYPES[dt],
                            lambda name, got, want: close(got, want, "f32"), gen)
+
+
+@pytest.mark.parametrize("corner", [(3, 4), (4, 16)], ids=["3-4", "4-16"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_bspline_backward_takes_2048_outputs(dt, corner):
+    """The B-spline backward at 2,048 outputs against its plain version
+    (dx at the kernels' bar, the tile-walked bf16 dW at the walk bar over
+    three 128-row tiles): its dx kernels stage whole rows of dout, which do
+    not fit in a block there (except f32 at (4, 16)), so they take the
+    outputs in parts (`bspline_fused.bwd_parts`) and sum the parts' shares
+    in order."""
+    k, grid = corner
+    td = DTYPES[dt]
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    O = 2048
+    x = torch.randn(300, 40, generator=gen, device="cuda").to(td)
+    dout = (torch.randn(300, O, generator=gen, device="cuda") * 0.1).to(td)
+    knots, wb, ws = _layer(gen, 40, O, grid, td, k=k)
+    assert (bf.bwd_parts(O, grid, k, td)[0] > 1) == (corner == (3, 4) or dt == "bf16")
+    check_bspline_bwd(f"bspline_bwd {corner} O={O}", x, knots, wb, ws, dout, k,
+                      _closer(dt), log=_quiet)
+
+
+@pytest.mark.parametrize("G", [2, 8, 32])
+@pytest.mark.parametrize("xd", ["f32", "bf16"])
+def test_rbf_fwd_tensor_cores(xd, G, no_tf32):
+    """The RBF forward where w is bf16 (x f32: the base-free FastKAN's
+    dtypes; x bf16: the layernorm-free layer's), on the tensor cores
+    (`rbf_fwd_mma_kernel`: the f32 basis as three bf16 terms, a bf16 x's
+    rounded basis as one), against its plain version at 2, 8 and 32 centers:
+    ragged D and N, one output, the head's 40 and 300 (two output parts of
+    256); each output at the bar of x's dtype. chip_smoke.py checks the
+    kernel it launches by its profiled name."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    for n, D, O in ((1300, 37, 40), (301, 64, 1), (300, 16, 300)):
+        x = (torch.randn(n, D, generator=gen, device="cuda") * 1.5).to(DTYPES[xd])
+        w = (torch.randn(G * D, O, generator=gen, device="cuda") * 0.3).bfloat16()
+        got = rf.rbf_spline_fwd(x, w, -2.0, 2.0)
+        assert got.dtype == x.dtype
+        close(got, rf.rbf_spline_fwd_plain(x, w, -2.0, 2.0), xd)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gin_fastkan_splits_heavy_rows(dt, D):
+    """gin_fastkan_fwd (out and z of every row) where its aggregate splits
+    receiver rows of more than 64 edges into pieces, against its plain
+    function on the exactly summed z (kernels/selfcheck.py
+    check_gin_fastkan_split on spmm_split_graph, which chip_smoke.py runs
+    too): a row of 2,748 edges, rows of 63-65, the pad row heavy by its 928
+    padded edges; the layer on the tensor cores under bf16; twice, equal bit
+    for bit."""
+    check_gin_fastkan_split(spmm_split_graph(), D, 64, DTYPES[dt],
+                            lambda name, got, want: close(got, want, dt),
+                            torch.Generator(device="cuda").manual_seed(53))

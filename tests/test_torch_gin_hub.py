@@ -1,5 +1,6 @@
-"""The fused GIN aggregate + KANLinear (`kernels/gin_fused.py`) on receiver
-rows far longer than the rest, on the CPU.
+"""The fused GIN aggregate + KANLinear (`kernels/gin_fused.py`) and + the
+FastKANLayer (`kernels/gin_fastkan.py`) on receiver rows far longer than the
+rest, on the CPU.
 
 The graph is test_torch_spmm_hub.py's (`_hub_graph`): node 0 receives 2,500
 edges, nodes 1-3 receive 63, 64 and 65 (one short of the 64-edge piece, one
@@ -28,6 +29,14 @@ size) shapes:
     group or in one piece of its heavy row, and every heavy row (node 0,
     node 3, the pad row) combined once.
 
+gin_fastkan (csrc/gin_fastkan.cu) is the same two passes with the
+FastKANLayer at 4 centers: its plain version and its design (the same split
+aggregate, then the layer on the unrounded f32 z: LayerNorm statistics and
+SiLU of the f32 z, the f32 [SiLU | basis] times [Wb; W] in f32 sums, under
+bf16 as the tensor-core forward's two bf16 terms of each value) against the
+JAX `_fwd_impl` of kagnn_tpu/pallas/gin_fastkan.py in interpret mode, in f32
+and bf16 at D 64 and 128.
+
 Bars (tests/test_torch_kernels.py's for the GIN kernel): f32 1e-4 of the
 output's scale (max |jax|: the JAX kernel's segment sum carries f32
 messages as bf16 hi/lo pairs), bf16 4 bf16 ulps of the output's scale."""
@@ -37,12 +46,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_fwd_terms import _terms
 from test_torch_kernels import DTYPES, close
 from test_torch_spmm_hub import PIECE, _hub_graph, _schedule, _split_sum32
 
 from kagnn_tpu.kan import bspline as jbs
+from kagnn_tpu.pallas.gin_fastkan import _fwd_impl as _fastkan_fwd_impl
 from kagnn_tpu.pallas.gin_fused import _fwd_impl
 from kagnn_tpu.pallas.spmm import gather_rows_padded
+from kagnn_tpu_torch.kernels import fastkan_layer as fk
+from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import gin_fused as gf
 from kagnn_tpu_torch.kernels.bspline_fused import basis_ladder
 
@@ -133,3 +146,66 @@ def test_plain_and_split_match_jax(dt, D, shape):
         close(p, w, dt, scaled=True, err_msg=f"plain {name}")
         close(s, w, dt, scaled=True, err_msg=f"split {name}")
         close(s, p, dt, scaled=True, err_msg=f"split vs plain {name}")
+
+
+G_FASTKAN = 4  # centers of the gin_fastkan cases (the main paths')
+
+
+@functools.cache
+def _fastkan_case(dt, D):
+    """(port graph, numpy inputs in the kernel layouts, JAX out and z as
+    float32 numpy) of gin_fastkan on the hub graph."""
+    jd, _ = DTYPES[dt]
+    G = G_FASTKAN
+    gj, gt = _hub_graph()
+    rng = np.random.default_rng(D + 3)
+    x = (rng.normal(size=(gt.n_node_pad, D)) * 0.5).astype(np.float32)
+    layer = dict(lng=(rng.normal(size=(D,)) * 0.2 + 1.0).astype(np.float32),
+                 lnb=(rng.normal(size=(D,)) * 0.1).astype(np.float32),
+                 w=(rng.normal(size=(G * D, O)) * 0.3).astype(np.float32),
+                 wb=(rng.normal(size=(D, O)) * 0.3).astype(np.float32),
+                 bb=(rng.normal(size=(O,)) * 0.1).astype(np.float32))
+    xj = jnp.asarray(x, jd)
+    out, z = _fastkan_fwd_impl(gather_rows_padded(xj, gj.senders), gj.receivers, xj, EPS,
+                               *(jnp.asarray(layer[k], jd) for k in ("lng", "lnb", "w", "wb",
+                                                                    "bb")),
+                               -2.0, 2.0, G, 4.0 / (G - 1), 1e-5, True)
+    want = [np.asarray(v.astype(jnp.float32)) for v in (out, z)]
+    return gt, dict(x=x, **layer), want
+
+
+def _fastkan_split_forward(x, g, lng, lnb, w, wb, bb):
+    """csrc/gin_fastkan.cu's two passes in torch: the split aggregate plus
+    (1+eps)*x as the f32 z, z rounded once; the FastKANLayer on the f32 z,
+    its f32 [SiLU(z) | B(LN(z))] times [Wb; W] summed in f32 (under bf16 as
+    the tensor-core forward's two bf16 terms of each value), the f32 bias
+    added, the output rounded once. Returns (out, z)."""
+    z32 = _split_sum32(x, g.recv_row_ptr, g.senders) + (1.0 + EPS) * x.float()
+    xhat, _ = fk.layer_norm_f32(z32)
+    basis, _ = fk.wide_basis(xhat * lng.float() + lnb.float(),
+                             torch.from_numpy(fk.centers(-2.0, 2.0, G_FASTKAN)),
+                             fk.inv_h(-2.0, 2.0, G_FASTKAN))
+    a = torch.cat([z32 * torch.sigmoid(z32), basis], 1)
+    wt = torch.cat([wb, w]).float()
+    terms = _terms(a, 2) if x.dtype == torch.bfloat16 else [a]
+    out = sum(t @ wt for t in terms) + bb.float()
+    return out.to(x.dtype), z32.to(x.dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gin_fastkan_plain_and_split_match_jax(dt, D):
+    """gin_fastkan's out and z, of the plain version and of the split
+    two-pass design, on the same inputs, against the JAX kernel; the split
+    against the plain version within the same bar."""
+    _, td = DTYPES[dt]
+    g, inp, want = _fastkan_case(dt, D)
+    t = {k: torch.from_numpy(v).to(td) for k, v in inp.items()}
+    layer = [t[k] for k in ("lng", "lnb", "w", "wb", "bb")]
+    plain = gfk.gin_fastkan_fwd(t["x"], g.senders, g.recv_row_ptr, *layer, EPS, -2.0, 2.0)
+    split = _fastkan_split_forward(t["x"], g, *layer)
+    for name, p, s_, w_ in zip(("out", "z"), plain, split, want):
+        assert p.dtype == s_.dtype == td
+        close(p, w_, dt, scaled=True, err_msg=f"plain {name}")
+        close(s_, w_, dt, scaled=True, err_msg=f"split {name}")
+        close(s_, p, dt, scaled=True, err_msg=f"split vs plain {name}")

@@ -22,6 +22,7 @@ KERNEL_ROWS = {
     "bspline_fwd_kernel": "bspline_fwd", "bspline_fwd_mma_kernel": "bspline_fwd",
     "bspline_dx_kernel": "bspline_bwd", "bspline_dx_mma_kernel": "bspline_bwd",
     "bspline_dw_partial_kernel": "bspline_bwd", "bspline_dw_mma_kernel": "bspline_bwd",
+    "bspline_dx_sum_kernel": "bspline_bwd",
     "fastkan_fwd_kernel": "fastkan_fwd", "fastkan_fwd_mma_kernel": "fastkan_fwd",
     "fastkan_stats_kernel": "fastkan_bwd", "fastkan_dx_kernel": "fastkan_bwd",
     "fastkan_tile_sums_kernel": "fastkan_bwd", "fastkan_row_sums_kernel": "fastkan_bwd",
@@ -29,8 +30,9 @@ KERNEL_ROWS = {
     "fastkan_dw_partial_kernel": "fastkan_bwd",
     "gin_sum_kernel": "gin_fused", "gin_sum_combine_kernel": "gin_fused",
     "gin_fwd_kernel": "gin_fused", "gin_fwd_mma_kernel": "gin_fused",
-    "gin_fastkan_kernel": "gin_fastkan",
-    "rbf_fwd_kernel": "rbf_fwd", "rbf_dx_kernel": "rbf_bwd",
+    "gin_fastkan_sum_kernel": "gin_fastkan", "gin_fastkan_sum_combine_kernel": "gin_fastkan",
+    "gin_fastkan_fwd_kernel": "gin_fastkan", "gin_fastkan_fwd_mma_kernel": "gin_fastkan",
+    "rbf_fwd_kernel": "rbf_fwd", "rbf_fwd_mma_kernel": "rbf_fwd", "rbf_dx_kernel": "rbf_bwd",
     "rbf_dw_partial_kernel": "rbf_bwd", "rbf_dx_mma_kernel": "rbf_bwd",
     "rbf_dx_sum_kernel": "rbf_bwd", "rbf_dw_mma_kernel": "rbf_bwd",
     "gat_fwd_kernel": "gat_fwd", "gat_dadst_kernel": "gat_dadst",

@@ -1,7 +1,16 @@
-"""The arithmetic of the tensor-core RBF backward (csrc/rbf_fused.cu
-`rbf_dx_mma_kernel`, `rbf_dw_mma_kernel`: w in bf16), emulated in torch on
-the CPU, against the JAX `_bwd_kernel` of kagnn_tpu/pallas/rbf_fused.py in
+"""The arithmetic of the tensor-core RBF forward and backward
+(csrc/rbf_fused.cu `rbf_fwd_mma_kernel`, `rbf_dx_mma_kernel`,
+`rbf_dw_mma_kernel`: w in bf16), emulated in torch on the CPU, against the
+JAX `_fwd_kernel` and `_bwd_kernel` of kagnn_tpu/pallas/rbf_fused.py in
 interpret mode on the same numpy inputs.
+
+The forward: the JAX kernel builds the basis in x's dtype and takes
+jnp.dot(basis, w) in f32. The kernel splits an f32 basis into three bf16
+terms (`rbf_fused.fwd_terms`: its output is f32, and two terms, the FastKAN
+forward's split up to 8 centers, miss the f32 bar) and takes a bf16 x's
+basis, rounded to bf16, as one term (it is exact); each term times the bf16
+W, summed in f32, the output rounded to x's dtype once. Bars: f32 rtol 1e-4 / atol 1e-5, bf16 4
+bf16 ulps of the output's scale.
 
 The card multiplies bf16 operands exactly into f32 sums (mma.sync with f32
 accumulators). The JAX kernel multiplies in f32: dbasis = dout @ W^T with W
@@ -27,8 +36,9 @@ rounded to bf16, fails dx's f32 bar where three terms meet it."""
 import numpy as np
 import pytest
 import torch
-from test_torch_rbf import DT, GRAD, _inputs, _jax_rbf, _np32
+from test_torch_rbf import DT, GRAD, VAL, _inputs, _jax_rbf, _np32
 
+from kagnn_tpu.pallas import rbf_fused as jrbf
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels._common import dw_tile, round_to
 from kagnn_tpu_torch.kernels.fastkan_layer import inv_h
@@ -86,6 +96,17 @@ def _dw_terms(x, dout, G, basis_terms=3):
     return walk.to(torch.bfloat16), b, tile
 
 
+def _dx_close_val(got, want, xd, name):
+    """A forward output: f32 rtol 1e-4 / atol 1e-5, bf16 4 bf16 ulps of the
+    output's scale."""
+    got, want = _np32(got), _np32(want)
+    if xd == "f32":
+        np.testing.assert_allclose(got, want, err_msg=name, **VAL)
+    else:
+        tol = 4 * BF16_ULP * max(float(np.abs(want).max()), 1e-6)
+        assert float(np.abs(got - want).max()) <= tol, name
+
+
 def _dx_close(got, want, xd, name):
     got, want = _np32(got), _np32(want)
     if xd == "f32":
@@ -137,3 +158,44 @@ def test_one_tile_dw_meets_the_kernel_bar(rng, G):
         want = _np32(dw_j)
         tol = 4 * BF16_ULP * max(float(np.abs(want).max()), 1e-6)
         assert float(np.abs(_np32(dw) - want).max()) <= tol
+
+
+def _fwd_terms(x, w, G, terms):
+    """rbf_fwd_mma_kernel in torch: the basis in x's rounding (bf16 distance
+    and basis for a bf16 x) as `terms` bf16 terms, each times the bf16 W
+    (exact products, f32 sums), the output rounded to x's dtype once."""
+    c, ih = rf.constants(*GRID, G, x.dtype)
+    b, _ = rf.basis_plain(x, c, ih, round_exp=True)
+    return sum(t @ w.float() for t in _terms(b, terms)).to(x.dtype)
+
+
+@pytest.mark.parametrize("G", [4, 8, 16])
+@pytest.mark.parametrize("xw", XW, ids=["-".join(p) for p in XW])
+def test_tensor_core_forward_matches_jax(rng, xw, G):
+    """The forward's term products against the JAX `rbf_spline_matmul` at
+    4, 8 and 16 centers (40 features, 520 terms a sum at 16): within the f32
+    bar for an f32 x at its term count, within 4 ulps for a bf16 x; the
+    bf16 basis is one term, so the plain version (the card's reference)
+    multiplies the same values."""
+    xd, wd = xw
+    (jx, jw, _), (tx, tw, _) = _inputs(rng, 600, 40, 24, G, xd, wd)
+    den = (GRID[1] - GRID[0]) / (G - 1)
+    want = jrbf.rbf_spline_matmul(jx, jw, GRID[0], GRID[1], G, den, True)
+    got = _fwd_terms(tx, tw, G, rf.fwd_terms(tx.dtype))
+    assert got.dtype == DT[xd][1]
+    _dx_close_val(got, want, xd, "out")
+    _dx_close_val(got, rf.rbf_spline_fwd_plain(tx, tw, *GRID), xd, "out vs plain")
+
+
+def test_forward_takes_f32_basis_whole(rng):
+    """x f32 / w bf16 at 8 centers (the base-free FastKAN's): the basis as
+    three bf16 terms (the value whole) meets the JAX forward within the f32
+    bar; as two (about 2^-17 of each value: the FastKAN forward's split,
+    whose output is bf16) or one (the basis rounded to bf16) it does not."""
+    G = 8
+    (jx, jw, _), (tx, tw, _) = _inputs(rng, 600, 40, 24, G, "f32", "bf16")
+    want = jrbf.rbf_spline_matmul(jx, jw, GRID[0], GRID[1], G, 4.0 / 7.0, True)
+    _dx_close_val(_fwd_terms(tx, tw, G, 3), want, "f32", "three terms")
+    for terms in (2, 1):
+        with pytest.raises(AssertionError):
+            _dx_close_val(_fwd_terms(tx, tw, G, terms), want, "f32", f"{terms} terms")

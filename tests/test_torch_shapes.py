@@ -5,7 +5,8 @@ kernels take since they stopped being compiled for a few shapes only:
 
   * the B-spline KANLinear forward and backward at (spline order, grid
     size) (1, 1), (2, 8) and (4, 16), and its bf16 backward at 512 outputs
-    (a GAT transform of 4 heads x 128);
+    (a GAT transform of 4 heads x 128); the plan of the card's backward for
+    any O up to 4,096 (its output parts);
   * the FastKANLayer forward and its six gradients, and the RBF spline
     product, at 2, 16 and 32 centers and at 500 features (PubMed's width);
   * the GAT attention (forward, dadst and sender kernels) at 4 heads of 2,
@@ -47,6 +48,7 @@ from kagnn_tpu_torch.graphs import single_graph
 from kagnn_tpu_torch.kernels import bspline_fused as bf
 from kagnn_tpu_torch.kernels import fastkan_layer as fk
 from kagnn_tpu_torch.kernels import rbf_fused as rf
+from kagnn_tpu_torch.kernels._common import SMEM_LIMIT
 from kagnn_tpu_torch.models import NodeClassifier
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.train import masked_softmax_cross_entropy
@@ -125,6 +127,32 @@ def test_bspline_bf16_backward_at_512_outputs(rng):
     """The bf16 backward at the GAT transform's widest outputs (4 heads x
     128), which the card's kernel stages in output parts."""
     _bspline(rng, 150, 4, 512, 3, 4, "bf16")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("k,g", [(3, 4), (4, 16)], ids=["3-4", "4-16"])
+def test_bspline_backward_output_parts_fit(dt, k, g):
+    """The B-spline backward's output parts (`bwd_parts`, the plan the
+    card's dx kernels take: each part's share of dx summed in order) at
+    every O from 1 to 4,096: every part within a block's shared memory
+    (`bwd_smem` of its width), the parts covering O with none empty, one
+    part of every output wherever those fit (the kernels as before, no
+    scratch), and several past the limit that once raised (in f32 about
+    650 outputs at (3, 4), in bf16 about 1,650)."""
+    td = torch.float32 if dt == "f32" else torch.bfloat16
+    step = 16 if dt == "bf16" else 64
+    for O in range(1, 4097):
+        parts, width = bf.bwd_parts(O, g, k, td)
+        assert bf.bwd_smem(width, g, k, td) <= SMEM_LIMIT, (O, width)
+        assert (parts - 1) * width < O <= parts * width, (O, parts, width)
+        whole = -(-O // 16) * 16 if dt == "bf16" else O
+        if bf.bwd_smem(whole, g, k, td) <= SMEM_LIMIT:
+            assert (parts, width) == (1, whole), O
+        else:
+            assert parts > 1 and width % step == 0, (O, parts, width)
+    assert bf.bwd_parts(4096, g, k, td)[0] > 1
+    if (k, g) == (3, 4):
+        assert bf.bwd_parts(700 if dt == "f32" else 1700, g, k, td)[0] == 2
 
 
 def _fastkan_weights(rng, d, o, G):
