@@ -18,8 +18,14 @@ Phases (any failure raises, and the script exits non-zero):
      the main paths' shapes (the layer kernels also at the GAT transform's
      widths, 256 = 4 heads x 64; the RBF kernels at the base-free FastKAN's
      widths with x/w in f32/f32, f32/bf16 and bf16/bf16, with the kernel
-     each launches by its profiled name; the narrow sum at
-     k = 4 over the arxiv-sized graph's receivers; spmm also over the
+     each launches by its profiled name; the narrow sum at k 1-8 on the
+     split's cases (`selfcheck.narrow_cases`: hub rows at a chunk's head,
+     inside a chunk and after dropped edges, rows of 64 and 65 edges,
+     receivers past the end, no edge) and at k = 4 over the arxiv-sized
+     graph's receivers, its row pointer against torch.searchsorted exactly
+     and its sums against the function summed in f64 (node 0's hub row
+     too), bit for bit twice, timed whole, its row pointer alone and by
+     kernel; spmm also over the
      receiver CSR with idx = senders at the gin/fastkan step's widths, timed
      beside torch.sparse.mm and on its hub row alone and its light rows
      alone, and on a graph whose both CSRs hold heavy rows, at 1-300
@@ -59,17 +65,24 @@ Phases (any failure raises, and the script exits non-zero):
      also at 1, 7, 40 and 512 outputs, the RBF and B-spline backwards at
      2,048, in output parts) against its plain version;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
-     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan), at five search-space
+     gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan, gin/mlp, gcn/mlp,
+     gat/mlp), at five search-space
      corners (STEP_CORNERS) and for the base-free FastKAN and the
      layernorm-free FastKANLayer: the kernel path (fused=True) and the plain
      path (fused=False) agree on logits and every parameter gradient;
-  5. main paths: the bf16 train step of each node path at full width on
-     the arxiv-sized synthetic graph (169,343 nodes, 1,166,243 edges), and
-     of FastKAN([128, 64, 64, 40], num_grids=8, use_base_update=False) on
-     its node rows, 2 warm-up + 10 timed steps each, with the launch
-     counters set to 0 before and checked after each path, and a profiler
-     breakdown (which keys the redesign order: device ms per step by
-     kernel, summed over the paths); then three drives of kernels no path launches, each forward
+  5. main paths: the bf16 train step of each of the nine node paths at
+     full width on the arxiv-sized synthetic graph (169,343 nodes,
+     1,166,243 edges), and of FastKAN([128, 64, 64, 40], num_grids=8,
+     use_base_update=False) on its node rows, 2 warm-up + 10 timed steps
+     each, with the launch counters set to 0 before and checked after each
+     path, and a profiler breakdown (which keys the redesign order: device
+     ms per step by kernel, summed over the paths); then each of the ten
+     paths captured by `make_node_multi_step` (10 steps a CUDA graph, Adam
+     capturable): its launches at the capture, none at a replay, ms/step
+     captured against eager, peak memory, the losses bit for bit those of
+     eager steps with the same Adam (whose first step runs under
+     torch.cuda.set_sync_debug_mode("error")) and within 4 bf16 ulps of the
+     default Adam's; then three drives of kernels no path launches, each forward
      and backward once with its counts checked the same way: the
      GIN+FastKAN fusion point `FastKAN(x, gin_graph=(g, 0))` (the GIN conv
      sums z itself for a FastKAN net, as the JAX model does), the
@@ -106,10 +119,12 @@ from kagnn_tpu_torch.kernels.selfcheck import (BF16_ULP, DW_CLOSE_TILES,
                                                check_gat_sender_split,
                                                check_gat_split,
                                                check_gin_fastkan_split,
-                                               check_gin_split, dw_walk_check,
+                                               check_gin_split, check_narrow,
+                                               dw_walk_check,
                                                gin_fastkan_expected,
                                                gin_fastkan_f64,
                                                gin_fused_expected,
+                                               narrow_cases, narrow_f64,
                                                profiled_kernels,
                                                rbf_fwd_expected)
 
@@ -1026,12 +1041,19 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                                bound_ms=bms, bound_by=by, library_ms=None)
 
     # the narrow sum: k = 4 over the main graph's receivers (a 4-head GAT's
-    # per-edge quantities), and k in 1..8 on the small and ragged graphs
+    # per-edge quantities), and k in 1..8 on the small and ragged graphs and
+    # the split's cases; its row pointer against torch.searchsorted exactly
     rng = np.random.default_rng(3)
     small_rcv = torch.from_numpy(np.sort(rng.integers(0, 110, 700)).astype(
         np.int32)).to("cuda")  # 10 past the 100 segments
     for dn in ("float32", "bfloat16"):
         dt = getattr(torch, dn)
+        for case, (rcv, segs) in narrow_cases().items():
+            for k in (1, 4, 8):
+                vals = rand((rcv.numel(), k), dt, 10.0)
+                record_row(rows["spmm_narrow"], check_narrow(
+                    vals, rcv, segs, lambda got, want: compare(
+                        torch, f"spmm_narrow split {case} k={k}", got, want, dn)), False)
         for gname, rcv, segs, ks in (
                 ("small", small_rcv, 100, (1, 4, 8)),
                 ("ragged", ragged.receivers, 301, (1, 4, 8)),
@@ -1046,7 +1068,17 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                 if gname != "main":
                     record_row(rows["spmm_narrow"], err, False)
                     continue
+                # the hub row (node 0's 2,748 edges) and the rest against the
+                # function summed in f64; the row pointer exactly
+                err = max(err, check_narrow(vals, rcv, segs, lambda got, want: compare(
+                    torch, f"spmm_narrow main k={k} against f64", got, want, dn)))
+                hub = int((rcv == 0).sum())
+                err = max(err, compare(
+                    torch, f"spmm_narrow main hub row ({hub} edges) against f64",
+                    spmm.sorted_segment_sum_narrow(*args)[:1],
+                    narrow_f64(vals, rcv, segs)[:1], dn))
                 ms = time_ms(lambda: spmm.sorted_segment_sum_narrow(*args))
+                ptr_ms = time_ms(lambda: spmm.narrow_row_ptr(rcv, segs))
                 pms = time_ms(lambda: spmm.sorted_segment_sum_narrow_plain(*args))
                 lms = None
                 if dn == "float32":  # the bf16 CSR product sums in bf16
@@ -1062,9 +1094,12 @@ def phase_rbf_narrow_kernels(torch, big, rows):
                     lms = time_ms(lambda: torch.sparse.mm(ones, vals))
                 s = torch.tensor([], dtype=dt).element_size()
                 bms, by = H100.bound_ms((E * k + segs * k) * s + 4 * E, E * k, dn)
-                log(f"  spmm_narrow main {dn} k={k}: ms={ms:.4f} plain_ms={pms:.4f} "
+                log(f"  spmm_narrow main {dn} k={k}: ms={ms:.4f} (row pointer alone "
+                    f"{ptr_ms:.4f}) plain_ms={pms:.4f} "
                     f"library_ms={'none' if lms is None else f'{lms:.4f}'} "
                     f"bound_ms={bms:.4f} ({by})")
+                log_kernel_split(torch, f"spmm_narrow main {dn} k={k}",
+                                 lambda: spmm.sorted_segment_sum_narrow(*args))
                 record_row(rows["spmm_narrow"], err, dn == "float32", ms=ms,
                            plain_ms=pms, bound_ms=bms, bound_by=by,
                            library_ms=lms)
@@ -1433,6 +1468,11 @@ MAIN_PATHS = {
                      "gat_dadst": 3, "gat_sender": 3},
     ("gat", "fastkan"): {"fastkan_fwd": 4, "fastkan_bwd": 4, "gat_fwd": 3,
                          "gat_dadst": 3, "gat_sender": 3},
+    # the MLP baselines: no layer kernel; under bf16 f32 from the first dense
+    # product on (gin/mlp's conv-0 sum alone in bf16)
+    ("gin", "mlp"): {"spmm": 5},
+    ("gcn", "mlp"): {"gcn_agg": 3, "spmm": 3},
+    ("gat", "mlp"): {"gat_fwd": 3, "gat_dadst": 3, "gat_sender": 3},
 }
 # the fusion point FastKAN([128, 64, 64])(x, gin_graph=(g, 0)), forward and
 # backward once: the fused GIN+FastKAN layer, the second layer, both layer
@@ -1449,28 +1489,6 @@ LN_FREE_LAYER = {"rbf_fwd": 1, "rbf_bwd": 1}
 NARROW_DRIVE = {"spmm_narrow": 1}
 
 
-def counters():
-    """Every kernel wrapper with its launch counter, by kernel name."""
-    from kagnn_tpu_torch.kernels import bspline_fused as bf
-    from kagnn_tpu_torch.kernels import fastkan_layer as fk
-    from kagnn_tpu_torch.kernels import gat_bwd as gbw
-    from kagnn_tpu_torch.kernels import gat_fused as gfu
-    from kagnn_tpu_torch.kernels import gcn_agg as ga
-    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
-    from kagnn_tpu_torch.kernels import gin_fused as gf
-    from kagnn_tpu_torch.kernels import rbf_fused as rf
-    from kagnn_tpu_torch.kernels import spmm
-
-    return {"spmm": spmm.sorted_segment_sum, "bspline_fwd": bf.kan_linear_fwd,
-            "bspline_bwd": bf.kan_linear_bwd, "gin_fused": gf.gin_kan_fwd,
-            "gcn_agg": ga.gcn_agg_fwd, "fastkan_fwd": fk.fastkan_layer_fwd,
-            "fastkan_bwd": fk.fastkan_layer_bwd,
-            "gin_fastkan": gfk.gin_fastkan_fwd, "gat_fwd": gfu.gat_fwd,
-            "gat_dadst": gbw.gat_dadst, "gat_sender": gbw.gat_sender,
-            "rbf_fwd": rf.rbf_spline_fwd, "rbf_bwd": rf.rbf_spline_bwd,
-            "spmm_narrow": spmm.sorted_segment_sum_narrow}
-
-
 def check_launches(name, launches, per_run, runs=1):
     """Every kernel launched exactly per_run[k] * runs times (0 if absent)."""
     for k, n in launches.items():
@@ -1479,19 +1497,17 @@ def check_launches(name, launches, per_run, runs=1):
                                  f"runs, expected {per_run.get(k, 0)} per run")
 
 
-def phase_main_path(torch, g, conv, arch):
+def make_path_model(torch, name):
+    """A fresh model of main path `name` (a `conv/architecture` of
+    MAIN_PATHS, or fastkan/base-free), fused, bf16, seed 0."""
+    from kagnn_tpu_torch.kan import FastKAN
     from kagnn_tpu_torch.models import NodeClassifier
 
-    model = NodeClassifier(conv_type=conv, architecture=arch, fused=True,
-                           compute_dtype=torch.bfloat16, seed=0,
-                           device="cuda", **NODE_KW)
-    return drive_path(torch, g, f"{conv}/{arch}", model, MAIN_PATHS[(conv, arch)])
-
-
-def phase_fastkan_path(torch, g):
-    """The slice's path at full width: the reference fastkan's layers with
-    use_base_update=False trained full-batch on the node features."""
-    from kagnn_tpu_torch.kan import FastKAN
+    if name != "fastkan/base-free":
+        conv, arch = name.split("/")
+        return NodeClassifier(conv_type=conv, architecture=arch, fused=True,
+                              compute_dtype=torch.bfloat16, seed=0,
+                              device="cuda", **NODE_KW)
 
     class OnNodes(torch.nn.Module):
         """The net on the graph's node rows (the calling convention of
@@ -1504,11 +1520,93 @@ def phase_fastkan_path(torch, g):
         def forward(self, batch):
             return self.net(batch.nodes)
 
-    net = FastKAN([NODE_KW["num_features"], NODE_KW["hidden_channels"],
-                   NODE_KW["hidden_channels"], NODE_KW["num_classes"]],
-                  num_grids=RBF_G, use_base_update=False, fused=True,
-                  compute_dtype=torch.bfloat16, device="cuda")
-    return drive_path(torch, g, "fastkan/base-free", OnNodes(net), FASTKAN_PATH)
+    # the slice's path at full width: the reference fastkan's layers with
+    # use_base_update=False trained full-batch on the node features
+    return OnNodes(FastKAN([NODE_KW["num_features"], NODE_KW["hidden_channels"],
+                            NODE_KW["hidden_channels"], NODE_KW["num_classes"]],
+                           num_grids=RBF_G, use_base_update=False, fused=True,
+                           compute_dtype=torch.bfloat16, device="cuda"))
+
+
+def phase_main_path(torch, g, conv, arch):
+    name = f"{conv}/{arch}"
+    return drive_path(torch, g, name, make_path_model(torch, name),
+                      MAIN_PATHS[(conv, arch)])
+
+
+def phase_fastkan_path(torch, g):
+    return drive_path(torch, g, "fastkan/base-free",
+                      make_path_model(torch, "fastkan/base-free"), FASTKAN_PATH)
+
+
+CAPTURED_STEPS = 10  # steps of one CUDA graph (make_node_multi_step)
+
+
+def phase_captured(torch, g, name, per_step):
+    """Path `name`'s bf16 step captured by `make_node_multi_step` (Adam with
+    capturable=True): the first call (the warm-up steps, the capture of
+    CAPTURED_STEPS steps, a replay) with the launch counters checked at
+    (WARMUP_STEPS + CAPTURED_STEPS) x per_step, then a timed replay whose
+    counts must stay 0, and the peak memory of the captured run; against
+    2 x CAPTURED_STEPS eager steps of a fresh model with the same Adam (its
+    first under torch.cuda.set_sync_debug_mode("error"): no step syncs with
+    the host; the second half timed), which the captured losses must equal
+    bit for bit, and eager steps with the default Adam, within the bf16 step
+    bar (4 bf16 ulps of each loss). Returns (captured ms/step, eager
+    ms/step)."""
+    from kagnn_tpu_torch.train import make_node_multi_step, make_node_steps
+    from kagnn_tpu_torch.train.loops import WARMUP_STEPS
+
+    n, mask = CAPTURED_STEPS, g.node_mask
+
+    def adam(m, capturable):
+        return torch.optim.Adam(m.parameters(), lr=1e-3, capturable=capturable)
+
+    def eager_run(capturable):
+        model = make_path_model(torch, name)
+        step, _ = make_node_steps(model, adam(model, capturable))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = [step(g, mask)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        losses += [step(g, mask) for _ in range(n - 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(g, mask) for _ in range(n)]
+        torch.cuda.synchronize()
+        return torch.stack(losses), (time.perf_counter() - t0) * 1e3 / n
+
+    eager, eager_ms = eager_run(True)
+    default, _ = eager_run(False)
+    model = make_path_model(torch, name)
+    multi = make_node_multi_step(model, adam(model, True), n)
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted(torch, f"captured {name}: warm-up and capture", per_step,
+            lambda: res.update(first=multi(g, mask)), WARMUP_STEPS + n)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    counted(torch, f"captured {name}: replay", {},
+            lambda: res.update(second=multi(g, mask)))
+    cap_ms = (time.perf_counter() - t0) * 1e3 / n
+    captured = torch.cat([res["first"], res["second"]])
+    same = torch.equal(captured, eager)
+    err = ((captured - default).abs() / default.abs()).max().item()
+    log(f"captured {name}: {n} steps a graph, ms/step captured={cap_ms:.3f} "
+        f"eager={eager_ms:.3f} (Adam capturable), peak_mem={peak:.3f} GiB; "
+        f"losses {captured[0].item():.5f} -> {captured[-1].item():.5f}, "
+        f"{'bit for bit' if same else 'NOT equal to'} the eager ones, against "
+        f"the default Adam {err / (4 * BF16_ULP):.4f} of the 4-ulp bar")
+    if not same:
+        raise AssertionError(f"captured {name}: losses differ from the eager "
+                             f"steps: {captured.tolist()} vs {eager.tolist()}")
+    if not err <= 4 * BF16_ULP:
+        raise AssertionError(f"captured {name}: losses off the default Adam's "
+                             f"by {err}")
+    return cap_ms, eager_ms
 
 
 def drive_path(torch, g, name, model, per_step):
@@ -1600,7 +1698,9 @@ def phase_fusion_point(torch, g):
 def counted(torch, name, per_run, run, runs=1):
     """run() with every launch counter set to 0 just before and read just
     after; checks the counts against per_run * runs and returns them."""
-    fns = counters()
+    from kagnn_tpu_torch.kernels import launch_counters
+
+    fns = launch_counters()
     torch.cuda.synchronize()
     for f in fns.values():
         f.launches = 0
@@ -1691,6 +1791,9 @@ def main() -> int:
         profiled.append((launches, by_kernel))
     launches, step_ms["fastkan/base-free"], by_kernel = phase_fastkan_path(torch, g)
     profiled.append((launches, by_kernel))
+    captured_ms = {name: phase_captured(torch, g, name, per_step) for name, per_step in
+                   [(f"{c}/{a}", p) for (c, a), p in MAIN_PATHS.items()]
+                   + [("fastkan/base-free", FASTKAN_PATH)]}
     drives += [launches, phase_fusion_point(torch, g), phase_ln_free_layer(torch, g),
                phase_narrow_drive(torch, g)]
     for launches in drives:
@@ -1702,10 +1805,12 @@ def main() -> int:
         raise AssertionError(f"kernels no main path launched: {unused}")
     log(f"card: {card}; main paths ms/step: "
         + ", ".join(f"{k}={v:.3f}" for k, v in step_ms.items()))
+    log(f"card: {card}; captured against eager ms/step (Adam capturable): "
+        + ", ".join(f"{k}={c:.3f}/{e:.3f}" for k, (c, e) in captured_ms.items()))
     # the order in which to redesign the kernels: first those slower than
     # one PyTorch call of the same function, by the factor; then the rest by
     # the profiled device ms per step of their kernels, summed over the
-    # seven paths (every shape a path launches counts at its own time)
+    # ten paths (every shape a path launches counts at its own time)
     slower = sorted((r for r in rows.values()
                      if r["library_ms"] is not None and r["ms"] > r["library_ms"]),
                     key=lambda r: -r["ms"] / r["library_ms"])
@@ -1723,7 +1828,7 @@ def main() -> int:
             else:
                 per_step[row] += t
     if any(by_kernel for _, by_kernel in profiled):
-        log("redesign order, device ms per step by kernel summed over the seven "
+        log("redesign order, device ms per step by kernel summed over the ten "
             "paths (profiler): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in sorted(per_step.items(), key=lambda kv: -kv[1]))
             + f"; PyTorch's own kernels {other:.3f}")

@@ -12,7 +12,9 @@ gin_fused's and gin_fastkan's split of heavy receiver rows on the same graph
 f64, `gin_z_f64`), the f64 references of the GAT kernels on heavy rows
 (`gat_fwd_f64`, `gat_dadst_f64`, `gat_sender_f64`) and the kernels the RBF
 forward and backward and the GIN kernels launch by dtype (`rbf_fwd_expected`,
-`rbf_bwd_kernels`, `gin_fused_expected`, `gin_fastkan_expected`)."""
+`rbf_bwd_kernels`, `gin_fused_expected`, `gin_fastkan_expected`), and the
+narrow segment sum's receivers, row pointer and split (`narrow_cases`,
+`check_narrow`, its f64 reference `narrow_f64`)."""
 from __future__ import annotations
 
 import torch
@@ -491,6 +493,59 @@ def check_gat_sender_split(kind: str, heads: int, c: int, dtype, close, gen):
 SPMM_SPLIT_ROWS = ((0, 2748), (2, spmm.PIECE - 1), (3, spmm.PIECE),
                    (4, spmm.PIECE + 1))
 SPMM_SPLIT_SENDS = 300
+
+
+def narrow_cases(device="cuda") -> dict:
+    """name -> (ascending int32 receivers, segments) that the narrow sum's
+    row pointer and split must take: a hub of 2,748 edges (the main
+    graph's node 0) among light rows of 1-64 edges with empty rows between
+    and padding past the last segment; a hub at edge 0; dropped edges
+    (negative receivers) ahead of a hub that starts inside their chunk; rows
+    of 64 (light) and 65 (heavy) edges, the last row heavy, edges past the
+    end; every receiver past the end; no edge at all."""
+    rng = np.random.default_rng(41)
+    deg = np.minimum(rng.geometric(1 / 7, size=3000), 64) * (rng.random(3000) < 0.9)
+    deg[0] = 2748
+    cases = {
+        "hub": (np.concatenate([np.repeat(np.arange(3000), deg),
+                                np.full(93, 3000)]), 3001),
+        "hub at head": (np.concatenate([np.zeros(130, int), np.arange(1, 50),
+                                        np.full(9, 61)]), 60),
+        "dropped then hub": (np.concatenate([np.full(10, -3), np.zeros(200, int),
+                                             np.arange(1, 20)]), 20),
+        "64 and 65": (np.concatenate([np.full(spmm.NARROW_PIECE, 2),
+                                      np.full(spmm.NARROW_PIECE + 1, 3),
+                                      np.full(70, 7), np.full(3, 9)]), 8),
+        "all past": (np.full(40, 12), 10),
+        "no edge": (np.zeros(0, int), 6),
+    }
+    return {k: (torch.from_numpy(r.astype(np.int32)).to(device), n)
+            for k, (r, n) in cases.items()}
+
+
+def narrow_f64(vals, receivers, num_segments: int):
+    """sorted_segment_sum_narrow_plain's function with its sum in f64,
+    rounded once to vals' dtype (the reference of the narrow checks on
+    heavy rows, for the reason `spmm_f64` gives)."""
+    keep = (receivers >= 0) & (receivers < num_segments)
+    out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float64,
+                      device=vals.device)
+    out.index_add_(0, receivers[keep].long(), vals[keep].double())
+    return out.to(vals.dtype)
+
+
+def check_narrow(vals, receivers, num_segments: int, close) -> float:
+    """The narrow kernel: its row pointer equal to torch.searchsorted's,
+    its sums bit for bit the same in two calls and within `close` of the
+    f64 reference. Returns close's error."""
+    want_ptr = spmm.narrow_row_ptr_plain(receivers, num_segments)
+    if not torch.equal(spmm.narrow_row_ptr(receivers, num_segments), want_ptr):
+        raise AssertionError("narrow row pointer differs from torch.searchsorted")
+    got = spmm.sorted_segment_sum_narrow(vals, receivers, num_segments)
+    again = spmm.sorted_segment_sum_narrow(vals, receivers, num_segments)
+    if not torch.equal(got, again):
+        raise AssertionError("narrow sum differs between two calls")
+    return close(got, narrow_f64(vals, receivers, num_segments))
 
 
 def spmm_split_graph(device="cuda"):

@@ -19,8 +19,11 @@ on a CUDA tensor it launches the kernel or raises.
 
 `sorted_segment_sum_narrow` ports `spmm.py::_narrow_kernel` (the JAX
 `sorted_segment_sum_narrow`): the segment sum of narrow (E, k <= 8) rows
-over receiver-sorted edges, forward only, through `csrc/spmm_narrow.cu`
-(a warp per row whose lanes split the row's edges).
+over receiver-sorted edges, forward only, through `csrc/spmm_narrow.cu`:
+the row pointer in one pass over the receivers (`narrow_row_ptr`), then a
+thread a light row with wide loads, the rows of more than NARROW_PIECE
+edges split at NARROW_PIECE-edge chunks and their pieces added in chunk
+order (three launches, no atomics, deterministic).
 """
 from __future__ import annotations
 
@@ -111,15 +114,39 @@ class SortedSegmentSum(torch.autograd.Function):
 
 
 NARROW_MAX_K = 8  # columns of the narrow segment sum (csrc/spmm_narrow.cu)
+NARROW_PIECE = 64  # csrc/spmm_narrow.cu kPiece: rows of more edges are split
 
 
-def narrow_row_ptr(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
+def narrow_row_ptr_plain(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
     """The row pointer (num_segments+1,) int32 of ascending receivers, as
     the JAX function's `block_starts` (searchsorted, side left): edges whose
     receiver is num_segments or more fall past the last row."""
     rows = torch.arange(num_segments + 1, dtype=receivers.dtype,
                         device=receivers.device)
     return torch.searchsorted(receivers, rows, out_int32=True)
+
+
+@functools.cache
+def _row_ptr_fn():
+    P, I = _build.P, _build.I
+    return _build.bind("spmm_narrow", "spmm_narrow_row_ptr", [P, P, I, I, P])
+
+
+def narrow_row_ptr(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """`narrow_row_ptr_plain` on the card by one pass of
+    `narrow_row_ptr_kernel` (a thread an edge writes the rows its receiver
+    opens: exactly the searchsorted pointer); the plain version on a CPU
+    tensor. `sorted_segment_sum_narrow` runs the same pass inside its own
+    call (and counts it); this one times or checks it alone."""
+    if receivers.device.type == "cpu":
+        return narrow_row_ptr_plain(receivers, num_segments)
+    check_cuda("receivers", receivers, torch.int32, (None,))
+    row_ptr = torch.empty((num_segments + 1,), dtype=torch.int32,
+                          device=receivers.device)
+    _build.check(_row_ptr_fn()(receivers.data_ptr(), row_ptr.data_ptr(),
+                               receivers.numel(), num_segments,
+                               stream_of(receivers)), "spmm_narrow row_ptr")
+    return row_ptr
 
 
 def sorted_segment_sum_narrow_plain(vals: torch.Tensor, receivers: torch.Tensor,
@@ -136,7 +163,8 @@ def sorted_segment_sum_narrow_plain(vals: torch.Tensor, receivers: torch.Tensor,
 @functools.cache
 def _narrow_fn():
     P, I = _build.P, _build.I
-    return _build.bind("spmm_narrow", "spmm_narrow", [P, P, P, I, I, I, P])
+    return _build.bind("spmm_narrow", "spmm_narrow",
+                       [P, P, P, P, P, P, I, I, I, I, P])
 
 
 def sorted_segment_sum_narrow(vals: torch.Tensor, receivers: torch.Tensor,
@@ -153,10 +181,18 @@ def sorted_segment_sum_narrow(vals: torch.Tensor, receivers: torch.Tensor,
     e, k = vals.shape
     check_cuda("vals", vals)
     check_cuda("receivers", receivers, torch.int32, (e,))
-    row_ptr = narrow_row_ptr(receivers, num_segments)
     out = torch.empty((num_segments, k), dtype=vals.dtype, device=vals.device)
-    err = _narrow_fn()(vals.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                       num_segments, k, code, stream_of(vals))
+    # one scratch buffer (a call costs more host time than its kernels):
+    # the row pointer, each chunk's first receiver, the pieces' f32 sums
+    chunks = -(-e // NARROW_PIECE)
+    scratch = torch.empty((num_segments + 1 + chunks + 2 * chunks * k,),
+                          dtype=torch.int32, device=vals.device)
+    row_ptr = scratch.data_ptr()
+    first_row = row_ptr + 4 * (num_segments + 1)
+    partial = first_row + 4 * chunks
+    err = _narrow_fn()(vals.data_ptr(), receivers.data_ptr(), row_ptr,
+                       out.data_ptr(), partial, first_row, e, num_segments, k,
+                       code, stream_of(vals))
     _build.check(err, "spmm_narrow")
     sorted_segment_sum_narrow.launches += 1
     return out

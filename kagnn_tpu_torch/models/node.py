@@ -1,10 +1,15 @@
 """Node-classification model, the counterpart of
 `kagnn_tpu/models/node.py::NodeClassifier` for conv_type in {"gin", "gcn",
-"gat"} and architecture in {"kan", "fastkan"} (the reference's GKAN_Nodes
-and GFASTKAN_Nodes).
+"gat"} and architecture in {"mlp", "kan", "fastkan"} (the reference's
+GNN_Nodes, GKAN_Nodes and GFASTKAN_Nodes).
 
 Per message-passing layer: conv -> MaskedBatchNorm -> dropout; the head is
-a KANLinear (kan) or a FastKANLayer (fastkan, with num_grids = grid_size);
+a TorchLinear (mlp), a KANLinear (kan) or a FastKANLayer (fastkan, with
+num_grids = grid_size). With mlp the GIN update is `MLP(fin, H, H,
+hidden_layers)` without BatchNorm and the GCN and GAT transforms are
+`dense_transform`'s bias-free Glorot linear; their f32 weights promote a
+bf16 input to f32, so under bf16 these paths are f32 from the first dense
+product on, as the JAX model's are;
 with `skip` the head reads the concatenation [x0, h1, ..., hL]. `heads`
 applies to GAT only (the other convs have one): a GAT conv outputs
 hidden_channels * heads features, which the next conv, the BatchNorm and
@@ -14,6 +19,7 @@ come back in f32, as in the JAX model.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,11 +27,11 @@ from torch import nn
 
 from kagnn_tpu_torch.kan.layers import KAN, FastKAN, FastKANLayer, KANLinear
 from kagnn_tpu_torch.nn.convs import (GATConv, GCNConv, GINConv,
-                                      fastkan_transform, kan_transform)
+                                      dense_transform, fastkan_transform,
+                                      kan_transform)
+from kagnn_tpu_torch.nn.mlp import MLP, TorchLinear
 from kagnn_tpu_torch.ops.norm import MaskedBatchNorm
 from kagnn_tpu_torch.utils.device import resolve_device
-
-_LATER = {"mlp": "the graph-task slice"}
 
 
 class NodeClassifier(nn.Module):
@@ -37,15 +43,8 @@ class NodeClassifier(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None, seed: int = 0,
                  device=None):
         super().__init__()
-        for name, value in (("conv_type", conv_type),
-                            ("architecture", architecture)):
-            if value in _LATER:
-                raise NotImplementedError(
-                    f"{name}={value!r} is ported with {_LATER[value]}; this "
-                    f"port runs conv_type 'gin', 'gcn' or 'gat' with "
-                    f"architecture 'kan' or 'fastkan'")
         if (conv_type not in ("gin", "gcn", "gat")
-                or architecture not in ("kan", "fastkan")):
+                or architecture not in ("mlp", "kan", "fastkan")):
             raise ValueError(f"unknown conv_type/architecture "
                              f"{conv_type!r}/{architecture!r}")
         heads = heads if conv_type == "gat" else 1
@@ -56,11 +55,18 @@ class NodeClassifier(nn.Module):
                   device=dev)
         if architecture == "kan":
             basis = dict(grid_size=grid_size, spline_order=spline_order, **kw)
-            make, net, layer = kan_transform(**basis), KAN, KANLinear
-        else:
+            make, layer = kan_transform(**basis), KANLinear
+            net = functools.partial(KAN, **basis)
+        elif architecture == "fastkan":
             basis = dict(num_grids=grid_size, **kw)
-            make = fastkan_transform(**basis)
-            net, layer = FastKAN, FastKANLayer
+            make, layer = fastkan_transform(**basis), FastKANLayer
+            net = functools.partial(FastKAN, **basis)
+        else:
+            basis = dict(generator=gen, device=dev)
+            make, layer = dense_transform(**basis), TorchLinear
+            # the reference's node make_mlp: no BatchNorm
+            net = lambda sizes: MLP(sizes[0], H, sizes[-1], hidden_layers,  # noqa: E731
+                                    **basis)
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
         for i in range(mp_layers):
@@ -72,7 +78,7 @@ class NodeClassifier(nn.Module):
                                           generator=gen, device=dev))
             else:
                 sizes = [fin] + [H] * (hidden_layers - 1) + [H]
-                self.convs.append(GINConv(net(sizes, **basis), fused=fused))
+                self.convs.append(GINConv(net(sizes), fused=fused))
             self.norms.append(MaskedBatchNorm(H * heads, device=dev))
         self.skip, self.dropout = skip, dropout
         self.compute_dtype, self.seed = compute_dtype, seed

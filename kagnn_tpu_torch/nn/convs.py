@@ -1,16 +1,16 @@
 """Graph convolutions over a padded `GraphBatch`, the counterparts of
 `kagnn_tpu/nn/convs.py`:
 
-  * `GINConv` — update((1+eps)·x_i + Σ_j x_j) with a KAN or FastKAN update
-    net (the aggregation fuses into a KAN net's first layer);
+  * `GINConv` — update((1+eps)·x_i + Σ_j x_j) with a KAN, FastKAN or MLP
+    update net (the aggregation fuses into a KAN net's first layer);
   * `GCNConv` — D^-1/2 (A+I) D^-1/2 · t(x) + b with the self-loops in closed
-    form, the transform t from a factory (fin, fout) -> KANLinear or
-    FastKANLayer;
+    form, the transform t from a factory (fin, fout) -> KANLinear,
+    FastKANLayer or the bias-free Glorot linear of `dense_transform`;
   * `GATConv` — multi-head attention with LeakyReLU(0.2) logits, a
     per-destination softmax over the edges and the implicit self-loop,
     concatenated heads and a bias, the transform from the same factories.
 
-GINE and MLP update nets come with later slices of the port."""
+GINE comes with a later slice of the port."""
 from __future__ import annotations
 
 import math
@@ -20,10 +20,23 @@ import torch
 from torch import nn
 
 from kagnn_tpu_torch.kan.layers import KAN, FastKANLayer, KANLinear
+from kagnn_tpu_torch.nn.mlp import TorchLinear
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
 
 TransformFactory = Callable[[int, int], nn.Module]
+
+
+def dense_transform(**kw) -> TransformFactory:
+    """PyG's internal conv `Linear` (the JAX `dense_transform`, a bias-free
+    flax Dense with Glorot-uniform init): a bias-free `TorchLinear` with
+    the bound sqrt(6 / (fin + fout)); `kw` goes to it (generator, device).
+    Like the JAX Dense it promotes a bf16 input to the f32 weight's
+    dtype."""
+    def make(fin: int, fout: int) -> nn.Module:
+        return TorchLinear(fin, fout, use_bias=False,
+                           bound=math.sqrt(6.0 / (fin + fout)), **kw)
+    return make
 
 
 def kan_transform(grid_size: int = 4, spline_order: int = 3,

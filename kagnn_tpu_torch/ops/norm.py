@@ -26,10 +26,14 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("running_var", torch.ones(num_features, device=dev))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                use_running_average: Optional[bool] = None) -> torch.Tensor:
+        """`use_running_average` as the JAX layer's (None: not
+        self.training)."""
         xf = x.float()
-        if not self.training:
+        if use_running_average is None:
+            use_running_average = not self.training
+        if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
             if mask is None:

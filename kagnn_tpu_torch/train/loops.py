@@ -1,5 +1,5 @@
 """Training steps, the counterparts of `kagnn_tpu/train/loops.py`
-`make_node_steps` and `EarlyStopper`.
+`make_node_steps`, `make_node_multi_step` and `EarlyStopper`.
 
 The JAX steps thread a TrainState through a jitted function; here the
 model and the optimizer hold the state and are updated in place. With
@@ -55,3 +55,106 @@ def make_node_steps(model, optimizer):
             return model(batch)
 
     return train_step, evaluate
+
+
+# eager steps on a side stream before the capture: they build and bind the
+# kernels, plan their launches and create the optimizer's state, none of
+# which may happen inside a capture; their effect on the weights, the
+# BatchNorm statistics and the optimizer's state is undone before it
+WARMUP_STEPS = 1
+
+
+def make_node_multi_step(model, optimizer, n_steps: int):
+    """`n_steps` full-batch train steps in one dispatch, the counterpart of
+    the JAX `make_node_multi_step` (`lax.scan` over the step). Returns
+    `multi(batch, mask) -> losses (n_steps,) f32`.
+
+    On the card the n steps are captured once, at the first call, into one
+    `torch.cuda.CUDAGraph` (after WARMUP_STEPS eager steps on a side
+    stream, as PyTorch's whole-network recipe does, whose effect is
+    undone), and every call replays it and returns a copy of the graph's
+    static loss buffer. On the CPU each call is a loop over
+    `make_node_steps`' train_step. The graph reads the memory of the
+    tensors it was captured with, so on either device every call must pass
+    the very `batch` and `mask` of the first, the model must run no dropout
+    (its generator is not registered with the graph), and on the card the
+    optimizer must keep its state there (`require_capturable`): anything
+    else raises. Nothing falls back to eager steps."""
+    if getattr(model, "dropout", 0.0) > 0.0:
+        raise ValueError("make_node_multi_step captures no dropout: the "
+                         "model's generator is not registered with the graph")
+    train_step, _ = make_node_steps(model, optimizer)
+    device = next(model.parameters()).device
+    on_card = device.type == "cuda"
+    if on_card:
+        require_capturable(optimizer)
+    first = {}
+
+    def capture(batch, mask):
+        snapshot = _state_snapshot(model, optimizer)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                train_step(batch, mask)
+        torch.cuda.current_stream(device).wait_stream(side)
+        _state_restore(model, optimizer, snapshot)
+        graph = torch.cuda.CUDAGraph()
+        optimizer.zero_grad(set_to_none=True)
+        with torch.cuda.graph(graph):
+            losses = torch.stack([train_step(batch, mask) for _ in range(n_steps)])
+        first.update(graph=graph, losses=losses)
+
+    def multi(batch, mask):
+        if not first:
+            first.update(batch=batch, mask=mask)
+            if on_card:
+                capture(batch, mask)
+        elif batch is not first["batch"] or mask is not first["mask"]:
+            raise ValueError("the captured steps read the batch and mask of "
+                             "the first call; pass those same tensors (or "
+                             "make a new multi-step for new ones)")
+        if not on_card:
+            return torch.stack([train_step(batch, mask) for _ in range(n_steps)])
+        first["graph"].replay()
+        return first["losses"].clone()
+
+    return multi
+
+
+def require_capturable(optimizer) -> None:
+    """Raise unless every parameter group keeps its optimizer state on the
+    card (`capturable=True`, as torch.optim.Adam takes it): a captured
+    step must not read a step count from the host."""
+    if not all(group.get("capturable") for group in optimizer.param_groups):
+        raise ValueError("make_node_multi_step captures the steps into a CUDA "
+                         "graph and needs an optimizer that keeps its state "
+                         "on the card: torch.optim.Adam(..., capturable=True)")
+
+
+def _state_snapshot(model, optimizer):
+    """Copies of the model's parameters and buffers and of the optimizer's
+    state tensors (per parameter; the keys it holds now)."""
+    with torch.no_grad():
+        return ({k: v.clone() for k, v in model.state_dict().items()},
+                {p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
+                 for p, st in optimizer.state.items()})
+
+
+def _state_restore(model, optimizer, snapshot):
+    """Undo the warm-up in place (the capture reads these very tensors):
+    the model's tensors from the snapshot, the optimizer's state from it or,
+    where the warm-up created it, zeros (Adam's fresh state: step 0 and
+    zero moments)."""
+    weights, opt = snapshot
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(weights[k])
+        for p, st in optimizer.state.items():
+            for k, v in st.items():
+                if not torch.is_tensor(v):
+                    continue
+                if p in opt:
+                    v.copy_(opt[p][k])
+                else:
+                    v.zero_()

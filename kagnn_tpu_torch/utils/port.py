@@ -1,16 +1,19 @@
 """Weight carrier between the JAX `NodeClassifier` variable tree and the
-port's `NodeClassifier` state_dict (gin, gcn and gat convs, kan and fastkan
+port's `NodeClassifier` state_dict (gin, gcn and gat convs, mlp, kan and fastkan
 architectures). Works on numpy arrays: the JAX tree's leaves come in as
 numpy (`jax.tree.map(np.asarray, v)`), and nothing here imports jax.
 
 Modules:
     {params,buffers}/KAN_{i}/layers_{j}/...      <-> convs.{i}.update.layers.{j}....
     params/FastKAN_{i}/layers_{j}/...            <-> convs.{i}.update.layers.{j}....
+    params/MLP_{i}/TorchLinear_{j}/{kernel,bias} <-> convs.{i}.update.layers.{j}.{weight,bias}
     {params,buffers}/GCNConv_{i}/KANLinear_0/... <-> convs.{i}.transform....
     params/GCNConv_{i}/FastKANLayer_0/...        <-> convs.{i}.transform....
+    params/GCNConv_{i}/Dense_0/kernel            <-> convs.{i}.transform.weight
     params/GCNConv_{i}/bias                      <-> convs.{i}.bias
     {params,buffers}/GATConv_{i}/KANLinear_0/... <-> convs.{i}.transform....
     params/GATConv_{i}/FastKANLayer_0/...        <-> convs.{i}.transform....
+    params/GATConv_{i}/Dense_0/kernel            <-> convs.{i}.transform.weight
     params/GATConv_{i}/{att_src,att_dst,bias}    <-> convs.{i}.{att_src,att_dst,bias}
     params/MaskedBatchNorm_{i}/{scale,bias}      <-> norms.{i}.{weight,bias}
     batch_stats/MaskedBatchNorm_{i}/{mean,var}   <-> norms.{i}.{running_mean,running_var}
@@ -20,8 +23,12 @@ spline_scaler, the buffer grid); those of a FastKANLayer map as
     spline_weight <-> spline_linear.weight, base_weight <-> base_linear.weight,
     base_bias <-> base_linear.bias, layernorm/{scale,bias} <-> layernorm.{weight,bias}.
 
-The layouts are the same on both sides (the JAX layers keep the torch
-layouts), so every array passes through unchanged.
+and those of a linear (an MLP's TorchLinear, a Dense transform, an mlp
+head) as kernel <-> weight, bias <-> bias.
+
+The KAN layouts are the same on both sides (the JAX layers keep the torch
+layouts), so those arrays pass through unchanged; a linear's kernel is
+(in, out) in JAX and its weight (out, in) in torch, so it is transposed.
 
 `fastkan_from_jax` / `fastkan_to_jax` carry a bare `FastKAN` or
 `FastKANLayer` (params/layers_{i}/... or the layer's own leaves), whose
@@ -45,6 +52,8 @@ _FAST = {("spline_weight",): "spline_linear.weight",
          ("layernorm", "scale"): "layernorm.weight",
          ("layernorm", "bias"): "layernorm.bias"}
 _FAST_INV = {v: k for k, v in _FAST.items()}
+_LINEAR = {("kernel",): "weight", ("bias",): "bias"}
+_LINEAR_INV = {v: k for k, v in _LINEAR.items()}
 
 
 def _np(v: Any) -> np.ndarray:
@@ -59,44 +68,68 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def _module(mod: str, rest: tuple, head_is_fast: bool):
+# the kinds of layer a leaf can sit in: its names map through _FAST
+# (FastKANLayer), _LINEAR (a linear, kernel transposed) or as they are
+# (KANLinear, and a conv's own leaves)
+KAN, FAST, LINEAR = "kan", "fast", "linear"
+_TRANSFORM = {"KANLinear": KAN, "FastKANLayer": FAST, "Dense": LINEAR}
+
+
+def _module(mod: str, rest: tuple, head_kind: str):
     """JAX module name and the path below it -> (torch prefix, path below
-    the layer, whether the layer is a FastKANLayer)."""
+    the layer, the layer's kind)."""
     if mod == "head":
-        return "head", rest, head_is_fast
+        return "head", rest, head_kind
     if m := re.fullmatch(r"(Fast)?KAN_(\d+)", mod):
         layer = re.fullmatch(r"layers_(\d+)", rest[0]).group(1)
         return (f"convs.{m.group(2)}.update.layers.{layer}", rest[1:],
-                m.group(1) is not None)
+                FAST if m.group(1) else KAN)
+    if m := re.fullmatch(r"MLP_(\d+)", mod):
+        layer = re.fullmatch(r"TorchLinear_(\d+)", rest[0]).group(1)
+        return f"convs.{m.group(1)}.update.layers.{layer}", rest[1:], LINEAR
     if m := re.fullmatch(r"G(?:CN|AT)Conv_(\d+)", mod):
         if rest in (("bias",), ("att_src",), ("att_dst",)):
-            return f"convs.{m.group(1)}", rest, False
-        t = re.fullmatch(r"(FastKANLayer|KANLinear)_0", rest[0])
+            return f"convs.{m.group(1)}", rest, KAN
+        t = re.fullmatch(r"(FastKANLayer|KANLinear|Dense)_0", rest[0])
         if t is not None:
-            return (f"convs.{m.group(1)}.transform", rest[1:],
-                    t.group(1) == "FastKANLayer")
+            return f"convs.{m.group(1)}.transform", rest[1:], _TRANSFORM[t.group(1)]
     return None
 
 
-def _is_fastkan_layer(tree: Mapping) -> bool:
-    """A FastKANLayer's spline weight is (O, D*G); a KANLinear's is 3-D."""
-    return "spline_weight" in tree and np.ndim(tree["spline_weight"]) == 2
+def _head_kind(tree: Mapping) -> str:
+    """A FastKANLayer's spline weight is (O, D*G), a KANLinear's 3-D; a
+    TorchLinear has a kernel."""
+    if "kernel" in tree:
+        return LINEAR
+    fast = "spline_weight" in tree and np.ndim(tree["spline_weight"]) == 2
+    return FAST if fast else KAN
+
+
+def _torch_leaf(kind: str, leaf: tuple) -> str:
+    return {FAST: _FAST, LINEAR: _LINEAR}[kind][leaf] if kind != KAN else ".".join(leaf)
+
+
+def _to_torch(v: Any, transpose: bool) -> torch.Tensor:
+    a = np.array(_np(v), dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a.T) if transpose else a)
 
 
 def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX NodeClassifier variables -> the port's state_dict."""
-    head_is_fast = _is_fastkan_layer(variables.get("params", {}).get("head", {}))
+    head_kind = _head_kind(variables.get("params", {}).get("head", {}))
     sd = {}
     for path, v in _leaves(variables):
         coll, mod, rest = path[0], path[1], path[2:]
+        transpose = False
         if m := re.fullmatch(r"MaskedBatchNorm_(\d+)", mod):
             key = f"norms.{m.group(1)}.{_BN[(coll, rest[0])]}"
-        elif (found := _module(mod, rest, head_is_fast)) is not None:
-            prefix, leaf, fast = found
-            key = f"{prefix}.{_FAST[leaf] if fast else '.'.join(leaf)}"
+        elif (found := _module(mod, rest, head_kind)) is not None:
+            prefix, leaf, kind = found
+            key = f"{prefix}.{_torch_leaf(kind, leaf)}"
+            transpose = kind == LINEAR and leaf == ("kernel",)
         else:
             raise KeyError(f"no port counterpart for {'/'.join(path)}")
-        sd[key] = torch.from_numpy(np.array(_np(v), dtype=np.float32))
+        sd[key] = _to_torch(v, transpose)
     return sd
 
 
@@ -114,13 +147,15 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
         d = out
         for p in path[:-1]:
             d = d.setdefault(p, {})
-        d[path[-1]] = _np(value)
+        d[path[-1]] = _np(value).T if path[-1] == "kernel" else _np(value)
 
     def leaf(rest: str):
-        """Torch name below a layer -> (collection, fastkan?, JAX path)."""
+        """Torch name below a layer -> (collection, kind, JAX path)."""
         if rest in _FAST_INV:
-            return "params", True, _FAST_INV[rest]
-        return ("buffers" if rest == "grid" else "params"), False, (rest,)
+            return "params", FAST, _FAST_INV[rest]
+        if rest in _LINEAR_INV:
+            return "params", LINEAR, _LINEAR_INV[rest]
+        return ("buffers" if rest == "grid" else "params"), KAN, (rest,)
 
     for key, v in state_dict.items():
         parts = key.split(".")
@@ -136,13 +171,15 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
             put(("params", conv(parts[1]), parts[2]), v)
             continue
         if parts[0] == "convs" and parts[2] == "update":
-            coll, fast, path = leaf(".".join(parts[5:]))
-            mod = f"{'FastKAN' if fast else 'KAN'}_{parts[1]}"
-            put((coll, mod, f"layers_{parts[4]}", *path), v)
+            coll, kind, path = leaf(".".join(parts[5:]))
+            mod, layer = {KAN: ("KAN", "layers"), FAST: ("FastKAN", "layers"),
+                          LINEAR: ("MLP", "TorchLinear")}[kind]
+            put((coll, f"{mod}_{parts[1]}", f"{layer}_{parts[4]}", *path), v)
             continue
         if parts[0] == "convs" and parts[2] == "transform":
-            coll, fast, path = leaf(".".join(parts[3:]))
-            layer = "FastKANLayer_0" if fast else "KANLinear_0"
+            coll, kind, path = leaf(".".join(parts[3:]))
+            layer = {KAN: "KANLinear_0", FAST: "FastKANLayer_0",
+                     LINEAR: "Dense_0"}[kind]
             put((coll, conv(parts[1]), layer, *path), v)
             continue
         raise KeyError(f"no JAX counterpart for {key}")

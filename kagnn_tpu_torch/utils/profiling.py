@@ -298,7 +298,7 @@ KERNEL_NAMES = (("bspline_fwd", "bspline_fwd"), ("bspline_", "bspline_bwd"),
                 ("rbf_fwd", "rbf_fwd"), ("rbf_", "rbf_bwd"),
                 ("gat_fwd", "gat_fwd"), ("gat_dadst", "gat_dadst"),
                 ("gat_sender", "gat_sender"), ("gcn_", "gcn_agg"),
-                ("spmm_csr", "spmm"), ("narrow_kernel", "spmm_narrow"))
+                ("spmm_csr", "spmm"), ("narrow_", "spmm_narrow"))
 
 
 def kernel_base_name(key: str) -> str:

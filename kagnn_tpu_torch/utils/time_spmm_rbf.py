@@ -1,7 +1,8 @@
-"""Times of the segment sum (`spmm`), the RBF backward (`rbf_bwd`) and the
-RBF forward (`rbf_fwd`) on the card at the main paths' shapes, one line:
+"""Times of the segment sum (`spmm`), the RBF backward (`rbf_bwd`), the
+RBF forward (`rbf_fwd`) and the narrow segment sum (`narrow`) on the card
+at the main paths' shapes, one line:
 
-    python -m kagnn_tpu_torch.utils.time_spmm_rbf [label] [spmm|rbf|rbf_fwd]
+    python -m kagnn_tpu_torch.utils.time_spmm_rbf [label] [spmm|rbf|rbf_fwd|narrow]
 
 ms per call from CUDA events (`profiling.time_ms`) on the arxiv-sized
 graph: spmm over the receiver CSR with idx = senders (the gin/fastkan step's
@@ -15,7 +16,12 @@ f32, with each launched kernel's profiled ms and, where w is bf16, the
 reading of its walked dW against the plain walk
 (`selfcheck.dw_walk_check`, reported, not raised: a variant of the kernel
 that fails the bar is timed too); rbf_fwd at the same widths and dtypes,
-with each launched kernel's profiled ms. Random inputs from a fixed seed
+with each launched kernel's profiled ms; the narrow sum of (E, k) values
+over the graph's receivers (k 1, 4, 8 in f32 and bf16; the wrapper whole,
+its row pointer alone through `spmm.narrow_row_ptr`, each launched
+kernel's profiled ms, the hub row's edges alone and the light rows' alone,
+and at k 4 in f32 `torch.sparse.mm` of a CSR of ones, a yardstick the port
+never calls). Random inputs from a fixed seed
 (chip_smoke.py and tests/test_torch_cuda.py hold the kernels to their
 plain versions). It calls only the wrappers' public functions, so a
 checkout of another commit can be timed with this file:
@@ -113,6 +119,28 @@ def main(label: str = "", only: str = "") -> str:
                 walk = " " + lines[0].strip()
                 del basis
             cells.append(f"rbf_bwd {xn[:4]}/{wn[:4]} ({D},{O}) {t}{walk}")
+    for dtype in (torch.float32, torch.bfloat16) if only in ("", "narrow") else ():
+        rcv, segs = g.receivers, g.n_node_pad
+        hub = int((rcv == 0).sum())  # node 0's in-edges lead the sorted edges
+        for k in (4, 1, 8):
+            vals = (torch.randn(rcv.numel(), k, generator=gen, device="cuda") * 10).to(dtype)
+            whole = timed(lambda: spmm.sorted_segment_sum_narrow(vals, rcv, segs))
+            ptr = timed(lambda: spmm.narrow_row_ptr(rcv, segs))
+            cell = f"narrow {str(dtype)[6:]} k{k} {whole} row_ptr {ptr}"
+            if k == 4:
+                parts = {"hub": (vals[:hub], rcv[:hub]),
+                         "light": (vals[hub:], rcv[hub:])}
+                for name, (v, r) in parts.items():
+                    t = time_ms(lambda: spmm.sorted_segment_sum_narrow(v, r, segs))
+                    cell += f" {name} {t:.4f}"
+            if k == 4 and dtype == torch.float32:
+                a = torch.sparse_csr_tensor(
+                    spmm.narrow_row_ptr(rcv, segs).long(),
+                    torch.arange(rcv.numel(), device="cuda"),
+                    torch.ones(rcv.numel(), device="cuda"), size=(segs, rcv.numel()),
+                    check_invariants=False)
+                cell += f" (sparse.mm {time_ms(lambda: torch.sparse.mm(a, vals)):.4f})"
+            cells.append(cell)
     return f"{label}: " + " | ".join(cells)
 
 

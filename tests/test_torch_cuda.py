@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from kagnn_tpu_torch.graphs import single_graph
+from kagnn_tpu_torch.kernels import launch_counters
 from kagnn_tpu_torch.kan.bspline import make_grid
 from kagnn_tpu_torch.kernels import bspline_fused as bf
 from kagnn_tpu_torch.kernels import fastkan_layer as fk
@@ -44,11 +45,16 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                check_spmm_split,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
-                                               gcn_agg_f64, gcn_split_graph,
+                                               check_narrow, gcn_agg_f64,
+                                               gcn_split_graph, narrow_cases,
                                                rbf_bwd_expected,
                                                rbf_bwd_kernels, rbf_chain,
                                                spmm_split_graph)
+from kagnn_tpu_torch.models import NodeClassifier
 from kagnn_tpu_torch.ops.segment import gcn_aggregate
+from kagnn_tpu_torch.train import (make_node_multi_step, make_node_steps,
+                                   masked_softmax_cross_entropy)
+from kagnn_tpu_torch.train.loops import WARMUP_STEPS
 
 pytestmark = pytest.mark.usefixtures("card")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -875,3 +881,136 @@ def test_gin_fastkan_splits_heavy_rows(dt, D):
     check_gin_fastkan_split(spmm_split_graph(), D, 64, DTYPES[dt],
                             lambda name, got, want: close(got, want, dt),
                             torch.Generator(device="cuda").manual_seed(53))
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", list(narrow_cases("cpu")))
+def test_narrow_kernel_splits_heavy_rows(case, dt, k):
+    """The narrow sum's row pointer pass against torch.searchsorted exactly
+    and its sums against the plain function summed in f64, twice equal bit
+    for bit (kernels/selfcheck.py check_narrow, which chip_smoke.py runs
+    too): a hub of 2,748 edges among light rows and empty ones, a hub at
+    edge 0, dropped edges ahead of a hub inside their chunk, rows of 64 and
+    65 edges, receivers past the end, no edge at all; k 3 (12 and 6 bytes an
+    edge: 4- and 2-byte loads) beside 1, 4 and 8."""
+    rcv, n = narrow_cases()[case]
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    vals = (torch.randn(rcv.numel(), k, generator=gen, device="cuda") * 10).to(DTYPES[dt])
+    check_narrow(vals, rcv, n, lambda got, want: close(got, want, dt))
+
+
+def test_narrow_kernel_takes_unaligned_values():
+    """Values whose rows are not 16-byte aligned (a column slice copied to
+    an offset) take the one-value loads and give the same sums."""
+    rcv, n = narrow_cases()["hub"]
+    base = torch.randn(rcv.numel() * 4 + 1, device="cuda")
+    vals = base[1:].view(rcv.numel(), 4)
+    assert vals.data_ptr() % 16
+    close(spmm.sorted_segment_sum_narrow(vals, rcv, n),
+          spmm.sorted_segment_sum_narrow(vals.clone(), rcv, n), "f32")
+
+
+MLP_KW = dict(architecture="mlp", mp_layers=3, num_features=16,
+              hidden_channels=16, num_classes=4, skip=False, heads=2)
+
+
+def _small_node_graph():
+    from kagnn_tpu_torch.data import community_node_graph
+
+    d = community_node_graph(n_nodes=300, n_classes=4, num_features=16, seed=0)
+    return single_graph(d["senders"], d["receivers"], nodes=d["nodes"],
+                        y=d["y"], device="cuda")
+
+
+@pytest.mark.parametrize("conv", ["gin", "gcn", "gat"])
+def test_mlp_step_kernel_path_matches_plain(conv, no_tf32):
+    """The MLP paths' kernel path (fused=True: the segment-sum, gcn_agg and
+    GAT kernels, in f32 past gin's first aggregate) against their plain
+    path (fused=False) on a small graph: f32 logits rtol 1e-4 / atol 1e-5,
+    every gradient rtol 1e-3 / atol 1e-5; the bf16 kernel path within a
+    mean relative error of 0.1 of the f32 plain path (the bar of the other
+    paths' small steps in chip_smoke.py)."""
+    g = _small_node_graph()
+
+    def run(fused, cd=None):
+        m = NodeClassifier(conv_type=conv, fused=fused, compute_dtype=cd,
+                           device="cuda", **MLP_KW)
+        logits = m(g)
+        masked_softmax_cross_entropy(logits, g.y, g.node_mask).backward()
+        return logits.detach(), {n: p.grad for n, p in m.named_parameters()}
+
+    lk, gk = run(True)
+    lp, gp = run(False)
+    nm = g.node_mask
+    torch.testing.assert_close(lk[nm], lp[nm], rtol=1e-4, atol=1e-5)
+    for n in gp:
+        torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
+    lb, _ = run(True, torch.bfloat16)
+    assert ((lb[nm] - lp[nm]).abs().mean() / lp[nm].abs().mean()).item() < 0.1
+
+
+STEP_PATHS = [(c, a) for a in ("mlp", "kan", "fastkan") for c in ("gin", "gcn", "gat")]
+
+
+@pytest.mark.parametrize("conv,arch", STEP_PATHS)
+def test_captured_steps_equal_eager_steps(conv, arch, no_tf32):
+    """make_node_multi_step's CUDA graph of 3 bf16 steps, replayed twice,
+    against 6 eager steps of the same model with the same Adam
+    (capturable=True): the losses and every parameter bit for bit; against
+    the default Adam within 4 bf16 ulps of the losses. The eager steps run
+    under torch.cuda.set_sync_debug_mode("error"): no step syncs with the
+    host. The counters see the warm-up and the 3 captured steps at the
+    first call and nothing at a replay."""
+    g = _small_node_graph()
+    kw = dict(MLP_KW, conv_type=conv, architecture=arch, grid_size=4)
+
+    def model():
+        return NodeClassifier(fused=True, compute_dtype=torch.bfloat16,
+                              device="cuda", **kw)
+
+    def adam(m, capturable):
+        return torch.optim.Adam(m.parameters(), lr=1e-3, capturable=capturable)
+
+    fns = launch_counters()
+    m2 = model()
+    step, _ = make_node_steps(m2, adam(m2, True))
+    before = {k: f.launches for k, f in fns.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = [step(g, g.node_mask)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    per_step = {k: f.launches - before[k] for k, f in fns.items()}
+    eager += [step(g, g.node_mask) for _ in range(5)]
+    m1 = model()
+    multi = make_node_multi_step(m1, adam(m1, True), 3)
+    before = {k: f.launches for k, f in fns.items()}
+    first = multi(g, g.node_mask)
+    assert {k: f.launches - before[k] for k, f in fns.items()} == {
+        k: (WARMUP_STEPS + 3) * n for k, n in per_step.items()}
+    before = {k: f.launches for k, f in fns.items()}
+    captured = torch.cat([first, multi(g, g.node_mask)])
+    assert all(f.launches == before[k] for k, f in fns.items())
+    assert torch.equal(captured, torch.stack(eager))
+    for (n, a), (_, b) in zip(m1.state_dict().items(), m2.state_dict().items()):
+        assert torch.equal(a, b), n
+    m3 = model()
+    step3, _ = make_node_steps(m3, adam(m3, False))
+    default = torch.stack([step3(g, g.node_mask) for _ in range(6)])
+    assert ((captured - default).abs() <= 4 * 2.0 ** -8 * default.abs()).all()
+
+
+def test_multi_step_refuses_what_it_cannot_capture():
+    """On the card make_node_multi_step raises for an Adam that keeps its
+    step count on the host, and a call with other tensors than the first
+    call's raises instead of replaying a graph that reads the old ones."""
+    g = _small_node_graph()
+    m = NodeClassifier(conv_type="gcn", fused=True, device="cuda", **MLP_KW)
+    with pytest.raises(ValueError, match="capturable=True"):
+        make_node_multi_step(m, torch.optim.Adam(m.parameters(), lr=1e-3), 2)
+    multi = make_node_multi_step(
+        m, torch.optim.Adam(m.parameters(), lr=1e-3, capturable=True), 2)
+    assert multi(g, g.node_mask).shape == (2,)
+    with pytest.raises(ValueError, match="same tensors"):
+        multi(g, g.node_mask.clone())

@@ -249,9 +249,8 @@ def test_early_stopper():
     assert s.early_stop(1.3) == (False, True)
 
 
-@pytest.mark.parametrize("conv,arch", [("gcn", "mlp"), ("gin", "mlp"),
-                                       ("gat", "mlp")])
-def test_later_slices_raise_not_implemented(conv, arch):
-    with pytest.raises(NotImplementedError, match="slice"):
+@pytest.mark.parametrize("conv,arch", [("gine", "kan"), ("gin", "linear")])
+def test_unknown_conv_or_architecture_raises(conv, arch):
+    with pytest.raises(ValueError, match="unknown conv_type/architecture"):
         NodeClassifier(**dict(KW, conv_type=conv, architecture=arch),
                        device="cpu")

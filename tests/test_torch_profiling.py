@@ -42,7 +42,8 @@ KERNEL_ROWS = {
     "gcn_rows_kernel": "gcn_agg",
     "gcn_combine_kernel": "gcn_agg", "spmm_csr_kernel": "spmm",
     "spmm_csr_combine_kernel": "spmm",
-    "narrow_kernel": "spmm_narrow", "walk_tiles_kernel": None}
+    "narrow_row_ptr_kernel": "spmm_narrow", "narrow_sum_kernel": "spmm_narrow",
+    "narrow_combine_kernel": "spmm_narrow", "walk_tiles_kernel": None}
 
 
 def test_roofline_arithmetic_and_row_fields():
