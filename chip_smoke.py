@@ -69,7 +69,11 @@ Phases (any failure raises, and the script exits non-zero):
      gat/mlp), at five search-space
      corners (STEP_CORNERS) and for the base-free FastKAN and the
      layernorm-free FastKANLayer: the kernel path (fused=True) and the plain
-     path (fused=False) agree on logits and every parameter gradient;
+     path (fused=False) agree on logits and every parameter gradient; then
+     each of the 15 graph paths (GraphClassifier gin/gcn/gat and
+     GraphRegressor gin/gcn, each with mlp/kan/fastkan) on one batch of 16
+     molecules, in f32 and bf16, against the same model's plain path on the
+     CPU (`phase_small_graph_steps`);
   5. main paths: the bf16 train step of each of the nine node paths at
      full width on the arxiv-sized synthetic graph (169,343 nodes,
      1,166,243 edges), and of FastKAN([128, 64, 64, 40], num_grids=8,
@@ -88,7 +92,16 @@ Phases (any failure raises, and the script exits non-zero):
      sums z itself for a FastKAN net, as the JAX model does), the
      layernorm-free FastKANLayer(128, 64) in bf16 (the RBF product of a
      bf16 basis) and the narrow segment sum (no caller, as in the JAX
-     package); then `utils/profiling.kernel_report()` at its defaults;
+     package); then the two graph paths at full width (`phase_graph_path`):
+     G, bench.py's graph classification (gin/kan, 3 convs, batches of 256
+     molecules from the native assembler) and R, the ZINC regression
+     defaults (gin/kan, 4 GINE convs, OGB encoders, batches of 256 from
+     batch_graphs), each through batch_loader(prefetch=2) and
+     make_graph_*_steps: host assembly alone, a warm-up epoch, 2 timed
+     epochs with the launches checked per step, graphs/s, peak memory, the
+     busy share and top kernels over 3 profiled steps, and a prefetched
+     epoch against the same batches moved synchronously; then
+     `utils/profiling.kernel_report()` at its defaults;
   6. prints the kernel list as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -100,6 +113,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -1760,6 +1774,294 @@ def phase_narrow_drive(torch, g):
     return launches
 
 
+# The graph paths at full width, bf16 over f32 master weights, Adam(1e-3),
+# fused: G is bench.py's graphcls configuration (GraphClassifier gin/kan,
+# 3 convs, 21 one-hot atom features, hidden 64, 2 classes, update nets and
+# head of 2 layers; 2,048 synthetic molecules of 10-40 atoms, seed 3, in
+# shuffled batches of 256 from the native assembler, prefetch 2), R the ZINC
+# defaults of experiments/graph_regression.py (GraphRegressor gin/kan, 4
+# GINE convs, OGB encoders, hidden 64; the same molecules with regression
+# targets and bond features, from batch_graphs, which takes edge features,
+# prefetch 2). Launches per train step: G's convs fuse their aggregate into
+# the first KANLinear; the second layer and the head's two run the layer
+# forward, every layer the backward; the segment sum computes A^T dz at
+# convs 1 and 2 and the pool. R's GINE convs each sum their f32 messages and
+# the gradient to x (the encoder's output needs one; bf16, x's dtype), the
+# pool (bf16) once more.
+GRAPH_PATHS = {
+    "G": {"gin_fused": 3, "bspline_fwd": 5, "bspline_bwd": 8, "spmm": 3},
+    "R": {"bspline_fwd": 10, "bspline_bwd": 10, "spmm": 9},
+}
+GRAPH_BATCH = 256
+GRAPH_TIMED_EPOCHS = 2
+# the 15 graph paths of the small-step phase: (task, conv, architecture)
+SMALL_GRAPH_PATHS = ([("G", c, a) for c in ("gin", "gcn", "gat")
+                      for a in ("mlp", "kan", "fastkan")]
+                     + [("R", c, a) for c in ("gin", "gcn")
+                        for a in ("mlp", "kan", "fastkan")])
+
+
+def graph_data(task, n=2048):
+    """G: random_molecule_graphs(n, 10, 40, seed=3) with one-hot(21) atom
+    features and no bond features (bench.py's graphcls data); R: the same
+    molecules with regression targets, atom and bond columns."""
+    from kagnn_tpu_torch.data import random_molecule_graphs
+
+    if task == "R":
+        return random_molecule_graphs(n, 10, 40, seed=3, target="regression")
+    graphs = random_molecule_graphs(n_graphs=n, min_nodes=10, max_nodes=40, seed=3)
+    for g in graphs:
+        g["nodes"] = np.eye(21, dtype=np.float32)[g["nodes"][:, 0]]
+        g["edges"] = None
+    return graphs
+
+
+def graph_model(torch, task, conv="gin", arch="kan", fused=True,
+                dtype="bfloat16", device="cuda", **kw):
+    """A graph model of task G or R (at full width unless kw says
+    otherwise), seed 0."""
+    from kagnn_tpu_torch.models import GraphClassifier, GraphRegressor
+
+    cd = None if dtype is None else getattr(torch, dtype)
+    common = dict(hidden_dim=64, hidden_layers=2, grid_size=4, spline_order=3,
+                  fused=fused, compute_dtype=cd, seed=0, device=device)
+    common.update(kw)
+    if task == "G":
+        common.setdefault("gnn_layers", 3)
+        return GraphClassifier(conv, arch, num_features=21, num_classes=2,
+                               **common)
+    common.setdefault("gnn_layers", 4)
+    return GraphRegressor(conv, arch, num_node_features=1, num_edge_features=1,
+                          ogb_encoders=True, **common)
+
+
+def graph_steps(torch, task, model):
+    from kagnn_tpu_torch.train import make_graph_cls_steps, make_graph_reg_steps
+
+    make = make_graph_cls_steps if task == "G" else make_graph_reg_steps
+    return make(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+
+
+def graph_loss(task, out, g):
+    from kagnn_tpu_torch.train import masked_l1, masked_nll
+
+    if task == "G":
+        return masked_nll(out, g.y, g.graph_mask)
+    return masked_l1(out, g.y, g.graph_mask)
+
+
+def host_assembly_ms(assemble, sels):
+    """Host ms per batch of assemble(sel) over the selections (host
+    batches: no copy to the card)."""
+    assemble(sels[0])
+    t0 = time.perf_counter()
+    for sel in sels:
+        assemble(sel)
+    return (time.perf_counter() - t0) * 1e3 / len(sels)
+
+
+def phase_graph_path(torch, task, rows):
+    """Graph path `task` at full width through its entry points
+    (batch_loader -> make_graph_*_steps): host assembly alone (native and
+    numpy for G, numpy for R), one warm-up epoch, then GRAPH_TIMED_EPOCHS
+    epochs timed by the host clock (ending in a synchronize) with the launch
+    counters set to 0 before and checked after; the loader alone, the
+    prefetch worker's staging of a batch alone (pinning it and issuing its
+    copies), the steps fed without prefetch, the step alone on one batch
+    already on the card, the host syncs of one step, peak memory, the busy
+    share and top kernels over 3 profiled steps, an evaluation, and a
+    prefetched epoch against the same batches moved synchronously (a train
+    step consuming each prefetched batch first). On the first batch the path takes on the card, its
+    kernels at the path's widths against their functions summed in f64:
+    the pool, GINE's aggregate and GINE's gradient to x at D 64
+    (`check_graph_sums`), and for G gin_fused at D 21 -> 64 and 64 -> 64
+    (`check_gin_split`), over the batch's pad row (about 10,700 padded
+    edges) and pad graph, in f32 and bf16. Returns the launches, ms/step
+    fed without and with prefetch (the first the headline while the
+    prefetching loader costs the host-bound steps time) and the profiled
+    device ms per step by kernel."""
+    from kagnn_tpu_torch.data.native import NativeBatchAssembler
+    from kagnn_tpu_torch.graphs import batch_graphs, pad_spec_for
+    from kagnn_tpu_torch.kernels.selfcheck import (check_gin_split,
+                                                   check_graph_sums,
+                                                   check_prefetch)
+    from kagnn_tpu_torch.train.experiments import batch_loader
+    from kagnn_tpu_torch.train.prefetch import stage_batch
+    from kagnn_tpu_torch.utils.time_graph_loader import staging_ms
+
+    graphs = graph_data(task)
+    spec = pad_spec_for(graphs, GRAPH_BATCH)
+    native = task == "G"
+    per_epoch = -(-len(graphs) // GRAPH_BATCH)
+    sels = [np.random.default_rng(i).permutation(len(graphs))[:GRAPH_BATCH]
+            for i in range(per_epoch)]
+    asm = {}
+    if native:
+        nat = NativeBatchAssembler(graphs, spec)
+        asm["native"] = host_assembly_ms(lambda s: nat.assemble(s, device="cpu"), sels)
+    asm["numpy"] = host_assembly_ms(lambda s: batch_graphs(
+        [graphs[j] for j in s], spec, device="cpu"), sels)
+    log(f"graph path {task}: {len(graphs)} molecules, PadSpec {spec}; host "
+        f"assembly ms per batch: " + ", ".join(f"{k} {v:.3f}" for k, v in asm.items()))
+    model = graph_model(torch, task)
+    step, evaluate = graph_steps(torch, task, model)
+    loader = batch_loader(graphs, spec, GRAPH_BATCH, shuffle=True, seed=0,
+                          native=native, prefetch=2)
+    for b in loader():
+        step(b)
+    res = {}
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step(b) for _ in range(GRAPH_TIMED_EPOCHS) for b in loader()]
+        torch.cuda.synchronize()
+        res["s"] = time.perf_counter() - t0
+        res["losses"] = [float(v) for v in losses]
+
+    steps = GRAPH_TIMED_EPOCHS * per_epoch
+    launches = counted(torch, f"graph path {task}", GRAPH_PATHS[task], run, steps)
+    ms, vals = res["s"] * 1e3 / steps, res["losses"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"graph path {task}: {steps} steps, ms/step={ms:.3f}, graphs/s="
+        f"{GRAPH_TIMED_EPOCHS * len(graphs) / res['s']:.1f}, peak_mem={peak:.3f} "
+        f"GiB, losses {vals[0]:.5f} -> {vals[-1]:.5f}")
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"graph path {task}: non-finite loss: {vals}")
+    # the loader alone (assembly and copies, no step), and the steps fed by
+    # a loader without prefetch (each batch assembled and copied when asked
+    # for, on the dispatching thread), ms per batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in loader():
+        pass
+    torch.cuda.synchronize()
+    loader_alone = (time.perf_counter() - t0) * 1e3 / per_epoch
+    sync_loader = batch_loader(graphs, spec, GRAPH_BATCH, shuffle=True, seed=0,
+                               native=native)
+    t0 = time.perf_counter()
+    for b in sync_loader():
+        step(b)
+    torch.cuda.synchronize()
+    no_prefetch = (time.perf_counter() - t0) * 1e3 / per_epoch
+    # the worker's staging alone: host batches pinned and their copies
+    # issued on a side stream, one at a time
+    host = [nat.assemble(s, device="cpu") if native else
+            batch_graphs([graphs[j] for j in s], spec, device="cpu") for s in sels]
+    stage_ms = staging_ms(host, stage_batch)
+    log(f"graph path {task}: ms per batch of the prefetching loader alone "
+        f"{loader_alone:.3f}; the worker's staging alone (pin, issue the "
+        f"copies) {stage_ms:.3f} beside assembly {asm['native' if native else 'numpy']:.3f}; "
+        f"ms/step fed without prefetch {no_prefetch:.3f}, with prefetch {ms:.3f} "
+        f"(utils/time_graph_loader.py times them in rounds)")
+    b0 = next(iter(loader()))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        close = lambda name, a, b, dn=dn: compare(  # noqa: E731
+            torch, f"graph path {task} {name}", a, b, dn)
+        record_row(rows["spmm"], check_graph_sums(b0, 64, dtype, close, gen), False)
+        if task == "G":
+            for d in (21, 64):
+                record_row(rows["gin_fused"], check_gin_split(
+                    b0, d, 64, dtype, close, gen), False)
+    # the step alone, on one batch already on the card (no loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(per_epoch):
+        step(b0)
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t0) * 1e3 / per_epoch
+    log(f"graph path {task}: ms/step on one batch already on the card "
+        f"(no loader) {alone:.3f}")
+    out = evaluate(b0)
+    if not all(torch.isfinite(v).all() for v in out) or int(out[-1]) != GRAPH_BATCH:
+        raise AssertionError(f"graph path {task}: evaluate gave {out}")
+    # host syncs of one step (each stalls the host until the card catches
+    # up, which an eager step that is host-bound cannot afford)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(b0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:80] for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"graph path {task}: {len(syncs)} host syncs in one step"
+        + (": " + "; ".join(sorted(set(syncs))) if syncs else ""))
+    by_kernel = profile_steps(torch, lambda: step(b0), ms)
+    n = check_prefetch(graphs, spec, GRAPH_BATCH, native, consume=step)
+    log(f"graph path {task}: {n} prefetched batches equal the synchronously "
+        f"moved ones field by field")
+    return launches, {"no prefetch": no_prefetch, "prefetch 2": ms}, by_kernel
+
+
+def phase_small_graph_steps(torch):
+    """Each of the 15 graph paths (2 convs, hidden 16, 4 GAT heads) on one
+    batch of 16 molecules: the kernel path on the card against the same
+    model's plain path on the CPU, same weights. f32: outputs rtol 1e-4 /
+    atol 1e-5, every parameter gradient rtol 1e-3 / atol 1e-5. bf16:
+    outputs and the loss within 4 bf16 ulps of their scale; each gradient
+    against the CPU bf16 and f32 gradients by `selfcheck.bf16_grad_ratios`
+    at its scale (the largest gradient of its conv for a BatchNorm-fed bias
+    or a GAT att_src/att_dst, whose exact gradients (nearly) cancel), the
+    bars of tests/test_torch_graph_steps.py."""
+    import re
+
+    from kagnn_tpu_torch.graphs import batch_graphs, pad_spec_for
+    from kagnn_tpu_torch.kernels.selfcheck import bf16_grad_ratios
+
+    noisy = re.compile(r"convs\.\d+\.(att_src|att_dst|update\.layers\.1\.base_linear\.bias)")
+    for task, conv, arch in SMALL_GRAPH_PATHS:
+        graphs = graph_data(task, 16)
+        g = batch_graphs(graphs, pad_spec_for(graphs, 16), device="cuda")
+        gm = g.graph_mask
+        name = f"{task} {conv}/{arch}"
+
+        def run(dtype, dev, state=None):
+            m = graph_model(torch, task, conv, arch, dtype=dtype, device=dev,
+                            gnn_layers=2, hidden_dim=16)
+            if state is not None:
+                m.load_state_dict(state)
+            m.train()
+            graph = g if dev == "cuda" else g.to(dev)
+            out = m(graph)
+            loss = graph_loss(task, out, graph)
+            loss.backward()
+            return (out.detach().to("cuda"), loss.detach().to("cuda"),
+                    {n: p.grad.to("cuda") for n, p in m.named_parameters()},
+                    m.state_dict())
+
+        ok, lk, gk, state = run(None, "cuda")
+        op, lp, gp, _ = run(None, "cpu", state)
+        torch.testing.assert_close(ok[gm], op[gm], rtol=1e-4, atol=1e-5)
+        for n in gp:
+            torch.testing.assert_close(gk[n], gp[n], rtol=1e-3, atol=1e-5, msg=n)
+        ob, lb, gb, _ = run("bfloat16", "cuda", state)
+        oc, lc, gc, _ = run("bfloat16", "cpu", state)
+        out_err = (ob[gm] - oc[gm]).abs().max().item()
+        out_tol = 4 * BF16_ULP * oc[gm].abs().max().item()
+        loss_err = abs(lb.item() - lc.item())
+        worst = [0.0, 0.0]
+        for n in gc:
+            conv_max = max(v.abs().max().item() for k, v in gc.items()
+                           if k.startswith(".".join(n.split(".")[:2]) + "."))
+            scale = conv_max if noisy.fullmatch(n) else gc[n].abs().max().item()
+            ratios = bf16_grad_ratios(*(t[n].cpu().numpy() for t in (gb, gc, gp)), scale)
+            worst = [max(w, r) for w, r in zip(worst, ratios)]
+        log(f"small graph step {name}: f32 out max_abs_err="
+            f"{(ok[gm] - op[gm]).abs().max().item():.3e}, {len(gp)} grads agree; "
+            f"bf16 out {out_err:.3e} (tol {out_tol:.3e}), loss {loss_err:.3e}, "
+            f"worst grad err/bar against the CPU bf16 {worst[0]:.3f}, against "
+            f"the CPU f32 {worst[1]:.3f}")
+        if not (out_err <= out_tol and loss_err <= 4 * BF16_ULP * abs(lc.item())
+                and max(worst) <= 1.0):
+            raise AssertionError(f"small graph step {name}: the bf16 kernel path "
+                                 f"disagrees with its plain versions")
+
+
 def phase_kernel_report():
     """utils/profiling.kernel_report() at its defaults, one JSON line a row."""
     from kagnn_tpu_torch.utils.profiling import kernel_report
@@ -1784,6 +2086,7 @@ def main() -> int:
     for conv, arch, corner in STEP_CORNERS:
         phase_small_step(torch, conv, arch, **corner)
     phase_small_fastkan(torch)
+    phase_small_graph_steps(torch)
     step_ms, drives, profiled = {}, [], []
     for conv, arch in MAIN_PATHS:
         launches, step_ms[f"{conv}/{arch}"], by_kernel = phase_main_path(torch, g, conv, arch)
@@ -1796,6 +2099,11 @@ def main() -> int:
                    + [("fastkan/base-free", FASTKAN_PATH)]}
     drives += [launches, phase_fusion_point(torch, g), phase_ln_free_layer(torch, g),
                phase_narrow_drive(torch, g)]
+    for task in GRAPH_PATHS:
+        launches, ms, by_kernel = phase_graph_path(torch, task, rows)
+        step_ms.update({f"graph {task} {k}": v for k, v in ms.items()})
+        drives.append(launches)
+        profiled.append((launches, by_kernel))
     for launches in drives:
         for name, n in launches.items():
             rows[name]["launches"] += n
@@ -1810,7 +2118,8 @@ def main() -> int:
     # the order in which to redesign the kernels: first those slower than
     # one PyTorch call of the same function, by the factor; then the rest by
     # the profiled device ms per step of their kernels, summed over the
-    # ten paths (every shape a path launches counts at its own time)
+    # twelve paths (the ten node paths and the two graph paths; every shape
+    # a path launches counts at its own time)
     slower = sorted((r for r in rows.values()
                      if r["library_ms"] is not None and r["ms"] > r["library_ms"]),
                     key=lambda r: -r["ms"] / r["library_ms"])
@@ -1828,7 +2137,7 @@ def main() -> int:
             else:
                 per_step[row] += t
     if any(by_kernel for _, by_kernel in profiled):
-        log("redesign order, device ms per step by kernel summed over the ten "
+        log("redesign order, device ms per step by kernel summed over the twelve "
             "paths (profiler): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in sorted(per_step.items(), key=lambda kv: -kv[1]))
             + f"; PyTorch's own kernels {other:.3f}")

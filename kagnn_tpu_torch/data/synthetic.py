@@ -43,6 +43,42 @@ def community_node_graph(n_nodes: int = 200, n_classes: int = 4,
                 n_node=n_nodes, masks=masks)
 
 
+def random_molecule_graphs(n_graphs: int = 60, min_nodes: int = 6,
+                           max_nodes: int = 24, num_atom_types: int = 21,
+                           num_bond_types: int = 4, seed: int = 0,
+                           target: str = "classification",
+                           n_classes: int = 2):
+    """ZINC/MUTAG-like small graphs with categorical node/edge features.
+
+    Targets: 'classification' — label correlated with mean atom type;
+    'regression' — a smooth function of graph statistics (so models can
+    actually learn it)."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n_graphs):
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        atom = rng.integers(0, num_atom_types, (n, 1)).astype(np.int32)
+        # random connected-ish chain + extra edges
+        snd = list(range(n - 1))
+        rcv = list(range(1, n))
+        extra = n // 2
+        snd += list(rng.integers(0, n, extra))
+        rcv += list(rng.integers(0, n, extra))
+        snd, rcv = np.asarray(snd), np.asarray(rcv)
+        both_s = np.concatenate([snd, rcv]).astype(np.int32)
+        both_r = np.concatenate([rcv, snd]).astype(np.int32)
+        bond = rng.integers(0, num_bond_types,
+                            (both_s.shape[0], 1)).astype(np.int32)
+        stat = atom.mean() / num_atom_types + 0.1 * (len(both_s) / n)
+        if target == "classification":
+            y = np.array([int(stat > 0.5 + 0.1)], np.int32)
+        else:
+            y = np.array([float(np.sin(3 * stat) + 0.5 * stat)], np.float32)
+        graphs.append(dict(senders=both_s, receivers=both_r, n_node=n,
+                           nodes=atom, edges=bond, y=y))
+    return graphs
+
+
 def arxiv_scale_graph(n_nodes: int = 169_343, n_edges: int = 1_166_243,
                       num_features: int = 128, n_classes: int = 40,
                       seed: int = 0):

@@ -14,7 +14,11 @@ f64, `gin_z_f64`), the f64 references of the GAT kernels on heavy rows
 forward and backward and the GIN kernels launch by dtype (`rbf_fwd_expected`,
 `rbf_bwd_kernels`, `gin_fused_expected`, `gin_fastkan_expected`), and the
 narrow segment sum's receivers, row pointer and split (`narrow_cases`,
-`check_narrow`, its f64 reference `narrow_f64`)."""
+`check_narrow`, its f64 reference `narrow_f64`), and the graph tasks' segment
+sums on a padded batch whose pad row and pad graph are heavy
+(`graph_sum_batch`, `check_graph_sums`) and their prefetched batches
+(`check_prefetch`), and the bars of a bf16 model's gradients against a
+reference model's (`bf16_grad_ratios`)."""
 from __future__ import annotations
 
 import torch
@@ -37,6 +41,36 @@ from kagnn_tpu_torch.kernels._common import (GAT_PIECE, dleaky, dw_tile,
                                              segment_ids, tile_partials)
 
 BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
+# A bf16 model's gradient, in bf16 ulps of the gradient's scale: the bar
+# against the reference's bf16 gradient, and the most of the reference's
+# own distance from its f32 gradient that may be added to that bar (the
+# JAX bf16 graph models' gradients on 8 molecules read up to 14 ulps from
+# their f32 ones where the port's differ from them by more than 8 ulps,
+# tests/test_torch_graph_steps.py)
+BF16_GRAD_ULPS = 8
+BF16_GRAD_NOISE_CAP = 14
+
+
+def bf16_grad_ratios(got, ref, exact, scale: float) -> tuple[float, float]:
+    """A bf16 model's gradient `got` against the reference model's bf16
+    gradient `ref` and its f32 gradient `exact` (numpy arrays), at `scale`;
+    the ratios of two distances to their bars, each passing at <= 1:
+
+      * |got - ref| <= BF16_GRAD_ULPS ulps + min(|ref - exact|,
+        BF16_GRAD_NOISE_CAP ulps): the reference's bf16 rounding, where it
+        is noisy, widens the bar by at most the cap;
+      * |got - exact| <= |ref - exact| + BF16_GRAD_ULPS ulps: `got` is no
+        farther from the f32 gradient than the reference's bf16 gradient
+        is, within BF16_GRAD_ULPS ulps.
+
+    Each distance is the largest over the gradient's elements."""
+    u = BF16_ULP * scale
+    noise = float(np.abs(ref - exact).max())
+    bars = (BF16_GRAD_ULPS * u + min(noise, BF16_GRAD_NOISE_CAP * u),
+            noise + BF16_GRAD_ULPS * u)
+    errs = (float(np.abs(got - ref).max()), float(np.abs(got - exact).max()))
+    return tuple(e / t if t > 0 else (0.0 if e == 0 else float("inf"))
+                 for e, t in zip(errs, bars))
 # A bf16 weight gradient that a kernel walks over row tiles (the RBF,
 # B-spline and FastKAN backwards) is held to the kernels' elementwise bar,
 # 4 ulps of max(|plain|, mean |plain|) (the `close` of the callers), up to
@@ -754,3 +788,84 @@ def rbf_bwd_expected(x, w, parts: int) -> set:
              "rbf_dw_mma_kernel" if mma else "rbf_dw_partial_kernel",
              "walk_tiles_kernel"}
     return names | ({"rbf_dx_sum_kernel"} if parts > 1 else set())
+
+
+def graph_sum_batch(device="cuda"):
+    """40 synthetic molecules (10-40 atoms, bond features) padded with 300
+    pad nodes, 600 padded edges and 7 empty graphs: the receiver and sender
+    CSRs' pad row holds 600 edges and the pad graph 300 nodes, heavy rows
+    that the segment-sum kernel splits, as on the graph paths' batches."""
+    from kagnn_tpu_torch.data.synthetic import random_molecule_graphs
+    from kagnn_tpu_torch.graphs.batch import PadSpec, batch_graphs
+
+    gs = random_molecule_graphs(40, 10, 40, seed=3, target="regression")
+    n = sum(g["n_node"] for g in gs)
+    e = sum(len(g["senders"]) for g in gs)
+    return batch_graphs(gs, PadSpec(n + 300, e + 600, 48), device=device)
+
+
+def check_graph_sums(g, d: int, dtype, close, gen):
+    """The graph paths' segment sums through their autograd Functions
+    against their functions summed in f64 (`spmm_f64`) at D = d: the pool
+    (segment.segment_sum over graph_row_ptr, `SortedSegmentSum`), GINE's
+    aggregate of per-edge messages over recv_row_ptr, and GINE's gradient to
+    x (`SenderGather`'s backward over send_row_ptr with idx senders_perm);
+    each twice and equal bit for bit. Returns the largest error."""
+    from kagnn_tpu_torch.ops import segment
+
+    def rand(rows):
+        return torch.randn((rows, d), generator=gen, device=gen.device).to(dtype)
+
+    x, msgs = rand(g.n_node_pad), rand(g.n_edge_pad)
+    cot = rand(g.n_edge_pad)
+
+    def gather_grad():
+        xg = x.detach().clone().requires_grad_(True)
+        segment.sender_gather(xg, g, fused=True).backward(cot)
+        return xg.grad
+
+    err = 0.0
+    for name, run, want in (
+            ("pool", lambda: segment.segment_sum(
+                x, g.node_graph, g.n_graph_pad, g.graph_row_ptr, fused=True),
+             spmm_f64(x, g.graph_row_ptr)),
+            ("GINE aggregate", lambda: segment.segment_sum(
+                msgs, g.receivers, g.n_node_pad, g.recv_row_ptr, fused=True),
+             spmm_f64(msgs, g.recv_row_ptr)),
+            ("GINE dx", gather_grad,
+             spmm_f64(cot, g.send_row_ptr, g.senders_perm))):
+        got = run()
+        err = max(err, close(f"graph sum {name} D={d}", got, want))
+        if not torch.equal(got, run()):
+            raise AssertionError(f"graph sum {name} D={d}: two calls differ")
+    return err
+
+
+def check_prefetch(graphs, spec, batch_size: int, native, consume=None) -> int:
+    """One shuffled pass of `batch_loader(prefetch=2)` on the card against
+    the same seed's loader without prefetch (each batch assembled and moved
+    when asked for), field by field and bit for bit; `consume(batch)` runs
+    on each prefetched batch first (a train step: the consumer's stream
+    works while the next copies land). Returns the number of batches."""
+    import dataclasses
+
+    from kagnn_tpu_torch.train.experiments import batch_loader
+
+    kw = dict(shuffle=True, seed=1, native=native)
+    sync = batch_loader(graphs, spec, batch_size, **kw)()
+    n = 0
+    for got in batch_loader(graphs, spec, batch_size, prefetch=2, **kw)():
+        if consume is not None:
+            consume(got)
+        want = next(sync)
+        for f in dataclasses.fields(got):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            same = (torch.equal(a, b) and a.dtype == b.dtype
+                    and a.device == b.device) if isinstance(a, torch.Tensor) else a == b
+            if not same:
+                raise AssertionError(f"prefetched batch {n}: {f.name} differs "
+                                     f"from the synchronously moved batch")
+        n += 1
+    if n != -(-len(graphs) // batch_size) or next(sync, None) is not None:
+        raise AssertionError(f"prefetch yielded {n} batches")
+    return n

@@ -100,17 +100,23 @@ sorted_segment_sum.launches = 0
 class SortedSegmentSum(torch.autograd.Function):
     """Differentiable `sorted_segment_sum` over receiver-sorted messages.
     Its VJP is the gather of the cotangent at each edge's row, as in the
-    JAX custom VJP (spmm.py `_vjp_bwd`); no kernel is needed for it."""
+    JAX custom VJP (spmm.py `_vjp_bwd`); no kernel is needed for it. `ids`,
+    the row of each message (the receivers for GINE's aggregate, node_graph
+    for the pools), spares the backward rebuilding them from the row
+    pointer, which on the card waits for the device (repeat_interleave
+    reads the output's size)."""
 
     @staticmethod
-    def forward(ctx, msgs, row_ptr):
-        ctx.save_for_backward(row_ptr)
+    def forward(ctx, msgs, row_ptr, ids=None):
+        ctx.save_for_backward(row_ptr if ids is None else ids)
+        ctx.have_ids = ids is not None
         return sorted_segment_sum(msgs, row_ptr)
 
     @staticmethod
     def backward(ctx, cot):
-        (row_ptr,) = ctx.saved_tensors
-        return cot.index_select(0, segment_ids(row_ptr)), None
+        (rows,) = ctx.saved_tensors
+        ids = rows if ctx.have_ids else segment_ids(rows)
+        return cot.index_select(0, ids), None, None
 
 
 NARROW_MAX_K = 8  # columns of the narrow segment sum (csrc/spmm_narrow.cu)

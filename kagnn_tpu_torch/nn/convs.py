@@ -8,9 +8,11 @@
     FastKANLayer or the bias-free Glorot linear of `dense_transform`;
   * `GATConv` — multi-head attention with LeakyReLU(0.2) logits, a
     per-destination softmax over the edges and the implicit self-loop,
-    concatenated heads and a bias, the transform from the same factories.
-
-GINE comes with a later slice of the port."""
+    concatenated heads and a bias, the transform from the same factories;
+  * `GINEConv` — update((1+eps)·x_i + Σ_j ReLU(x_j + e_ij)), GIN with edge
+    features (PyG GINEConv);
+  * `global_add_pool`, `global_mean_pool` — node rows summed or averaged
+    per graph over `node_graph`."""
 from __future__ import annotations
 
 import math
@@ -162,3 +164,47 @@ class GATConv(nn.Module):
         out = segment.gat_attention(h, alpha_src, alpha_dst, g, NEGATIVE_SLOPE,
                                     att_src_matrix=amat, fused=self.fused)
         return out + self.bias
+
+
+class GINEConv(nn.Module):
+    """GINE layer: messages ReLU(x_j + e_ij), zeroed at padded edges,
+    summed per receiver, then update((1+eps)·x_i + agg) (PyG GINEConv, eps
+    fixed). It never fuses with the update net: the JAX layer calls the net
+    on the sum. With `fused` the receiver sum runs the segment-sum kernel
+    over recv_row_ptr and the gradient to x the same kernel over the sender
+    CSR (`segment.sender_gather`).
+
+    An f32 e (the BondEncoder's output) promotes a bf16 x: the messages,
+    their sum and z are f32, and a KAN net casts z back to its compute
+    dtype, as in the JAX model."""
+
+    def __init__(self, update: nn.Module, eps: float = 0.0,
+                 fused: bool = False):
+        super().__init__()
+        self.update, self.eps, self.fused = update, eps, fused
+
+    def forward(self, g, x: torch.Tensor, edge_attr: torch.Tensor) -> torch.Tensor:
+        msgs = torch.relu(segment.sender_gather(x, g, fused=self.fused) + edge_attr)
+        msgs = torch.where(g.edge_mask[:, None], msgs,
+                           torch.zeros((), dtype=msgs.dtype, device=msgs.device))
+        agg = segment.segment_sum(msgs, g.receivers, g.n_node_pad,
+                                  g.recv_row_ptr, fused=self.fused)
+        return self.update((1.0 + self.eps) * x + agg, mask=g.node_mask,
+                           train=self.training)
+
+
+def global_add_pool(g, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """Sum-pool node rows per graph, masked rows zeroed first: (G, F). With
+    `fused` the sum runs the segment-sum kernel over graph_row_ptr."""
+    x = torch.where(g.node_mask[:, None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    return segment.segment_sum(x, g.node_graph, g.n_graph_pad,
+                               g.graph_row_ptr, fused=fused)
+
+
+def global_mean_pool(g, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """Mean-pool node rows per graph over the valid nodes: (G, F); an
+    empty graph's row is 0."""
+    return segment.segment_mean(x, g.node_graph, g.n_graph_pad,
+                                mask=g.node_mask, row_ptr=g.graph_row_ptr,
+                                fused=fused)

@@ -1,10 +1,13 @@
 """Segment ops, the counterparts of `kagnn_tpu/ops/segment.py`:
-`gather`, `neighbor_sum`, `gcn_aggregate`, and GAT's `segment_max`,
-`segment_softmax`, `neighbor_sum_attn` and `gat_attention`.
+`gather`, `sender_gather`, `segment_sum`, `segment_mean`, `neighbor_sum`,
+`gcn_aggregate`, and GAT's `segment_max`, `segment_softmax`,
+`neighbor_sum_attn` and `gat_attention`.
 
 The plain versions are PyTorch on any device (autograd gives their VJPs).
 `neighbor_sum(fused=True)` runs the segment-sum kernel forward and
-backward (kernels/spmm.py), `gcn_aggregate(fused=True)` the gcn_agg kernel
+backward (kernels/spmm.py), `segment_sum(fused=True)` forward (the pools
+and GINE's aggregate) and `sender_gather(fused=True)` backward (GINE's
+gradient to x), `gcn_aggregate(fused=True)` the gcn_agg kernel
 and `gat_attention(fused=True)` the three GAT kernels
 (kernels/gat_fused.py); the fused GIN+KAN path aggregates inside its own
 kernel (kernels/gin_fused.py)."""
@@ -17,7 +20,7 @@ import torch
 from kagnn_tpu_torch.kernels._common import leaky
 from kagnn_tpu_torch.kernels.gat_fused import gat_attention_fused
 from kagnn_tpu_torch.kernels.gcn_agg import gcn_aggregate_fused
-from kagnn_tpu_torch.kernels.spmm import sorted_segment_sum
+from kagnn_tpu_torch.kernels.spmm import SortedSegmentSum, sorted_segment_sum
 
 NEG = -1e30  # the logit of a masked edge, and the floor of an empty max
 
@@ -26,6 +29,78 @@ def gather(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Row gather x[indices]; indices are in range by the batcher's
     invariant."""
     return x.index_select(0, indices.long())
+
+
+def _kernel_eligible(data: torch.Tensor) -> bool:
+    """The segment-sum kernel takes 2-D f32 or bf16 rows of any width (the
+    JAX package's `shape[1] >= 64` gate is a TPU tuning choice)."""
+    return data.dim() == 2 and data.dtype in (torch.float32, torch.bfloat16)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, row_ptr: Optional[torch.Tensor] = None,
+                fused: bool = False) -> torch.Tensor:
+    """Sum `data` rows into `num_segments` buckets given by ascending
+    `segment_ids`. With `fused`, 2-D f32/bf16 data runs through
+    `SortedSegmentSum` over `row_ptr` (num_segments+1, int32, the CSR of
+    segment_ids: graph_row_ptr for the pools, recv_row_ptr for GINE), an
+    f32 sum rounded once to data's dtype, as the JAX sorted segment sum
+    under `use_pallas_spmm`; its backward is the gather of the cotangent at
+    segment_ids (int32 or int64). Otherwise (and for any other data, such
+    as segment_mean's 1-D count) an index_add in data's dtype, as
+    jax.ops.segment_sum."""
+    if fused and _kernel_eligible(data):
+        if row_ptr is None:
+            raise ValueError("the fused segment sum walks a row pointer")
+        return SortedSegmentSum.apply(data.contiguous(), row_ptr, segment_ids)
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add(0, segment_ids.long(), data)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, mask: Optional[torch.Tensor] = None,
+                 row_ptr: Optional[torch.Tensor] = None,
+                 fused: bool = False) -> torch.Tensor:
+    """Mean per segment; `mask` (bool, per row) takes padded rows out of
+    both the sum and the count. The sum as `segment_sum`, the count (1-D,
+    in data's dtype) plain, floored at 1."""
+    if mask is not None:
+        data = torch.where(_rows(mask, data), data,
+                           torch.zeros((), dtype=data.dtype, device=data.device))
+        ones = mask.to(data.dtype)
+    else:
+        ones = torch.ones(data.shape[0], dtype=data.dtype, device=data.device)
+    total = segment_sum(data, segment_ids, num_segments, row_ptr, fused)
+    count = segment_sum(ones, segment_ids, num_segments)
+    return total / _rows(count.clamp_min(1.0), total)
+
+
+class SenderGather(torch.autograd.Function):
+    """x[senders] whose backward, the segment sum of the per-edge cotangent
+    over senders, runs the segment-sum kernel over the sender CSR
+    (send_row_ptr, gather index senders_perm): an f32 sum rounded once to
+    x's dtype, deterministic, where the JAX gather's transpose is XLA's
+    scatter-add (the values agree, not the method)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return gather(x, g.senders)
+
+    @staticmethod
+    def backward(ctx, cot):
+        g = ctx.g
+        return sorted_segment_sum(cot.contiguous(), g.send_row_ptr,
+                                  g.senders_perm), None
+
+
+def sender_gather(x: torch.Tensor, g, fused: bool = False) -> torch.Tensor:
+    """x[g.senders], the per-edge sender rows; `fused` runs `SenderGather`
+    for 2-D f32/bf16 x (its backward on the segment-sum kernel)."""
+    if fused and _kernel_eligible(x):
+        return SenderGather.apply(x.contiguous(), g)
+    return gather(x, g.senders)
 
 
 class NeighborSum(torch.autograd.Function):

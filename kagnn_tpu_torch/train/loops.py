@@ -1,5 +1,6 @@
 """Training steps, the counterparts of `kagnn_tpu/train/loops.py`
-`make_node_steps`, `make_node_multi_step` and `EarlyStopper`.
+`make_node_steps`, `make_node_multi_step`, `make_graph_cls_steps`,
+`make_graph_reg_steps`, `train_graph_epochs` and `EarlyStopper`.
 
 The JAX steps thread a TrainState through a jitted function; here the
 model and the optimizer hold the state and are updated in place. With
@@ -7,6 +8,8 @@ model and the optimizer hold the state and are updated in place. With
 is that of `optax.adam(1e-3)`.
 """
 from __future__ import annotations
+
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -55,6 +58,109 @@ def make_node_steps(model, optimizer):
             return model(batch)
 
     return train_step, evaluate
+
+
+def _graph_steps(model, optimizer, loss_of_output: Callable):
+    """A train step on one padded batch: forward in train mode, the loss,
+    backward, optimizer.step; returns the loss (not synchronised)."""
+
+    def train_step(batch):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_of_output(model(batch), batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def make_graph_cls_steps(model, optimizer):
+    """Graph classification: masked NLL over `graph_mask`. Returns
+    (train_step(batch) -> loss, evaluate(batch) -> (nll sum, correct,
+    count)), the JAX evaluate's sums, as 0-d tensors."""
+    train_step = _graph_steps(model, optimizer, lambda out, b: losses.masked_nll(
+        out, b.y, b.graph_mask))
+
+    def evaluate(batch):
+        model.eval()
+        with torch.no_grad():
+            out = model(batch)
+            gm = batch.graph_mask
+            count = gm.sum()
+            nll_sum = losses.masked_nll(out, batch.y, gm) * count.clamp_min(1)
+            correct = ((out.argmax(1) == batch.y.long()) & gm).sum()
+        return nll_sum, correct, count
+
+    return train_step, evaluate
+
+
+def make_graph_reg_steps(model, optimizer):
+    """Graph regression: masked L1 over `graph_mask`. Returns
+    (train_step(batch) -> loss, evaluate(batch) -> (L1 sum, count))."""
+    train_step = _graph_steps(model, optimizer, lambda out, b: losses.masked_l1(
+        out, b.y, b.graph_mask))
+
+    def evaluate(batch):
+        model.eval()
+        with torch.no_grad():
+            out = model(batch)
+            gm = batch.graph_mask
+            count = gm.sum()
+            l1_sum = losses.masked_l1(out, batch.y, gm) * count.clamp_min(1)
+        return l1_sum, count
+
+    return train_step, evaluate
+
+
+def train_graph_epochs(model, train_step, evaluate,
+                       train_batches: Callable[[], Iterable],
+                       val_batches: Callable[[], Iterable], epochs: int,
+                       patience: int,
+                       test_batches: Optional[Callable[[], Iterable]] = None,
+                       classification: bool = True) -> dict:
+    """The early-stopped epoch loop of the reference's graph protocol: the
+    best validation loss is tracked, the test metric (accuracy, or mean L1)
+    recorded at the best-validation epoch. Returns {"state": a copy of the
+    model's state_dict at that epoch, "best_val_loss", "test_metric",
+    "epochs_run"}. Dropout draws from the model's own generator."""
+    stopper = EarlyStopper(patience=patience)
+    best_val = float("inf")
+    best_test_metric = None
+    best_state = _state_copy(model)
+
+    def sums(batches):
+        tot, n, correct = 0.0, 0.0, 0.0
+        for batch in batches():
+            if classification:
+                s, c, m = evaluate(batch)
+                correct += float(c)
+            else:
+                s, m = evaluate(batch)
+            tot += float(s)
+            n += float(m)
+        return tot, n, correct
+
+    for epoch in range(epochs):
+        for batch in train_batches():
+            train_step(batch)
+        tot, n, _ = sums(val_batches)
+        val_loss = tot / max(n, 1.0)
+        if val_loss < best_val:
+            best_val = val_loss
+            best_state = _state_copy(model)
+            if test_batches is not None:
+                tt, tn, tc = sums(test_batches)
+                best_test_metric = (tc if classification else tt) / max(tn, 1.0)
+        _, stop = stopper.early_stop(val_loss)
+        if stop:
+            break
+    return {"state": best_state, "best_val_loss": best_val,
+            "test_metric": best_test_metric, "epochs_run": epoch + 1}
+
+
+def _state_copy(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 # eager steps on a side stream before the capture: they build and bind the

@@ -1,12 +1,14 @@
-"""Weight carrier between the JAX `NodeClassifier` variable tree and the
-port's `NodeClassifier` state_dict (gin, gcn and gat convs, mlp, kan and fastkan
-architectures). Works on numpy arrays: the JAX tree's leaves come in as
-numpy (`jax.tree.map(np.asarray, v)`), and nothing here imports jax.
+"""Weight carrier between the JAX variable trees of `NodeClassifier`,
+`GraphClassifier` and `GraphRegressor` and the port models' state_dicts
+(gin, gcn and gat convs, GINE; mlp, kan and fastkan architectures). Works on
+numpy arrays: the JAX tree's leaves come in as numpy
+(`jax.tree.map(np.asarray, v)`), and nothing here imports jax.
 
 Modules:
     {params,buffers}/KAN_{i}/layers_{j}/...      <-> convs.{i}.update.layers.{j}....
     params/FastKAN_{i}/layers_{j}/...            <-> convs.{i}.update.layers.{j}....
     params/MLP_{i}/TorchLinear_{j}/{kernel,bias} <-> convs.{i}.update.layers.{j}.{weight,bias}
+    {params,batch_stats}/MLP_{i}/MaskedBatchNorm_{k}/... <-> convs.{i}.update.norms.{k}....
     {params,buffers}/GCNConv_{i}/KANLinear_0/... <-> convs.{i}.transform....
     params/GCNConv_{i}/FastKANLayer_0/...        <-> convs.{i}.transform....
     params/GCNConv_{i}/Dense_0/kernel            <-> convs.{i}.transform.weight
@@ -18,6 +20,15 @@ Modules:
     params/MaskedBatchNorm_{i}/{scale,bias}      <-> norms.{i}.{weight,bias}
     batch_stats/MaskedBatchNorm_{i}/{mean,var}   <-> norms.{i}.{running_mean,running_var}
     {params,buffers}/head/...                    <-> head....
+    params/AtomEncoder_0/CategoricalSumEncoder_0/emb_{k} <-> atom_encoder.emb.{k}
+    params/BondEncoder_0/CategoricalSumEncoder_0/emb_{k} <-> bond_encoder.emb.{k}
+    params/{atom,bond}_encoder/{kernel,bias}     <-> {atom,bond}_encoder.{weight,bias}
+
+A node model's head is the module `head`. Flax names a graph model's nets by
+position instead: a GIN model's update nets are KAN_0..KAN_{L-1} (or
+FastKAN_i, MLP_i) and its head net KAN_L; a GCN or GAT model's only net,
+KAN_0, is its head; the head net maps to `head.layers.{j}....` (the port's
+graph heads are nets). Embedding tables keep their (vocab, emb) layout.
 Leaves of a KANLinear keep their names (base_weight, spline_weight,
 spline_scaler, the buffer grid); those of a FastKANLayer map as
     spline_weight <-> spline_linear.weight, base_weight <-> base_linear.weight,
@@ -75,24 +86,50 @@ KAN, FAST, LINEAR = "kan", "fast", "linear"
 _TRANSFORM = {"KANLinear": KAN, "FastKANLayer": FAST, "Dense": LINEAR}
 
 
-def _module(mod: str, rest: tuple, head_kind: str):
-    """JAX module name and the path below it -> (torch prefix, path below
-    the layer, the layer's kind)."""
+_NET = re.compile(r"(FastKAN|KAN|MLP)_(\d+)")
+_NET_KIND = {"KAN": KAN, "FastKAN": FAST, "MLP": LINEAR}
+_NET_NAMES = {KAN: ("KAN", "layers"), FAST: ("FastKAN", "layers"),
+              LINEAR: ("MLP", "TorchLinear")}
+_ENCODERS = {"AtomEncoder_0": "atom_encoder", "BondEncoder_0": "bond_encoder"}
+
+
+def _net_leaf(prefix: str, kind: str, rest: tuple):
+    """A leaf below a KAN, FastKAN or MLP net -> (torch key, transpose)."""
+    if m := re.fullmatch(r"(?:layers|TorchLinear)_(\d+)", rest[0]):
+        leaf = rest[1:]
+        return (f"{prefix}.layers.{m.group(1)}.{_torch_leaf(kind, leaf)}",
+                kind == LINEAR and leaf == ("kernel",))
+    return None
+
+
+def _module(coll: str, mod: str, rest: tuple, head_kind: str,
+            head_net: int | None):
+    """JAX module name and the path below it -> (torch key, transpose), or
+    None. `head_net` is the index of the graph model's net that is its head
+    (None for a node model, whose head is the module `head`)."""
+    if m := re.fullmatch(r"MaskedBatchNorm_(\d+)", mod):
+        return f"norms.{m.group(1)}.{_BN[(coll, rest[0])]}", False
     if mod == "head":
-        return "head", rest, head_kind
-    if m := re.fullmatch(r"(Fast)?KAN_(\d+)", mod):
-        layer = re.fullmatch(r"layers_(\d+)", rest[0]).group(1)
-        return (f"convs.{m.group(2)}.update.layers.{layer}", rest[1:],
-                FAST if m.group(1) else KAN)
-    if m := re.fullmatch(r"MLP_(\d+)", mod):
-        layer = re.fullmatch(r"TorchLinear_(\d+)", rest[0]).group(1)
-        return f"convs.{m.group(1)}.update.layers.{layer}", rest[1:], LINEAR
+        return f"head.{_torch_leaf(head_kind, rest)}", (
+            head_kind == LINEAR and rest == ("kernel",))
+    if m := _NET.fullmatch(mod):
+        i = int(m.group(2))
+        prefix = "head" if i == head_net else f"convs.{i}.update"
+        if b := re.fullmatch(r"MaskedBatchNorm_(\d+)", rest[0]):
+            return f"{prefix}.norms.{b.group(1)}.{_BN[(coll, rest[1])]}", False
+        return _net_leaf(prefix, _NET_KIND[m.group(1)], rest)
     if m := re.fullmatch(r"G(?:CN|AT)Conv_(\d+)", mod):
         if rest in (("bias",), ("att_src",), ("att_dst",)):
-            return f"convs.{m.group(1)}", rest, KAN
+            return f"convs.{m.group(1)}.{rest[0]}", False
         t = re.fullmatch(r"(FastKANLayer|KANLinear|Dense)_0", rest[0])
         if t is not None:
-            return f"convs.{m.group(1)}.transform", rest[1:], _TRANSFORM[t.group(1)]
+            kind = _TRANSFORM[t.group(1)]
+            return (f"convs.{m.group(1)}.transform.{_torch_leaf(kind, rest[1:])}",
+                    kind == LINEAR and rest[1:] == ("kernel",))
+    if mod in _ENCODERS and (e := re.fullmatch(r"emb_(\d+)", rest[-1])):
+        return f"{_ENCODERS[mod]}.emb.{e.group(1)}", False
+    if mod in ("atom_encoder", "bond_encoder"):
+        return f"{mod}.{_LINEAR[rest]}", rest == ("kernel",)
     return None
 
 
@@ -114,30 +151,44 @@ def _to_torch(v: Any, transpose: bool) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a.T) if transpose else a)
 
 
+def _graph_head_net(params: Mapping) -> int | None:
+    """The index of a graph model's head net: GCN and GAT models have one
+    net, their head (the convs hold transforms); a GIN model's head comes
+    after its update nets. None for a node model (its head is `head`)."""
+    if "head" in params:
+        return None
+    nets = [int(m.group(2)) for k in params if (m := _NET.fullmatch(k))]
+    if any(re.fullmatch(r"G(?:CN|AT)Conv_\d+", k) for k in params):
+        return 0
+    return max(nets, default=None)
+
+
 def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
-    """JAX NodeClassifier variables -> the port's state_dict."""
-    head_kind = _head_kind(variables.get("params", {}).get("head", {}))
+    """JAX NodeClassifier, GraphClassifier or GraphRegressor variables ->
+    the port model's state_dict."""
+    params = variables.get("params", {})
+    head_kind = _head_kind(params.get("head", {}))
+    head_net = _graph_head_net(params)
     sd = {}
     for path, v in _leaves(variables):
-        coll, mod, rest = path[0], path[1], path[2:]
-        transpose = False
-        if m := re.fullmatch(r"MaskedBatchNorm_(\d+)", mod):
-            key = f"norms.{m.group(1)}.{_BN[(coll, rest[0])]}"
-        elif (found := _module(mod, rest, head_kind)) is not None:
-            prefix, leaf, kind = found
-            key = f"{prefix}.{_torch_leaf(kind, leaf)}"
-            transpose = kind == LINEAR and leaf == ("kernel",)
-        else:
+        found = _module(path[0], path[1], path[2:], head_kind, head_net)
+        if found is None:
             raise KeyError(f"no port counterpart for {'/'.join(path)}")
+        key, transpose = found
         sd[key] = _to_torch(v, transpose)
     return sd
 
 
 def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
-    """The port's state_dict -> JAX NodeClassifier variables (numpy)."""
+    """The port model's state_dict -> JAX variables (numpy)."""
     inv_bn = {v: k for k, v in _BN.items()}
+    convs = {k.split(".")[1] for k in state_dict if k.startswith("convs.")}
     gat = {k.split(".")[1] for k in state_dict
            if k.startswith("convs.") and k.endswith(".att_src")}
+    graph = any(k.startswith(("head.layers.", "head.norms.")) for k in state_dict)
+    transforms = any(k.split(".")[2] in ("transform", "bias")
+                     for k in state_dict if k.startswith("convs."))
+    head_net = str(0 if transforms else len(convs))
     out: dict = {}
 
     def conv(i: str) -> str:
@@ -157,32 +208,42 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
             return "params", LINEAR, _LINEAR_INV[rest]
         return ("buffers" if rest == "grid" else "params"), KAN, (rest,)
 
+    def net(i: str, parts: list, value):
+        """parts below a net: layers.{j}.<leaf> or norms.{k}.<leaf>."""
+        if parts[0] == "norms":
+            coll, name = inv_bn[parts[2]]
+            put((coll, f"MLP_{i}", f"MaskedBatchNorm_{parts[1]}", name), value)
+            return
+        coll, kind, path = leaf(".".join(parts[2:]))
+        mod, layer = _NET_NAMES[kind]
+        put((coll, f"{mod}_{i}", f"{layer}_{parts[1]}", *path), value)
+
     for key, v in state_dict.items():
         parts = key.split(".")
         if parts[0] == "norms":
             coll, name = inv_bn[parts[2]]
             put((coll, f"MaskedBatchNorm_{parts[1]}", name), v)
-            continue
-        if parts[0] == "head":
+        elif parts[0] == "head" and graph:
+            net(head_net, parts[1:], v)
+        elif parts[0] == "head":
             coll, _, path = leaf(".".join(parts[1:]))
             put((coll, "head", *path), v)
-            continue
-        if parts[0] == "convs" and len(parts) == 3 and parts[2] != "update":
+        elif parts[0] in ("atom_encoder", "bond_encoder") and parts[1] == "emb":
+            mod = {v: k for k, v in _ENCODERS.items()}[parts[0]]
+            put(("params", mod, "CategoricalSumEncoder_0", f"emb_{parts[2]}"), v)
+        elif parts[0] in ("atom_encoder", "bond_encoder"):
+            put(("params", parts[0], *_LINEAR_INV[parts[1]]), v)
+        elif parts[0] == "convs" and len(parts) == 3:
             put(("params", conv(parts[1]), parts[2]), v)
-            continue
-        if parts[0] == "convs" and parts[2] == "update":
-            coll, kind, path = leaf(".".join(parts[5:]))
-            mod, layer = {KAN: ("KAN", "layers"), FAST: ("FastKAN", "layers"),
-                          LINEAR: ("MLP", "TorchLinear")}[kind]
-            put((coll, f"{mod}_{parts[1]}", f"{layer}_{parts[4]}", *path), v)
-            continue
-        if parts[0] == "convs" and parts[2] == "transform":
+        elif parts[0] == "convs" and parts[2] == "update":
+            net(parts[1], parts[3:], v)
+        elif parts[0] == "convs" and parts[2] == "transform":
             coll, kind, path = leaf(".".join(parts[3:]))
             layer = {KAN: "KANLinear_0", FAST: "FastKANLayer_0",
                      LINEAR: "Dense_0"}[kind]
             put((coll, conv(parts[1]), layer, *path), v)
-            continue
-        raise KeyError(f"no JAX counterpart for {key}")
+        else:
+            raise KeyError(f"no JAX counterpart for {key}")
     return out
 
 

@@ -45,8 +45,10 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                check_spmm_split,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
-                                               check_narrow, gcn_agg_f64,
-                                               gcn_split_graph, narrow_cases,
+                                               check_graph_sums,
+                                               check_narrow, check_prefetch,
+                                               gcn_agg_f64, gcn_split_graph,
+                                               graph_sum_batch, narrow_cases,
                                                rbf_bwd_expected,
                                                rbf_bwd_kernels, rbf_chain,
                                                spmm_split_graph)
@@ -1014,3 +1016,64 @@ def test_multi_step_refuses_what_it_cannot_capture():
     assert multi(g, g.node_mask).shape == (2,)
     with pytest.raises(ValueError, match="same tensors"):
         multi(g, g.node_mask.clone())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [8, 21, 64])
+def test_graph_sums_split_heavy_pad_rows(dt, d):
+    """The pool, GINE's aggregate and GINE's gradient to x through their
+    autograd Functions against their functions summed in f64, on a batch
+    whose pad row (600 padded edges) and pad graph (300 pad nodes) are
+    heavy rows of the split; bit for bit twice."""
+    g = graph_sum_batch()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    check_graph_sums(g, d, DTYPES[dt], _closer(dt), gen)
+
+
+def _graph_classification_data(n=300):
+    from kagnn_tpu_torch.data import random_molecule_graphs
+
+    gs = random_molecule_graphs(n, 10, 40, seed=3)
+    for g in gs:
+        g["nodes"] = np.eye(21, dtype=np.float32)[g["nodes"][:, 0]]
+        g["edges"] = None
+    return gs
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_graph_prefetch_matches_sync_batches(native):
+    """A shuffled pass of batch_loader(prefetch=2) equals the same seed's
+    synchronously moved batches field by field, with a bf16 train step
+    consuming each prefetched batch before it is compared."""
+    from kagnn_tpu_torch.graphs import pad_spec_for
+    from kagnn_tpu_torch.models import GraphClassifier
+    from kagnn_tpu_torch.train import make_graph_cls_steps
+
+    gs = _graph_classification_data()
+    spec = pad_spec_for(gs, 64)
+    m = GraphClassifier("gin", "kan", 2, 21, 16, 2, fused=True,
+                        compute_dtype=torch.bfloat16, device="cuda")
+    step, _ = make_graph_cls_steps(m, torch.optim.Adam(m.parameters(), lr=1e-3))
+    assert check_prefetch(gs, spec, 64, native, consume=step) == 5
+
+
+def test_graph_step_launches_per_step():
+    """One bf16 step of graph classification gin/kan (3 convs) launches
+    gin_fused 3, the layer forward 5 and backward 8 times and the segment
+    sum 3 times (A^T dz at convs 1 and 2, the pool)."""
+    from kagnn_tpu_torch.graphs import batch_graphs, pad_spec_for
+    from kagnn_tpu_torch.models import GraphClassifier
+    from kagnn_tpu_torch.train import make_graph_cls_steps
+
+    gs = _graph_classification_data(64)
+    g = batch_graphs(gs, pad_spec_for(gs, 64))
+    m = GraphClassifier("gin", "kan", 3, 21, 16, 2, fused=True,
+                        compute_dtype=torch.bfloat16, device="cuda")
+    step, _ = make_graph_cls_steps(m, torch.optim.Adam(m.parameters(), lr=1e-3))
+    fns = launch_counters()
+    before = {k: f.launches for k, f in fns.items()}
+    assert torch.isfinite(step(g))
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in fns.items()
+            if f.launches != before[k]} == {"gin_fused": 3, "bspline_fwd": 5,
+                                            "bspline_bwd": 8, "spmm": 3}
