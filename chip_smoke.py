@@ -102,16 +102,37 @@ Phases (any failure raises, and the script exits non-zero):
      busy share and top kernels over 3 profiled steps, and a prefetched
      epoch against the same batches moved synchronously; then
      `utils/profiling.kernel_report()` at its defaults;
-  6. prints the kernel list as one JSON line, then the result line.
+  6. the protocol and data layer (`phase_protocol`), on data written in
+     each format's raw layout into a temporary directory: (a) the
+     arxiv-sized graph in ogbn-arxiv's layout (gzip CSVs, the time split)
+     parsed by `load_ogbn_arxiv`, then `run_node_experiment` at the
+     flagship widths (gin/kan, fused, bf16, rcm reorder, grids adapted
+     every 2 epochs, 2 splits) with each split's ms per epoch, adaptation
+     and reorder seconds, losses, accuracies and launches per epoch; the
+     reordered graph's spmm and gin_fused against their f64 sums; a
+     checkpoint resume (bit for bit); the card's least-squares solve
+     against the CPU's gelsd; the B-spline kernels on adapted knots and on
+     knots whose narrowest span bf16 rounds to zero (non-finite entries
+     included); a sampled epoch (fanouts 10 and 5, 512 seeds) with the
+     sampler's host ms beside the step's and the kernels on a sampled
+     batch; then (b)-(d) the three experiment drivers' main() (Cora-shaped
+     Planetoid pickles, gcn/fastkan; MUTAG in the TU layout, GAT/kan, 2
+     folds; ZINC's subset pickles, GIN/FastKAN), 8 trials each, their logs
+     in the JAX drivers' formats;
+  7. prints the kernel list as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import ast
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -189,6 +210,7 @@ def phase_build():
     units += [(n, s) for n in ("bspline_fused", "gin_fused") for s in KAN_CORNERS]
     units += [(n, (g,)) for n in ("fastkan_layer", "gin_fastkan", "rbf_fused")
               for g in FASTKAN_CORNERS]
+    units += [u for u in protocol_units() if u not in units]
     t0 = time.perf_counter()
     reports = _build.build_all(units)
     secs = time.perf_counter() - t0
@@ -1709,9 +1731,9 @@ def phase_fusion_point(torch, g):
                       FUSION_POINT, lambda x: net(x, gin_graph=(g, 0.0)))[0]
 
 
-def counted(torch, name, per_run, run, runs=1):
+def launches_of(torch, name, run):
     """run() with every launch counter set to 0 just before and read just
-    after; checks the counts against per_run * runs and returns them."""
+    after; logs and returns the counts."""
     from kagnn_tpu_torch.kernels import launch_counters
 
     fns = launch_counters()
@@ -1722,6 +1744,13 @@ def counted(torch, name, per_run, run, runs=1):
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in fns.items()}
     log(f"{name} launches: {launches}")
+    return launches
+
+
+def counted(torch, name, per_run, run, runs=1):
+    """run() counted (`launches_of`); checks the counts against per_run *
+    runs and returns them."""
+    launches = launches_of(torch, name, run)
     check_launches(name, launches, per_run, runs)
     return launches
 
@@ -2062,6 +2091,620 @@ def phase_small_graph_steps(torch):
                                  f"disagrees with its plain versions")
 
 
+# ------------------------------------------------------------ protocol layer
+# phase_protocol: the port's parsers, protocol runners and experiment drivers
+# on data written in each format's raw layout into a temporary directory.
+
+# the drivers' --random_seed default and the trials each driver of (b)-(d)
+# runs: all within the TPE's random start-up trials (TPESampler's
+# n_startup_trials, 8), so their shapes do not depend on the objective and
+# phase_build builds them with the others
+PROTOCOL_SEED = 12345
+PROTOCOL_TRIALS = 8
+# ogbn-arxiv's time split: train / valid / test nodes
+ARXIV_SPLIT = (90_941, 29_799, 48_603)
+# drive (a): run_node_experiment at the flagship widths (gin/kan, 3 convs
+# from DATASET_LAYERS, hidden 64, grid 4, order 3, 2-layer update nets, the
+# node driver's default skip), fused, bf16, Adam 1e-3, no dropout, renumbered
+# by rcm, grids adapted every 2 epochs (before epochs 2 and 4)
+FLAGSHIP_PARAMS = dict(conv_type="gin", architecture="kan", hidden_channels=64,
+                       grid_size=4, spline_order=3, hidden_layers=2, skip=1,
+                       heads=4, fused=True, bf16=True, lr=1e-3, dropout=0.0,
+                       reorder="rcm", update_grid=2, epochs=5, patience=100)
+PROTOCOL_SPLITS = 2
+# launches of one evaluation (a forward in eval mode) of the flagship model;
+# a train step launches MAIN_PATHS[("gin", "kan")]
+FLAGSHIP_EVAL = {"gin_fused": 3, "bspline_fwd": 4}
+SAMPLED = dict(fanouts=[10, 5], batch_size=512)
+# the kernels each driver of (b)-(d) launches (every other stays at 0)
+DRIVER_KERNELS = {
+    "b": {"gcn_agg", "spmm", "fastkan_fwd", "fastkan_bwd"},
+    "c": {"gat_fwd", "gat_dadst", "gat_sender", "bspline_fwd", "bspline_bwd", "spmm"},
+    "d": {"spmm", "fastkan_fwd", "fastkan_bwd"},
+}
+
+
+def protocol_trials() -> dict:
+    """The hyperparameters of the PROTOCOL_TRIALS trials of drivers (b)-(d):
+    the port's TPE study at the seed each driver gives it, run on a constant
+    objective (start-up trials draw at random whatever the values)."""
+    from kagnn_tpu_torch.experiments import graph_classification as gc
+    from kagnn_tpu_torch.experiments import graph_regression as gr
+    from kagnn_tpu_torch.experiments import node_classification as nc
+    from kagnn_tpu_torch.train.hpo import TPESampler, create_study
+
+    if PROTOCOL_TRIALS > TPESampler().n_startup:
+        raise AssertionError("the protocol drives must stay within the random trials")
+
+    def draw(space):
+        out = []
+        study = create_study(sampler=TPESampler(seed=PROTOCOL_SEED))
+        study.optimize(lambda t: (out.append(space(t)), 0.0)[1],
+                       n_trials=PROTOCOL_TRIALS)
+        return out
+
+    return {"b": draw(lambda t: nc.search_space(t, "gcn", "fastkan")),
+            "c": draw(lambda t: gc.search_space(t, "kan")),
+            "d": draw(lambda t: gr.search_space(t, "fastkan"))}
+
+
+def protocol_units() -> list:
+    """The libraries the trials of drivers (b)-(d) need: the FastKAN layer at
+    (b)'s and (d)'s center counts, the B-spline layer at (c)'s (order,
+    grid)."""
+    p = protocol_trials()
+    units = {("fastkan_layer", (t["grid_size"],)) for t in p["b"] + p["d"]}
+    units |= {("bspline_fused", (t["spline_order"], t["grid_size"])) for t in p["c"]}
+    return sorted(units)
+
+
+def write_ogbn_arxiv(root, d):
+    """arxiv_scale_graph's d in the extracted OGB layout of ogbn-arxiv:
+    raw/{edge,node-feat,node-label}.csv.gz (the directed edges, the features
+    to 6 decimals as OGB writes them) and split/time/{train,valid,test}.csv.gz
+    (ARXIV_SPLIT nodes of a seeded permutation)."""
+    import gzip
+
+    base = os.path.join(root, "ogbn-arxiv", "arxiv")
+    for sub in ("raw", os.path.join("split", "time")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+
+    def wcsv(path, arr, fmt):
+        with gzip.open(os.path.join(base, path), "wt", compresslevel=1) as f:
+            np.savetxt(f, arr, delimiter=",", fmt=fmt)
+
+    wcsv("raw/edge.csv.gz", np.stack([d["senders"], d["receivers"]], 1), "%d")
+    wcsv("raw/node-feat.csv.gz", d["nodes"], "%.6f")
+    wcsv("raw/node-label.csv.gz", d["y"][:, None], "%d")
+    perm = np.random.default_rng(0).permutation(d["n_node"])
+    cuts = np.cumsum(ARXIV_SPLIT)[:-1]
+    for name, ids in zip(("train", "valid", "test"), np.split(perm, cuts)):
+        wcsv(f"split/time/{name}.csv.gz", np.sort(ids), "%d")
+
+
+def write_planetoid_cora(root, seed=0):
+    """A Cora-shaped Planetoid raw set, ind.cora.{x,y,allx,ally,tx,ty,graph}
+    pickles (scipy CSR features, one-hot labels, the graph as an adjacency
+    dict) and ind.cora.test.index (the test nodes 1,708-2,707 listed
+    permuted): 2,708 nodes, 1,433 binary features (about 1.3 % set), 7
+    classes, a community graph; synthetic content."""
+    import pickle
+
+    import scipy.sparse as sp
+
+    from kagnn_tpu_torch.data import community_node_graph
+
+    n, f, c, n_allx = 2708, 1433, 7, 1708
+    d = community_node_graph(n_nodes=n, n_classes=c, num_features=4, seed=seed)
+    rng = np.random.default_rng(seed)
+    feats = (rng.random((n, f)) < 0.0127).astype(np.float32)
+    feats[np.arange(n), rng.integers(0, f, n)] = 1.0
+    onehot = np.eye(c)[d["y"]]
+    raw = os.path.join(root, "Cora", "Cora", "raw")
+    os.makedirs(raw, exist_ok=True)
+    listed = rng.permutation(np.arange(n_allx, n))
+    graph: dict = {}
+    for s, r in zip(d["senders"].tolist(), d["receivers"].tolist()):
+        graph.setdefault(s, []).append(r)
+    for suf, obj in (("x", sp.csr_matrix(feats[:140])), ("y", onehot[:140]),
+                     ("allx", sp.csr_matrix(feats[:n_allx])), ("ally", onehot[:n_allx]),
+                     ("tx", sp.csr_matrix(feats[listed])), ("ty", onehot[listed]),
+                     ("graph", graph)):
+        with open(os.path.join(raw, f"ind.cora.{suf}"), "wb") as fh:
+            pickle.dump(obj, fh, protocol=2)
+    with open(os.path.join(raw, "ind.cora.test.index"), "w") as fh:
+        fh.write("\n".join(str(i) for i in listed) + "\n")
+
+
+def write_tu_mutag(root, seed=0):
+    """188 random molecules (MUTAG's count: the fixture folds index them) in
+    the TU text layout: MUTAG_A.txt (1-based node ids over the dataset),
+    MUTAG_graph_indicator.txt, MUTAG_graph_labels.txt (1 and -1),
+    MUTAG_node_labels.txt (7 atom types) and MUTAG_edge_labels.txt."""
+    from kagnn_tpu_torch.data import random_molecule_graphs
+
+    graphs = random_molecule_graphs(188, 10, 28, num_atom_types=7,
+                                    num_bond_types=4, seed=seed)
+    # two classes of 94: the mean atom type above its median or not
+    mean_atom = np.array([g["nodes"].mean() for g in graphs])
+    label = np.argsort(np.argsort(mean_atom, kind="stable")) >= 94
+    raw = os.path.join(root, "MUTAG", "MUTAG", "raw")
+    os.makedirs(raw, exist_ok=True)
+    offsets = np.cumsum([0] + [g["n_node"] for g in graphs])
+    cols = {k: [] for k in ("A", "graph_indicator", "node_labels", "edge_labels")}
+    for gid, (g, off) in enumerate(zip(graphs, offsets)):
+        cols["A"] += [f"{s + off + 1}, {r + off + 1}"
+                      for s, r in zip(g["senders"], g["receivers"])]
+        cols["graph_indicator"] += [str(gid + 1)] * g["n_node"]
+        cols["node_labels"] += [str(a) for a in g["nodes"][:, 0]]
+        cols["edge_labels"] += [str(b) for b in g["edges"][:, 0]]
+    cols["graph_labels"] = [("1" if v else "-1") for v in label]
+    for k, lines in cols.items():
+        with open(os.path.join(raw, f"MUTAG_{k}.txt"), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def write_zinc(root, counts=(10_000, 1_000, 1_000), seed=0):
+    """The ZINC subset layout: ZINC/raw/{train,val,test}.pickle, each a list
+    of molecules {atom_type: LongTensor (n,), bond_type: LongTensor (n, n)
+    adjacency of bond types 1-3, logP_SA_cycle_normalized: tensor}, as the
+    benchmarking-gnns release pickles them (random molecules of 9-38 atoms of
+    28 types)."""
+    import pickle
+
+    import torch
+
+    from kagnn_tpu_torch.data import random_molecule_graphs
+
+    raw = os.path.join(root, "ZINC", "raw")
+    os.makedirs(raw, exist_ok=True)
+    mols = random_molecule_graphs(sum(counts), 9, 38, num_atom_types=28,
+                                  num_bond_types=3, seed=seed, target="regression")
+    start = 0
+    for split, n in zip(("train", "val", "test"), counts):
+        out = []
+        for g in mols[start:start + n]:
+            adj = np.zeros((g["n_node"], g["n_node"]), np.int64)
+            adj[g["senders"], g["receivers"]] = g["edges"][:, 0] + 1
+            out.append({"atom_type": torch.from_numpy(g["nodes"][:, 0].astype(np.int64)),
+                        "bond_type": torch.from_numpy(adj),
+                        "logP_SA_cycle_normalized": torch.tensor(float(g["y"][0]))})
+        with open(os.path.join(raw, f"{split}.pickle"), "wb") as fh:
+            pickle.dump(out, fh)
+        start += n
+
+
+class ProtocolProbe:
+    """Times and counts what `run_node_experiment` reaches through module
+    attributes, without changing what it computes: each train step and
+    evaluation (synchronized before and after; its launches), each grid
+    adaptation, the reorder (its output kept) and each split's result.
+    Installed with `with ProtocolProbe(torch) as probe:`; restored on exit."""
+
+    def __init__(self, torch):
+        import kagnn_tpu_torch.graphs.reorder as R
+        import kagnn_tpu_torch.kan.adapt as A
+        import kagnn_tpu_torch.train.experiments as E
+        from kagnn_tpu_torch.kernels import launch_counters
+
+        self.torch, self.events = torch, []
+        self._fns = launch_counters()
+        self._patch = [(E, "make_node_steps"), (E, "train_node_total"),
+                       (A, "adapt_model_grids"), (R, "reorder_graph")]
+
+    def _launches(self):
+        return {k: f.launches for k, f in self._fns.items()}
+
+    def _timed(self, kind, fn, keep=False):
+        torch = self.torch
+
+        def wrapper(*a, **kw):
+            before = self._launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            delta = {k: v - before[k] for k, v in self._launches().items() if v != before[k]}
+            self.events.append((kind, secs, delta, out if keep else None))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        self._saved = [getattr(m, n) for m, n in self._patch]
+        make_steps = self._saved[0]
+
+        def make_node_steps(model, opt):
+            step, evaluate = make_steps(model, opt)
+            return self._timed("step", step, keep=True), self._timed("eval", evaluate)
+
+        new = [make_node_steps, self._timed("split", self._saved[1], keep=True),
+               self._timed("adapt", self._saved[2]), self._timed("reorder", self._saved[3], keep=True)]
+        for (m, n), f in zip(self._patch, new):
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self._patch, self._saved):
+            setattr(m, n, f)
+        return False
+
+    def splits(self):
+        """Per split: (step events, eval events, adaptation seconds, result)."""
+        out, cur = [], {"step": [], "eval": [], "adapt": []}
+        for kind, secs, delta, val in self.events:
+            if kind == "split":
+                out.append((cur["step"], cur["eval"], cur["adapt"], val))
+                cur = {"step": [], "eval": [], "adapt": []}
+            elif kind in cur:
+                cur[kind].append((secs, delta, val))
+        return out
+
+
+def counted_kernels(torch, name, kernels, run):
+    """run() counted (`launches_of`); fails unless each kernel of `kernels`
+    launched and no other did. Returns the counts."""
+    launches = launches_of(torch, name, run)
+    wrong = {k: n for k, n in launches.items() if (n > 0) != (k in kernels)}
+    if wrong:
+        raise AssertionError(f"{name}: launches {wrong}, expected {sorted(kernels)} only")
+    return launches
+
+
+def phase_protocol(torch, rows):
+    """The protocol and data layer on the card (module docstring, phase 6).
+    Returns the launches of its drives."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kagnn_protocol_")
+    try:
+        drives = drive_flagship_protocol(torch, rows, root)
+        drives += drive_protocol_drivers(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        raise AssertionError(f"phase_protocol left {root}")
+    log(f"protocol: phase done in {time.perf_counter() - t0:.1f} s")
+    return drives
+
+
+def drive_flagship_protocol(torch, rows, root):
+    """Drive (a): ogbn-arxiv's layout written and parsed at full size, then
+    run_node_experiment at the flagship widths through the probe, the
+    reordered graph's kernels, a checkpoint resume, the least-squares solve
+    and the B-spline kernels on adapted knots, and a sampled epoch. Returns
+    the launches of run_node_experiment and of the sampled epoch."""
+    from kagnn_tpu_torch.data import arxiv_scale_graph
+    from kagnn_tpu_torch.data.planetoid import load_ogbn_arxiv
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kernels.selfcheck import check_spmm_split
+    from kagnn_tpu_torch.train.experiments import run_node_experiment
+
+    d0 = arxiv_scale_graph()
+    t0 = time.perf_counter()
+    write_ogbn_arxiv(root, d0)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = load_ogbn_arxiv(root)
+    t_load = time.perf_counter() - t0
+    counts = [int(d[k][0].sum()) for k in ("train_masks", "val_masks", "test_masks")]
+    log(f"protocol (a): ogbn-arxiv layout written in {t_write:.1f} s, parsed by "
+        f"load_ogbn_arxiv in {t_load:.1f} s: {d['n_node']} nodes, "
+        f"{d['senders'].shape[0]} edges after symmetrising "
+        f"({d0['senders'].shape[0]} written), features {d['nodes'].shape}, "
+        f"{d['num_classes']} classes, split {counts}")
+    if (d["n_node"], tuple(counts), d["nodes"].shape[1]) != (d0["n_node"], ARXIV_SPLIT, 128) or \
+            not np.array_equal(d["y"], d0["y"]) or \
+            np.abs(d["nodes"] - d0["nodes"]).max() > 1e-6:
+        raise AssertionError("protocol (a): the parsed ogbn-arxiv layout differs from the data written")
+
+    per_epoch = {k: MAIN_PATHS[("gin", "kan")].get(k, 0) + FLAGSHIP_EVAL.get(k, 0)
+                 for k in MAIN_PATHS[("gin", "kan")]}
+    E = FLAGSHIP_PARAMS["epochs"]
+    per_split = {k: n * E + FLAGSHIP_EVAL.get(k, 0) for k, n in per_epoch.items()}
+    res = {}
+    t0 = time.perf_counter()
+    with ProtocolProbe(torch) as probe:
+        launches = counted(torch, "protocol (a) run_node_experiment", per_split, lambda: res.update(
+            summary=run_node_experiment(dict(FLAGSHIP_PARAMS), "ogbn-arxiv", data_root=root,
+                                        log_dir=os.path.join(root, "logs"),
+                                        max_splits=PROTOCOL_SPLITS, seed=0, device="cuda")),
+            PROTOCOL_SPLITS)
+    log(f"protocol (a): run_node_experiment {time.perf_counter() - t0:.1f} s "
+        f"({PROTOCOL_SPLITS} splits, the dataset parsed again and reordered)")
+    (reorder,) = [e for e in probe.events if e[0] == "reorder"]
+    dr = reorder[3]
+    hub_deg = np.bincount(dr["receivers"], minlength=dr["n_node"])
+    log(f"protocol (a): reorder rcm {reorder[1]:.2f} s; the hub (in-degree "
+        f"{hub_deg.max()}) now at row {int(hub_deg.argmax())}")
+    for i, (steps, evals, adapts, result) in enumerate(probe.splits()):
+        ms = [(s[0] + e[0]) * 1e3 for s, e in zip(steps, evals)]
+        losses = [float(s[2]) for s in steps]
+        bad = [j for j, (s, e) in enumerate(zip(steps, evals))
+               if {k: s[1].get(k, 0) + e[1].get(k, 0) for k in per_epoch} != per_epoch]
+        log(f"protocol (a) split {i}: ms per epoch (step + evaluation) "
+            + ", ".join(f"{v:.2f}" for v in ms) + "; grid adaptations "
+            + ", ".join(f"{s:.2f} s" for s, _, _ in adapts) + f"; train losses "
+            + ", ".join(f"{v:.5f}" for v in losses) + f"; val_loss {result['val_loss']:.5f}, "
+            f"accuracies train {result['train_acc']:.4f} val {result['val_acc']:.4f} "
+            f"test {result['test_acc']:.4f}, epochs_run {result['epochs_run']}; "
+            f"launches per epoch {per_epoch}")
+        if bad or len(adapts) != (E - 1) // FLAGSHIP_PARAMS["update_grid"] or \
+                not all(math.isfinite(v) for v in losses + [result["val_loss"]]) or \
+                result["epochs_run"] != E:
+            raise AssertionError(f"protocol (a) split {i}: epochs {bad} launched otherwise, "
+                                 f"{len(adapts)} adaptations, losses {losses}, {result}")
+    summary = res["summary"]
+    with open(os.path.join(root, "logs", "ogbn-arxiv_kan_gin")) as fh:
+        line = json.loads(fh.read())
+    if line.keys() != {"params", "val_loss_mean", "test_acc_mean", "test_acc_std",
+                       "test_accs"} or len(line["test_accs"]) != PROTOCOL_SPLITS:
+        raise AssertionError(f"protocol (a): log line {line}")
+    log(f"protocol (a): summary val_loss_mean {summary['val_loss_mean']:.5f}, "
+        f"test_acc_mean {summary['test_acc_mean']:.4f}; log line keys {sorted(line)}")
+
+    g = single_graph(dr["senders"], dr["receivers"], nodes=dr["nodes"], y=dr["y"],
+                     device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        close = lambda name, a, b, dn=dn: compare(  # noqa: E731
+            torch, f"protocol reordered graph {name}", a, b, dn)
+        record_row(rows["spmm"], check_spmm_split(g, 64, dtype, close, gen), False)
+        record_row(rows["gin_fused"], check_gin_split(g, 128, 64, dtype, close, gen), False)
+    protocol_epoch_busy(torch, g, d)
+    protocol_checkpoint(torch, g, d)
+    protocol_adapted_knots(torch, rows, g)
+    return [launches, drive_sampled_epoch(torch, rows, dr, g)]
+
+
+def flagship_model(torch, d, seed):
+    from kagnn_tpu_torch.train.experiments import make_node_model
+
+    params = dict(FLAGSHIP_PARAMS, mp_layers=3, num_classes=d["num_classes"],
+                  num_features=d["nodes"].shape[1])
+    return make_node_model(params, seed=seed, device="cuda")
+
+
+def protocol_epoch_busy(torch, g, d, epochs=5):
+    """The full-batch epoch of drive (a) as train_node_total runs it (a
+    train step, an evaluation, the validation loss read on the host) on
+    the reordered graph, unsynchronized between epochs: ms per epoch over
+    `epochs` after one, then the busy share and top kernels over 3 profiled
+    epochs."""
+    from kagnn_tpu_torch.train import make_node_steps, masked_softmax_cross_entropy
+
+    model = flagship_model(torch, d, 2)
+    step, evaluate = make_node_steps(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    pad = np.zeros(g.n_node_pad - d["n_node"], bool)
+    train, val = (torch.from_numpy(np.concatenate([d[k][0], pad])).to("cuda")
+                  for k in ("train_masks", "val_masks"))
+
+    def epoch():
+        step(g, train)
+        return float(masked_softmax_cross_entropy(evaluate(g), g.y, val))
+
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        epoch()
+    ms = (time.perf_counter() - t0) * 1e3 / epochs
+    log(f"protocol (a) epoch on the reordered graph: {ms:.3f} ms (step, evaluation, "
+        f"validation loss read), unsynchronized between epochs")
+    profile_steps(torch, epoch, ms)
+
+
+def protocol_checkpoint(torch, g, d, k=3):
+    """Drive (a)'s eager step (the flagship model on the reordered graph,
+    Adam 1e-3): 2k steps uninterrupted against k steps, a save, a restore
+    into a fresh model (other weights) and a fresh Adam, and k more; the
+    losses must be equal bit for bit."""
+    from kagnn_tpu_torch.train import checkpoint, make_node_steps
+
+    mask = g.node_mask
+
+    def fresh(seed):
+        m = flagship_model(torch, d, seed)
+        return m, torch.optim.Adam(m.parameters(), lr=1e-3)
+
+    m, opt = fresh(0)
+    step, _ = make_node_steps(m, opt)
+    whole = torch.stack([step(g, mask) for _ in range(2 * k)])
+    m, opt = fresh(0)
+    step, _ = make_node_steps(m, opt)
+    part = [step(g, mask) for _ in range(k)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.pt")
+        t0 = time.perf_counter()
+        checkpoint.save(path, m, opt, step=k)
+        t_save = time.perf_counter() - t0
+        m, opt = fresh(1)
+        t0 = time.perf_counter()
+        if checkpoint.restore(path, m, opt) != k:
+            raise AssertionError("checkpoint: the step did not survive")
+        t_restore = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    step, _ = make_node_steps(m, opt)
+    part = torch.stack(part + [step(g, mask) for _ in range(k)])
+    same = torch.equal(whole, part)
+    log(f"protocol (a) checkpoint: {size} B saved in {t_save:.3f} s, restored into a "
+        f"fresh model and Adam in {t_restore:.3f} s; losses {whole.tolist()} "
+        f"{'equal bit for bit to' if same else 'DIFFER from'} the resumed run's {part.tolist()}")
+    if not same:
+        raise AssertionError("checkpoint resume: the losses differ from the uninterrupted run")
+
+
+def protocol_adapted_knots(torch, rows, g):
+    """The card's least-squares solve against the CPU's gelsd (a
+    rank-deficient system at the f32 bar; a grid refit on a batch of mostly
+    zero rows by its residual) and the B-spline kernels on adapted knots
+    (flagship widths, gin_fused over the reordered graph) and on knots whose
+    narrowest span bf16 rounds to zero, in f32 and bf16."""
+    from kagnn_tpu_torch.kan.bspline import b_splines, make_grid, update_grid
+    from kagnn_tpu_torch.kernels.selfcheck import (adapted_knots, check_adapted_layer,
+                                                   check_lstsq, degenerate_knots,
+                                                   rank_deficient_system)
+
+    A, B = rank_deficient_system()
+    t0 = time.perf_counter()
+    dev_ratio, err = check_lstsq(A, B, close=lambda n, a, b: compare(
+        torch, f"protocol {n}", a, b, "float32"))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.zeros(40_000, 64, device="cuda")
+    x[:5_000] = torch.randn(5_000, 64, generator=gen, device="cuda")
+    grid, _ = update_grid(x, make_grid(64, 8, 3, device="cuda"),
+                          torch.randn(4, 64, 11, generator=gen, device="cuda"), None, 8, 3)
+    A = b_splines(x, grid, 3).transpose(0, 1).contiguous()
+    ratio, _ = check_lstsq(A, torch.randn(64, 40_000, 4, generator=gen, device="cuda"))
+    log(f"protocol lstsq on the card against the CPU's gelsd: rank-deficient "
+        f"(4, 2000, 7) coefficients max_abs_err {err:.3e}, residual ratio - 1 "
+        f"{dev_ratio:.2e}; refit of a grid on 40,000 rows, 5,000 of them data "
+        f"(the rest zero pad rows), (64, 40000, 11): residual ratio - 1 {ratio:.2e} "
+        f"(bar 1e-6); "
+        f"{time.perf_counter() - t0:.2f} s")
+    knots = adapted_knots(64, 4, 3)
+    log(f"protocol adapted knots, feature 0: {[round(v, 4) for v in knots[:, 0].tolist()]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        close = lambda name, a, b, dn=dn: compare(  # noqa: E731
+            torch, f"protocol {name}", a, b, dn)
+        res = check_adapted_layer(20_000, 64, 64, knots, dtype, close, gen, g=g)
+        deg = check_adapted_layer(128, 64, 40, degenerate_knots(knots), dtype, close, gen)
+        for r, out in (("bspline_fwd", "fwd"), ("gin_fused", "gin")):
+            record_row(rows[r], res[out][0], False)
+        log(f"protocol knots bf16 rounds together, {dn}: " + ", ".join(
+            f"{k} {v[1]} NaN {v[2]} inf (err of the finite {v[0]:.2e})" for k, v in deg.items())
+            + " in the kernels and the plain versions alike")
+        if (sum(v[1] + v[2] for v in deg.values()) > 0) != (dtype == torch.bfloat16):
+            raise AssertionError("protocol degenerate knots: non-finite where not expected")
+
+
+def drive_sampled_epoch(torch, rows, d, g):
+    """One epoch of train_node_sampled (fanouts 10 and 5, batches of 512
+    seeds) on the reordered data, with the launches counted: the sampler's
+    host ms per batch alone and the step's ms alone first (20 batches of a
+    separate sampler), and the kernels on the first sampled batch against
+    their f64 sums. Returns the launches."""
+    from kagnn_tpu_torch.data.sampling import NeighborSampler
+    from kagnn_tpu_torch.kernels.selfcheck import check_spmm_split
+    from kagnn_tpu_torch.train import make_node_steps
+    from kagnn_tpu_torch.train.experiments import train_node_sampled
+
+    masks = [torch.from_numpy(np.concatenate(
+        [d[k][0], np.zeros(g.n_node_pad - d["n_node"], bool)])).to("cuda")
+        for k in ("train_masks", "val_masks", "test_masks")]
+    train = np.flatnonzero(d["train_masks"][0])
+    sampler = NeighborSampler(d["senders"], d["receivers"], d["n_node"],
+                              seed=5, device="cuda", **SAMPLED)
+    it = sampler.epoch(train, d["nodes"], d["y"])
+    t0 = time.perf_counter()
+    batches = [b for _, b in zip(range(20), it)]
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    b = batches[0]
+    log(f"protocol sampled batch: {b.n_node} nodes of {b.n_node_pad}, {b.n_edge} "
+        f"edges of {b.n_edge_pad} (the pad row takes {b.n_edge_pad - b.n_edge})")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        close = lambda name, a, b_, dn=dn: compare(  # noqa: E731
+            torch, f"protocol sampled batch {name}", a, b_, dn)
+        record_row(rows["spmm"], check_spmm_split(b, 64, dtype, close, gen), False)
+        record_row(rows["gin_fused"], check_gin_split(b, 128, 64, dtype, close, gen), False)
+    model = flagship_model(torch, d, 3)
+    step, _ = make_node_steps(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    seed_mask = sampler.seed_mask()
+    step(b, seed_mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bb in batches:
+        step(bb, seed_mask)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    n_batches = len(train) // SAMPLED["batch_size"]
+    per_run = {k: v * n_batches + 2 * FLAGSHIP_EVAL.get(k, 0)
+               for k, v in MAIN_PATHS[("gin", "kan")].items()}
+    res = {}
+    model = flagship_model(torch, d, 4)
+    t0 = time.perf_counter()
+    launches = counted(torch, "protocol sampled epoch", per_run, lambda: res.update(
+        r=train_node_sampled(model, d, g, dict(FLAGSHIP_PARAMS, epochs=1), *masks,
+                             **SAMPLED)))
+    secs = time.perf_counter() - t0
+    r = res["r"]
+    profile_steps(torch, lambda: step(b, seed_mask), secs * 1e3 / n_batches)
+    log(f"protocol sampled epoch: {n_batches} batches in {secs:.1f} s "
+        f"({secs * 1e3 / n_batches:.1f} ms a batch); the sampler alone "
+        f"{host_ms:.1f} ms a batch on the host, the step alone {step_ms:.2f} ms; "
+        f"val_loss {r['val_loss']:.5f}, test_acc {r['test_acc']:.4f}")
+    if not math.isfinite(r["val_loss"]):
+        raise AssertionError(f"protocol sampled epoch: {r}")
+    return launches
+
+
+def drive_protocol_drivers(torch, root):
+    """Drives (b)-(d): the three experiment drivers' main() on data written
+    in each format's layout, from a working directory under `root` (the
+    graph drivers write logs/ there), with their launches counted and their
+    logs checked against the JAX drivers' formats. Returns the launches."""
+    from kagnn_tpu_torch.experiments import graph_classification as gc
+    from kagnn_tpu_torch.experiments import graph_regression as gr
+    from kagnn_tpu_torch.experiments import node_classification as nc
+
+    for write in (write_planetoid_cora, write_tu_mutag, write_zinc):
+        t0 = time.perf_counter()
+        write(os.path.join(root, "data"))
+        log(f"protocol: {write.__name__} {time.perf_counter() - t0:.1f} s")
+    data = os.path.join(root, "data")
+    trials = protocol_trials()
+    common = ["--fused", "--bf16", "--n_trials", str(PROTOCOL_TRIALS), "--data_root", data]
+    runs = {
+        "b": (nc.main, ["--dataset", "Cora", "--architecture", "fastkan", "--conv_type",
+                        "gcn", "--epochs", "3", "--max_splits", "1", "--log_dir", "logs"]),
+        "c": (gc.main, ["--dataset", "MUTAG", "--model_type", "GAT", "--architecture",
+                        "kan", "--n_outer_folds", "2", "--n_retrains", "1", "--epochs", "2"]),
+        "d": (gr.main, ["--dataset", "ZINC", "--gnn-type", "GIN", "--model-type", "FASTKAN",
+                        "--n_iterations", "1", "--epochs", "2"]),
+    }
+    cwd = os.getcwd()
+    os.chdir(root)
+    drives = []
+    try:
+        for key, (main, argv) in runs.items():
+            res = {}
+            t0 = time.perf_counter()
+            drives.append(counted_kernels(torch, f"protocol ({key}) driver", DRIVER_KERNELS[key],
+                                          lambda: res.update(out=main(argv + common))))
+            log(f"protocol ({key}) driver: {time.perf_counter() - t0:.1f} s, trials "
+                f"{trials[key]}, result {res['out']}")
+        with open("logs/Cora_fastkan_gcn") as fh:
+            lines = [json.loads(x) for x in fh]
+        with open("logs/Cora_fastkan_gcn_finished") as fh:
+            finished = json.loads(fh.read())
+        with open("logs/KAN_MUTAG_GAT") as fh:
+            gc_log = fh.read()
+        with open("logs/ZINC_GIN_FASTKAN") as fh:
+            gr_log = fh.read().splitlines()
+    finally:
+        os.chdir(cwd)
+    ok = (len(lines) == PROTOCOL_TRIALS + 3
+          and all(ln.keys() == {"params", "val_loss_mean", "test_acc_mean",
+                                "test_acc_std", "test_accs"} for ln in lines)
+          and finished.keys() == {"mean", "std", "best_params"}
+          and gc_log.count("SPLIT ") == 2 and "\nAccuracies [" in gc_log
+          and "\nParams [{'lr': " in gc_log and "\nSize [" in gc_log
+          and gc_log.rstrip().splitlines()[-1].startswith("FINAL Mean: ")
+          and gr_log[0].startswith("iter 0 best {'lr': ") and " test_mae " in gr_log[0]
+          and ast.literal_eval(gr_log[-1][len("FINAL "):]).keys()
+          == {"dataset", "test_mae_mean", "test_mae_std"})
+    log(f"protocol drivers' logs: (b) {len(lines)} run lines and {finished}; (c) "
+        f"{gc_log.splitlines()[-1]}; (d) {gr_log[-1]}: "
+        f"{'the JAX drivers formats' if ok else 'NOT the JAX drivers formats'}")
+    if not ok:
+        raise AssertionError("protocol drivers: logs not in the JAX drivers' formats")
+    return drives
+
+
 def phase_kernel_report():
     """utils/profiling.kernel_report() at its defaults, one JSON line a row."""
     from kagnn_tpu_torch.utils.profiling import kernel_report
@@ -2104,6 +2747,7 @@ def main() -> int:
         step_ms.update({f"graph {task} {k}": v for k, v in ms.items()})
         drives.append(launches)
         profiled.append((launches, by_kernel))
+    drives += phase_protocol(torch, rows)
     for launches in drives:
         for name, n in launches.items():
             rows[name]["launches"] += n

@@ -1,6 +1,7 @@
 // Host-side block-diagonal padded-batch assembler of kagnn_tpu_torch.
 //
-// A copy of the JAX package's native/batcher.cpp `assemble_batch`: in one
+// A copy of the JAX package's native/batcher.cpp `assemble_batch` and
+// `degree_onehot`. `assemble_batch`, in one
 // pass over dataset arrays concatenated once, the block-diagonal edge
 // relabeling, the counting sort by receiver (stable within a receiver), the
 // counting sort by sender, the masks, segment ids and feature gathering.
@@ -132,6 +133,26 @@ int assemble_batch(
   out_counts[1] = n_edge;
   out_counts[2] = n_sel;
   return 0;
+}
+
+// Degree one-hot features (reference Degree transform,
+// graph_classification_utils.py:31-36) computed natively for a whole
+// concatenated dataset in one pass.
+void degree_onehot(const int32_t* senders, const int64_t* edge_offsets,
+                   const int64_t* node_counts, const int64_t* node_feat_offsets,
+                   int64_t n_graphs, int64_t max_degree, float* out_feat) {
+  const int64_t dim = max_degree + 1;
+  for (int64_t g = 0; g < n_graphs; ++g) {
+    std::vector<int32_t> deg(node_counts[g], 0);
+    for (int64_t e = edge_offsets[g]; e < edge_offsets[g + 1]; ++e) {
+      deg[senders[e]]++;
+    }
+    float* base = out_feat + node_feat_offsets[g] * dim;
+    for (int64_t v = 0; v < node_counts[g]; ++v) {
+      const int64_t d = deg[v] > max_degree ? max_degree : deg[v];
+      base[v * dim + d] = 1.0f;
+    }
+  }
 }
 
 }  // extern "C"

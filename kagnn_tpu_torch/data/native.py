@@ -85,6 +85,9 @@ def load() -> ctypes.CDLL:
             i32p, i32p,                          # perm, snd_sorted
             i64p,                                # counts
         ]
+        lib.degree_onehot.restype = None
+        lib.degree_onehot.argtypes = [i32p, i64p, i64p, i64p, ctypes.c_int64,
+                                      ctypes.c_int64, f32p]
         _lib = lib
         return lib
 
@@ -182,3 +185,29 @@ class NativeBatchAssembler:
             node_mask.view(bool), edge_mask.view(bool),
             np.arange(g) < sel_arr.shape[0], node_graph, counts[0], counts[1],
             counts[2], perm=perm, senders_sorted=snd_sorted)
+
+
+def degree_onehot_features(graphs: Sequence[dict], max_degree: int = 35
+                           ) -> None:
+    """Attach one-hot (clipped out-)degree node features natively, in place:
+    the counterpart of `kagnn_tpu/data/native.py::degree_onehot_features`,
+    the reference's `Degree` transform (graph_classification_utils.py:31-36),
+    dim = max_degree + 1. Raises when the library does not build."""
+    lib = load()
+    n_graphs = len(graphs)
+    node_counts = np.fromiter((int(g["n_node"]) for g in graphs),
+                              np.int64, n_graphs)
+    snd = [np.asarray(g["senders"], np.int32) for g in graphs]
+    edge_offsets = np.zeros(n_graphs + 1, np.int64)
+    np.cumsum([s.shape[0] for s in snd], out=edge_offsets[1:])
+    senders = np.concatenate(snd) if snd else np.zeros(0, np.int32)
+    feat_offsets = np.zeros(n_graphs + 1, np.int64)
+    np.cumsum(node_counts, out=feat_offsets[1:])
+    dim = max_degree + 1
+    out = np.zeros((int(feat_offsets[-1]), dim), np.float32)
+    lib.degree_onehot(
+        _ptr(senders, ctypes.c_int32), _ptr(edge_offsets, ctypes.c_int64),
+        _ptr(node_counts, ctypes.c_int64), _ptr(feat_offsets, ctypes.c_int64),
+        n_graphs, max_degree, _ptr(out, ctypes.c_float))
+    for g, lo, hi in zip(graphs, feat_offsets[:-1], feat_offsets[1:]):
+        g["nodes"] = out[int(lo):int(hi)]

@@ -80,23 +80,36 @@ class KANLinear(nn.Module):
     def scaled_spline_weight(self) -> torch.Tensor:
         return self.spline_weight * self.spline_scaler[..., None]
 
+    def kan_input(self, x: torch.Tensor, gin_graph=None) -> torch.Tensor:
+        """The transform's input as the unfused forward computes it, the
+        tensor the JAX layer sows as "kan_in" for grid adaptation: x as
+        (rows, in) in the compute dtype and, with `gin_graph=(g, eps)`,
+        (1+eps)·x_i + Σ_j x_j summed by `segment.neighbor_sum`."""
+        x = x.reshape(-1, self.in_features)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        if gin_graph is not None:
+            g, eps = gin_graph
+            agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
+            x = (1.0 + eps) * x + agg
+        return x
+
     def forward(self, x: torch.Tensor, gin_graph=None) -> torch.Tensor:
         """With `gin_graph=(g, eps)` the layer computes
         KANLinear((1+eps)·x_i + Σ_j x_j) over the GraphBatch, the GIN conv
         fusion point (kernels/gin_fused.py runs it in one launch)."""
         orig_shape = x.shape
-        x = x.reshape(-1, self.in_features)
         grid, wb, ws = self.grid, self.base_weight, self.scaled_spline_weight
         cd = self.compute_dtype
         if cd is not None:
-            x, grid, wb, ws = x.to(cd), grid.to(cd), wb.to(cd), ws.to(cd)
-        if gin_graph is not None:
+            grid, wb, ws = grid.to(cd), wb.to(cd), ws.to(cd)
+        if gin_graph is not None and self.fused:
             g, eps = gin_graph
-            if self.fused:
-                out = gin_kan_fused(x, g, eps, grid, wb, ws, self.spline_order)
-                return out.reshape(*orig_shape[:-1], self.out_features)
-            agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
-            x = (1.0 + eps) * x + agg
+            x = x.reshape(-1, self.in_features)
+            x = x if cd is None else x.to(cd)
+            out = gin_kan_fused(x, g, eps, grid, wb, ws, self.spline_order)
+            return out.reshape(*orig_shape[:-1], self.out_features)
+        x = self.kan_input(x, gin_graph)
 
         if self.fused:
             out = kan_linear_fused(x, grid, wb, ws, self.spline_order)

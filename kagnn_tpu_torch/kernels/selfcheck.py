@@ -18,7 +18,11 @@ narrow segment sum's receivers, row pointer and split (`narrow_cases`,
 sums on a padded batch whose pad row and pad graph are heavy
 (`graph_sum_batch`, `check_graph_sums`) and their prefetched batches
 (`check_prefetch`), and the bars of a bf16 model's gradients against a
-reference model's (`bf16_grad_ratios`)."""
+reference model's (`bf16_grad_ratios`), and the protocol layer's: the
+card's least-squares solve against the CPU's (`check_lstsq`), the B-spline
+kernels on adapted knots (`adapted_knots`, `check_adapted_layer`),
+including knots whose narrowest span bf16 rounds to zero
+(`degenerate_knots`, `close_nonfinite`)."""
 from __future__ import annotations
 
 import torch
@@ -669,7 +673,8 @@ def gin_fastkan_f64(x, senders, recv_row_ptr, lng, lnb, w, wb, bb, eps: float,
             z32.to(x.dtype))
 
 
-def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4)):
+def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4),
+                    knots=None):
     """gin_kan_fwd at D = d, O = o and (spline order, grid size) `shape`
     over g's receiver CSR (spmm_split_graph: a 2,748-edge row, rows of
     63-65, the pad row heavy by its padding) against the plain KANLinear
@@ -681,14 +686,16 @@ def check_gin_split(g, d: int, o: int, dtype, close, gen, shape=(3, 4)):
     not the plain version's own f32 one: on this graph, through the layer,
     the plain version's sum of node 0's 2,748 terms in edge order reads up
     to 1.16 of the f32 bar against the exact one, the kernel's pieces 0.06
-    (CPU, PERF.md §6). Returns the largest error."""
+    (CPU, PERF.md §6). `knots` (K, d) in `dtype` replaces the uniform grid
+    (an adapted one). Returns the largest error."""
     k, grid = shape
     n = g.n_node_pad
 
     def rand(shape_, scale=1.0):
         return (torch.randn(shape_, generator=gen, device=gen.device) * scale).to(dtype)
 
-    knots = make_grid(d, grid, k, device="cuda").t().contiguous().to(dtype)
+    if knots is None:
+        knots = make_grid(d, grid, k, device="cuda").t().contiguous().to(dtype)
     x, wb, ws = rand((n, d)), rand((d, o), 0.3), rand(((grid + k) * d, o), 0.3)
     ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.25)
     got = gf.gin_kan_fwd(*ga)
@@ -869,3 +876,120 @@ def check_prefetch(graphs, spec, batch_size: int, native, consume=None) -> int:
     if n != -(-len(graphs) // batch_size) or next(sync, None) is not None:
         raise AssertionError(f"prefetch yielded {n} batches")
     return n
+
+
+# ------------------------------------------------------------ protocol layer
+
+def check_lstsq(A, B, close=None) -> tuple[float, float]:
+    """The card's least-squares solve (`bspline.lstsq` on A's device: the
+    SVD with JAX's cutoff) against the CPU's `gelsd` on the same inputs.
+    Both are minimum-norm solutions; the fit's residual |A X - B| (in f64)
+    of the card's within 1e-6 of the CPU's, relative (the coefficients of
+    an ill-conditioned system are determined only to about eps times its
+    squared condition number; the residual is what least squares fixes);
+    with close(name, got, want), the coefficients too. Returns (residual
+    ratio - 1, coefficient error or 0)."""
+    from kagnn_tpu_torch.kan.bspline import lstsq
+
+    got = lstsq(A, B)
+    want = lstsq(A.cpu(), B.cpu()).to(A.device)
+    A64, B64 = A.double(), B.double()
+    r_got = (A64 @ got.double() - B64).norm().item()
+    r_want = (A64 @ want.double() - B64).norm().item()
+    if not (torch.isfinite(got).all() and abs(r_got - r_want) <= 1e-6 * r_want + 1e-30):
+        raise AssertionError(f"lstsq on the card: residual {r_got} against the "
+                             f"CPU's {r_want}")
+    err = close("lstsq coefficients", got, want) if close is not None else 0.0
+    return r_got / max(r_want, 1e-30) - 1.0, err
+
+
+def rank_deficient_system(device="cuda", seed: int = 0):
+    """A batch of least-squares systems (4, 2000, 7) with a column of zeros
+    (a basis without samples), two equal columns and zero rows (a sampled
+    batch's pad rows), and right-hand sides (4, 2000, 3)."""
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn(4, 2000, 7, generator=gen)
+    A[:, :, 2] = 0.0
+    A[:, :, 5] = A[:, :, 4]
+    A[1, 1500:] = 0.0
+    return A.to(device), torch.randn(4, 2000, 3, generator=gen).to(device)
+
+
+def adapted_knots(d: int, grid: int, k: int, n: int = 4096, seed: int = 0,
+                  device="cuda") -> torch.Tensor:
+    """Knots (K, d) adapted by `bspline.update_grid` to n samples of a
+    skewed distribution (exp of a normal: knots bunched near 0, spread far
+    to the right), f32 on `device`: non-uniform knots, one grid a feature."""
+    from kagnn_tpu_torch.kan.bspline import update_grid
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.exp(torch.randn(n, d, generator=gen)) - 1.0
+    w = torch.randn(3, d, grid + k, generator=gen)
+    new_grid, _ = update_grid(x.to(device), make_grid(d, grid, k, device=device),
+                              w.to(device), None, grid, k)
+    return new_grid.t().contiguous()
+
+
+def degenerate_knots(knots: torch.Tensor, features: int = 4) -> torch.Tensor:
+    """`knots` (K, D) with knots 1 and 2 of the first `features` features
+    moved to a and a + |a| * 2^-12, a a bf16 value between knots 0 and 3: a
+    span finite in f32 and zero once the knots are rounded to bf16 (7 stored
+    bits), as a grid adapted to tied samples can leave it."""
+    t = knots.clone()
+    a = ((t[0, :features] + t[3, :features]) / 2).to(torch.bfloat16).float()
+    a = torch.where(a == 0, (t[3, :features] / 2).to(torch.bfloat16).float(), a)
+    t[1, :features], t[2, :features] = a, a + a.abs() * 2.0 ** -12
+    tb = t.to(torch.bfloat16)
+    if not ((t[2] - t[1])[:features].gt(0).all()
+            and (tb[2] == tb[1])[:features].all() and (t[1:] >= t[:-1]).all()):
+        raise AssertionError("degenerate_knots: the narrowed spans are not as meant")
+    return t
+
+
+def close_nonfinite(name, got, want, close) -> tuple[float, int, int]:
+    """got and want with the same non-finite entries (NaN where NaN, +inf
+    and -inf where they are) and the finite ones by close(name, ...).
+    Returns (error of the finite entries, NaN count, inf count)."""
+    g, w = got.float(), want.float()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(g), test(w)):
+            raise AssertionError(
+                f"{name}: {test.__name__} differs: {int(test(g).sum())} "
+                f"entries on the card, {int(test(w).sum())} in the plain version")
+    fin = torch.isfinite(w)
+    err = close(name, g[fin], w[fin]) if fin.any() else 0.0
+    return err, int(torch.isnan(w).sum()), int(torch.isinf(w).sum())
+
+
+def check_adapted_layer(n: int, d: int, o: int, knots, dtype, close, gen,
+                        k: int = 3, g=None) -> dict:
+    """kan_linear_fwd, kan_linear_bwd and (with a graph g, finite knots
+    only: `check_gin_split` reads no non-finite value) gin_kan_fwd on
+    the knots (K, d) (rounded to `dtype`, as the layer casts its grid under
+    a compute dtype) against their plain versions, non-finite entries
+    included (`close_nonfinite`); a bf16 weight gradient of more than one
+    tile by `check_bspline_bwd` (finite inputs only). Returns each output's
+    (error, NaN count, inf count)."""
+    grid = knots.shape[0] - 2 * k - 1
+    t = knots.to(dtype)
+
+    def rand(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+    x, wb, ws = rand((n, d)), rand((d, o), 0.3), rand(((grid + k) * d, o), 0.3)
+    dout = rand((n, o))
+    out = {"fwd": close_nonfinite("kan_linear_fwd adapted", bf.kan_linear_fwd(x, t, wb, ws, k),
+                                  bf.kan_linear_fwd_plain(x, t, wb, ws, k), close)}
+    got = bf.kan_linear_bwd(x, t, wb, ws, dout, k)
+    want = bf.kan_linear_bwd_plain(x, t, wb, ws, dout, k)
+    finite = all(torch.isfinite(v).all() for v in want)
+    if finite and dtype == torch.bfloat16 and -(-n // bf.JAX_TILE) > DW_CLOSE_TILES:
+        out["bwd"] = (check_bspline_bwd("kan_linear_bwd adapted", x, t, wb, ws, dout, k,
+                                        close, log=lambda *a: None), 0, 0)
+    else:
+        for name, a, b in zip(("dx", "dwb", "dws"), got, want):
+            out[name] = close_nonfinite(f"kan_linear_bwd adapted {name}", a, b, close)
+    if g is not None:
+        out["gin"] = (check_gin_split(g, d, o, dtype, close, gen, shape=(k, grid),
+                                      knots=t), 0, 0)
+    return out

@@ -179,8 +179,10 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
-    """The port model's state_dict -> JAX variables (numpy)."""
+def jax_paths(state_dict: Mapping[str, Any]) -> dict[str, tuple]:
+    """Each key of the port model's state_dict -> the path of its leaf in
+    the JAX variables (collection first: ("buffers", "KAN_0", "layers_1",
+    "grid"))."""
     inv_bn = {v: k for k, v in _BN.items()}
     convs = {k.split(".")[1] for k in state_dict if k.startswith("convs.")}
     gat = {k.split(".")[1] for k in state_dict
@@ -194,12 +196,6 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
     def conv(i: str) -> str:
         return f"{'GATConv' if i in gat else 'GCNConv'}_{i}"
 
-    def put(path, value):
-        d = out
-        for p in path[:-1]:
-            d = d.setdefault(p, {})
-        d[path[-1]] = _np(value).T if path[-1] == "kernel" else _np(value)
-
     def leaf(rest: str):
         """Torch name below a layer -> (collection, kind, JAX path)."""
         if rest in _FAST_INV:
@@ -208,42 +204,53 @@ def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
             return "params", LINEAR, _LINEAR_INV[rest]
         return ("buffers" if rest == "grid" else "params"), KAN, (rest,)
 
-    def net(i: str, parts: list, value):
+    def net(i: str, parts: list):
         """parts below a net: layers.{j}.<leaf> or norms.{k}.<leaf>."""
         if parts[0] == "norms":
             coll, name = inv_bn[parts[2]]
-            put((coll, f"MLP_{i}", f"MaskedBatchNorm_{parts[1]}", name), value)
-            return
+            return (coll, f"MLP_{i}", f"MaskedBatchNorm_{parts[1]}", name)
         coll, kind, path = leaf(".".join(parts[2:]))
         mod, layer = _NET_NAMES[kind]
-        put((coll, f"{mod}_{i}", f"{layer}_{parts[1]}", *path), value)
+        return (coll, f"{mod}_{i}", f"{layer}_{parts[1]}", *path)
 
-    for key, v in state_dict.items():
+    for key in state_dict:
         parts = key.split(".")
         if parts[0] == "norms":
             coll, name = inv_bn[parts[2]]
-            put((coll, f"MaskedBatchNorm_{parts[1]}", name), v)
+            out[key] = (coll, f"MaskedBatchNorm_{parts[1]}", name)
         elif parts[0] == "head" and graph:
-            net(head_net, parts[1:], v)
+            out[key] = net(head_net, parts[1:])
         elif parts[0] == "head":
             coll, _, path = leaf(".".join(parts[1:]))
-            put((coll, "head", *path), v)
+            out[key] = (coll, "head", *path)
         elif parts[0] in ("atom_encoder", "bond_encoder") and parts[1] == "emb":
             mod = {v: k for k, v in _ENCODERS.items()}[parts[0]]
-            put(("params", mod, "CategoricalSumEncoder_0", f"emb_{parts[2]}"), v)
+            out[key] = ("params", mod, "CategoricalSumEncoder_0", f"emb_{parts[2]}")
         elif parts[0] in ("atom_encoder", "bond_encoder"):
-            put(("params", parts[0], *_LINEAR_INV[parts[1]]), v)
+            out[key] = ("params", parts[0], *_LINEAR_INV[parts[1]])
         elif parts[0] == "convs" and len(parts) == 3:
-            put(("params", conv(parts[1]), parts[2]), v)
+            out[key] = ("params", conv(parts[1]), parts[2])
         elif parts[0] == "convs" and parts[2] == "update":
-            net(parts[1], parts[3:], v)
+            out[key] = net(parts[1], parts[3:])
         elif parts[0] == "convs" and parts[2] == "transform":
             coll, kind, path = leaf(".".join(parts[3:]))
             layer = {KAN: "KANLinear_0", FAST: "FastKANLayer_0",
                      LINEAR: "Dense_0"}[kind]
-            put((coll, conv(parts[1]), layer, *path), v)
+            out[key] = (coll, conv(parts[1]), layer, *path)
         else:
             raise KeyError(f"no JAX counterpart for {key}")
+    return out
+
+
+def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
+    """The port model's state_dict -> JAX variables (numpy)."""
+    out: dict = {}
+    for key, path in jax_paths(state_dict).items():
+        d = out
+        for p in path[:-1]:
+            d = d.setdefault(p, {})
+        v = _np(state_dict[key])
+        d[path[-1]] = v.T if path[-1] == "kernel" else v
     return out
 
 

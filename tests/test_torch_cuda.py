@@ -1077,3 +1077,102 @@ def test_graph_step_launches_per_step():
     assert {k: f.launches - before[k] for k, f in fns.items()
             if f.launches != before[k]} == {"gin_fused": 3, "bspline_fwd": 5,
                                             "bspline_bwd": 8, "spmm": 3}
+
+
+# ------------------------------------------------------ the protocol layer
+
+def test_protocol_lstsq_on_card_matches_gelsd():
+    """The card's least-squares solve (the SVD, JAX's cutoff; never gels)
+    against the CPU's gelsd: a rank-deficient system (a zero column, two
+    equal columns, zero rows) at the f32 bar, and the refit system of a
+    grid adapted to a batch of mostly zero pad rows (ill-conditioned) by
+    its residual (`selfcheck.check_lstsq`)."""
+    from kagnn_tpu_torch.kan.bspline import b_splines, update_grid
+    from kagnn_tpu_torch.kernels.selfcheck import check_lstsq, rank_deficient_system
+
+    A, B = rank_deficient_system()
+    _, err = check_lstsq(A, B, close=_closer("f32"))
+    assert torch.linalg.lstsq(A.cpu(), B.cpu(), driver="gelsd").solution[:, 2].abs().max() < 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.zeros(4000, 16, device="cuda")
+    x[:500] = torch.randn(500, 16, generator=gen, device="cuda")
+    grid, _ = update_grid(x, make_grid(16, 8, 3, device="cuda"),
+                          torch.randn(4, 16, 11, generator=gen, device="cuda"), None, 8, 3)
+    A = b_splines(x, grid, 3).transpose(0, 1).contiguous()
+    check_lstsq(A, torch.randn(16, 4000, 4, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_protocol_kernels_on_adapted_knots(dt):
+    """The B-spline forward, backward and gin_fused on knots adapted by
+    update_grid (non-uniform, bunched near 0) against their plain versions;
+    gin_fused over spmm_split_graph's heavy rows."""
+    from kagnn_tpu_torch.kernels.selfcheck import adapted_knots, check_adapted_layer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    res = check_adapted_layer(3000, 64, 64, adapted_knots(64, 4, 3), DTYPES[dt],
+                              _closer(dt), gen, g=spmm_split_graph())
+    assert all(nan == 0 and inf == 0 for _, nan, inf in res.values())
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_protocol_kernels_on_knots_bf16_rounds_together(dt):
+    """Knots whose narrowest span is finite in f32 and zero in bf16: in
+    bf16 the kernels give the plain versions' NaNs (0 * inf in the ladder),
+    entry for entry; in f32 finite values within the bar."""
+    from kagnn_tpu_torch.kernels.selfcheck import (adapted_knots, check_adapted_layer,
+                                                   degenerate_knots)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    knots = degenerate_knots(adapted_knots(64, 4, 3))
+    res = check_adapted_layer(128, 64, 40, knots, DTYPES[dt], _closer(dt), gen)
+    nonfinite = sum(nan + inf for _, nan, inf in res.values())
+    assert (nonfinite > 0) == (dt == "bf16")
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_protocol_sampled_batch_kernels(dt):
+    """A NeighborSampler batch (fanouts 10 and 5 around 256 seeds of a graph
+    with a 2,000-edge hub; most padded edges in the pad row): spmm over both
+    CSRs and gin_fused against their f64 sums."""
+    from kagnn_tpu_torch.data import community_node_graph
+    from kagnn_tpu_torch.data.sampling import NeighborSampler
+
+    d = community_node_graph(n_nodes=6000, n_classes=4, num_features=8, seed=2)
+    snd = np.concatenate([d["senders"], np.arange(1, 2001)])
+    rcv = np.concatenate([d["receivers"], np.zeros(2000, np.int64)])
+    sampler = NeighborSampler(snd, rcv, 6000, [10, 5], 256, seed=1, device="cuda")
+    b = sampler.sample(np.arange(256), d["nodes"], d["y"])
+    assert b.n_edge_pad - b.n_edge > spmm.PIECE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    check_spmm_split(b, 64, DTYPES[dt], _closer(dt), gen)
+    check_gin_split(b, 64, 64, DTYPES[dt], _closer(dt), gen)
+
+
+@pytest.mark.parametrize("capturable", [False, True])
+def test_protocol_checkpoint_resume_on_card(capturable, tmp_path):
+    """A bf16 gin/kan step resumed from a checkpoint into a fresh model and
+    a fresh Adam (capturable: its step counts on the card) gives the
+    uninterrupted run's losses and weights bit for bit."""
+    from kagnn_tpu_torch.train import checkpoint
+
+    g = _graph(3, n=500, e=3000)
+    g = g.replace(y=torch.randint(0, 4, (g.n_node_pad,), device="cuda"))
+
+    def fresh(seed):
+        m = NodeClassifier("gin", "kan", 2, 16, 16, 4, fused=True,
+                           compute_dtype=torch.bfloat16, seed=seed, device="cuda")
+        return m, torch.optim.Adam(m.parameters(), lr=1e-3, capturable=capturable)
+
+    m, opt = fresh(0)
+    step, _ = make_node_steps(m, opt)
+    whole = torch.stack([step(g, g.node_mask) for _ in range(6)])
+    m, opt = fresh(0)
+    step, _ = make_node_steps(m, opt)
+    part = [step(g, g.node_mask) for _ in range(3)]
+    checkpoint.save(str(tmp_path / "s.pt"), m, opt, step=3)
+    m2, opt2 = fresh(1)
+    assert checkpoint.restore(str(tmp_path / "s.pt"), m2, opt2) == 3
+    step, _ = make_node_steps(m2, opt2)
+    part += [step(g, g.node_mask) for _ in range(3)]
+    assert torch.equal(whole, torch.stack(part))
