@@ -119,7 +119,31 @@ Phases (any failure raises, and the script exits non-zero):
      Planetoid pickles, gcn/fastkan; MUTAG in the TU layout, GAT/kan, 2
      folds; ZINC's subset pickles, GIN/FastKAN), 8 trials each, their logs
      in the JAX drivers' formats;
-  7. prints the kernel list as one JSON line, then the result line.
+  7. distribution (`phase_dist`, kagnn_tpu_torch/dist/): (a) both halo
+     entries of the fused GIN kernels (gin_kan_fused_halo,
+     gin_fastkan_fused_halo) on shard 0 and an interior shard of the D=4
+     halo plan of the arxiv-sized graph, fed an extended table directly, at
+     the main path's widths in f32 and bf16, against their plain functions
+     (forward, dz and the weight gradients with dw_walk_check, dx, dext
+     against the f64 sender sum, twice bit for bit), timed beside the
+     single-card entries; (b) the halo flagship step (gin/kan fused bf16,
+     3 convs, 4 node shards) on 4 gloo ranks sharing cuda:0, 2 warm-up + 3
+     timed steps, against the single-card step from the same weights:
+     losses and logits within 4 bf16 ulps, gradients at the bf16 gradient
+     bars, parameters equal on every rank, launches a step by kernel, ms a
+     step and peak memory a rank (times of ranks sharing one card: the
+     partition's cost, not scaling); the same step in f32 against the f32
+     single-card step at the f32 step bars (values rtol 1e-4, gradients
+     rtol 1e-3 / atol 1e-5); (c) the gin/fastkan halo fusion point
+     and the gcn/kan and gat/kan halo steps at one conv in f32 against their
+     single-card drives; (d) the edge-partitioned step (gcn/kan, 2 gloo
+     ranks) and the DP graph-classification step (G's model, 2 gloo ranks,
+     batches of 256 molecules) against their single-card counterparts;
+     (e) one nccl rank: the halo flagship with force_full=True against the
+     one-shard specialisation; the plan's boundary rows, rows exchanged and
+     shard edges with and without rcm, what gloo does with tensors on the
+     card, and the scaling driver's rows;
+  8. prints the kernel list as one JSON line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -2705,6 +2729,448 @@ def drive_protocol_drivers(torch, root):
     return drives
 
 
+# --- distribution (kagnn_tpu_torch/dist/) ------------------------------------
+
+DIST_RANKS = 4  # the flagship's node shards: gloo ranks sharing cuda:0
+DIST_WARMUP, DIST_TIMED = 2, 3
+# (D, O) of the halo entries' checks: conv 0's and the later convs' first layer
+HALO_ENTRY_SHAPES = ((128, 64), (64, 64))
+HALO_ENTRY_SHARDS = (0, 2)  # shard 0 and an interior shard of the D=4 plan
+# launches per step of each dist drive and rank (the others stay at 0):
+# the halo flagship's are the single-card gin/kan step's (conv 0's input
+# needs no gradient, so its dext is skipped); gcn/kan and gat/kan at one
+# conv (f32, fused): the halo neighbor sum's two segment sums (internal,
+# halo) on the kernel, the GAT softmax and sums plain; the edge partition
+# gcn/kan at two convs: the neighbor sum's kernel both ways each conv; the
+# DP step is G's
+HALO_FLAGSHIP = MAIN_PATHS[("gin", "kan")]
+HALO_SMALL = {"gcn": {"spmm": 2, "bspline_fwd": 2, "bspline_bwd": 2},
+              "gat": {"bspline_fwd": 2, "bspline_bwd": 2}}
+EDGE_PATH = {"spmm": 4, "bspline_fwd": 3, "bspline_bwd": 3}
+DP_PATH = GRAPH_PATHS["G"]
+DIST_STEPS = 2  # steps of the small halo, edge and DP drives
+
+
+def dist_spec(torch, conv="gin", arch="kan", dtype="bfloat16", **kw):
+    """A dist/runs.py node spec on the arxiv-sized graph (seed 0), the main
+    path's widths, Adam(1e-3), fused, on the card."""
+    model = dict(NODE_KW, conv_type=conv, architecture=arch, fused=True, dtype=dtype, seed=0)
+    model.update(kw.pop("model", {}))
+    return dict(dict(graph={"arxiv_seed": 0}, model=model, opt=("adam", 1e-3),
+                     steps=DIST_WARMUP + DIST_TIMED, warmup=DIST_WARMUP,
+                     strategy="halo", device="cuda"), **kw)
+
+
+def scale_close(name, got, want, c, floor=0.0):
+    """max |got - want| <= c * max |want| + floor (numpy arrays); logs the
+    reading in units of the bar and raises past it."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    bar = c * float(np.abs(want).max()) + floor if want.size else 1.0
+    ok = err <= bar and math.isfinite(err)
+    log(f"  {name}: max_abs_err={err:.3e} err/bar={err / bar if bar else 0.0:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: {err} > {bar}")
+    return err
+
+
+def grads_close(name, got, want, c, floor=0.0):
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: gradient leaves differ")
+    worst = max(float(np.abs(np.asarray(got[k], np.float64) - want[k]).max())
+                / (c * float(np.abs(want[k]).max()) + floor + 1e-30) for k in want)
+    log(f"  {name}: {len(want)} gradient leaves, worst err/bar={worst:.3f} "
+        f"{'ok' if worst <= 1.0 else 'FAIL'}")
+    if not worst <= 1.0:
+        for k in want:
+            scale_close(f"{name} {k}", got[k], want[k], c, floor)
+    return worst
+
+
+def same_params(name, ranks):
+    if not all(np.array_equal(r["params"], ranks[0]["params"]) for r in ranks):
+        raise AssertionError(f"{name}: the ranks' parameters differ")
+    log(f"  {name}: parameters equal bit for bit on all {len(ranks)} ranks")
+
+
+def log_rank_profile(name, r, step_ms):
+    """A rank's profile of 3 steps (dist/runs.py `profile`): device ms a
+    step and its share of the timed step, the largest kernels, host ms by
+    operator."""
+    p = r.get("profile")
+    if not p or p["device_ms"] is None:
+        log(f"  {name} profile: not measured (the profiler saw no device time)")
+        return
+    log(f"  {name} profile: {p['device_ms']:.3f} ms of kernels a step, busy share "
+        f"{p['device_ms'] / step_ms:.3f} of {step_ms:.3f} ms; host {p['host_ms']:.3f} ms "
+        f"of self CPU time a step under the profiler")
+    for key, t, calls in p["kernels"]:
+        log(f"    device {t:8.4f} ms/step {calls:4d} calls  {key[:80]}")
+    for key, t, calls in p["host"]:
+        log(f"    host   {t:8.4f} ms/step {calls:4d} calls  {key[:80]}")
+
+
+def rank_launches(name, ranks, per_step, steps):
+    """Every rank's launches are per_step * steps; returns their sum."""
+    total = {}
+    for r in ranks:
+        check_launches(f"{name} rank {r['rank']}", r["launches"], per_step, steps)
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    log(f"  {name}: launches a step a rank "
+        + ", ".join(f"{k} {n // steps}" for k, n in ranks[0]["launches"].items() if n))
+    return total
+
+
+def dist_plan_stats():
+    """The D=4 halo plan of the arxiv-sized graph, as it comes and reordered
+    by rcm (graphs/reorder.py): boundary rows, rows exchanged a rank and the
+    shards' valid edges (host work only)."""
+    from kagnn_tpu_torch.data import arxiv_scale_graph
+    from kagnn_tpu_torch.dist.halo import build_halo_plan
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.graphs.reorder import bfs_order, reorder_graph
+
+    d = arxiv_scale_graph()
+    for tag, dd in (("none", d), ("rcm", reorder_graph(dict(d), bfs_order))):
+        t0 = time.perf_counter()
+        g = single_graph(dd["senders"], dd["receivers"], n_node=int(dd["n_node"]), device="cpu")
+        plan = build_halo_plan(g, DIST_RANKS)
+        log(f"dist plan D={DIST_RANKS} reorder {tag}: block {plan.block}, halo H {plan.halo}, "
+            f"boundary_rows {plan.boundary_rows}, comm_rows_per_device "
+            f"{plan.comm_rows_per_device()}, extended rows {plan.block + plan.comm_rows_per_device()}, "
+            f"valid edges by shard {[int(v) for v in plan.n_edge]}, e_loc {plan.e_loc} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def dist_entries(torch, g, rows):
+    """(a) both halo entries on shard 0 and an interior shard of the D=4
+    plan of the arxiv-sized graph, at the main path's widths, f32 and bf16,
+    fed an extended table directly (no process group), against their plain
+    functions (`selfcheck.check_halo_entry`: forward, dz and the weight
+    gradients with dw_walk_check, dx, dext against the f64 sender sum, twice
+    bit for bit); the halo forward timed beside the single-card entry's over
+    the whole graph."""
+    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+    from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels.selfcheck import check_halo_entry, halo_shard
+
+    g_cpu = g.to("cpu")
+    for shard in HALO_ENTRY_SHARDS:
+        plan, gs, n_ext = halo_shard(g_cpu, DIST_RANKS, shard)
+        log(f"halo entries, shard {shard} of {DIST_RANKS}: {gs.n_node_pad} rows, "
+            f"{n_ext} extended rows, {gs.n_edge} valid of {gs.n_edge_pad} edges, "
+            f"last row {'valid' if bool(gs.node_mask[-1]) else 'padding'}")
+        for dn in ("float32", "bfloat16"):
+            dt = getattr(torch, dn)
+            for d, o in HALO_ENTRY_SHAPES:
+                for kind, fused, bwd in (("kan", "gin_fused", "bspline_bwd"),
+                                         ("fastkan", "gin_fastkan", "fastkan_bwd")):
+                    gen = torch.Generator(device="cuda").manual_seed(shard * 1000 + d)
+                    err = check_halo_entry(kind, gs, n_ext, d, o, dt,
+                                           lambda n, a, b, dn=dn: compare(torch, n, a, b, dn),
+                                           gen, wrong_must_fail=(dn == "bfloat16"), log=log,
+                                           tag=f"shard {shard} {dn}")
+                    for row, e in ((fused, err["forward"]), (bwd, err["layer_bwd"]),
+                                   ("spmm", err["dext"])):
+                        rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], e)
+        # times: the halo forward on this shard against the single-card entry
+        # over the whole graph, at conv 0's widths in bf16
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        d, o = HALO_ENTRY_SHAPES[0]
+        dt = torch.bfloat16
+        ext = torch.randn((n_ext, d), generator=gen, device="cuda").to(dt)
+        x = ext[:gs.n_node_pad].clone()
+        xg = torch.randn((g.n_node_pad, d), generator=gen, device="cuda").to(dt)
+        knots = make_grid_knots(torch, d, dt)
+        wb = (torch.randn((d, o), generator=gen, device="cuda") * 0.3).to(dt)
+        ws = (torch.randn((7 * d, o), generator=gen, device="cuda") * 0.3).to(dt)
+        lw = tuple(t.to(dt) for t in (1.0 + 0.2 * torch.randn((d,), generator=gen, device="cuda"),
+                                       0.1 * torch.randn((d,), generator=gen, device="cuda"),
+                                       0.3 * torch.randn((4 * d, o), generator=gen, device="cuda"),
+                                       0.3 * torch.randn((d, o), generator=gen, device="cuda"),
+                                       0.1 * torch.randn((o,), generator=gen, device="cuda")))
+        for row, halo, single, plain in (
+                ("gin_fused",
+                 lambda: gf.gin_kan_fwd(x, gs.senders, gs.recv_row_ptr, knots, wb, ws, 3, 0.0, ext=ext),
+                 lambda: gf.gin_kan_fwd(xg, g.senders, g.recv_row_ptr, knots, wb, ws, 3, 0.0),
+                 lambda: gf.gin_kan_fwd_plain(x, gs.senders, gs.recv_row_ptr, knots, wb, ws, 3,
+                                              0.0, ext=ext)),
+                ("gin_fastkan",
+                 lambda: gfk.gin_fastkan_fwd(x, gs.senders, gs.recv_row_ptr, *lw, 0.0, -2.0, 2.0,
+                                             ext=ext),
+                 lambda: gfk.gin_fastkan_fwd(xg, g.senders, g.recv_row_ptr, *lw, 0.0, -2.0, 2.0),
+                 lambda: gfk.gin_fastkan_fwd_plain(x, gs.senders, gs.recv_row_ptr, *lw, 0.0,
+                                                   -2.0, 2.0, ext=ext))):
+            log(f"  {row} halo entry shard {shard} bf16 D={d} O={o}: "
+                f"{time_ms(halo):.4f} ms (plain {time_ms(plain):.4f} ms); single-card entry "
+                f"over the whole graph {time_ms(single):.4f} ms")
+
+
+def make_grid_knots(torch, d, dt):
+    from kagnn_tpu_torch.kan.bspline import make_grid
+
+    return make_grid(d, 4, 3, device="cuda").t().contiguous().to(dt)
+
+
+def dist_halo_drives(torch, rows):
+    """(b) the halo flagship step on DIST_RANKS gloo ranks sharing cuda:0
+    (full width, bf16, 2 warm-up + 3 timed steps) against the single-card
+    step from the same weights, and in f32 (1 warm-up + 1 timed step)
+    against the f32 single-card step at the f32 step bars; (c) the gin/fastkan halo fusion point and the
+    gcn/kan and gat/kan halo steps at one conv (f32) against their
+    single-card drives; and what gloo does with tensors on the card. One
+    spawn for all of them. Returns the launches."""
+    from kagnn_tpu_torch.dist import runs
+    from kagnn_tpu_torch.dist.launch import launch
+
+    flag = dist_spec(torch, profile=True)
+    flag32 = dist_spec(torch, dtype="float32", steps=2, warmup=1)
+    small = {c: dist_spec(torch, c, "kan", "float32", steps=DIST_STEPS, warmup=0,
+                          model=dict(mp_layers=1)) for c in HALO_SMALL}
+    fusion = dict(graph={"arxiv_seed": 0}, widths=[NODE_KW["num_features"],
+                  NODE_KW["hidden_channels"], NODE_KW["hidden_channels"]],
+                  num_grids=NODE_KW["grid_size"], dtype="float32", device="cuda")
+    jobs = ([("node", flag), ("node", flag32), ("fusion", fusion)]
+            + [("node", small[c]) for c in HALO_SMALL]
+            + [("gloo_probe", {})])
+    t0 = time.perf_counter()
+    res = launch(runs.many_rank, DIST_RANKS, (jobs,), backend="gloo", device="cuda",
+                 timeout=900)
+    log(f"dist halo drives: {DIST_RANKS} gloo ranks on cuda:0 (they share one card: "
+        f"their times measure the partition's cost, not scaling), "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    log(f"  gloo with tensors on the card: {res[0][-1]}; the port hands them to "
+        f"gloo where they are")
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # (b) the flagship
+    ranks = [r[0] for r in res]
+    r0 = ranks[0]
+    log(f"halo flagship (gin/kan fused bf16, D={DIST_RANKS}): block {r0['block']}, H {r0['halo']}, "
+        f"boundary_rows {r0['boundary_rows']}, comm_rows_per_device {r0['comm_rows_per_device']}, "
+        f"valid edges by shard {r0['shard_edges']}")
+    for r in ranks:
+        log(f"  rank {r['rank']}: ms/step {r['ms']:.3f} (ranks sharing one card), "
+            f"peak_mem {r['peak_gib']:.3f} GiB, losses {['%.6f' % v for v in r['losses']]}")
+    add(rank_launches("halo flagship", ranks, HALO_FLAGSHIP, DIST_WARMUP + DIST_TIMED))
+    same_params("halo flagship", ranks)
+    log_rank_profile("halo flagship rank 0", r0, r0["ms"])
+    single = runs.node_single(flag, "cuda")
+    exact = runs.node_single(dict(flag, model=dict(flag["model"], dtype="float32"),
+                                  steps=1, warmup=0), "cuda")
+    log(f"  single-card flagship step: ms/step {single['ms']:.3f}, losses "
+        f"{['%.6f' % v for v in single['losses']]}")
+    for i, (a, b) in enumerate(zip(r0["losses"], single["losses"])):
+        scale_close(f"halo flagship loss {i}", a, b, 4 * BF16_ULP)
+    nm = np.asarray(main_graph_mask(single["n_node_pad"]))
+    from kagnn_tpu_torch.dist.runs import stitch_logits
+    scale_close("halo flagship logits", stitch_logits(ranks, single["n_node_pad"])[nm],
+                single["logits"][nm], 4 * BF16_ULP)
+    # the gradients: each leaf of the halo step no farther from the f32
+    # single-card step's than the bf16 single-card step's is, plus the step
+    # bar of 8 bf16 ulps of the leaf's scale. Against the bf16 single-card
+    # gradients alone 8 ulps cannot hold: its weight gradients walk 1,323
+    # bf16 row tiles, each shard's 331, and the single-card walk reads up to
+    # 111 ulps from f32 where the halo's reads 38 (NVIDIA H100 80GB HBM3,
+    # 700 W; PERF.md §6)
+    plain_worst, worst, bad = 0.0, 0.0, []
+    for k, v in single["grads"].items():
+        u = BF16_ULP * float(np.abs(v).max()) + 1e-30
+        got, ex = r0["grads"][k], exact["grads"][k]
+        plain = float(np.abs(got - v).max()) / u
+        halo_off, single_off = (float(np.abs(got - ex).max()) / u,
+                                float(np.abs(v - ex).max()) / u)
+        ratio = halo_off / (single_off + 8.0)
+        plain_worst, worst = max(plain_worst, plain), max(worst, ratio)
+        log(f"    {k}: {plain:.2f} ulps from the single-card bf16 step; from the f32 "
+            f"step: halo {halo_off:.2f}, single-card {single_off:.2f} ulps; bar {ratio:.3f}")
+        if not ratio <= 1.0:
+            bad.append(k)
+    log(f"  halo flagship gradients: {len(single['grads'])} leaves, worst "
+        f"{plain_worst:.2f} bf16 ulps of the leaf's scale from the single-card bf16 "
+        f"step; no farther from the f32 step than it, plus 8 ulps: worst {worst:.3f} "
+        f"of the bar {'ok' if not bad else 'FAIL'}")
+    if bad:
+        FAILED.append(f"halo flagship gradients past the bar: {bad}")
+    # (b) in f32: the same step against the f32 single-card step (`exact`,
+    # its first step) at the f32 step bars, every gradient leaf
+    ranks = [r[1] for r in res]
+    add(rank_launches("halo flagship f32", ranks, HALO_FLAGSHIP, 2))
+    try:
+        same_params("halo flagship f32", ranks)
+        scale_close("halo flagship f32 loss 0", ranks[0]["losses"][0], exact["losses"][0], 1e-4)
+        scale_close("halo flagship f32 logits", stitch_logits(ranks, exact["n_node_pad"])[nm],
+                    exact["logits"][nm], 1e-4, 1e-5)
+        worst32 = grads_close("halo flagship f32", ranks[0]["grads"], exact["grads"], 1e-3, 1e-5)
+        log(f"  halo flagship f32: ms/step {ranks[0]['ms']:.3f} (ranks sharing one card; "
+            f"the single-card f32 first step {exact['ms']:.3f} ms); worst gradient leaf "
+            f"{worst32:.3f} of the f32 bar")
+    except AssertionError as e:
+        FAILED.append(f"halo flagship f32: {e}")
+    # (c) the fusion point and the small halo steps
+    fres = [r[2] for r in res]
+    fref = runs.fusion_single(fusion, "cuda")
+    add(rank_launches("halo fusion point", fres, FUSION_POINT, 1))
+    nmf = np.asarray(main_graph_mask(fref["n_node_pad"]))
+    stitch = np.concatenate([r["out"] for r in fres])[:fref["n_node_pad"]]
+    scale_close("halo fusion point out", stitch[nmf], fref["out"][nmf], 1e-4)
+    scale_close("halo fusion point dx", np.concatenate([r["dx"] for r in fres])[:fref["n_node_pad"]],
+                fref["dx"], 1e-3, 1e-5)
+    grads_close("halo fusion point", fres[0]["dw"], fref["dw"], 1e-3, 1e-5)
+    for j, conv in enumerate(HALO_SMALL):
+        ranks = [r[3 + j] for r in res]
+        ref = runs.node_single(small[conv], "cuda")
+        add(rank_launches(f"halo {conv}/kan", ranks, HALO_SMALL[conv], DIST_STEPS))
+        for i, (a, b) in enumerate(zip(ranks[0]["losses"], ref["losses"])):
+            scale_close(f"halo {conv}/kan loss {i}", a, b, 1e-4)
+        grads_close(f"halo {conv}/kan", ranks[0]["grads"], ref["grads"], 1e-3, 1e-5)
+        same_params(f"halo {conv}/kan", ranks)
+        log(f"  halo {conv}/kan one conv f32: ms/step {ranks[0]['ms']:.3f} (shared card), "
+            f"single-card {ref['ms']:.3f}")
+    return total
+
+
+_MASK = {}
+
+
+def main_graph_mask(n_pad):
+    """The arxiv-sized graph's valid rows (169,343 of n_pad)."""
+    if n_pad not in _MASK:
+        _MASK[n_pad] = np.arange(n_pad) < 169_343
+    return _MASK[n_pad]
+
+
+def dist_edge_dp(torch):
+    """(d) the edge-partitioned step (gcn/kan, two convs, f32, fused) and the
+    DP graph-classification step (G's model, gin/kan bf16, batches of 256
+    molecules a replica) on 2 gloo ranks sharing cuda:0, against their
+    single-card counterparts. Returns the launches."""
+    from kagnn_tpu_torch.dist import runs
+    from kagnn_tpu_torch.dist.launch import launch
+
+    edge = dist_spec(torch, "gcn", "kan", "float32", strategy="edge", steps=DIST_STEPS,
+                     warmup=0, model=dict(mp_layers=2))
+    dp = dict(batch=GRAPH_BATCH, replicas=2, seed=3, opt=("adam", 1e-3), steps=DIST_STEPS,
+              device="cuda", mesh=(2, 1),
+              model=dict(conv_type="gin", architecture="kan", gnn_layers=3, num_features=21,
+                         hidden_dim=64, num_classes=2, hidden_layers=2, grid_size=4,
+                         spline_order=3, fused=True, dtype="bfloat16", seed=0))
+    res = launch(runs.many_rank, 2, ([("node", edge), ("dp", dp)],), backend="gloo",
+                 device="cuda", timeout=600)
+    total = {}
+    ranks = [r[0] for r in res]
+    ref = runs.node_single(edge, "cuda")
+    for k, n in rank_launches("edge partition gcn/kan", ranks, EDGE_PATH, DIST_STEPS).items():
+        total[k] = total.get(k, 0) + n
+    for i, (a, b) in enumerate(zip(ranks[0]["losses"], ref["losses"])):
+        scale_close(f"edge partition loss {i}", a, b, 1e-4)
+    grads_close("edge partition", ranks[0]["grads"], ref["grads"], 1e-3, 1e-5)
+    same_params("edge partition", ranks)
+    log(f"  edge partition gcn/kan 2 convs f32: ms/step {ranks[0]['ms']:.3f} "
+        f"(2 ranks sharing one card), single-card {ref['ms']:.3f}")
+    ranks = [r[1] for r in res]
+    ref = runs.dp_single(dict(dp, steps=1), "cuda")
+    for k, n in rank_launches("DP graph classification", ranks, DP_PATH, DIST_STEPS).items():
+        total[k] = total.get(k, 0) + n
+    scale_close("DP loss", ranks[0]["losses"][0], ref["loss"], 4 * BF16_ULP)
+    grads_close("DP", ranks[0]["grads"], ref["grads"], 8 * BF16_ULP)
+    grads_close("DP running statistics", ranks[0]["stats"], ref["stats"], 4 * BF16_ULP)
+    same_params("DP", ranks)
+    log(f"  DP G 2 replicas of {GRAPH_BATCH}: ms/step {ranks[0]['ms']:.3f} (2 ranks sharing one card)")
+    return total
+
+
+def dist_nccl(torch):
+    """(e) one nccl rank: the halo flagship with force_full=True (the whole
+    machinery over a one-rank group: all_to_all_single and all_reduce on
+    the card through NCCL) against the one-shard specialisation (no
+    exchange, no collective), both in the rank's process, in turns.
+    Returns the launches."""
+    from kagnn_tpu_torch.dist import runs
+    from kagnn_tpu_torch.dist.launch import launch
+
+    full = dist_spec(torch, force_full=True, profile=True)
+    single = dist_spec(torch, profile=True)
+    # in the rank's process, in turns: force_full, the specialisation, again
+    res = launch(runs.many_rank, 1, ([("node", full), ("node", single)] * 2,),
+                 backend="nccl", device="cuda", timeout=600)
+    fulls, singles = res[0][0::2], res[0][1::2]
+    log_rank_profile("nccl force_full", fulls[1], fulls[1]["ms"])
+    log_rank_profile("one-shard specialisation", singles[1], singles[1]["ms"])
+    for r in fulls:
+        rank_launches("nccl force_full", [r], HALO_FLAGSHIP, DIST_WARMUP + DIST_TIMED)
+    ref = singles[0]
+    for r in fulls:
+        for i, (a, b) in enumerate(zip(r["losses"], ref["losses"])):
+            scale_close(f"nccl force_full loss {i}", a, b, 4 * BF16_ULP)
+        grads_close("nccl force_full", r["grads"], ref["grads"], 8 * BF16_ULP)
+    bits = all(r["losses"] == ref["losses"] and all(
+        np.array_equal(r["grads"][k], ref["grads"][k]) for k in ref["grads"]) for r in fulls)
+    log(f"  nccl rank: force_full ms/step {fulls[0]['ms']:.3f}, {fulls[1]['ms']:.3f}; the "
+        f"one-shard specialisation {singles[0]['ms']:.3f}, {singles[1]['ms']:.3f} (in turns, "
+        f"one process); peak_mem {fulls[0]['peak_gib']:.3f} / {singles[0]['peak_gib']:.3f} GiB; "
+        f"tax {np.mean([r['ms'] for r in fulls]) - np.mean([r['ms'] for r in singles]):.3f} "
+        f"ms/step; losses and gradients "
+        f"{'equal bit for bit' if bits else 'within the bars, not bit for bit'}")
+    return {k: sum(r["launches"][k] for r in res[0]) for k in fulls[0]["launches"]}
+
+
+def dist_scaling_driver():
+    """`python -m kagnn_tpu_torch.experiments.scaling`'s main() at its
+    defaults (20,000 nodes, 200,000 edges, gin/kan f32), fused, on 1 and
+    DIST_RANKS gloo ranks sharing cuda:0: its JSON rows."""
+    from kagnn_tpu_torch.experiments import scaling
+
+    t0 = time.perf_counter()
+    rows = scaling.main(["--devices", "1", str(DIST_RANKS), "--backend", "gloo",
+                         "--device", "cuda", "--iters", "3", "--fused"])
+    if [r["n_devices"] for r in rows] != [1, DIST_RANKS] or not all(
+            math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"scaling driver rows: {rows}")
+    log(f"scaling driver (gloo ranks sharing one card: the partition's cost, not "
+        f"scaling): {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+
+
+FAILED = []  # checks of the dist phase that failed, raised at its end
+
+
+def phase_dist(torch, g, rows):
+    """The distribution phase: (a) the halo entries against their plain
+    functions, (b)-(c) the halo drives, (d) the edge partition and DP,
+    (e) one nccl rank; the plan's statistics with and without rcm, and the
+    scaling driver. Returns the launches of (b)-(e), summed over the
+    ranks."""
+    import traceback
+
+    def attempt(name, fn, *args):
+        """fn(*args), its failure logged and kept for the phase's end, so
+        that every drive runs and reports in one call."""
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001 - re-raised at the phase's end
+            log(traceback.format_exc())
+            FAILED.append(f"{name}: {type(e).__name__}: {e}")
+            return {}
+
+    t0 = time.perf_counter()
+    dist_plan_stats()
+    attempt("halo entries", dist_entries, torch, g, rows)
+    drives = [attempt("halo drives", dist_halo_drives, torch, rows),
+              attempt("edge partition and DP", dist_edge_dp, torch),
+              attempt("nccl force_full", dist_nccl, torch)]
+    attempt("scaling driver", dist_scaling_driver)
+    log(f"dist phase: {time.perf_counter() - t0:.1f} s")
+    if FAILED:
+        raise AssertionError("dist phase: " + "; ".join(FAILED))
+    return drives
+
+
 def phase_kernel_report():
     """utils/profiling.kernel_report() at its defaults, one JSON line a row."""
     from kagnn_tpu_torch.utils.profiling import kernel_report
@@ -2748,6 +3214,7 @@ def main() -> int:
         drives.append(launches)
         profiled.append((launches, by_kernel))
     drives += phase_protocol(torch, rows)
+    drives += phase_dist(torch, g, rows)
     for launches in drives:
         for name, n in launches.items():
             rows[name]["launches"] += n

@@ -1,8 +1,8 @@
 """kagnn_tpu_torch — the PyTorch/CUDA port of kagnn_tpu for NVIDIA Hopper.
 
 The package mirrors the JAX package's layout (`data/`, `graphs/`, `kan/`,
-`ops/`, `nn/`, `models/`, `train/`, `utils/`), so each module has a
-counterpart of the same name in `kagnn_tpu`. The Pallas kernels of the JAX
+`ops/`, `nn/`, `models/`, `train/`, `dist/`, `utils/`), so each module has
+a counterpart of the same name in `kagnn_tpu`. The Pallas kernels of the JAX
 package become hand-written CUDA C++ kernels for sm_90a: the sources live in
 `csrc/`, the Python wrappers (autograd Functions, launch counters and the
 plain PyTorch version of each kernel) in `kernels/`.

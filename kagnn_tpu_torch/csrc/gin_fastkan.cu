@@ -46,11 +46,13 @@ using namespace fkan;
 // Pass 1 (gin_sum.cuh): the light rows and the heavy rows' pieces ...
 template <typename T, int V>
 __global__ void __launch_bounds__(kan::kSplitWarps * 32)
-gin_fastkan_sum_kernel(const T* __restrict__ x, const int* __restrict__ senders,
+gin_fastkan_sum_kernel(const T* __restrict__ x, const T* __restrict__ tab,
+                       const int* __restrict__ senders,
                        const int* __restrict__ row_ptr, T* __restrict__ z,
                        float* __restrict__ z32, float* __restrict__ partial,
                        int* __restrict__ first_row, int n, int d, float self, int chunk_blocks) {
-  gin::sum_body<T, V>(x, senders, row_ptr, z, z32, partial, first_row, n, d, self, chunk_blocks);
+  gin::sum_body<T, V>(x, tab, senders, row_ptr, z, z32, partial, first_row, n, d, self,
+                      chunk_blocks);
 }
 
 // ... and the heavy rows' combine.
@@ -86,7 +88,8 @@ gin_fastkan_fwd_kernel(const float* __restrict__ z, const float* __restrict__ ln
 }
 
 template <typename T, int G>
-int launch(const void* x, const int* senders, const int* row_ptr, const void* lng,
+int launch(const void* x, const void* tab, const int* senders, const int* row_ptr,
+           const void* lng,
            const void* lnb, const void* w, const void* wb, const void* bb, void* out, void* z,
            float* z32, float* partial, int* first_row, int n, int D, int O, float eps,
            int max_edges, Centers cs, float inv_h, cudaStream_t stream) {
@@ -95,7 +98,8 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* ln
   T* zt = static_cast<T*>(z);
   if (int e = gin::launch_sum<T>(
           [](auto v) { return gin_fastkan_sum_kernel<T, decltype(v)::value>; },
-          gin_fastkan_sum_combine_kernel<T>, static_cast<const T*>(x), senders, row_ptr, zt,
+          gin_fastkan_sum_combine_kernel<T>, static_cast<const T*>(x),
+          static_cast<const T*>(tab), senders, row_ptr, zt,
           z32, partial, first_row, n, D, 1.f + eps, max_edges, stream))
     return e;
   const T* lt = static_cast<const T*>(lng);
@@ -124,14 +128,17 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* ln
 }  // namespace
 
 // out (n, O) and z (n, D) from x (n, D) over the receiver CSR (row_ptr of
-// n+1 entries, senders in receiver-sorted edge order). lng, lnb (D,),
+// n+1 entries, senders in receiver-sorted edge order) gathering from tab
+// (x itself when null; under the halo partition the extended table [x;
+// halo], which senders index). lng, lnb (D,),
 // w (G*D, O) g-major, wb (D, O), bb (O,), all of x's dtype; centers: G
 // floats in host memory. z32: under bf16 f32 scratch of n x D (the
 // unrounded z the layer reads), null in f32. Scratch: partial, f32 of 2 *
 // ceil(max_edges / 64) * D floats; first_row, int32 of ceil(max_edges / 64).
 // max_edges: at least row_ptr[n] (the length of senders), read on the host
 // so that nothing waits for the device.
-extern "C" int gin_fastkan_fwd(const void* x, const int* senders, const int* row_ptr,
+extern "C" int gin_fastkan_fwd(const void* x, const void* tab, const int* senders,
+                               const int* row_ptr,
                                const void* lng, const void* lnb, const void* w, const void* wb,
                                const void* bb, void* out, void* z, float* z32, float* partial,
                                int* first_row, int n, int d, int o, float eps, int max_edges,
@@ -140,6 +147,7 @@ extern "C" int gin_fastkan_fwd(const void* x, const int* senders, const int* row
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Centers cs{};
   for (int g = 0; g < G && g < kMaxG; ++g) cs.c[g] = centers[g];
-  FASTKAN_DISPATCH(dtype, G, launch, x, senders, row_ptr, lng, lnb, w, wb, bb, out, z, z32,
+  const void* t = tab != nullptr ? tab : x;
+  FASTKAN_DISPATCH(dtype, G, launch, x, t, senders, row_ptr, lng, lnb, w, wb, bb, out, z, z32,
                    partial, first_row, n, d, o, eps, max_edges, cs, inv_h, s);
 }

@@ -56,11 +56,13 @@ using namespace kan;
 // Pass 1 (gin_sum.cuh): the light rows and the heavy rows' pieces ...
 template <typename T, int V>
 __global__ void __launch_bounds__(kSplitWarps * 32)
-gin_sum_kernel(const T* __restrict__ x, const int* __restrict__ senders,
+gin_sum_kernel(const T* __restrict__ x, const T* __restrict__ tab,
+               const int* __restrict__ senders,
                const int* __restrict__ row_ptr, T* __restrict__ z, float* __restrict__ z32,
                float* __restrict__ partial, int* __restrict__ first_row, int n, int d,
                float self, int chunk_blocks) {
-  gin::sum_body<T, V>(x, senders, row_ptr, z, z32, partial, first_row, n, d, self, chunk_blocks);
+  gin::sum_body<T, V>(x, tab, senders, row_ptr, z, z32, partial, first_row, n, d, self,
+                      chunk_blocks);
 }
 
 // ... and the heavy rows' combine.
@@ -95,7 +97,8 @@ gin_fwd_kernel(const float* __restrict__ z, const float* __restrict__ knots,
 }
 
 template <typename T, int ORDER, int GRID>
-int launch(const void* x, const int* senders, const int* row_ptr, const void* knots,
+int launch(const void* x, const void* tab, const int* senders, const int* row_ptr,
+           const void* knots,
            const void* wb, const void* ws, void* out, void* z, float* z32, float* partial,
            int* first_row, int n, int D, int O, float eps, int max_edges, cudaStream_t stream) {
   using S = Shape<ORDER, GRID>;
@@ -104,7 +107,8 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* kn
   const T* xt = static_cast<const T*>(x);
   T* zt = static_cast<T*>(z);
   if (int e = gin::launch_sum<T>([](auto v) { return gin_sum_kernel<T, decltype(v)::value>; },
-                                 gin_sum_combine_kernel<T>, xt, senders, row_ptr, zt, z32,
+                                 gin_sum_combine_kernel<T>, xt, static_cast<const T*>(tab),
+                                 senders, row_ptr, zt, z32,
                                  partial, first_row, n, D, 1.f + eps, max_edges, stream))
     return e;
   if constexpr (kMma) {
@@ -128,17 +132,21 @@ int launch(const void* x, const int* senders, const int* row_ptr, const void* kn
 }  // namespace
 
 // out (n, O) and z (n, D) from x (n, D) over the receiver CSR (row_ptr of
-// n+1 entries, senders in receiver-sorted edge order). knots (K, D),
+// n+1 entries, senders in receiver-sorted edge order) gathering from tab
+// (x itself when null; under the halo partition the extended table [x;
+// halo], which senders index). knots (K, D),
 // wb (D, O), ws (NB*D, O), all of x's dtype. z32: under bf16 f32 scratch
 // of n x D (the unrounded z the forward reads), null in f32. Scratch:
 // partial, f32 of 2 * ceil(max_edges / 64) * D floats; first_row, int32 of
 // ceil(max_edges / 64). max_edges: at least row_ptr[n] (the length of
 // senders), read on the host so that nothing waits for the device.
-extern "C" int gin_fwd(const void* x, const int* senders, const int* row_ptr,
-                       const void* knots, const void* wb, const void* ws, void* out, void* z,
-                       float* z32, float* partial, int* first_row, int n, int d, int o,
-                       float eps, int max_edges, int grid, int order, int dtype, void* stream) {
+extern "C" int gin_fwd(const void* x, const void* tab, const int* senders,
+                       const int* row_ptr, const void* knots, const void* wb, const void* ws,
+                       void* out, void* z, float* z32, float* partial, int* first_row, int n,
+                       int d, int o, float eps, int max_edges, int grid, int order, int dtype,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KAN_DISPATCH(dtype, order, grid, launch, x, senders, row_ptr, knots, wb, ws, out, z, z32,
+  const void* t = tab != nullptr ? tab : x;
+  KAN_DISPATCH(dtype, order, grid, launch, x, t, senders, row_ptr, knots, wb, ws, out, z, z32,
                partial, first_row, n, d, o, eps, max_edges, s);
 }

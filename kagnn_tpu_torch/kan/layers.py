@@ -25,14 +25,34 @@ from torch import nn
 from kagnn_tpu_torch.kan import bspline, rbf
 from kagnn_tpu_torch.kernels.bspline_fused import kan_linear_fused
 from kagnn_tpu_torch.kernels.fastkan_layer import fastkan_layer_fused
-from kagnn_tpu_torch.kernels.gin_fastkan import gin_fastkan_fused
-from kagnn_tpu_torch.kernels.gin_fused import gin_kan_fused
+from kagnn_tpu_torch.kernels.gin_fastkan import (gin_fastkan_fused,
+                                                 gin_fastkan_fused_halo)
+from kagnn_tpu_torch.kernels.gin_fused import gin_kan_fused, gin_kan_fused_halo
 from kagnn_tpu_torch.kernels.rbf_fused import fastkan_fused
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
 
 # the RBF centers' range of every FastKANLayer (the JAX layer's default)
 GRID_MIN, GRID_MAX = -2.0, 2.0
+
+def _fused_gin_entry(single, halo):
+    """The fused GIN entry for the current distribution mode (JAX
+    `kan/layers.py:125-142, :291-303`): the halo entry under
+    `segment.halo_mode`, the single-card entry otherwise. Under
+    `segment.edge_axis` a fused GIN aggregate would be the shard's partial
+    sum, taken before a nonlinear layer; the JAX edge-partitioned step
+    refuses it (its custom VJP's weight gradients vary over the edge axis),
+    and so does the port."""
+    if segment.halo_state() is not None:
+        return halo
+    if segment.current_edge_axis() is not None:
+        raise ValueError("a fused GIN aggregate cannot run under the edge "
+                         "partition (its sum over the shard's edges feeds a "
+                         "nonlinear layer before any all-reduce): build the "
+                         "model with fused=False for make_edge_partitioned_"
+                         "node_step, as the JAX package requires")
+    return single
+
 
 def kaiming_uniform(shape, a: float, generator: torch.Generator) -> torch.Tensor:
     """torch.nn.init.kaiming_uniform_(w, a) for a weight (out, in), drawn
@@ -97,7 +117,8 @@ class KANLinear(nn.Module):
     def forward(self, x: torch.Tensor, gin_graph=None) -> torch.Tensor:
         """With `gin_graph=(g, eps)` the layer computes
         KANLinear((1+eps)·x_i + Σ_j x_j) over the GraphBatch, the GIN conv
-        fusion point (kernels/gin_fused.py runs it in one launch)."""
+        fusion point (kernels/gin_fused.py runs it in one launch; under
+        `segment.halo_mode` its halo entry over the extended table)."""
         orig_shape = x.shape
         grid, wb, ws = self.grid, self.base_weight, self.scaled_spline_weight
         cd = self.compute_dtype
@@ -107,7 +128,8 @@ class KANLinear(nn.Module):
             g, eps = gin_graph
             x = x.reshape(-1, self.in_features)
             x = x if cd is None else x.to(cd)
-            out = gin_kan_fused(x, g, eps, grid, wb, ws, self.spline_order)
+            fn = _fused_gin_entry(gin_kan_fused, gin_kan_fused_halo)
+            out = fn(x, g, eps, grid, wb, ws, self.spline_order)
             return out.reshape(*orig_shape[:-1], self.out_features)
         x = self.kan_input(x, gin_graph)
 
@@ -226,7 +248,8 @@ class FastKANLayer(nn.Module):
         if gin_graph is not None:
             g, eps = gin_graph
             if whole:
-                out = gin_fastkan_fused(x, g, eps, lng, lnb, sw, wb, bb, *grid)
+                fn = _fused_gin_entry(gin_fastkan_fused, gin_fastkan_fused_halo)
+                out = fn(x, g, eps, lng, lnb, sw, wb, bb, *grid)
                 return out.reshape(*orig_shape[:-1], self.output_dim)
             agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
             x = (1.0 + eps) * x + agg

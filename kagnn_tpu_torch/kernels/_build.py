@@ -14,11 +14,16 @@ its own library, built at its first use with the shape as `-D` defines
 (`SHAPED`), so a build compiles one instantiation and no list of shapes is
 fixed in advance. `MAIN` names the libraries of the main paths.
 
+Several processes may build at once (the ranks of dist/launch.py, whose
+parent builds first): `build_all` holds a file lock on `_build/.lock`
+while it compiles, so a library is built once and the others load it.
+
 A failed build raises; nothing here falls back to another path.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -113,8 +118,13 @@ def build_all(units=MAIN) -> dict[str, str]:
     per library built now (registers, shared memory, spills), by `label`."""
     units = [(n, tuple(s)) for n, s in units]
     with _LOCK:
-        started = {label(n, s): _start(n, s) for n, s in units}
-        errors = [e for e in (_finish(k, v) for k, v in started.items()) if e]
+        if all(_lib_path(n, s).exists() for n, s in units):
+            return {}
+        BUILD.mkdir(parents=True, exist_ok=True)
+        with open(BUILD / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            started = {label(n, s): _start(n, s) for n, s in units}
+            errors = [e for e in (_finish(k, v) for k, v in started.items()) if e]
     if errors:
         raise RuntimeError("\n\n".join(errors))
     return {k: _PTXAS[k] for k in started if k in _PTXAS}

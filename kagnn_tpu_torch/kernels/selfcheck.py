@@ -22,7 +22,9 @@ reference model's (`bf16_grad_ratios`), and the protocol layer's: the
 card's least-squares solve against the CPU's (`check_lstsq`), the B-spline
 kernels on adapted knots (`adapted_knots`, `check_adapted_layer`),
 including knots whose narrowest span bf16 rounds to zero
-(`degenerate_knots`, `close_nonfinite`)."""
+(`degenerate_knots`, `close_nonfinite`), and the two halo entries of the
+fused GIN kernels on one shard of a halo plan, with no process group
+(`halo_entry_graph`, `halo_shard`, `check_halo_entry`)."""
 from __future__ import annotations
 
 import torch
@@ -614,10 +616,12 @@ def spmm_f64(msgs, row_ptr, idx=None):
     and 1.34 of the f32 bar in three runs of the same inputs and kernel
     (H100, PERF.md §6 PR 10)."""
     n = row_ptr.numel() - 1
-    src = msgs if idx is None else msgs.index_select(0, idx.long())
+    rows = segment_ids(row_ptr)
+    e = rows.numel()  # the entries the kernel walks, [0, row_ptr[-1])
+    src = msgs[:e] if idx is None else msgs.index_select(0, idx[:e].long())
     out = torch.zeros((n,) + tuple(msgs.shape[1:]), dtype=torch.float64,
                       device=msgs.device)
-    return out.index_add_(0, segment_ids(row_ptr), src.double()).to(msgs.dtype)
+    return out.index_add_(0, rows, src.double()).to(msgs.dtype)
 
 
 def gcn_agg_f64(hs, dinv, senders, recv_row_ptr):
@@ -993,3 +997,126 @@ def check_adapted_layer(n: int, d: int, o: int, knots, dtype, close, gen,
         out["gin"] = (check_gin_split(g, d, o, dtype, close, gen, shape=(k, grid),
                                       knots=t), 0, 0)
     return out
+
+
+# --- the halo entries of the fused GIN kernels ---------------------------------
+
+HALO_EPS = 0.25
+
+
+def halo_entry_graph(n: int = 600, shards: int = 4, hub: int = 300, seed: int = 0,
+                     device="cpu"):
+    """A graph for the halo entries' card checks: random edges, node 5
+    (shard 0) sending `hub` edges into shard 1 (a heavy row of shard 1's
+    sender CSR in the extended space, held by a halo row) and node
+    n/shards + 8 (shard 1) receiving `hub` edges (a heavy receiver row).
+    Shard 1 is an interior shard: its last row is a valid node."""
+    rng = np.random.default_rng(seed)
+    e = 4 * n
+    B = -(-(n + 1) // shards)
+    snd = np.concatenate([rng.integers(0, n, e), np.full(hub, 5),
+                          rng.integers(0, n, hub)])
+    rcv = np.concatenate([rng.integers(0, n, e), rng.integers(B + 8, 2 * B - 8, hub),
+                          np.full(hub, B + 8)])
+    return single_graph(snd, rcv, n_node=n, device=device)
+
+
+def halo_shard(g, shards: int, shard: int, device="cuda"):
+    """(plan, shard graph, extended rows) of one shard of g's halo plan
+    (dist/halo.py), on `device`: the entries run on it with no process
+    group, fed an extended table directly."""
+    from kagnn_tpu_torch.dist.halo import build_halo_plan, shard_graph
+
+    plan = build_halo_plan(g, shards)
+    return plan, shard_graph(plan, shard, device=device), plan.block + shards * plan.halo
+
+
+def _gin_z_ext_f64(x, ext, senders, recv_row_ptr, eps: float):
+    """The halo entries' f32 z exactly: the aggregate of ext's rows over the
+    receiver CSR (its valid edges) summed in f64, then (1+eps)*x, rounded
+    once to f32."""
+    agg = spmm_f64(ext.double(), recv_row_ptr, senders)
+    return (agg + (1.0 + eps) * x.double()).float()
+
+
+def check_halo_entry(kind: str, g, n_ext: int, d: int, o: int, dtype, close, gen,
+                     shape=(3, 4), num_grids: int = 4, wrong_must_fail=False,
+                     log=print, tag: str = "") -> float:
+    """One halo entry (kind "kan": gin_kan_fused_halo's GinKanHalo, "fastkan":
+    GinFastKanHalo) on shard graph g with an extended table of n_ext rows
+    ([x; halo], random), at D = d, O = o in `dtype`, against its plain
+    function: the forward (out of the shard's valid rows and z of every row)
+    against the plain layer on the exactly summed z (`_gin_z_ext_f64`); the
+    backward through the autograd Function: dz from the layer backward
+    kernel against its plain version, with the weight gradients held by
+    `check_bspline_bwd` / `check_fastkan_bwd` (`dw_walk_check` past one bf16
+    row tile), dx = (1+eps)*dz exactly and against the plain dz's, dext
+    against the sender segment sum of dz in f64 (`spmm_f64`: the heavy-row
+    convention); the forward and the Function's gradients twice, equal bit
+    for bit. close(name, got, want) holds a pair to the kernels' bar.
+    Returns the largest errors by the kernel that made them: "forward" (the
+    fused GIN kernel), "layer_bwd" (the layer backward: dz, the weight
+    gradients, dx) and "dext" (the segment sum)."""
+    B = g.n_node_pad
+    eps = HALO_EPS
+
+    def rand(shape_, scale=1.0):
+        return (torch.randn(shape_, generator=gen, device=gen.device) * scale).to(dtype)
+
+    ext = rand((n_ext, d))
+    x = ext[:B].clone()
+    dout = rand((B, o))
+    name = f"halo {kind} {tag} D={d} O={o}".replace("  ", " ")
+    if kind == "kan":
+        k, grid = shape
+        knots = make_grid(d, grid, k, device=gen.device).t().contiguous().to(dtype)
+        w = (rand((d, o), 0.3), rand(((grid + k) * d, o), 0.3))
+        fwd = lambda: gf.gin_kan_fwd(x, g.senders, g.recv_row_ptr, knots, *w, k, eps,  # noqa: E731
+                                     ext=ext)
+        z32 = _gin_z_ext_f64(x, ext, g.senders, g.recv_row_ptr, eps)
+        want = bf.kan_forward_f32(z32, knots, *w, k, dtype), z32.to(dtype)
+        fn = lambda xr, er, wr: gf.GinKanHalo.apply(xr, er, g, knots, *wr, eps, k)  # noqa: E731
+    else:
+        G = num_grids
+        w = (1.0 + rand((d,), 0.2), rand((d,), 0.1), rand((G * d, o), 0.3), rand((d, o), 0.3),
+             rand((o,), 0.1))
+        fwd = lambda: gfk.gin_fastkan_fwd(x, g.senders, g.recv_row_ptr, *w, eps, -2.0, 2.0,  # noqa: E731
+                                          ext=ext)
+        z32 = _gin_z_ext_f64(x, ext, g.senders, g.recv_row_ptr, eps)
+        want = (fk.fastkan_forward_f32(z32, *w, -2.0, 2.0, dtype), z32.to(dtype))
+        fn = lambda xr, er, wr: gfk.GinFastKanHalo.apply(xr, er, g, *wr, eps, -2.0, 2.0)  # noqa: E731
+    got = fwd()
+    valid = g.node_mask
+    fwd_err = max(close(f"{name} out", got[0][valid], want[0][valid]),
+                  close(f"{name} z", got[1], want[1]))
+    if not all(torch.equal(a, b) for a, b in zip(got, fwd())):
+        raise AssertionError(f"{name}: two forwards differ")
+    z = got[1]
+    if kind == "kan":
+        err = check_bspline_bwd(f"{name} dz", z, knots, *w, dout, k, close,
+                                wrong_must_fail, log)
+        dz = bf.kan_linear_bwd(z, knots, *w, dout, k)[0]
+        dz_plain = bf.kan_linear_bwd_plain(z, knots, *w, dout, k)[0]
+    else:
+        err = check_fastkan_bwd(f"{name} dz", z, w[0], w[1], w[2], w[3], dout,
+                                close, wrong_must_fail, log)
+        dz = fk.fastkan_layer_bwd(z, *w[:4], dout, -2.0, 2.0)[0]
+        dz_plain = fk.fastkan_layer_bwd_plain(z, *w[:4], dout, -2.0, 2.0)[0]
+
+    def grads():
+        xr = x.clone().requires_grad_(True)
+        er = ext.clone().requires_grad_(True)
+        wr = tuple(t.clone().requires_grad_(True) for t in w)
+        fn(xr, er, wr).backward(dout)
+        return [xr.grad, er.grad] + [t.grad for t in wr]
+
+    first = grads()
+    if not all(torch.equal(a, b) for a, b in zip(first, grads())):
+        raise AssertionError(f"{name}: two backwards differ")
+    dx, dext = first[:2]
+    if not torch.equal(dx, (1.0 + eps) * dz):
+        raise AssertionError(f"{name}: dx is not (1+eps)*dz")
+    return {"forward": fwd_err,
+            "layer_bwd": max(err, close(f"{name} dx", dx, (1.0 + eps) * dz_plain)),
+            "dext": close(f"{name} dext", dext,
+                          spmm_f64(dz, g.send_row_ptr, g.receivers_by_sender))}

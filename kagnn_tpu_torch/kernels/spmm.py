@@ -39,12 +39,15 @@ from kagnn_tpu_torch.kernels._common import (check_cuda, dtype_code,
 
 def sorted_segment_sum_plain(msgs: torch.Tensor, row_ptr: torch.Tensor,
                              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version: index_select, then index_add_ into f32."""
+    """The plain PyTorch version: index_select, then index_add_ into f32,
+    of the entries [0, row_ptr[-1]) that the kernel walks."""
     n = row_ptr.numel() - 1
-    src = msgs if idx is None else msgs.index_select(0, idx.long())
+    rows = segment_ids(row_ptr)
+    e = rows.numel()
+    src = msgs[:e] if idx is None else msgs.index_select(0, idx[:e].long())
     out = torch.zeros((n,) + tuple(msgs.shape[1:]), dtype=torch.float32,
                       device=msgs.device)
-    out.index_add_(0, segment_ids(row_ptr), src.float())
+    out.index_add_(0, rows, src.float())
     return out.to(msgs.dtype)
 
 

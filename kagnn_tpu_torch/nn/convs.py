@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from kagnn_tpu_torch.kan.layers import KAN, FastKANLayer, KANLinear
+from kagnn_tpu_torch.kernels._common import leaky
 from kagnn_tpu_torch.nn.mlp import TorchLinear
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
@@ -83,7 +84,12 @@ class GINConv(nn.Module):
 def _degree_with_self_loops(g, dtype: torch.dtype) -> torch.Tensor:
     """d_i = 1 + #incoming valid edges, in `dtype`. As in the JAX package
     the in-degree is cast BEFORE the +1 (and the rsqrt that follows), so
-    under bf16 a degree above 256 rounds."""
+    under bf16 a degree above 256 rounds. `in_degrees` is a node leaf that
+    the batcher counts over all valid edges, and the edge partition slices
+    only the edge leaves (dist/mesh.py), so under `edge_axis` it is the
+    global count already: the JAX package's branch for batches that ship
+    in-degrees, which needs no all-reduce (its psum serves batches without
+    them, which the port's batchers never make)."""
     return g.in_degrees.to(dtype) + 1.0
 
 
@@ -107,6 +113,20 @@ class GCNConv(nn.Module):
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         h = self.transform(x)
+        hs = segment.halo_state()
+        if hs is not None:
+            # node-sharded (the JAX halo branch): the plan ships d^-1/2 in
+            # the extended [local; halo] space, in f32, cast to h's dtype;
+            # the halo neighbor sum takes the masked per-edge norm, and the
+            # self-loop weighs d_i^-1
+            dinv_ext = hs.dinv_ext.to(h.dtype)
+            dinv = dinv_ext[:hs.n_local]
+            norm = dinv_ext[g.senders.long()] * dinv[g.receivers.long()]
+            norm = torch.where(g.edge_mask, norm,
+                               torch.zeros((), dtype=h.dtype, device=h.device))
+            out = segment.neighbor_sum(h, g, edge_weight=norm, fused=self.fused)
+            out = out + h * (dinv * dinv)[:, None]
+            return out + self.bias
         dinv = torch.rsqrt(_degree_with_self_loops(g, h.dtype))
         hs = h * dinv[:, None]
         out = segment.gcn_aggregate(hs, g, dinv, fused=self.fused)
@@ -157,6 +177,9 @@ class GATConv(nn.Module):
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         h = self.transform(x)
+        hs = segment.halo_state()
+        if hs is not None:
+            return self._halo_forward(g, h, hs) + self.bias
         amat = self._expand(self.att_src, h.dtype)
         hf = h.float()
         alpha_src = hf @ amat
@@ -164,6 +187,28 @@ class GATConv(nn.Module):
         out = segment.gat_attention(h, alpha_src, alpha_dst, g, NEGATIVE_SLOPE,
                                     att_src_matrix=amat, fused=self.fused)
         return out + self.bias
+
+    def _halo_forward(self, g, h: torch.Tensor, hs) -> torch.Tensor:
+        """The JAX halo branch: one exchange of h gives the extended table;
+        alpha_src of the remote senders is re-derived from it (a function
+        of h, so no second exchange), and since every edge of a receiver is
+        local the softmax needs no collective. The logits are the products
+        with the f32 att vectors summed over C, as the JAX branch computes
+        them (not its non-halo dots)."""
+        H, C, B = self.heads, self.out_features, hs.n_local
+        h_ext = segment.halo_extend(h).reshape(-1, H, C)
+        alpha_src_ext = (h_ext * self.att_src).sum(-1)
+        alpha_src = alpha_src_ext[:B]
+        h3 = h.reshape(-1, H, C)
+        alpha_dst = (h3 * self.att_dst).sum(-1)
+        logits = leaky(alpha_src_ext[g.senders.long()]
+                       + alpha_dst[g.receivers.long()], NEGATIVE_SLOPE)
+        self_logits = leaky(alpha_src + alpha_dst, NEGATIVE_SLOPE)
+        w_edge, w_self = segment.segment_softmax(
+            logits, g.receivers, B, mask=g.edge_mask, extra_logits=self_logits)
+        out = segment.neighbor_sum_attn(h_ext.reshape(-1, H * C), g, w_edge)
+        out = out.reshape(-1, H, C) + h3 * w_self[..., None]
+        return out.reshape(-1, H * C)
 
 
 class GINEConv(nn.Module):
@@ -187,7 +232,9 @@ class GINEConv(nn.Module):
         msgs = torch.relu(segment.sender_gather(x, g, fused=self.fused) + edge_attr)
         msgs = torch.where(g.edge_mask[:, None], msgs,
                            torch.zeros((), dtype=msgs.dtype, device=msgs.device))
-        agg = segment.segment_sum(msgs, g.receivers, g.n_node_pad,
+        hs = segment.halo_state()
+        agg = segment.segment_sum(msgs, g.receivers,
+                                  g.n_node_pad if hs is None else hs.n_local,
                                   g.recv_row_ptr, fused=self.fused)
         return self.update((1.0 + self.eps) * x + agg, mask=g.node_mask,
                            train=self.training)
@@ -198,13 +245,18 @@ def global_add_pool(g, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
     `fused` the sum runs the segment-sum kernel over graph_row_ptr."""
     x = torch.where(g.node_mask[:, None], x,
                     torch.zeros((), dtype=x.dtype, device=x.device))
-    return segment.segment_sum(x, g.node_graph, g.n_graph_pad,
-                               g.graph_row_ptr, fused=fused)
+    # a node->graph reduction: node rows are replicated under the edge
+    # partition, so its all-reduce is suspended here
+    with segment.edge_axis(None):
+        return segment.segment_sum(x, g.node_graph, g.n_graph_pad,
+                                   g.graph_row_ptr, fused=fused)
 
 
 def global_mean_pool(g, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
     """Mean-pool node rows per graph over the valid nodes: (G, F); an
-    empty graph's row is 0."""
-    return segment.segment_mean(x, g.node_graph, g.n_graph_pad,
-                                mask=g.node_mask, row_ptr=g.graph_row_ptr,
-                                fused=fused)
+    empty graph's row is 0. The edge partition's all-reduce is suspended,
+    as in global_add_pool."""
+    with segment.edge_axis(None):
+        return segment.segment_mean(x, g.node_graph, g.n_graph_pad,
+                                    mask=g.node_mask, row_ptr=g.graph_row_ptr,
+                                    fused=fused)

@@ -46,9 +46,12 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
                                                check_graph_sums,
+                                               check_halo_entry,
                                                check_narrow, check_prefetch,
                                                gcn_agg_f64, gcn_split_graph,
-                                               graph_sum_batch, narrow_cases,
+                                               graph_sum_batch,
+                                               halo_entry_graph, halo_shard,
+                                               narrow_cases,
                                                rbf_bwd_expected,
                                                rbf_bwd_kernels, rbf_chain,
                                                spmm_split_graph)
@@ -1176,3 +1179,30 @@ def test_protocol_checkpoint_resume_on_card(capturable, tmp_path):
     step, _ = make_node_steps(m2, opt2)
     part += [step(g, g.node_mask) for _ in range(3)]
     assert torch.equal(whole, torch.stack(part))
+
+
+# (shard, D, O) of the halo entries' checks on halo_entry_graph's 4-shard
+# plan: shard 0 (the hub sender's owner) at ragged widths, shard 1 (an
+# interior shard: its last row is a valid node and its padded edges point at
+# it; a heavy receiver row and a heavy row of halo senders) at ragged and at
+# the main path's widths
+HALO_CASES = [(0, 16, 12), (1, 7, 5), (1, 64, 64)]
+
+
+@pytest.mark.parametrize("case", HALO_CASES, ids=[f"shard{s}-{d}x{o}" for s, d, o in HALO_CASES])
+@pytest.mark.parametrize("kind", ["kan", "fastkan"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_dist_halo_entries_match_plain(dt, kind, case, no_tf32):
+    """gin_kan_fused_halo's and gin_fastkan_fused_halo's kernels on one shard
+    of a halo plan, fed an extended table directly (no process group),
+    against their plain functions (`selfcheck.check_halo_entry`: the forward
+    on the exactly summed z, dz and the weight gradients against the plain
+    layer backward, dx, dext against the f64 sender sum, twice bit for
+    bit)."""
+    shard, d, o = case
+    plan, g, n_ext = halo_shard(halo_entry_graph(device="cpu"), 4, shard)
+    assert g.n_edge < g.n_edge_pad and n_ext > g.n_node_pad
+    if shard == 1:
+        assert bool(g.node_mask[-1])
+    gen = torch.Generator(device="cuda").manual_seed(shard * 100 + d)
+    check_halo_entry(kind, g, n_ext, d, o, DTYPES[dt], _closer(dt), gen, log=_quiet)
