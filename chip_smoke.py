@@ -234,6 +234,8 @@ def phase_build():
     units += [(n, s) for n in ("bspline_fused", "gin_fused") for s in KAN_CORNERS]
     units += [(n, (g,)) for n in ("fastkan_layer", "gin_fastkan", "rbf_fused")
               for g in FASTKAN_CORNERS]
+    units += [(n, s) for n in ("bspline_fused", "gin_fused") for s in WIDE_KAN]
+    units += [(n, (WIDE_G,)) for n in ("fastkan_layer", "gin_fastkan", "rbf_fused")]
     units += [u for u in protocol_units() if u not in units]
     t0 = time.perf_counter()
     reports = _build.build_all(units)
@@ -1669,6 +1671,323 @@ def phase_captured(torch, g, name, per_step):
     return cap_ms, eager_ms
 
 
+DROPOUT_STEPS = 3  # steps of the captured dropout drive's graph
+
+
+def phase_captured_dropout(torch, g):
+    """gin/kan at full width, bf16, dropout 0.5 (the flagship otherwise),
+    captured by make_node_multi_step (the model's dropout generator
+    registered with the graph) against eager steps of a model from the
+    same seed with the same capturable Adam: two calls on the main graph,
+    then two on a second batch of its shapes (the node features redrawn
+    from another seed: copied into the capture's tensors, no new capture),
+    then one on a batch with another n_edge (the graph without its last
+    100 edges, the same padding: a capture of its own). The losses of every
+    call and the parameters at the end bit for bit. Returns the launches
+    of the captured run (counted from 0)."""
+    from kagnn_tpu_torch.data import arxiv_scale_graph
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.models import NodeClassifier
+    from kagnn_tpu_torch.train import make_node_multi_step, make_node_steps
+
+    n = DROPOUT_STEPS
+    nodes2 = torch.randn(g.nodes.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    g2 = g.replace(nodes=nodes2)
+    d = arxiv_scale_graph()
+    g3 = single_graph(d["senders"][:-100], d["receivers"][:-100], nodes=d["nodes"],
+                      y=d["y"], n_node=d["n_node"], edge_pad_multiple=1024, device="cuda")
+    assert (g3.n_edge_pad, g3.n_node_pad) == (g.n_edge_pad, g.n_node_pad)
+    calls = [(g, "main"), (g, "main"), (g2, "features redrawn"),
+             (g2, "features redrawn"), (g3, f"n_edge {g3.n_edge}")]
+
+    def model():
+        return NodeClassifier(conv_type="gin", architecture="kan", fused=True,
+                              compute_dtype=torch.bfloat16, seed=0, device="cuda",
+                              **dict(NODE_KW, dropout=0.5))
+
+    def adam(m):
+        return torch.optim.Adam(m.parameters(), lr=1e-3, capturable=True)
+
+    m2 = model()
+    step, _ = make_node_steps(m2, adam(m2))
+    eager = [torch.stack([step(b, b.node_mask) for _ in range(n)]) for b, _ in calls]
+    m1 = model()
+    multi = make_node_multi_step(m1, adam(m1), n)
+    got = []
+    launches = launches_of(torch, "captured gin/kan dropout 0.5",
+                           lambda: got.extend(multi(b, b.node_mask) for b, _ in calls))
+    for (_, what), a, b in zip(calls, got, eager):
+        same = torch.equal(a, b)
+        log(f"  captured dropout 0.5, {what}: losses {[round(v, 6) for v in a.tolist()]} "
+            f"{'bit for bit' if same else 'NOT equal to'} the eager ones")
+        if not same:
+            raise AssertionError(f"captured dropout ({what}): {a.tolist()} vs {b.tolist()}")
+    params = all(torch.equal(a, b) for a, b in zip(m1.state_dict().values(),
+                                                    m2.state_dict().values()))
+    log(f"  captured dropout: {len(multi.captures)} captures for 3 batches of 2 "
+        f"signatures; parameters {'bit for bit' if params else 'NOT equal'}")
+    if not params or len(multi.captures) != 2:
+        raise AssertionError("captured dropout: parameters differ or the captures "
+                             f"are {len(multi.captures)}, not 2")
+    return launches
+
+
+# the shapes past the kernels' old limits: spline order 5 at grid 4 and
+# order 3 at grid 24 (order 1-4 x grid 1-16 before), 48 centers (2-32
+# before), 8 GAT heads of 512 columns (512 slots of 8 a row; 256 before)
+WIDE_KAN = ((5, 4), (3, 24))
+WIDE_G = 48
+WIDE_GAT = (8, 512)
+WIDE_GAT_GRAPH = (20_000, 140_000)  # the GAT drive's graph: nodes, edges
+
+
+def timed_wide(torch, rows, name, tag, err, fn, plain, nbytes, ops, prod):
+    """Time a widened kernel and its plain version by CUDA events beside its
+    bound; its error joins its row."""
+    ms, pms = time_ms(fn), time_ms(plain, iters=3)
+    bms, by = H100.bound_ms(nbytes, ops, prod)
+    log(f"  {name} wide {tag}: ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by})")
+    record_row(rows[name], err, False)
+
+
+def phase_widened(torch, g, rows):
+    """Each kernel widened past its old limit, in bf16 (x f32 and w bf16
+    for the RBF product, the slice's route), against its plain version at
+    its row's bar, timed beside its bound: the B-spline forward, backward
+    and gin_fused at WIDE_KAN, the FastKAN forward, backward, gin_fastkan
+    and the RBF product at WIDE_G centers, all at (64, 64) on the main
+    graph's 169,344 rows (the walked bf16 weight gradients by
+    dw_walk_check, the GIN aggregates against their f64 sums); the three GAT
+    kernels at WIDE_GAT on a graph of WIDE_GAT_GRAPH (its f64 references
+    hold the edges' rows of 4,096 columns), against the f64 sums."""
+    from kagnn_tpu_torch.data import arxiv_scale_graph
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kan.bspline import make_grid
+    from kagnn_tpu_torch.kernels import bspline_fused as bfu
+    from kagnn_tpu_torch.kernels import fastkan_layer as fk
+    from kagnn_tpu_torch.kernels import gat_bwd as gbw
+    from kagnn_tpu_torch.kernels import gat_fused as gfu
+    from kagnn_tpu_torch.kernels import gin_fastkan as gfk
+    from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels import rbf_fused as rf
+    from kagnn_tpu_torch.kernels.selfcheck import (gat_dadst_f64, gat_fwd_f64,
+                                                   gat_sender_f64, gin_z_f64)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bf = torch.bfloat16
+    N, nm, D, O, E = g.n_node_pad, g.node_mask, 64, 64, g.n_edge
+
+    def rand(shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def close(name, a, b, kind="bfloat16"):
+        return compare(torch, name, a, b, kind)
+
+    x, dout = rand((N, D)), rand((N, O), 0.1)
+    for k, gs in WIDE_KAN:
+        tag, ng = f"order {k} grid {gs} D={D} O={O}", gs + k + 1
+        knots = make_grid(D, gs, k, device="cuda").t().contiguous().to(bf)
+        wb, ws = rand((D, O), 0.3), rand(((gs + k) * D, O), 0.3)
+        fa, wbytes, ops = (x, knots, wb, ws, k), ng * D * O * 2, 2 * N * ng * D * O
+        err = close(f"bspline_fwd wide {tag}", bfu.kan_linear_fwd(*fa),
+                    bfu.kan_linear_fwd_plain(*fa))
+        timed_wide(torch, rows, "bspline_fwd", tag, err, lambda: bfu.kan_linear_fwd(*fa),
+                   lambda: bfu.kan_linear_fwd_plain(*fa), (N * D + N * O) * 2 + wbytes,
+                   ops, "bfloat16")
+        err = check_bspline_bwd(f"bspline_bwd wide {tag}", *fa[:4], dout, k, close, log=log)
+        timed_wide(torch, rows, "bspline_bwd", tag, err,
+                   lambda: bfu.kan_linear_bwd(*fa[:4], dout, k),
+                   lambda: bfu.kan_linear_bwd_plain(*fa[:4], dout, k),
+                   (2 * N * D + N * O) * 2 + 2 * wbytes, 2 * ops, "bfloat16")
+        ga = (x, g.senders, g.recv_row_ptr, knots, wb, ws, k, 0.0)
+        got = gf.gin_kan_fwd(*ga)
+        z32 = gin_z_f64(x, g.senders, g.recv_row_ptr, 0.0)
+        err = max(close(f"gin_fused wide {tag} out", got[0][nm],
+                        bfu.kan_forward_f32(z32, knots, wb, ws, k, bf)[nm]),
+                  close(f"gin_fused wide {tag} z", got[1], z32.to(bf)))
+        timed_wide(torch, rows, "gin_fused", tag, err, lambda: gf.gin_kan_fwd(*ga),
+                   lambda: gf.gin_kan_fwd_plain(*ga),
+                   (2 * N * D + N * O) * 2 + wbytes + (E + N) * 4, ops + E * D, "bfloat16")
+        del got, z32
+    G, tag = WIDE_G, f"G={WIDE_G} D={D} O={O}"
+    lw = (1.0 + rand((D,), 0.2), rand((D,), 0.1), rand((G * D, O), 0.3), rand((D, O), 0.3),
+          rand((O,), 0.1))
+    fa, wbytes, ops = (x, *lw, -2.0, 2.0), (G + 1) * D * O * 2, 2 * N * (G + 1) * D * O
+    err = close(f"fastkan_fwd wide {tag}", fk.fastkan_layer_fwd(*fa),
+                fk.fastkan_layer_fwd_plain(*fa))
+    timed_wide(torch, rows, "fastkan_fwd", tag, err, lambda: fk.fastkan_layer_fwd(*fa),
+               lambda: fk.fastkan_layer_fwd_plain(*fa), (N * D + N * O) * 2 + wbytes, ops,
+               "bfloat16")
+    err = check_fastkan_bwd(f"fastkan_bwd wide {tag}", x, *lw[:4], dout, close, log=log)
+    ba = (x, *lw[:4], dout, -2.0, 2.0)
+    timed_wide(torch, rows, "fastkan_bwd", tag, err, lambda: fk.fastkan_layer_bwd(*ba),
+               lambda: fk.fastkan_layer_bwd_plain(*ba), (2 * N * D + N * O) * 2 + 2 * wbytes,
+               2 * ops, "bfloat16")
+    ga = (x, g.senders, g.recv_row_ptr, *lw, 0.0, -2.0, 2.0)
+    got, want = gfk.gin_fastkan_fwd(*ga), gin_fastkan_f64(*ga[:-2])
+    err = max(close(f"gin_fastkan wide {tag} out", got[0][nm], want[0][nm]),
+              close(f"gin_fastkan wide {tag} z", got[1], want[1]))
+    timed_wide(torch, rows, "gin_fastkan", tag, err, lambda: gfk.gin_fastkan_fwd(*ga),
+               lambda: gfk.gin_fastkan_fwd_plain(*ga),
+               (2 * N * D + N * O) * 2 + wbytes + (E + N) * 4, ops + E * D, "bfloat16")
+    del got, want
+    x32, d32, w_ = rand((N, D), 1.5, torch.float32), rand((N, O), 1.0, torch.float32), \
+        rand((G * D, O), 0.3)
+    fa, ba = (x32, w_, -2.0, 2.0), (x32, w_, d32, -2.0, 2.0)
+    err = close(f"rbf_fwd wide {tag} f32/bf16", rf.rbf_spline_fwd(*fa),
+                rf.rbf_spline_fwd_plain(*fa), "float32")
+    timed_wide(torch, rows, "rbf_fwd", f"{tag} f32/bf16", err, lambda: rf.rbf_spline_fwd(*fa),
+               lambda: rf.rbf_spline_fwd_plain(*fa), (N * D + N * O) * 4 + G * D * O * 2,
+               2 * N * G * D * O, "float32")
+    (dx, dw), (pdx, pdw) = rf.rbf_spline_bwd(*ba), rf.rbf_spline_bwd_plain(*ba)
+    c, ih = rf.constants(-2.0, 2.0, G, x32.dtype)
+    basis, _ = rf.basis_plain(x32, c, ih, round_exp=False)
+    err = max(close(f"rbf_bwd wide {tag} f32/bf16 dx", dx, pdx, "float32"),
+              dw_walk_check(f"rbf_bwd wide {tag} f32/bf16 dw", basis, d32, dw_tile(N), dw,
+                            pdw, False, log))
+    del basis, dx, dw, pdx, pdw
+    timed_wide(torch, rows, "rbf_bwd", f"{tag} f32/bf16", err,
+               lambda: rf.rbf_spline_bwd(*ba), lambda: rf.rbf_spline_bwd_plain(*ba),
+               (2 * N * D + N * O) * 4 + 2 * G * D * O * 2, 4 * N * G * D * O, "float32")
+    H, C = WIDE_GAT
+    nodes, edges = WIDE_GAT_GRAPH
+    dg = arxiv_scale_graph(n_nodes=nodes, n_edges=edges, seed=1)
+    gg = single_graph(dg["senders"], dg["receivers"], n_node=nodes, edge_pad_multiple=1024,
+                      device="cuda")
+    n, hc, tag = gg.n_node_pad, H * C, f"H={H} C={C}"
+    h, dh_out = rand((n, hc)), rand((n, hc), 0.1)
+    asrc, adst = rand((n, H), 2.0, torch.float32), rand((n, H), 2.0, torch.float32)
+    fa = (h, asrc, adst, gg.senders, gg.recv_row_ptr, gg.n_edge, 0.2)
+    out, alpha = gfu.gat_fwd(*fa)
+    want = gat_fwd_f64(*fa)
+    err = max(close(f"gat_fwd wide {tag} out", out, want[0]),
+              close(f"gat_fwd wide {tag} alpha", alpha, want[1], "float32"))
+    del want
+    narrow = (n * H * 4 * 3 + (gg.n_edge + n) * 4)
+    timed_wide(torch, rows, "gat_fwd", tag, err, lambda: gfu.gat_fwd(*fa),
+               lambda: gfu.gat_fwd_plain(*fa), 2 * n * hc * 2 + narrow, 2 * gg.n_edge * hc,
+               "float32")
+    S = (dh_out * out).float().reshape(n, H, C).sum(2).contiguous()
+    da = (h, asrc, adst, alpha, S, dh_out, gg.senders, gg.recv_row_ptr, gg.n_edge, 0.2)
+    err = close(f"gat_dadst wide {tag}", gbw.gat_dadst(*da), gat_dadst_f64(*da), "float32")
+    timed_wide(torch, rows, "gat_dadst", tag, err, lambda: gbw.gat_dadst(*da),
+               lambda: gbw.gat_dadst_plain(*da), 2 * n * hc * 2 + narrow + n * H * 4,
+               4 * gg.n_edge * hc, "float32")
+    sa = (*da[:6], gg.receivers_by_sender, gg.send_row_ptr, gg.n_edge, 0.2)
+    got, want = gbw.gat_sender(*sa), gat_sender_f64(*sa)
+    err = max(close(f"gat_sender wide {tag} dh", got[0], want[0], "float32"),
+              close(f"gat_sender wide {tag} dasrc", got[1], want[1], "float32"))
+    del got, want
+    timed_wide(torch, rows, "gat_sender", tag, err, lambda: gbw.gat_sender(*sa),
+               lambda: gbw.gat_sender_plain(*sa), 2 * n * hc * 2 + n * hc * 4 + narrow,
+               4 * gg.n_edge * hc, "float32")
+    log("widened kernels: all within their bars")
+
+
+def phase_new_modules(torch, g):
+    """One small drive through the modules of the last slice, each against
+    the same module on the CPU (its kernels' plain versions) at the f32
+    bars (values rtol 1e-4, gradients 1e-3 of their scale), bf16
+    parameters' gradients at 4 bf16 ulps (one row tile: no walk), each
+    forward and backward counted from 0: AttentionWithFastKANTransform
+    (unfused FastKANLayers: no kernel), the ten reference-named aliases
+    (fused), a KANLinear and a FastKANLayer with param_dtype bfloat16 on an
+    f32 input (the fused kernels' mixed pair); then `run_model` and
+    `time_model` at two epochs each (the Cora stand-in; the arxiv-sized
+    synthetic graph). Returns the launches."""
+    import copy
+
+    from kagnn_tpu_torch import nn as tnn
+    from kagnn_tpu_torch.experiments import run_model, time_model
+    from kagnn_tpu_torch.graphs import single_graph
+    from kagnn_tpu_torch.kan import AttentionWithFastKANTransform, FastKANLayer, KANLinear
+
+    rng = np.random.default_rng(16)
+    snd, rcv = rng.integers(0, 120, 600), rng.integers(0, 120, 600)
+    feats = rng.normal(size=(120, 16)).astype(np.float32)
+    gc = single_graph(snd, rcv, nodes=feats, device="cuda")
+    gh = single_graph(snd, rcv, nodes=feats, device="cpu")
+    ea = rng.normal(size=(gc.n_edge_pad, 16)).astype(np.float32)
+
+    def against_cpu(name, module, inputs, grad_bar=1e-3):
+        """module on the card against its CPU copy on the same inputs."""
+        cpu = copy.deepcopy(module).cpu()
+        res = {}
+
+        def run(mod, device):
+            args = [a.to(device) if torch.is_tensor(a) else a for a in inputs(device)]
+            for a in args:
+                if torch.is_tensor(a) and a.is_floating_point():
+                    a.requires_grad_(True)
+            out = mod(*args)
+            out.float().sum().backward()
+            return out, [a.grad for a in args if torch.is_tensor(a) and a.grad is not None], \
+                [p.grad for p in mod.parameters()]
+
+        launches = launches_of(torch, name, lambda: res.update(card=run(module, "cuda")))
+        out, gin, gp = res["card"]
+        wout, wgin, wgp = run(cpu, "cpu")
+        scale_close(f"{name} out", out.detach().cpu().float().numpy(),
+                    wout.detach().float().numpy(), 1e-4, 1e-5)
+        for i, (a, b) in enumerate(zip(gin + gp, wgin + wgp)):
+            c = 4 * BF16_ULP if b.dtype == torch.bfloat16 else grad_bar
+            scale_close(f"{name} grad {i}", a.cpu().float().numpy(), b.float().numpy(), c, 1e-5)
+        return launches
+
+    drives = []
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, L, dm)).astype(np.float32))
+               for L, dm in ((5, 8), (7, 6), (7, 6)))
+    att = AttentionWithFastKANTransform(8, 6, 6, 4, 2, device="cuda")
+    drives.append(against_cpu("AttentionWithFastKANTransform", att, lambda dev: (q, k, v)))
+    graph = lambda dev: (gc if dev == "cuda" else gh)  # noqa: E731
+    kw = dict(fused=True, device="cuda")
+    for name, mod, inputs in (
+            ("KAGCNConv", tnn.KAGCNConv(16, 8, **kw), lambda d: (graph(d), graph(d).nodes)),
+            ("KAGATConv", tnn.KAGATConv(16, 8, 2, **kw), lambda d: (graph(d), graph(d).nodes)),
+            ("GIKANLayer", tnn.GIKANLayer(16, 8, **kw), lambda d: (graph(d), graph(d).nodes)),
+            ("FASTKAGCNConv", tnn.FASTKAGCNConv(16, 8, **kw),
+             lambda d: (graph(d), graph(d).nodes)),
+            ("FASTKAGATConv", tnn.FASTKAGATConv(16, 8, 2, **kw),
+             lambda d: (graph(d), graph(d).nodes)),
+            ("GIFASTKANLayer", tnn.GIFASTKANLayer(16, 8, **kw),
+             lambda d: (graph(d), graph(d).nodes)),
+            ("KAGINEConv", tnn.KAGINEConv(16, 2, **kw),
+             lambda d: (graph(d), graph(d).nodes, torch.from_numpy(ea))),
+            ("make_mlp", tnn.make_mlp(16, 8, 4, 2, device="cuda"), lambda d: (graph(d).nodes,)),
+            ("make_kan", tnn.make_kan(16, 8, 4, 2, 4, 3, **kw), lambda d: (graph(d).nodes,)),
+            ("make_fastkan", tnn.make_fastkan(16, 8, 4, 2, 4, **kw),
+             lambda d: (graph(d).nodes,))):
+        drives.append(against_cpu(f"alias {name}", mod, inputs))
+    x = lambda d: (torch.from_numpy(feats[:100]),)  # noqa: E731 - one row tile
+    drives.append(against_cpu("KANLinear param_dtype bf16 fused", KANLinear(
+        16, 8, grid_size=4, param_dtype=torch.bfloat16, fused=True, device="cuda"), x))
+    drives.append(against_cpu("FastKANLayer param_dtype bf16 fused", FastKANLayer(
+        16, 8, num_grids=4, param_dtype=torch.bfloat16, fused=True, device="cuda"), x))
+    root = tempfile.mkdtemp(prefix="kagnn_scripts_")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res = {}
+            drives.append(launches_of(torch, "run_model, 2 epochs", lambda: res.update(
+                run=run_model.main(["--dataset", "Cora", "--epochs", "2", "--max_splits", "1",
+                                    "--fused", "--bf16", "--data_root", root,
+                                    "--log_dir", os.path.join(root, "logs")]))))
+            drives.append(launches_of(torch, "time_model, 2 epochs", lambda: res.update(
+                time=time_model.main(["--dataset", "ogbn-arxiv", "--data_root", root,
+                                      "--architectures", "kan", "--epochs", "2", "--fused",
+                                      "--bf16", "--out", os.path.join(root, "t.jsonl")]))))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  run_model: test accuracy {res['run']['test_acc_mean']:.4f}; time_model: "
+        f"{res['time'][0]['sec_per_epoch']:.5f} s an epoch on {res['time'][0]['device']}, "
+        f"{res['time'][0]['edges_per_s']:.1f} edges/s")
+    if not (0.0 <= res["run"]["test_acc_mean"] <= 1.0
+            and math.isfinite(res["time"][0]["loss"])):
+        raise AssertionError("run_model or time_model gave no finite result")
+    return drives
+
+
 def drive_path(torch, g, name, model, per_step):
     """2 warm-up + 10 timed bf16 train steps (masked CE, Adam(1e-3)) with
     the launch counters set to 0 before and checked after, then the host
@@ -2743,9 +3062,15 @@ HALO_ENTRY_SHARDS = (0, 2)  # shard 0 and an interior shard of the D=4 plan
 # halo) on the kernel, the GAT softmax and sums plain; the edge partition
 # gcn/kan at two convs: the neighbor sum's kernel both ways each conv; the
 # DP step is G's
-HALO_FLAGSHIP = MAIN_PATHS[("gin", "kan")]
-HALO_SMALL = {"gcn": {"spmm": 2, "bspline_fwd": 2, "bspline_bwd": 2},
-              "gat": {"bspline_fwd": 2, "bspline_bwd": 2}}
+# the halo drives' launches a step a rank: the single-card path's, plus one
+# segment sum for each exchange whose input needs a gradient (its backward
+# sums the returned rows over the plan's CSR of the sent slots): the
+# flagship's convs 1 and 2 (conv 0's input is the features), the one-conv
+# gcn and gat steps' transformed rows, the fusion point's x
+HALO_FLAGSHIP = dict(MAIN_PATHS[("gin", "kan")], spmm=4)
+HALO_SMALL = {"gcn": {"spmm": 3, "bspline_fwd": 2, "bspline_bwd": 2},
+              "gat": {"spmm": 1, "bspline_fwd": 2, "bspline_bwd": 2}}
+HALO_FUSION_POINT = dict(FUSION_POINT, spmm=2)
 EDGE_PATH = {"spmm": 4, "bspline_fwd": 3, "bspline_bwd": 3}
 DP_PATH = GRAPH_PATHS["G"]
 DIST_STEPS = 2  # steps of the small halo, edge and DP drives
@@ -2932,9 +3257,12 @@ def dist_halo_drives(torch, rows):
     fusion = dict(graph={"arxiv_seed": 0}, widths=[NODE_KW["num_features"],
                   NODE_KW["hidden_channels"], NODE_KW["hidden_channels"]],
                   num_grids=NODE_KW["grid_size"], dtype="float32", device="cuda")
+    # the flagship launched a second time from the same weights: with the
+    # exchange's backward summed over the plan's sorted CSR (no float
+    # atomics) the two runs must agree to the bit
     jobs = ([("node", flag), ("node", flag32), ("fusion", fusion)]
             + [("node", small[c]) for c in HALO_SMALL]
-            + [("gloo_probe", {})])
+            + [("node", dict(flag, profile=False)), ("gloo_probe", {})])
     t0 = time.perf_counter()
     res = launch(runs.many_rank, DIST_RANKS, (jobs,), backend="gloo", device="cuda",
                  timeout=900)
@@ -2960,6 +3288,16 @@ def dist_halo_drives(torch, rows):
             f"peak_mem {r['peak_gib']:.3f} GiB, losses {['%.6f' % v for v in r['losses']]}")
     add(rank_launches("halo flagship", ranks, HALO_FLAGSHIP, DIST_WARMUP + DIST_TIMED))
     same_params("halo flagship", ranks)
+    again = [r[-2] for r in res]
+    add(rank_launches("halo flagship again", again, HALO_FLAGSHIP, DIST_WARMUP + DIST_TIMED))
+    for a, b in zip(ranks, again):
+        same = (a["losses"] == b["losses"] and np.array_equal(a["params"], b["params"])
+                and all(np.array_equal(a["grads"][k], b["grads"][k]) for k in a["grads"]))
+        log(f"  rank {a['rank']} launched twice: losses {['%.6f' % v for v in b['losses']]}, "
+            f"ms/step {b['ms']:.3f}; losses 0-{len(a['losses']) - 1}, first-step gradients "
+            f"and final parameters bit-equal: {'ok' if same else 'FAIL'}")
+        if not same:
+            FAILED.append(f"halo flagship rank {a['rank']}: two launches differ")
     log_rank_profile("halo flagship rank 0", r0, r0["ms"])
     single = runs.node_single(flag, "cuda")
     exact = runs.node_single(dict(flag, model=dict(flag["model"], dtype="float32"),
@@ -3016,7 +3354,7 @@ def dist_halo_drives(torch, rows):
     # (c) the fusion point and the small halo steps
     fres = [r[2] for r in res]
     fref = runs.fusion_single(fusion, "cuda")
-    add(rank_launches("halo fusion point", fres, FUSION_POINT, 1))
+    add(rank_launches("halo fusion point", fres, HALO_FUSION_POINT, 1))
     nmf = np.asarray(main_graph_mask(fref["n_node_pad"]))
     stitch = np.concatenate([r["out"] for r in fres])[:fref["n_node_pad"]]
     scale_close("halo fusion point out", stitch[nmf], fref["out"][nmf], 1e-4)
@@ -3190,6 +3528,8 @@ def main() -> int:
     rows = phase_kernels(torch, g)
     log("kernels at the search-space corners against their plain versions:")
     phase_corners(torch, rows)
+    log("kernels past their old limits against their plain versions:")
+    phase_widened(torch, g, rows)
     for conv, arch in MAIN_PATHS:
         phase_small_step(torch, conv, arch)
     for conv, arch, corner in STEP_CORNERS:
@@ -3207,7 +3547,8 @@ def main() -> int:
                    [(f"{c}/{a}", p) for (c, a), p in MAIN_PATHS.items()]
                    + [("fastkan/base-free", FASTKAN_PATH)]}
     drives += [launches, phase_fusion_point(torch, g), phase_ln_free_layer(torch, g),
-               phase_narrow_drive(torch, g)]
+               phase_narrow_drive(torch, g), phase_captured_dropout(torch, g)]
+    drives += phase_new_modules(torch, g)
     for task in GRAPH_PATHS:
         launches, ms, by_kernel = phase_graph_path(torch, task, rows)
         step_ms.update({f"graph {task} {k}": v for k, v in ms.items()})

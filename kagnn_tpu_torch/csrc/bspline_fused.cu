@@ -416,9 +416,12 @@ __global__ void bspline_dx_sum_kernel(const float* __restrict__ vbuf, T* __restr
   sum_parts<T>(vbuf, dx, m, parts);
 }
 
-// dW partials under bf16. grid (D chunks, row tiles t0.. of one window).
-// Shared memory: A_s (kTile x (AC + 8)), the tile's [SiLU(x) | B(x)]
-// rounded to bf16, column g*kDC + j for feature d0 + j; dout_s (kTile x
+// dW partials under bf16. grid (chunks of FC features, row tiles t0.. of
+// one window). FC is kDC where the 128-row basis fits beside a 64-wide
+// output part, else 16 or 8 (large basis counts: grid 24 at order 3 has 28
+// groups, 896 columns at kDC). Shared memory: A_s (kTile x (AP + 8)), the
+// tile's [SiLU(x) | B(x)] rounded to bf16, column g*FC + j for feature
+// d0 + j (AP = NG*FC rounded up to 16, the columns past NG*FC zero); dout_s (kTile x
 // (OPW + 8)), copied with cp.async while the block builds the basis (a
 // block owns one tile, so there is no next tile to double-buffer: the
 // resident blocks of an SM overlap each other's copies and products).
@@ -428,18 +431,21 @@ __global__ void bspline_dx_sum_kernel(const float* __restrict__ vbuf, T* __restr
 // last, against the one basis. Per 64-wide output pass, warp w computes the
 // 16-row m-tiles w, w + 8, .. of A^T @ dout (M = AC, K = kTile rows, N =
 // 64) and writes them rounded to bf16.
-template <int ORDER, int GRID>
+template <int ORDER, int GRID, int FC>
 __global__ void __launch_bounds__(kThreads)
 bspline_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots,
                       const bf16* __restrict__ dout, bf16* __restrict__ partial, int n,
                       int D, int O, int t0, int OPW) {
   using S = Shape<ORDER, GRID>;
-  constexpr int pa = S::AC + 8;
+  constexpr int AC = S::NG * FC, AP = (AC + 15) / 16 * 16, pa = AP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int po = OPW + 8;
   bf16* A_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* dout_s = A_s + (size_t)kTile * pa;
-  const int d0 = blockIdx.x * kDC;
+  const int d0 = blockIdx.x * FC;
+  if constexpr (AP > AC)
+    for (int i = threadIdx.x; i < kTile * (AP - AC); i += kThreads)
+      A_s[(size_t)(i / (AP - AC)) * pa + AC + i % (AP - AC)] = from_f<bf16>(0.f);
   const int rbeg = (t0 + blockIdx.y) * kTile;
   const int rows = min(kTile, n - rbeg);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -454,7 +460,7 @@ bspline_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
   cp_async_commit();
 
   // the basis of the tile (kan_common.cuh, shared with the forward)
-  basis_tile_bf16<ORDER, GRID, kDC>(
+  basis_tile_bf16<ORDER, GRID, FC>(
       [&](int, int row, int d) { return to_f(x[(size_t)row * D + d]); }, A_s, pa, kTile, rbeg,
       rows, d0, D, knots);
   cp_async_wait<0>();
@@ -471,7 +477,7 @@ bspline_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
       __syncthreads();
     }
     for (int o0 = op0; o0 < min(O, op0 + OPW); o0 += 64) {
-      for (int mt = warp; mt < S::AC / 16; mt += kThreads / 32) {
+      for (int mt = warp; mt < AP / 16; mt += kThreads / 32) {
         float acc[8][4];
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
@@ -495,9 +501,9 @@ bspline_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ knots
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int c = mt * 16 + gid + 8 * h;
-          const int d = d0 + c % kDC;
-          if (d >= D) continue;
-          bf16* prow = part + ((size_t)(c / kDC) * D + d) * O;
+          const int d = d0 + c % FC;
+          if (c >= AC || d >= D) continue;
+          bf16* prow = part + ((size_t)(c / FC) * D + d) * O;
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt) {
             const int o = o0 + nt * 8 + tig * 2;
@@ -601,8 +607,10 @@ int launch_dx(const void* x, const void* knots, const void* wb, const void* ws,
 }
 
 // The dW partials of `window` tiles at a time, each window walked into dw
-// (carrying the running sum).
-template <typename T, int ORDER, int GRID>
+// (carrying the running sum) in the weights' type TW: T, or bf16 for an f32
+// x, whose f32 partials the walk rounds to bf16 first, as the JAX kernel's
+// `dw_ref += partial.astype(dw.dtype)` does.
+template <typename T, typename TW, int ORDER, int GRID>
 int launch_dw(const void* x, const void* knots, const void* dout, void* partial, void* dw, int n,
               int D, int O, int window, cudaStream_t stream) {
   using S = Shape<ORDER, GRID>;
@@ -611,16 +619,25 @@ int launch_dw(const void* x, const void* knots, const void* dout, void* partial,
   const T* kt = static_cast<const T*>(knots);
   const T* gt = static_cast<const T*>(dout);
   T* pt = static_cast<T*>(partial);
-  const int chunks = (D + kDC - 1) / kDC;
+  int chunks = (D + kDC - 1) / kDC;
   size_t smem;
   int OPW = round_up(O, 64);  // the widest output part that fits beside the basis
-  int zdim = 1;
+  int zdim = 1, fc = kDC;
   if constexpr (kMma) {
-    auto need = [&](int w) { return sizeof(bf16) * (size_t)kTile * (S::AC + 8 + w + 8); };
-    while (OPW > 64 && need(OPW) > kSmemLimit) OPW -= 64;
-    smem = need(OPW);
+    // the widest feature chunk whose basis fits beside a 64-wide output part
+    auto need = [](int f, int w) {
+      return sizeof(bf16) * (size_t)kTile * (round_up(S::NG * f, 16) + 8 + w + 8);
+    };
+    while (fc > 8 && need(fc, 64) > kSmemLimit) fc /= 2;
+    while (OPW > 64 && need(fc, OPW) > kSmemLimit) OPW -= 64;
+    smem = need(fc, OPW);
     if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    if (int e = set_smem(bspline_dw_mma_kernel<ORDER, GRID>, smem)) return e;
+    chunks = (D + fc - 1) / fc;
+    if (int e = set_smem(fc == kDC ? bspline_dw_mma_kernel<ORDER, GRID, kDC>
+                         : fc == 16 ? bspline_dw_mma_kernel<ORDER, GRID, 16>
+                                    : bspline_dw_mma_kernel<ORDER, GRID, 8>,
+                         smem))
+      return e;
   } else {
     smem = sizeof(float) * ((size_t)kDwRows * S::AC + kDwRows * kOT);
     if (int e = set_smem(bspline_dw_partial_kernel<T, ORDER, GRID>, smem)) return e;
@@ -632,8 +649,10 @@ int launch_dw(const void* x, const void* knots, const void* dout, void* partial,
     const int wt = std::max(0, std::min(window, tiles - t0));
     if (wt > 0) {
       if constexpr (kMma) {
-        bspline_dw_mma_kernel<ORDER, GRID><<<dim3(chunks, wt), kThreads, smem, stream>>>(
-            xt, kt, gt, pt, n, D, O, t0, OPW);
+        auto kernel = fc == kDC  ? bspline_dw_mma_kernel<ORDER, GRID, kDC>
+                      : fc == 16 ? bspline_dw_mma_kernel<ORDER, GRID, 16>
+                                 : bspline_dw_mma_kernel<ORDER, GRID, 8>;
+        kernel<<<dim3(chunks, wt), kThreads, smem, stream>>>(xt, kt, gt, pt, n, D, O, t0, OPW);
       } else {
         bspline_dw_partial_kernel<T, ORDER, GRID>
             <<<dim3(chunks, wt, zdim), kThreads, smem, stream>>>(
@@ -641,7 +660,8 @@ int launch_dw(const void* x, const void* knots, const void* dout, void* partial,
       }
       if (int e = (int)cudaGetLastError()) return e;
     }
-    if (int e = kan::walk_tiles<T, T>(pt, static_cast<T*>(dw), wt, m, t0 > 0, stream)) return e;
+    if (int e = kan::walk_tiles<T, TW>(pt, static_cast<TW*>(dw), wt, m, t0 > 0, stream))
+      return e;
   }
   return 0;
 }
@@ -669,12 +689,13 @@ extern "C" int bspline_bwd_dx(const void* x, const void* knots, const void* wb, 
   KAN_DISPATCH(dtype, order, grid, launch_dx, x, knots, wb, ws, dout, dx, vbuf, n, d, o, op, s);
 }
 
-// dw (NG*D, O) = [dWb; dWs] from dout (n, O), summed over row tiles of 128
-// in tile order. partial: scratch of window * NG*D*O elements of the
-// inputs' dtype.
+// dw (NG*D, O) = [dWb; dWs] in wdtype from dout (n, O), summed over row
+// tiles of 128 in tile order. partial: scratch of window * NG*D*O elements
+// of the inputs' dtype. wdtype: the inputs' dtype, or bf16 with an f32 x.
 extern "C" int bspline_bwd_dw(const void* x, const void* knots, const void* dout, void* partial,
                               void* dw, int n, int d, int o, int grid, int order, int dtype,
-                              int window, void* stream) {
+                              int wdtype, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KAN_DISPATCH(dtype, order, grid, launch_dw, x, knots, dout, partial, dw, n, d, o, window, s);
+  KAN_DISPATCH_W(dtype, wdtype, order, grid, launch_dw, x, knots, dout, partial, dw, n, d, o,
+                 window, s);
 }

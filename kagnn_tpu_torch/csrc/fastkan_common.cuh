@@ -3,8 +3,9 @@
 // [SiLU |] RBF basis chunk (f32, or as bf16 terms for the tensor cores), the
 // chunked basis x weight product of a row tile (on the CUDA cores, or on the
 // tensor cores), the whole layer's forward on a row tile, and the dtype
-// dispatch at the number of centers a library is built for (FKAN_G, 2..32:
-// one library per count, built at its first use, kernels/_build.py).
+// dispatch at the number of centers a library is built for (FKAN_G, any
+// count >= 2: one library per count, built at its first use,
+// kernels/_build.py).
 //
 // The layer, as kagnn_tpu/pallas/fastkan_layer.py::_fwd_kernel computes it:
 //   xhat = (x - mean) * rsqrt(var + eps)          (f32 statistics over D)
@@ -18,6 +19,12 @@
 #include "kan_common.cuh"
 #include "mma_common.cuh"
 
+// The number of centers a library of a FastKAN source is built for (-D
+// FKAN_G, kernels/_build.py); the default is the main path's.
+#ifndef FKAN_G
+#define FKAN_G 4
+#endif
+
 namespace fkan {
 
 using kan::from_f;
@@ -28,15 +35,21 @@ using kan::kThreads;
 using kan::sigmoid;
 using kan::to_f;
 
-constexpr int kMaxG = 32;  // centers supported: 2..kMaxG
 constexpr float kLnEps = 1e-5f;
 
 // The RBF centers c_0..c_{G-1}, computed on the host exactly as the JAX
 // kernels build them (c_0 + g * step, in f32 or, for the RBF product of a
-// bf16 x, in bf16), passed by value.
+// bf16 x, in bf16), passed by value: the library's FKAN_G of them.
 struct Centers {
-  float c[kMaxG];
+  float c[FKAN_G];
 };
+
+// The G centers in host memory as kernel parameters.
+inline Centers centers_of(const float* c, int G) {
+  Centers cs{};
+  for (int g = 0; g < G && g < FKAN_G; ++g) cs.c[g] = c[g];
+  return cs;
+}
 
 // Columns of one feature chunk of the basis matrix A = [SiLU(x) |] B_0..B_G-1:
 // column g*DC + j holds feature d0 + j of group g (with BASE, g = 0 is
@@ -361,12 +374,6 @@ template <int G> constexpr size_t forward_smem(int D, bool hold) {
 
 }  // namespace fkan
 
-// The number of centers a library of a FastKAN source is built for (-D
-// FKAN_G, kernels/_build.py); the default is the main path's.
-#ifndef FKAN_G
-#define FKAN_G 4
-#endif
-
 // Calls FN<T, FKAN_G>(args...) for f32/bf16 and returns
 // cudaErrorInvalidValue for another dtype or number of centers.
 #define FASTKAN_DISPATCH(dtype, G_, FN, ...)                                   \
@@ -374,5 +381,20 @@ template <int G> constexpr size_t forward_smem(int D, bool hold) {
     if (G_ != FKAN_G) return (int)cudaErrorInvalidValue;                       \
     if (dtype == kan::kF32) return FN<float, FKAN_G>(__VA_ARGS__);             \
     if (dtype == kan::kBF16) return FN<__nv_bfloat16, FKAN_G>(__VA_ARGS__);    \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)
+
+// FASTKAN_DISPATCH for a backward that also takes the parameters' dtype
+// (their gradients' type): FN<T, TW, FKAN_G> for both f32, both bf16, or an
+// f32 x with bf16 parameters (the JAX kernels' mixed pair).
+#define FASTKAN_DISPATCH_W(dtype, wdtype, G_, FN, ...)                         \
+  do {                                                                         \
+    if (G_ != FKAN_G) return (int)cudaErrorInvalidValue;                       \
+    if (dtype == kan::kF32 && wdtype == kan::kF32)                             \
+      return FN<float, float, FKAN_G>(__VA_ARGS__);                            \
+    if (dtype == kan::kBF16 && wdtype == kan::kBF16)                           \
+      return FN<__nv_bfloat16, __nv_bfloat16, FKAN_G>(__VA_ARGS__);            \
+    if (dtype == kan::kF32 && wdtype == kan::kBF16)                            \
+      return FN<float, __nv_bfloat16, FKAN_G>(__VA_ARGS__);                    \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)

@@ -884,8 +884,8 @@ int launch_stats(const void* x, float* stats, int n, int D, cudaStream_t stream)
 }
 
 // launches 2-5 of the header (dx skipped when null): the sums, dlng/dlnb
-// into grads_ln = [dlng (D) | dlnb (D)], then dx.
-template <typename T, int G>
+// into grads_ln = [dlng (D) | dlnb (D)] in the parameters' type TW, then dx.
+template <typename T, typename TW, int G>
 int launch_dx(const void* x, const void* lng, const void* lnb, const void* w, const void* wb,
               const void* dout, const float* stats, float* mbuf, float* ln_partial,
               float* vbuf, void* dx, void* grads_ln, int n, int D, int O, Centers cs,
@@ -935,13 +935,15 @@ int launch_dx(const void* x, const void* lng, const void* lnb, const void* w, co
       if (int e = (int)cudaGetLastError()) return e;
     }
   }
-  return kan::walk_tiles<float, T>(ln_tiles, static_cast<T*>(grads_ln), tiles, 2 * (size_t)D,
-                                   false, stream);
+  return kan::walk_tiles<float, TW>(ln_tiles, static_cast<TW*>(grads_ln), tiles, 2 * (size_t)D,
+                                    false, stream);
 }
 
 // launches 6-7: the dW partials of `window` tiles at a time, each window
-// walked into grads = [dWb | dW | dbb] (carrying the running sum).
-template <typename T, int G>
+// walked into grads = [dWb | dW | dbb] (carrying the running sum) in the
+// parameters' type TW: T, or bf16 for an f32 x (the f32 partials rounded to
+// bf16 first, as the JAX kernel's `dw_ref += partial.astype(dw.dtype)`).
+template <typename T, typename TW, int G>
 int launch_dw(const void* x, const void* lng, const void* lnb, const float* stats,
               const void* dout, void* w_partial, void* grads, int n, int D, int O, Centers cs,
               float inv_h, int tile, int window, cudaStream_t stream) {
@@ -951,7 +953,7 @@ int launch_dw(const void* x, const void* lng, const void* lnb, const float* stat
   const T* gt = static_cast<const T*>(dout);
   const T* lg = static_cast<const T*>(lng);
   const T* lb = static_cast<const T*>(lnb);
-  T* out = static_cast<T*>(grads);
+  TW* out = static_cast<TW*>(grads);
   T* wp = static_cast<T*>(w_partial);
   const size_t m_w = (size_t)S::NG * D * O + O;  // [dWb; dW] then dbb
   const int tiles = (n + tile - 1) / tile;
@@ -982,15 +984,9 @@ int launch_dw(const void* x, const void* lng, const void* lnb, const float* stat
       }
       if (int e = (int)cudaGetLastError()) return e;
     }
-    if (int e = kan::walk_tiles<T, T>(wp, out, std::max(wt, 0), m_w, t0 > 0, stream)) return e;
+    if (int e = kan::walk_tiles<T, TW>(wp, out, std::max(wt, 0), m_w, t0 > 0, stream)) return e;
   }
   return 0;
-}
-
-Centers centers_of(const float* c, int G) {
-  Centers cs{};
-  for (int g = 0; g < G && g < kMaxG; ++g) cs.c[g] = c[g];
-  return cs;
 }
 
 }  // namespace
@@ -1023,29 +1019,29 @@ extern "C" int fastkan_bwd_stats(const void* x, float* stats, int n, int d, int 
 }
 
 // dx (n, D) (skipped when dx is null) and grads_ln = [dlng (D) | dlnb (D)]
-// in the inputs' dtype from dout (n, O) and stats; dlng/dlnb summed over
-// row tiles of `tile` rows (a multiple of 128). Scratch as fastkan_bwd_plan.
+// in wdtype from dout (n, O) and stats; dlng/dlnb summed over row tiles of
+// `tile` rows (a multiple of 128). Scratch as fastkan_bwd_plan. wdtype: the
+// inputs' dtype, or bf16 with an f32 x.
 extern "C" int fastkan_bwd_dx(const void* x, const void* lng, const void* lnb, const void* w,
                               const void* wb, const void* dout, const float* stats, float* mbuf,
                               float* ln_partial, float* vbuf, void* dx, void* grads_ln, int n,
                               int d, int o, int G, const float* centers, float inv_h,
-                              int dtype, int tile, void* stream) {
+                              int dtype, int wdtype, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Centers cs = centers_of(centers, G);
-  FASTKAN_DISPATCH(dtype, G, launch_dx, x, lng, lnb, w, wb, dout, stats, mbuf, ln_partial, vbuf,
-                   dx, grads_ln, n, d, o, cs, inv_h, tile, s);
+  FASTKAN_DISPATCH_W(dtype, wdtype, G, launch_dx, x, lng, lnb, w, wb, dout, stats, mbuf,
+                     ln_partial, vbuf, dx, grads_ln, n, d, o, cs, inv_h, tile, s);
 }
 
-// grads = [dWb (D*O) | dW (G*D*O) | dbb (O)] in the inputs' dtype from dout
-// (n, O) and stats, summed over row tiles of `tile` rows. w_partial: scratch
-// of window * ((G+1)*D*O + O) in the inputs' dtype (`window` tiles at a
-// time).
+// grads = [dWb (D*O) | dW (G*D*O) | dbb (O)] in wdtype from dout (n, O) and
+// stats, summed over row tiles of `tile` rows. w_partial: scratch of window
+// * ((G+1)*D*O + O) in the inputs' dtype (`window` tiles at a time).
 extern "C" int fastkan_bwd_dw(const void* x, const void* lng, const void* lnb,
                               const float* stats, const void* dout, void* w_partial, void* grads,
                               int n, int d, int o, int G, const float* centers, float inv_h,
-                              int dtype, int tile, int window, void* stream) {
+                              int dtype, int wdtype, int tile, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Centers cs = centers_of(centers, G);
-  FASTKAN_DISPATCH(dtype, G, launch_dw, x, lng, lnb, stats, dout, w_partial, grads, n, d, o, cs,
-                   inv_h, tile, window, s);
+  FASTKAN_DISPATCH_W(dtype, wdtype, G, launch_dw, x, lng, lnb, stats, dout, w_partial, grads, n,
+                     d, o, cs, inv_h, tile, window, s);
 }

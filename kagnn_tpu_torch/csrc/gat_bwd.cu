@@ -135,7 +135,7 @@ gat_dadst_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
                  const float* __restrict__ S, const T* __restrict__ dout,
                  const int* __restrict__ senders, const int* __restrict__ row_ptr,
                  float* __restrict__ dadst, float* __restrict__ partial, int* __restrict__ crow,
-                 int n, int H, int C, int P, int n_edge, float slope, int chunk_blocks) {
+                 int n, int H, int C, int P, int jb, int n_edge, float slope, int chunk_blocks) {
   const int warp = threadIdx.x / 32;
   const size_t HC = (size_t)H * C;
   const bool chunk = (int)blockIdx.x < chunk_blocks;
@@ -163,7 +163,7 @@ gat_dadst_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
     float ad[J], al[J], sr[J], da[J], dv[J][kCols];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      sl[j] = slot_of(j, H, C, P);
+      sl[j] = slot_of(jb + j, H, C, P);
       const size_t rh = (size_t)row * H + sl[j].head;
       ad[j] = adst[rh];
       al[j] = alpha[rh];
@@ -217,7 +217,8 @@ struct SenderPlan {
 // its H of dasrc, rounded up to 16 bytes
 inline int sender_partial_width(int H, int C) { return (H * C + H + 3) / 4 * 4; }
 
-// the layout of H heads of C columns; false past 8 passes
+// the layout of H heads of C columns (any H; at most kMaxP slots a head,
+// so J <= 8); false past them
 inline bool sender_plan(int H, int C, SenderPlan& sp) {
   int P, J;
   if (!plan(H, C, P, J)) return false;
@@ -499,8 +500,10 @@ gat_sender_combine_kernel(const int* __restrict__ row_ptr, const float* __restri
   }
 }
 
+// Launch 1 once a group of J passes (jb its first) of the row's Jt; each
+// group writes its own heads.
 template <typename T, int J, bool VEC>
-int launch_dadst(int P, const void* h, const float* asrc, const float* adst, const float* alpha,
+int launch_dadst(int P, int Jt, const void* h, const float* asrc, const float* adst, const float* alpha,
                  const float* S, const void* dout, const int* senders, const int* row_ptr,
                  float* dadst, float* scratch, int n, int H, int C, int n_edge, float slope,
                  cudaStream_t stream) {
@@ -509,11 +512,13 @@ int launch_dadst(int P, const void* h, const float* asrc, const float* adst, con
   const int blocks = chunk_blocks + (n + kWarps - 1) / kWarps;
   float* partial = scratch;
   int* crow = reinterpret_cast<int*>(scratch + 2 * (size_t)chunks * H);
-  if (blocks > 0)
-    gat_dadst_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(h), asrc, adst, alpha, S, static_cast<const T*>(dout), senders,
-        row_ptr, dadst, partial, crow, n, H, C, P, n_edge, slope, chunk_blocks);
-  if (int e = (int)cudaGetLastError()) return e;
+  for (int jb = 0; jb < Jt; jb += J) {
+    if (blocks > 0)
+      gat_dadst_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(h), asrc, adst, alpha, S, static_cast<const T*>(dout), senders,
+          row_ptr, dadst, partial, crow, n, H, C, P, jb, n_edge, slope, chunk_blocks);
+    if (int e = (int)cudaGetLastError()) return e;
+  }
   if (chunk_blocks > 0)
     gat_dadst_combine_kernel<<<chunk_blocks, kWarps * 32, 0, stream>>>(row_ptr, partial, crow,
                                                                       dadst, H, n_edge);
@@ -549,7 +554,7 @@ int launch_sender(const SenderPlan& sp, const void* h, const float* asrc, const 
 // dadst (n, H) f32 over the receiver CSR (senders in receiver-sorted order).
 // h and dout (n, H*C) of one dtype; asrc, adst, alpha, S (n, H) f32.
 // scratch: f32 device memory of ceil(n_edge / 64) * (2*H + 1) values. Any
-// C >= 1 with H * P <= 256 slots (gat_common.cuh).
+// H >= 1 and 1 <= C <= 2,048 (gat_common.cuh).
 extern "C" int gat_dadst(const void* h, const float* asrc, const float* adst, const float* alpha,
                          const float* S, const void* dout, const int* senders,
                          const int* row_ptr, float* dadst, float* scratch, int n, int H, int C,

@@ -12,7 +12,11 @@
 // (J = ceil(H*P / 32), 1, 2, 4 or 8): slot v = j*32 + lane holds pack v % P
 // of head v / P, so each lane computes the logit, weight and softmax state
 // of its slots' own heads, as do the other slots of those heads, and the
-// forward needs no traffic between lanes. A per-head dot product is a
+// forward needs no traffic between lanes. A row of more than kMaxPasses
+// passes is walked in groups of kMaxPasses (the host launches each row
+// kernel once a group, `jb` its first pass): a group holds whole heads,
+// since P <= 256 (C <= 2,048 a head), so each group's heads are
+// independent of the others'. A per-head dot product is a
 // butterfly over the head's P slots: an aligned group of P lanes when
 // P <= 32, else all 32 lanes and the P / 32 passes of the head. Slots past
 // a head's L packs or past the H heads hold no columns (their values are
@@ -34,6 +38,8 @@ using kan::to_f;
 constexpr int kWarps = 8;       // rows (one warp each) per block
 constexpr int kCols = 8;        // columns per slot
 constexpr float kClamp = 80.f;  // the JAX backward's clamp of the exp argument
+constexpr int kMaxPasses = 8;   // passes a row kernel holds in registers at once
+constexpr int kMaxP = 256;      // slots a head: C up to 2,048
 // edges a chunk of a CSR's piece schedule (kan_common.cuh): a row of more
 // valid edges is split into pieces that chunk warps walk in parallel
 constexpr int kPiece = 64;
@@ -170,7 +176,9 @@ __device__ __forceinline__ void row_edges(const int* __restrict__ row_ptr, int r
 using kan::row_of_edge;
 
 // slots a head and passes a row for heads of C columns: P = the power of
-// two >= ceil(C / 8), J = the power of two >= H*P / 32; false past 8 passes
+// two >= ceil(C / 8), J = the power of two >= H*P / 32 (any number of
+// heads: past kMaxPasses the row is walked in groups); false past kMaxP
+// slots a head
 inline bool plan(int H, int C, int& P, int& J) {
   const int L = (C + kCols - 1) / kCols;
   for (P = 1; P < L; P *= 2) {
@@ -178,13 +186,14 @@ inline bool plan(int H, int C, int& P, int& J) {
   const int need = (H * P + 31) / 32;
   for (J = 1; J < need; J *= 2) {
   }
-  return H >= 1 && C >= 1 && J <= 8;
+  return H >= 1 && C >= 1 && P <= kMaxP;
 }
 
 }  // namespace gat
 
-// Calls FN<T, J, VEC>(args...) for the dtype (f32 or bf16), the passes a row
-// J in {1, 2, 4, 8} and VEC = whether C is a multiple of 8; returns
+// Calls FN<T, J, VEC>(P, Jt, args...) for the dtype (f32 or bf16), the
+// passes a row group J = min(Jt, kMaxPasses) in {1, 2, 4, 8} (Jt the row's
+// passes) and VEC = whether C is a multiple of 8; returns
 // cudaErrorInvalidValue otherwise.
 #define GAT_DISPATCH_J(T, J_, VEC_, FN, ...)                                   \
   switch (J_) {                                                                \
@@ -200,9 +209,10 @@ inline bool plan(int H, int C, int& P, int& J) {
     int P_, J_;                                                                \
     if (!gat::plan(H_, C_, P_, J_)) return (int)cudaErrorInvalidValue;         \
     const bool VEC_ = C_ % gat::kCols == 0;                                    \
-    if (dtype == kan::kF32) { GAT_DISPATCH_J(float, J_, VEC_, FN, P_, __VA_ARGS__) } \
+    const int JG_ = J_ < gat::kMaxPasses ? J_ : gat::kMaxPasses;               \
+    if (dtype == kan::kF32) { GAT_DISPATCH_J(float, JG_, VEC_, FN, P_, J_, __VA_ARGS__) } \
     if (dtype == kan::kBF16) {                                                 \
-      GAT_DISPATCH_J(__nv_bfloat16, J_, VEC_, FN, P_, __VA_ARGS__)             \
+      GAT_DISPATCH_J(__nv_bfloat16, JG_, VEC_, FN, P_, J_, __VA_ARGS__)        \
     }                                                                          \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)

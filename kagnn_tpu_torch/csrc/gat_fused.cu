@@ -129,15 +129,16 @@ __device__ __forceinline__ void weighted_sum(const T* __restrict__ h, const floa
   }
 }
 
-// slot j's place, adst_r and self-loop logit of row `row`
+// slot j's place (pass jb + j of the row), adst_r and self-loop logit of
+// row `row`
 template <int J>
 __device__ __forceinline__ void row_slots(const float* __restrict__ asrc,
                                           const float* __restrict__ adst, int row, int H, int C,
-                                          int P, float slope, Slot (&sl)[J], float (&ad)[J],
-                                          float (&self)[J]) {
+                                          int P, int jb, float slope, Slot (&sl)[J],
+                                          float (&ad)[J], float (&self)[J]) {
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    sl[j] = slot_of(j, H, C, P);
+    sl[j] = slot_of(jb + j, H, C, P);
     ad[j] = adst[(size_t)row * H + sl[j].head];
     self[j] = leaky(asrc[(size_t)row * H + sl[j].head] + ad[j], slope);
   }
@@ -206,7 +207,7 @@ __global__ void __launch_bounds__(kWarps * 32, kRowBlocks<J>)
 gat_fwd_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
                const float* __restrict__ adst, const int* __restrict__ senders,
                const int* __restrict__ row_ptr, T* __restrict__ out, float* __restrict__ alpha,
-               Scratch sc, int n, int H, int C, int P, int n_edge, float slope,
+               Scratch sc, int n, int H, int C, int P, int jb, int n_edge, float slope,
                int chunk_blocks) {
   const int warp = threadIdx.x / 32;
   const size_t HC = (size_t)H * C;
@@ -223,7 +224,7 @@ gat_fwd_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
       if (!kan::chunk_piece<kPiece>(slot, cs, ce, first, last, n_edge, row_ptr, p)) continue;
       int e0, e1;
       kan::clipped_row(row_ptr, p.row, n_edge, e0, e1);
-      row_slots<J>(asrc, adst, p.row, H, C, P, slope, sl, ad, self);
+      row_slots<J>(asrc, adst, p.row, H, C, P, jb, slope, sl, ad, self);
       heavy_shift<J>(sc.pmax, e0, e1, H, slope, sl, ad, self, m);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
@@ -246,7 +247,7 @@ gat_fwd_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
   int e0, e1;
   row_edges(row_ptr, row, n_edge, e0, e1);
   if (e1 - e0 > kPiece) return;  // a heavy row: launch 3 writes it
-  row_slots<J>(asrc, adst, row, H, C, P, slope, sl, ad, self);
+  row_slots<J>(asrc, adst, row, H, C, P, jb, slope, sl, ad, self);
 
   // pass 1: the shift
   asrc_max<J>(asrc, senders, e0, e1, H, sl, m);
@@ -284,7 +285,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 gat_fwd_combine_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
                        const float* __restrict__ adst, const int* __restrict__ row_ptr,
                        T* __restrict__ out, float* __restrict__ alpha, Scratch sc, int H, int C,
-                       int P, int n_edge, float slope) {
+                       int P, int jb, int n_edge, float slope) {
   const int ch = blockIdx.x * kWarps + threadIdx.x / 32;
   int cs, ce, e0, e1;
   if (!kan::chunk_edges<kPiece>(ch, n_edge, cs, ce)) return;
@@ -293,7 +294,7 @@ gat_fwd_combine_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
   const size_t HC = (size_t)H * C;
   Slot sl[J];
   float ad[J], self[J], m[J], den[J], acc[J][kCols];
-  row_slots<J>(asrc, adst, row, H, C, P, slope, sl, ad, self);
+  row_slots<J>(asrc, adst, row, H, C, P, jb, slope, sl, ad, self);
   heavy_shift<J>(sc.pmax, e0, e1, H, slope, sl, ad, self, m);
 #pragma unroll
   for (int j = 0; j < J; ++j) {
@@ -340,8 +341,9 @@ gat_fwd_combine_kernel(const T* __restrict__ h, const float* __restrict__ asrc,
   }
 }
 
+// The row kernels once a group of J passes (jb its first) of the row's Jt.
 template <typename T, int J, bool VEC>
-int launch(int P, const void* h, const float* asrc, const float* adst, const int* senders,
+int launch(int P, int Jt, const void* h, const float* asrc, const float* adst, const int* senders,
            const int* row_ptr, void* out, float* alpha, float* scratch, int n, int H, int C,
            int n_edge, float slope, cudaStream_t stream) {
   const int chunks = (n_edge + kPiece - 1) / kPiece;
@@ -354,14 +356,18 @@ int launch(int P, const void* h, const float* asrc, const float* adst, const int
     gat_fwd_max_kernel<<<chunk_blocks, kWarps * 32, 0, stream>>>(asrc, senders, row_ptr, sc, n,
                                                                 H, n_edge);
   if (int e = (int)cudaGetLastError()) return e;
-  if (blocks > 0)
-    gat_fwd_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
-        ht, asrc, adst, senders, row_ptr, o, alpha, sc, n, H, C, P, n_edge, slope, chunk_blocks);
-  if (int e = (int)cudaGetLastError()) return e;
-  if (chunk_blocks > 0)
-    gat_fwd_combine_kernel<T, J, VEC><<<chunk_blocks, kWarps * 32, 0, stream>>>(
-        ht, asrc, adst, row_ptr, o, alpha, sc, H, C, P, n_edge, slope);
-  return (int)cudaGetLastError();
+  for (int jb = 0; jb < Jt; jb += J) {
+    if (blocks > 0)
+      gat_fwd_kernel<T, J, VEC><<<blocks, kWarps * 32, 0, stream>>>(
+          ht, asrc, adst, senders, row_ptr, o, alpha, sc, n, H, C, P, jb, n_edge, slope,
+          chunk_blocks);
+    if (int e = (int)cudaGetLastError()) return e;
+    if (chunk_blocks > 0)
+      gat_fwd_combine_kernel<T, J, VEC><<<chunk_blocks, kWarps * 32, 0, stream>>>(
+          ht, asrc, adst, row_ptr, o, alpha, sc, H, C, P, jb, n_edge, slope);
+    if (int e = (int)cudaGetLastError()) return e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -370,8 +376,8 @@ int launch(int P, const void* h, const float* asrc, const float* adst, const int
 // adst (n, H) f32 over the receiver CSR (row_ptr of n+1 entries, senders in
 // receiver-sorted order; edges at or past n_edge are padding, the tail of
 // the edges). scratch: f32 device memory of 2 * ceil(n_edge / 64) *
-// (H*C + 2*H + 1) values. Any C >= 1 with H * P <= 256 slots
-// (gat_common.cuh); h 16-byte aligned when C is a multiple of 8.
+// (H*C + 2*H + 1) values. Any H >= 1 and 1 <= C <= 2,048 (gat_common.cuh);
+// h 16-byte aligned when C is a multiple of 8.
 extern "C" int gat_fwd(const void* h, const float* asrc, const float* adst, const int* senders,
                        const int* row_ptr, void* out, float* alpha, float* scratch, int n, int H,
                        int C, int n_edge, float slope, int dtype, void* stream) {

@@ -145,8 +145,7 @@ extern "C" int gin_fastkan_fwd(const void* x, const void* tab, const int* sender
                                int G, const float* centers, float inv_h, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Centers cs{};
-  for (int g = 0; g < G && g < kMaxG; ++g) cs.c[g] = centers[g];
+  const Centers cs = fkan::centers_of(centers, G);
   const void* t = tab != nullptr ? tab : x;
   FASTKAN_DISPATCH(dtype, G, launch, x, t, senders, row_ptr, lng, lnb, w, wb, bb, out, z, z32,
                    partial, first_row, n, d, o, eps, max_edges, cs, inv_h, s);

@@ -621,3 +621,19 @@ __device__ __forceinline__ void kan_forward_tile(Load load, float* A_s, int row0
       return FN<__nv_bfloat16, KAN_ORDER, KAN_GRID>(__VA_ARGS__);              \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)
+
+// KAN_DISPATCH for a backward that also takes the weights' dtype (their
+// gradients' type): FN<T, TW, KAN_ORDER, KAN_GRID> for x and weights both
+// f32 or both bf16, or an f32 x with bf16 weights (the JAX kernels' mixed
+// pair of a layer whose parameters are bf16 and whose input is f32).
+#define KAN_DISPATCH_W(dtype, wdtype, order, grid, FN, ...)                    \
+  do {                                                                         \
+    if (order != KAN_ORDER || grid != KAN_GRID) return (int)cudaErrorInvalidValue; \
+    if (dtype == kan::kF32 && wdtype == kan::kF32)                             \
+      return FN<float, float, KAN_ORDER, KAN_GRID>(__VA_ARGS__);               \
+    if (dtype == kan::kBF16 && wdtype == kan::kBF16)                           \
+      return FN<__nv_bfloat16, __nv_bfloat16, KAN_ORDER, KAN_GRID>(__VA_ARGS__); \
+    if (dtype == kan::kF32 && wdtype == kan::kBF16)                            \
+      return FN<float, __nv_bfloat16, KAN_ORDER, KAN_GRID>(__VA_ARGS__);       \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)

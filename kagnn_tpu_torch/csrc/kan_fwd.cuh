@@ -92,7 +92,8 @@ __device__ __forceinline__ void kan_fwd_mma_body(const TX* __restrict__ x,
   // chunk c of tile t's x rows into buffer b
   auto stage_x = [&](int t, int c, int b) {
     stage_rows(x_s + (size_t)b * R * xp, xp, R, min(FC, D - c * FC), FC,
-               D % (16 / (int)sizeof(TX)) == 0, [&](int r) -> const TX* {
+               D % (16 / (int)sizeof(TX)) == 0 && FC % (16 / (int)sizeof(TX)) == 0,
+               [&](int r) -> const TX* {
                  const int row = t * R + r;
                  return row < n ? x + (size_t)row * D + c * FC : nullptr;
                });

@@ -169,11 +169,16 @@ inline int fwd_pairs(int op) {
 }
 
 // The chunk of a tensor-core forward at NG groups a feature: FC features
-// (32, 16 or 8: the widest whose NG*FC basis columns stay within KMAX, 8 at
-// least) and KC = NG*FC columns rounded up to the mma depth of 16 (the
-// columns past NG*FC stay zero).
+// (32, 16 or 8: the widest whose NG*FC basis columns stay within KMAX; 8 up
+// to 33 groups, past them 4 and, past 66, 2, so that a chunk's basis terms
+// fit in a block) and KC = NG*FC columns rounded up to the mma depth of 16
+// (the columns past NG*FC stay zero).
 template <int NG, int KMAX> struct FwdChunk {
-  static constexpr int FC = NG * 32 <= KMAX ? 32 : (NG * 16 <= KMAX ? 16 : 8);
+  static constexpr int FC = NG * 32 <= KMAX   ? 32
+                            : NG * 16 <= KMAX ? 16
+                            : NG <= 33        ? 8
+                            : NG <= 66        ? 4
+                                              : 2;
   static constexpr int KC = (NG * FC + 15) / 16 * 16;
 };
 

@@ -91,6 +91,7 @@ namespace {
 
 using fkan::basis_chunk;
 using fkan::Centers;
+using fkan::centers_of;
 using fkan::rbf;
 using kan::bf16;
 using kan::cp_async_commit;
@@ -871,12 +872,6 @@ int launch_bwd(const void* x, const void* w, const void* dout, void* dx, float* 
   }
   return kan::walk_tiles<float, TW>(partial, static_cast<TW*>(dw), tiles, (size_t)G * D * O,
                                     false, stream);
-}
-
-Centers centers_of(const float* c, int G) {
-  Centers cs{};
-  for (int g = 0; g < G && g < fkan::kMaxG; ++g) cs.c[g] = c[g];
-  return cs;
 }
 
 }  // namespace

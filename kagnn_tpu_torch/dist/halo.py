@@ -307,9 +307,22 @@ def shard_graph(plan: HaloPlan, d: int, nodes=None, y=None, device="cuda",
         graph_row_ptr=t(np.array([0, B], np.int32)))
 
 
+def send_csr(send_idx: np.ndarray, send_mask: np.ndarray, block: int):
+    """(row_ptr (block+1,) int32, order int32) of one rank's sent slots: the
+    slots p*H + j whose send_mask holds, sorted by their local row
+    send_idx[p, j] (stable: a row's slots ascending), and the row pointer
+    over the block's rows. HaloExchange's backward sums the returned
+    cotangents over it."""
+    idx, keep = send_idx.reshape(-1), send_mask.reshape(-1)
+    slots = np.flatnonzero(keep)
+    order = slots[np.argsort(idx[slots], kind="stable")].astype(np.int32)
+    return _row_ptr(idx[order], block), order
+
+
 def _halo_state(plan: HaloPlan, d: int, group, device) -> segment.HaloState:
     """Rank d's HaloState on `device`: its plan slices, with the row pointers
-    of the internal and halo edge lists over their valid prefixes."""
+    of the internal and halo edge lists over their valid prefixes and the
+    CSR of its sent slots (`send_csr`)."""
     def t(a, dtype=None):
         out = torch.from_numpy(np.ascontiguousarray(a)).to(device)
         return out if dtype is None else out.to(dtype)
@@ -321,10 +334,12 @@ def _halo_state(plan: HaloPlan, d: int, group, device) -> segment.HaloState:
         for name, r, m in (("int_row_ptr", plan.r_int, plan.int_mask),
                            ("halo_row_ptr", plan.r_halo, plan.halo_mask)):
             kw[name] = t(_row_ptr(r[d][:int(m[d].sum())], plan.block))
+    row_ptr, order = send_csr(plan.send_idx[d], plan.send_mask[d], plan.block)
     return segment.HaloState(
         axis=group, n_local=plan.block,
         send_idx=t(plan.send_idx[d], torch.int64), send_mask=t(plan.send_mask[d]),
-        dinv_ext=t(plan.dinv_ext[d]), **kw)
+        dinv_ext=t(plan.dinv_ext[d]), send_row_ptr=t(row_ptr),
+        send_order=t(order), **kw)
 
 
 def _psum_masked_ce(logits: torch.Tensor, labels: torch.Tensor,

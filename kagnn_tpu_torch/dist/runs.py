@@ -44,6 +44,7 @@ import torch
 from kagnn_tpu_torch.data.synthetic import arxiv_scale_graph
 from kagnn_tpu_torch.graphs import single_graph
 from kagnn_tpu_torch.kernels import launch_counters
+from kagnn_tpu_torch.utils.device import resolve_device
 
 DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -341,6 +342,15 @@ def dp_single(spec: dict, device) -> dict:
 
 # --- the exchange and the halo entries alone ---------------------------------
 
+def _rank_device(spec: dict) -> torch.device:
+    """spec["device"], the card (this rank's current one) unless it names
+    the CPU, as every other drive here."""
+    device = resolve_device(spec.get("device"))
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _shard_setup(spec: dict, rank: int, world: int, device):
     """The spec's graph, its plan over the world, and this rank's local graph
     (with its node rows) and HaloState (on the default group)."""
@@ -360,7 +370,7 @@ def exchange_rank(rank: int, world: int, spec: dict) -> dict:
     spec["seed"] + rank: (recv, cot, dx) of this rank."""
     from kagnn_tpu_torch.ops import segment
 
-    device = torch.device(spec.get("device", "cpu"))
+    device = _rank_device(spec)
     plan, _, hs = _shard_setup(spec, rank, world, device)
     x = torch.from_numpy(plan.shard_nodes(spec["x"])[rank]).to(device).requires_grad_(True)
     with segment.halo_mode(hs):
@@ -382,9 +392,7 @@ def entry_rank(rank: int, world: int, spec: dict) -> dict:
     from kagnn_tpu_torch.kernels.gin_fused import gin_kan_fused_halo
     from kagnn_tpu_torch.ops import segment
 
-    device = torch.device(spec.get("device", "cpu"))
-    if device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _rank_device(spec)
     dt = DTYPES[spec.get("dtype", "float32")] or torch.float32
     plan, g_loc, hs = _shard_setup(spec, rank, world, device)
 

@@ -1,2 +1,3 @@
-from kagnn_tpu_torch.kan.layers import (KAN, FastKAN, FastKANLayer,  # noqa: F401
-                                     KANLinear)
+from kagnn_tpu_torch.kan.layers import (KAN,  # noqa: F401
+                                        AttentionWithFastKANTransform,
+                                        FastKAN, FastKANLayer, KANLinear)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 
 from kagnn_tpu_torch.kan import bspline
 from kagnn_tpu_torch.kan.layers import KAN, KANLinear
@@ -29,7 +30,8 @@ def update_kan_linear(layer: KANLinear, x: torch.Tensor,
     """Adapt one KANLinear's (grid, spline_weight) to inputs `x` (rows, in),
     in place; x is read in f32, as the JAX adaptation casts it."""
     new_grid, new_w = bspline.update_grid(
-        x.float(), layer.grid, layer.spline_weight, layer.spline_scaler,
+        x.float(), layer.grid, layer.spline_weight,
+        getattr(layer, "spline_scaler", None),
         grid_size=layer.grid_size, spline_order=layer.spline_order,
         grid_eps=grid_eps, margin=margin)
     layer.grid.copy_(new_grid)
@@ -40,11 +42,15 @@ def update_kan_linear(layer: KANLinear, x: torch.Tensor,
 def update_kan_stack(stack: KAN, x: torch.Tensor) -> None:
     """Adapt every layer of a `KAN` stack in turn, each against the output
     of the layers before it (evaluated in f32 by the plain forward, as the
-    JAX function evaluates a fresh unfused KANLinear)."""
+    JAX function evaluates a fresh unfused KANLinear), with the stack's
+    `grid_eps` (`kagnn_tpu/kan/adapt.py:56-62`). That fresh layer takes the
+    default SiLU whatever the stack's base_activation, and so does this
+    evaluation."""
     x = x.float()
     for layer in stack.layers:
-        update_kan_linear(layer, x)
-        with _set_attrs([layer], fused=False, compute_dtype=None):
+        update_kan_linear(layer, x, grid_eps=stack.grid_eps)
+        with _set_attrs([layer], fused=False, compute_dtype=None,
+                        base_activation=F.silu):
             x = layer(x)
 
 

@@ -14,6 +14,27 @@ def dtype_code(t: torch.Tensor) -> int:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") from None
 
 
+def weight_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
+    """The weights' dtype a layer kernel takes beside x: x's own, or bf16
+    beside an f32 x (the JAX kernels' mixed pair of a layer whose
+    parameters are bf16 and whose input is f32: f32 products of the bf16
+    weights, the output in x's dtype, each weight gradient in the weights'
+    dtype, its tiles' f32 partials rounded to bf16 as they are walked)."""
+    if w.dtype == x.dtype or (x.dtype == torch.float32
+                              and w.dtype == torch.bfloat16):
+        return w.dtype
+    raise TypeError(f"the layer kernels take weights in x's dtype or bf16 "
+                    f"weights beside an f32 x; got x {x.dtype}, weights "
+                    f"{w.dtype}")
+
+
+def widened(x: torch.Tensor, *ts: torch.Tensor):
+    """ts in x's dtype: the mixed pair's bf16 weights widened to f32 for
+    the kernels' f32 products (exact: the JAX kernels' `jnp.dot(f32, bf16)`
+    promotes the weights the same way)."""
+    return tuple(t if t.dtype == x.dtype else t.to(x.dtype) for t in ts)
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype=None, shape=None) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of the given dtype and
     shape (None entries of `shape` match any size)."""
@@ -106,7 +127,9 @@ def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
 
 # --- GAT (kernels/gat_fused.py, kernels/gat_bwd.py) -------------------------
 
-GAT_MAX_SLOTS = 256  # csrc/gat_common.cuh: at most 8 passes of 32 slots a row
+# csrc/gat_common.cuh kMaxP: slots of 8 columns a head (C up to 2,048); a
+# row of more than 8 passes of 32 slots is walked in groups of 8
+GAT_MAX_HEAD_SLOTS = 256
 # csrc/gat_common.cuh kPiece: a receiver row of more valid edges is split
 # into pieces of the edges' chunks of GAT_PIECE
 GAT_PIECE = 64
@@ -118,13 +141,13 @@ def gat_chunks(n_edge: int) -> int:
     return -(-int(n_edge) // GAT_PIECE)
 
 
-def gat_slots(heads: int, c: int) -> int:
-    """Slots of 8 columns a GAT row takes (csrc/gat_common.cuh): H times the
-    power of two >= ceil(C / 8)."""
+def gat_head_slots(c: int) -> int:
+    """Slots of 8 columns a GAT head of C columns takes
+    (csrc/gat_common.cuh): the power of two >= ceil(C / 8)."""
     p = 1
     while p * 8 < c:
         p *= 2
-    return heads * p
+    return p
 
 
 def leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -145,20 +168,20 @@ def gat_edges(row_ptr: torch.Tensor, idx: torch.Tensor, n_edge: int):
 
 def check_gat(h: torch.Tensor, asrc: torch.Tensor, adst: torch.Tensor):
     """Shapes and types the GAT kernels take -> (n, H, C): h (N, H*C) f32
-    or bf16 with any C >= 1 and at most GAT_MAX_SLOTS slots a row (4 heads
-    of any C up to 512; H*C up to 2,048 when C is a power-of-two multiple
-    of 8), rows 16-byte aligned when C is a multiple of 8; asrc, adst
-    (N, H) f32."""
+    or bf16 with any number of heads of 1 <= C <= 2,048 columns (at most
+    GAT_MAX_HEAD_SLOTS slots of 8 a head), rows 16-byte aligned when C is a
+    multiple of 8; asrc, adst (N, H) f32."""
     check_cuda("h", h, shape=(None, None))
     n, hc = h.shape
     heads = asrc.shape[1] if asrc.dim() == 2 else 0
     check_cuda("asrc", asrc, torch.float32, (n, heads))
     check_cuda("adst", adst, torch.float32, (n, heads))
     c = hc // max(heads, 1)
-    if heads == 0 or c == 0 or heads * c != hc or gat_slots(heads, c) > GAT_MAX_SLOTS:
-        raise ValueError(f"the GAT kernels take H heads of C >= 1 columns in at "
-                         f"most {GAT_MAX_SLOTS} slots of 8 (H times the power "
-                         f"of two >= C/8); got {hc} columns for {heads} heads")
+    if (heads == 0 or c == 0 or heads * c != hc
+            or gat_head_slots(c) > GAT_MAX_HEAD_SLOTS):
+        raise ValueError(f"the GAT kernels take H heads of 1 <= C <= "
+                         f"{8 * GAT_MAX_HEAD_SLOTS} columns; got {hc} columns "
+                         f"for {heads} heads")
     if c % 8 == 0 and h.data_ptr() % 16:
         raise ValueError("h must be 16-byte aligned")
     return n, heads, c

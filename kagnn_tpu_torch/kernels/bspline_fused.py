@@ -20,9 +20,12 @@ CUDA kernels: `csrc/bspline_fused.cu` (see its header for the bound on the
 H100 and the design; under bf16 the forward's and the backward's products
 run on the tensor cores, in f32 on the CUDA cores, and the backward's dx
 kernel runs on a second stream beside its dW kernels), one library per
-(spline order, grid size), built at its first use: any order 1-4 and grid
-1-16 (`ORDERS`, `GRIDS`), the search spaces of the experiment scripts. On a CPU tensor the wrappers run the plain
-versions below; on a CUDA tensor they launch the kernels or raise.
+(spline order, grid size), built at its first use: any order >= 1 and grid
+>= 1, as the JAX kernels take. The weights are in x's dtype or, beside an
+f32 x, bf16 (`_common.weight_dtype`: the products in f32 on the widened
+weights, the weight gradients walked in bf16). On a CPU tensor the wrappers
+run the plain versions below; on a CUDA tensor they launch the kernels or
+raise.
 """
 from __future__ import annotations
 
@@ -31,12 +34,12 @@ import functools
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, aligned,
-                                             check_cuda, dtype_code,
+from kagnn_tpu_torch.kernels._common import (DTYPE_CODE, SMEM_LIMIT,
+                                             aligned, check_cuda, dtype_code,
                                              stream_of, tiled_gram,
-                                             walk_window)
+                                             walk_window, weight_dtype,
+                                             widened)
 
-ORDERS, GRIDS = range(1, 5), range(1, 17)  # the shapes the kernels take
 D_CHUNK, O_TILE = 32, 64  # csrc/kan_common.cuh kDC, kOT
 MMA_ROWS, X_PITCH = 32, D_CHUNK + 8  # csrc/bspline_fused.cu kMmaRows, kXPitch
 JAX_TILE = 128  # rows per tile of the JAX backward (DEFAULT_TILE_N)
@@ -110,21 +113,23 @@ def kan_linear_bwd_plain(x, knots, wb, ws, dout, k):
 
 def _grid_size(knots: torch.Tensor, k: int) -> int:
     g = knots.shape[0] - 2 * k - 1
-    if k not in ORDERS or g not in GRIDS:
-        raise ValueError(f"the B-spline kernels take spline order 1-4 and "
-                         f"grid size 1-16; got spline order {k}, grid size {g}")
+    if k < 1 or g < 1:
+        raise ValueError(f"the B-spline kernels take spline order >= 1 and "
+                         f"grid size >= 1; got spline order {k}, grid size {g}")
     return g
 
 
 def _check_layer(x, knots, wb, ws, k):
+    """-> (n, D, O, grid, the weights' dtype)."""
     n, D = x.shape
     O = wb.shape[1]
     grid = _grid_size(knots, k)
     check_cuda("x", x, shape=(None, None))
+    wdt = weight_dtype(x, wb)
     for name, t, shape in (("knots", knots, (2 * k + grid + 1, D)),
                            ("wb", wb, (D, O)), ("ws", ws, ((grid + k) * D, O))):
-        check_cuda(name, t, x.dtype, shape)
-    return n, D, O, grid
+        check_cuda(name, t, wdt, shape)
+    return n, D, O, grid, wdt
 
 
 @functools.cache
@@ -145,7 +150,7 @@ def _dx_fn(k: int, grid: int):
 def _dw_fn(k: int, grid: int):
     P, I = _build.P, _build.I
     return _build.bind("bspline_fused", "bspline_bwd_dw",
-                       [P, P, P, P, P, I, I, I, I, I, I, I, P], (k, grid))
+                       [P, P, P, P, P, I, I, I, I, I, I, I, I, P], (k, grid))
 
 
 @functools.cache
@@ -155,14 +160,16 @@ def _side_stream(device) -> torch.cuda.Stream:
 
 
 def kan_linear_fwd(x, knots, wb, ws, k: int) -> torch.Tensor:
-    """x (N, D), knots (K, D), wb (D, O), ws (n_basis*D, O), one dtype ->
-    (N, O). On the card the library routes by dtype: bf16 to the
-    tensor-core kernel (`bspline_fwd_mma_kernel`), f32 to the CUDA-core one
+    """x (N, D), knots (K, D), wb (D, O), ws (n_basis*D, O), the weights
+    in x's dtype or bf16 beside an f32 x -> (N, O) in x's dtype. On the card
+    the library routes by x's dtype: bf16 to the tensor-core kernel
+    (`bspline_fwd_mma_kernel`), f32 to the CUDA-core one
     (`bspline_fwd_kernel`); a shape neither takes raises."""
     if x.device.type == "cpu":
         return kan_linear_fwd_plain(x, knots, wb, ws, k)
     code = dtype_code(x)
-    n, D, O, grid = _check_layer(x, knots, wb, ws, k)
+    n, D, O, grid, _ = _check_layer(x, knots, wb, ws, k)
+    knots, wb, ws = widened(x, knots, wb, ws)
     x, wb, ws = (aligned(t) for t in (x, wb, ws))  # staged with cp.async
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     err = _fwd_fn(k, grid)(x.data_ptr(), knots.data_ptr(), wb.data_ptr(),
@@ -190,14 +197,16 @@ def bwd_smem(width: int, grid: int, k: int, dtype) -> int:
     narrowest staging (csrc/bspline_fused.cu) for an output part of `width`
     (`bwd_parts`): under bf16 the dx kernel's 16-wide piece of the chunk
     weights beside two buffers of its 32-row dout (the part's outputs) and x
-    tiles, and the dW kernel's basis beside a 64-wide part of its dout tile
-    (both kernels take wider pieces where they fit); in f32 the dx kernel's
-    rows of dout and one output tile of the chunk's weights (`DxF32`)."""
+    tiles, and the dW kernel's basis of 8-feature chunks beside a 64-wide
+    part of its dout tile (both kernels take wider pieces where they fit);
+    in f32 the dx kernel's rows of dout and one output tile of the chunk's
+    weights (`DxF32`)."""
     rows, otx, ac = _dx_f32_tiling(grid, k)
     if dtype == torch.bfloat16:
+        dw_cols = -(-(grid + k + 1) * 8 // 16) * 16
         return max(2 * (ac * 24 + 2 * MMA_ROWS * (-(-width // 16) * 16 + 8)
                         + 2 * MMA_ROWS * X_PITCH),
-                   2 * JAX_TILE * (ac + 8 + 64 + 8))
+                   2 * JAX_TILE * (dw_cols + 8 + 64 + 8))
     return 4 * (rows * width + otx * (ac + 1))
 
 
@@ -221,8 +230,8 @@ def bwd_parts(O: int, grid: int, k: int, dtype):
 
 
 def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
-    """-> (dx or None, dwb (D, O), dws (n_basis*D, O)), in the inputs'
-    dtype. dx is skipped when `need_dx` is False. dWb and dWs are summed
+    """-> (dx or None in x's dtype, dwb (D, O), dws (n_basis*D, O) in the
+    weights'). dx is skipped when `need_dx` is False. dWb and dWs are summed
     over the JAX kernel's 128-row tiles in tile order (module docstring of
     csrc/bspline_fused.cu). Any O: the dx kernel takes wide outputs in parts
     (`bwd_parts`)."""
@@ -230,8 +239,9 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
         dx, dwb, dws = kan_linear_bwd_plain(x, knots, wb, ws, dout, k)
         return (dx if need_dx else None), dwb, dws
     code = dtype_code(x)
-    n, D, O, grid = _check_layer(x, knots, wb, ws, k)
+    n, D, O, grid, wdt = _check_layer(x, knots, wb, ws, k)
     check_cuda("dout", dout, x.dtype, (n, O))
+    knots, wb, ws = widened(x, knots, wb, ws)
     x, wb, ws, dout = (aligned(t) for t in (x, wb, ws, dout))
     n_groups = grid + k + 1
     m = n_groups * D * O
@@ -242,7 +252,7 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
     vbuf = (torch.empty((parts, n, D), dtype=torch.float32, device=x.device)
             if need_dx and parts > 1 else None)
     partial = torch.empty((window, m), dtype=x.dtype, device=x.device)
-    dw = torch.empty((n_groups * D, O), dtype=x.dtype, device=x.device)
+    dw = torch.empty((n_groups * D, O), dtype=wdt, device=x.device)
     # dx on a second stream beside the dW partials and their walk: they
     # share only their inputs; the caller's stream waits for both
     main = torch.cuda.current_stream(x.device)
@@ -256,7 +266,7 @@ def kan_linear_bwd(x, knots, wb, ws, dout, k: int, need_dx: bool = True):
         _build.check(err, "bspline_bwd dx")
     err = _dw_fn(k, grid)(x.data_ptr(), knots.data_ptr(), dout.data_ptr(),
                    partial.data_ptr(), dw.data_ptr(), n, D, O, grid, k, code,
-                   window, main.cuda_stream)
+                   DTYPE_CODE[wdt], window, main.cuda_stream)
     if dx is not None:
         main.wait_stream(side)
     _build.check(err, "bspline_bwd")

@@ -19,8 +19,10 @@ CUDA kernels: `csrc/fastkan_layer.cu` (see its header for the bound on the
 H100 and the design: under bf16 the forward's and the backward's products
 run on the tensor cores, each f32 basis value split into bf16 terms, and
 the backward's dx kernels on a second stream beside its dW kernels), one
-library per number of centers, built at its first use: any G from 2 to
-MAX_G, any D, O up to the staged tiles' shared memory. On a CPU tensor the
+library per number of centers, built at its first use: any G >= 2, any D,
+O up to the staged tiles' shared memory. The parameters are in x's dtype
+or, beside an f32 x, bf16 (`_common.weight_dtype`: f32 products on the
+widened parameters, their gradients walked in bf16). On a CPU tensor the
 wrappers run the plain versions below; on a CUDA tensor they launch the
 kernels or raise.
 """
@@ -33,13 +35,13 @@ import numpy as np
 import torch
 
 from kagnn_tpu_torch.kernels import _build
-from kagnn_tpu_torch.kernels._common import (SMEM_LIMIT, aligned,
-                                             check_cuda, dtype_code, dw_tile,
-                                             stream_of, tiled_gram,
-                                             walk_window)
+from kagnn_tpu_torch.kernels._common import (DTYPE_CODE, SMEM_LIMIT,
+                                             aligned, check_cuda, dtype_code,
+                                             dw_tile, stream_of, tiled_gram,
+                                             walk_window, weight_dtype,
+                                             widened)
 
 LN_EPS = 1e-5
-MAX_G = 32  # csrc/fastkan_common.cuh kMaxG; the kernels take 2..MAX_G centers
 
 
 def centers(grid_min: float, grid_max: float, num_grids: int) -> np.ndarray:
@@ -139,19 +141,21 @@ def fastkan_layer_bwd_plain(x, lng, lnb, w, wb, dout, grid_min, grid_max):
 
 
 def check_layer(x, lng, lnb, w, wb, bb=None):
-    """Shapes and types the kernels take -> (n, D, O, G)."""
+    """Shapes and types the kernels take -> (n, D, O, G): the parameters
+    all in x's dtype, or all bf16 beside an f32 x."""
     check_cuda("x", x, shape=(None, None))
     n, D = x.shape
     G = num_grids_of(x, w)
-    if not 2 <= G <= MAX_G:
-        raise ValueError(f"the FastKAN kernels take 2 to {MAX_G} centers, "
+    if G < 2:
+        raise ValueError(f"the FastKAN kernels take 2 or more centers, "
                          f"got {G}")
     O = w.shape[1]
+    wdt = weight_dtype(x, w)
     for name, t, shape in (("lng", lng, (D,)), ("lnb", lnb, (D,)),
                            ("w", w, (G * D, O)), ("wb", wb, (D, O))):
-        check_cuda(name, t, x.dtype, shape)
+        check_cuda(name, t, wdt, shape)
     if bb is not None:
-        check_cuda("bb", bb, x.dtype, (O,))
+        check_cuda("bb", bb, wdt, (O,))
     return n, D, O, G
 
 
@@ -179,9 +183,9 @@ def _bwd_fns(G: int):
                         [P, P, I, I, I, I, P], (G,)),
             _build.bind("fastkan_layer", "fastkan_bwd_dx",
                         [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P, F,
-                         I, I, P], (G,)),
+                         I, I, I, P], (G,)),
             _build.bind("fastkan_layer", "fastkan_bwd_dw",
-                        [P, P, P, P, P, P, P, I, I, I, I, P, F, I, I, I, P],
+                        [P, P, P, P, P, P, P, I, I, I, I, P, F, I, I, I, I, P],
                         (G,)))
 
 
@@ -207,15 +211,17 @@ def _side_stream(device) -> torch.cuda.Stream:
 
 def fastkan_layer_fwd(x, lng, lnb, w, wb, bb, grid_min: float,
                       grid_max: float) -> torch.Tensor:
-    """x (N, D), lng/lnb (D,), w (G*D, O), wb (D, O), bb (O,), one dtype ->
-    (N, O). On the card the library routes by dtype: bf16 to the
-    tensor-core kernel (`fastkan_fwd_mma_kernel`, the f32 basis as two or
-    three bf16 terms), f32 to the CUDA-core one (`fastkan_fwd_kernel`)."""
+    """x (N, D), lng/lnb (D,), w (G*D, O), wb (D, O), bb (O,), the
+    parameters in x's dtype or bf16 beside an f32 x -> (N, O) in x's dtype.
+    On the card the library routes by x's dtype: bf16 to the tensor-core
+    kernel (`fastkan_fwd_mma_kernel`, the f32 basis as two or three bf16
+    terms), f32 to the CUDA-core one (`fastkan_fwd_kernel`)."""
     if x.device.type == "cpu":
         return fastkan_layer_fwd_plain(x, lng, lnb, w, wb, bb, grid_min,
                                        grid_max)
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb, bb)
+    lng, lnb, w, wb, bb = widened(x, lng, lnb, w, wb, bb)
     x, w, wb = (aligned(t) for t in (x, w, wb))  # staged with cp.async
     out = torch.empty((n, O), dtype=x.dtype, device=x.device)
     err = _fwd_fn(G)(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
@@ -233,9 +239,9 @@ fastkan_layer_fwd.launches = 0
 
 def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
                       grid_max: float, need_dx: bool = True):
-    """-> (dx or None, dlng (D,), dlnb (D,), dw (G*D, O), dwb (D, O),
-    dbb (O,)), in the inputs' dtype. dx is skipped when `need_dx` is
-    False."""
+    """-> (dx or None in x's dtype, dlng (D,), dlnb (D,), dw (G*D, O),
+    dwb (D, O), dbb (O,) in the parameters'). dx is skipped when `need_dx`
+    is False."""
     if x.device.type == "cpu":
         dx, *rest = fastkan_layer_bwd_plain(x, lng, lnb, w, wb, dout,
                                             grid_min, grid_max)
@@ -243,6 +249,8 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb)
     check_cuda("dout", dout, x.dtype, (n, O))
+    wdt = w.dtype
+    lng, lnb, w, wb = widened(x, lng, lnb, w, wb)
     x, w, wb, dout = (aligned(t) for t in (x, w, wb, dout))
     _, stats_fn, dx_fn, dw_fn = _bwd_fns(G)
     rows, chunks, parts = _bwd_plan(n, D, O, G, code)
@@ -263,7 +271,7 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
             else None)
     window = walk_window(tiles, m_w, x.element_size())
     w_partial = torch.empty((window, m_w), dtype=x.dtype, device=x.device)
-    grads = torch.empty(m_w + 2 * D, dtype=x.dtype, device=x.device)
+    grads = torch.empty(m_w + 2 * D, dtype=wdt, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
     c, ih = c_centers(grid_min, grid_max, G), inv_h(grid_min, grid_max, G)
     main = torch.cuda.current_stream(x.device)
@@ -279,12 +287,12 @@ def fastkan_layer_bwd(x, lng, lnb, w, wb, dout, grid_min: float,
                 mbuf.data_ptr(), ln_partial.data_ptr(),
                 None if vbuf is None else vbuf.data_ptr(),
                 None if dx is None else dx.data_ptr(),
-                grads[m_w:].data_ptr(), n, D, O, G, c, ih, code, tile,
+                grads[m_w:].data_ptr(), n, D, O, G, c, ih, code, DTYPE_CODE[wdt], tile,
                 side.cuda_stream)
     _build.check(err, "fastkan_bwd dx")
     err = dw_fn(x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
                 stats.data_ptr(), dout.data_ptr(), w_partial.data_ptr(),
-                grads.data_ptr(), n, D, O, G, c, ih, code, tile, window,
+                grads.data_ptr(), n, D, O, G, c, ih, code, DTYPE_CODE[wdt], tile, window,
                 main.cuda_stream)
     main.wait_stream(side)
     _build.check(err, "fastkan_bwd dW")

@@ -40,7 +40,7 @@ import torch
 
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (aligned, check_cuda, dtype_code,
-                                             segment_ids, stream_of)
+                                             segment_ids, stream_of, widened)
 from kagnn_tpu_torch.kernels.fastkan_layer import (c_centers, check_layer,
                                                    fastkan_forward_f32,
                                                    fastkan_layer_bwd, inv_h,
@@ -84,6 +84,7 @@ def gin_fastkan_fwd(x, senders, recv_row_ptr, lng, lnb, w, wb, bb,
                                      wb, bb, eps, grid_min, grid_max, ext=ext)
     code = dtype_code(x)
     n, D, O, G = check_layer(x, lng, lnb, w, wb, bb)
+    lng, lnb, w, wb, bb = widened(x, lng, lnb, w, wb, bb)
     check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
     check_cuda("senders", senders, torch.int32, (None,))
     if ext is not None:

@@ -46,7 +46,7 @@ import torch
 from kagnn_tpu_torch.kernels import _build
 from kagnn_tpu_torch.kernels._common import (aligned, check_cuda,
                                              dtype_code, segment_ids,
-                                             stream_of)
+                                             stream_of, widened)
 from kagnn_tpu_torch.kernels.bspline_fused import (_check_layer,
                                                    kan_forward_f32,
                                                    kan_linear_bwd,
@@ -87,7 +87,8 @@ def gin_kan_fwd(x, senders, recv_row_ptr, knots, wb, ws, k: int, eps: float,
         return gin_kan_fwd_plain(x, senders, recv_row_ptr, knots, wb, ws, k,
                                  eps, ext=ext)
     code = dtype_code(x)
-    n, D, O, grid = _check_layer(x, knots, wb, ws, k)
+    n, D, O, grid, _ = _check_layer(x, knots, wb, ws, k)
+    knots, wb, ws = widened(x, knots, wb, ws)
     check_cuda("recv_row_ptr", recv_row_ptr, torch.int32, (n + 1,))
     check_cuda("senders", senders, torch.int32, (None,))
     if ext is not None:

@@ -42,7 +42,7 @@ from kagnn_tpu_torch.kernels._common import (aligned, check_cuda,
                                              dtype_code, dw_tile, stream_of,
                                              tiled_gram)
 from kagnn_tpu_torch.kernels._common import round_to as _round
-from kagnn_tpu_torch.kernels.fastkan_layer import (MAX_G, centers, g_major,
+from kagnn_tpu_torch.kernels.fastkan_layer import (centers, g_major,
                                                    inv_h, num_grids_of)
 
 
@@ -113,8 +113,8 @@ def check_rbf(x, w):
     dtype_code(x)
     n, D = x.shape
     G = num_grids_of(x, w)
-    if not 2 <= G <= MAX_G:
-        raise ValueError(f"the RBF kernels take 2 to {MAX_G} centers, got {G}")
+    if G < 2:
+        raise ValueError(f"the RBF kernels take 2 or more centers, got {G}")
     check_cuda("w", w, shape=(G * D, None))
     dtype_code(w)
     if D == 0 or w.shape[1] == 0:

@@ -305,14 +305,15 @@ def rbf_chain(n: int = 700, d: int = 16, o: int = 8, num_grids: int = 8) -> floa
 def check_bspline_bwd(name, x, knots, wb, ws, dout, k, close,
                       wrong_must_fail=False, log=print) -> float:
     """kan_linear_bwd against its plain version on the card: dx with
-    close(name, got, want) -> error, and [dWb; dWs] with `close` in f32 or
-    up to DW_CLOSE_TILES tiles, else `dw_walk_check` (its 128-row tiles).
-    Returns the worst error."""
+    close(name, got, want) -> error, and [dWb; dWs] with `close` in f32
+    weights or up to DW_CLOSE_TILES tiles, else `dw_walk_check` (its 128-row
+    tiles; bf16 weights beside an f32 x walk too). Returns the worst
+    error."""
     got = bf.kan_linear_bwd(x, knots, wb, ws, dout, k)
     want = bf.kan_linear_bwd_plain(x, knots, wb, ws, dout, k)
     err = close(f"{name} dx", got[0], want[0])
     dw, pdw = torch.cat(got[1:]), torch.cat(want[1:])
-    if x.dtype != torch.bfloat16 or -(-x.shape[0] // bf.JAX_TILE) <= DW_CLOSE_TILES:
+    if wb.dtype != torch.bfloat16 or -(-x.shape[0] // bf.JAX_TILE) <= DW_CLOSE_TILES:
         return max(err, close(f"{name} dW", dw, pdw))
     return max(err, dw_walk_check(f"{name} dW", bf.dw_operand(x, knots, k), dout,
                                   bf.JAX_TILE, dw, pdw, wrong_must_fail, log))
@@ -330,7 +331,7 @@ def check_fastkan_bwd(name, x, lng, lnb, w, wb, dout, close,
         raise AssertionError(f"{name}: non-finite gradient")
     err = close(f"{name} dx", got[0], want[0])
     tile = dw_tile(x.shape[0])
-    if x.dtype != torch.bfloat16 or -(-x.shape[0] // tile) <= DW_CLOSE_TILES:
+    if w.dtype != torch.bfloat16 or -(-x.shape[0] // tile) <= DW_CLOSE_TILES:
         return max([err] + [close(f"{name} {n}", a, b) for n, a, b in zip(
             ("dlng", "dlnb", "dw", "dwb", "dbb"), got[1:], want[1:])])
     _, terms = fk.fastkan_bwd_terms(x, lng, lnb, w, dout, -2.0, 2.0)

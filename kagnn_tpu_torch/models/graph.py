@@ -63,6 +63,7 @@ class GraphFamily(nn.Module):
         return dense_transform(generator=gen, device=dev), mlp
 
     # dropout from the model's own generator, seeded seed + 1 at first use
+    dropout_generator = NodeClassifier.dropout_generator
     _drop = NodeClassifier._drop
 
 

@@ -86,13 +86,19 @@ class NodeClassifier(nn.Module):
         self.head = layer(dim_head, num_classes, **basis)
         self._dropout_gen = None
 
+    def dropout_generator(self, device) -> torch.Generator:
+        """The generator the dropout masks draw from, on `device`, seeded
+        with seed + 1 when first asked for (make_node_multi_step registers
+        it with its CUDA graph)."""
+        if self._dropout_gen is None:
+            self._dropout_gen = torch.Generator(device=device).manual_seed(
+                self.seed + 1)
+        return self._dropout_gen
+
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.dropout == 0.0:
             return x
-        if self._dropout_gen is None:
-            self._dropout_gen = torch.Generator(device=x.device).manual_seed(
-                self.seed + 1)
-        keep = torch.rand(x.shape, generator=self._dropout_gen,
+        keep = torch.rand(x.shape, generator=self.dropout_generator(x.device),
                           device=x.device) >= self.dropout
         return x * keep.to(x.dtype) / (1.0 - self.dropout)
 

@@ -138,6 +138,11 @@ class HaloState:
     halo_mask: Optional[torch.Tensor] = None  # (Eh,) bool
     int_row_ptr: Optional[torch.Tensor] = None   # (B+1,) int32 CSR of r_int's valid prefix
     halo_row_ptr: Optional[torch.Tensor] = None  # (B+1,) int32 CSR of r_halo's valid prefix
+    # the exchange backward's sum: the sent slots (send_mask on) by their
+    # local row, a CSR over the B rows (row_ptr) of slot indices p*H + j
+    # (order, each row's slots ascending)
+    send_row_ptr: Optional[torch.Tensor] = None  # (B+1,) int32
+    send_order: Optional[torch.Tensor] = None    # (sent slots,) int32
 
 
 @contextlib.contextmanager
@@ -165,33 +170,34 @@ class HaloExchange(torch.autograd.Function):
     """The boundary rows of the local shard x (B, F): send row p*H + j is
     x[send_idx[p, j]] (zero where send_mask is off), one all_to_all_single
     over the group, and recv row p*H + j is peer p's j-th boundary row for
-    this rank. The backward sends the cotangents back the same way and adds
-    them into the sent rows."""
+    this rank. The backward sends the cotangents back the same way and sums
+    them into the sent rows: a row sent to several peers gathers several,
+    summed in slot order by the segment-sum kernel over the plan's CSR of
+    the sent slots (`send_row_ptr`, `send_order`), with no float atomics,
+    so the step repeats bit for bit from run to run (an `index_add_` on the
+    card adds them in a new order each run)."""
 
     @staticmethod
-    def forward(ctx, x, send_idx, send_mask, group):
+    def forward(ctx, x, send_idx, send_mask, send_row_ptr, send_order, group):
         idx, keep = send_idx.reshape(-1), send_mask.reshape(-1, 1)
-        ctx.save_for_backward(idx, keep)
-        ctx.group, ctx.rows = group, x.shape[0]
+        ctx.save_for_backward(send_row_ptr, send_order)
+        ctx.group = group
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         send = torch.where(keep, x.index_select(0, idx), zero)
         return _all_to_all(send, group)
 
     @staticmethod
     def backward(ctx, cot):
-        idx, keep = ctx.saved_tensors
+        row_ptr, order = ctx.saved_tensors
         back = _all_to_all(cot.contiguous(), ctx.group)
-        back = torch.where(keep, back, torch.zeros((), dtype=back.dtype,
-                                                   device=back.device))
-        dx = torch.zeros((ctx.rows,) + tuple(back.shape[1:]), dtype=back.dtype,
-                         device=back.device)
-        return dx.index_add_(0, idx, back), None, None, None
+        return sorted_segment_sum(back, row_ptr, order), None, None, None, None, None
 
 
 def halo_exchange(x: torch.Tensor) -> torch.Tensor:
     """The local shard x (B, F) -> the received boundary rows (D*H, F)."""
     hs = halo_state()
-    return HaloExchange.apply(x.contiguous(), hs.send_idx, hs.send_mask, hs.axis)
+    return HaloExchange.apply(x.contiguous(), hs.send_idx, hs.send_mask,
+                              hs.send_row_ptr, hs.send_order, hs.axis)
 
 
 def halo_extend(x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ is that of `optax.adam(1e-3)`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Iterable, Optional
 
 import torch
@@ -163,11 +164,25 @@ def _state_copy(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-# eager steps on a side stream before the capture: they build and bind the
+# eager steps on a side stream before a capture: they build and bind the
 # kernels, plan their launches and create the optimizer's state, none of
 # which may happen inside a capture; their effect on the weights, the
-# BatchNorm statistics and the optimizer's state is undone before it
+# BatchNorm statistics, the optimizer's state and the dropout generator is
+# undone before it
 WARMUP_STEPS = 1
+
+
+def capture_signature(batch, mask) -> tuple:
+    """What a captured step bakes in: every tensor field's name, shape and
+    dtype, the mask's, and the three host counts that the kernels take as
+    launch arguments (the GAT kernels clip each row at n_edge, for one). A
+    call whose signature differs gets a capture of its own, as `jax.jit`
+    traces anew for a new shape."""
+    fields = tuple((f.name, tuple(v.shape), v.dtype)
+                   for f in dataclasses.fields(batch)
+                   if isinstance(v := getattr(batch, f.name), torch.Tensor))
+    return fields + ((tuple(mask.shape), mask.dtype),
+                     (batch.n_node, batch.n_edge, batch.n_graph))
 
 
 def make_node_multi_step(model, optimizer, n_steps: int):
@@ -175,56 +190,66 @@ def make_node_multi_step(model, optimizer, n_steps: int):
     the JAX `make_node_multi_step` (`lax.scan` over the step). Returns
     `multi(batch, mask) -> losses (n_steps,) f32`.
 
-    On the card the n steps are captured once, at the first call, into one
-    `torch.cuda.CUDAGraph` (after WARMUP_STEPS eager steps on a side
+    On the card the n steps are captured into one `torch.cuda.CUDAGraph`
+    per `capture_signature` (after WARMUP_STEPS eager steps on a side
     stream, as PyTorch's whole-network recipe does, whose effect is
-    undone), and every call replays it and returns a copy of the graph's
-    static loss buffer. On the CPU each call is a loop over
-    `make_node_steps`' train_step. The graph reads the memory of the
-    tensors it was captured with, so on either device every call must pass
-    the very `batch` and `mask` of the first, the model must run no dropout
-    (its generator is not registered with the graph), and on the card the
-    optimizer must keep its state there (`require_capturable`): anything
-    else raises. Nothing falls back to eager steps."""
-    if getattr(model, "dropout", 0.0) > 0.0:
-        raise ValueError("make_node_multi_step captures no dropout: the "
-                         "model's generator is not registered with the graph")
+    undone): the first call of a signature captures, on the batch's and
+    mask's copies that the capture keeps; every later call copies its
+    batch's tensor fields and mask into them and replays. A model with
+    dropout draws its masks from `model.dropout_generator`, which the graph
+    registers, so each replay draws the next masks as eager steps from the
+    same state would. On the CPU each call is a loop over `make_node_steps`'
+    train_step, drawing from the same generator. On the card the optimizer
+    must keep its state there (`require_capturable`), or this raises.
+    Nothing falls back to eager steps."""
     train_step, _ = make_node_steps(model, optimizer)
     device = next(model.parameters()).device
     on_card = device.type == "cuda"
     if on_card:
         require_capturable(optimizer)
-    first = {}
+    captures = {}
+
+    def generators():
+        if getattr(model, "dropout", 0.0) > 0.0:
+            return [model.dropout_generator(device)]
+        return []
 
     def capture(batch, mask):
-        snapshot = _state_snapshot(model, optimizer)
+        gens = generators()
+        static = (batch.map_tensors(torch.clone), mask.clone())
+        snapshot = _state_snapshot(model, optimizer, gens)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
-                train_step(batch, mask)
+                train_step(*static)
         torch.cuda.current_stream(device).wait_stream(side)
-        _state_restore(model, optimizer, snapshot)
+        _state_restore(model, optimizer, gens, snapshot)
         graph = torch.cuda.CUDAGraph()
+        for gen in gens:
+            graph.register_generator_state(gen)
         optimizer.zero_grad(set_to_none=True)
         with torch.cuda.graph(graph):
-            losses = torch.stack([train_step(batch, mask) for _ in range(n_steps)])
-        first.update(graph=graph, losses=losses)
+            losses = torch.stack([train_step(*static) for _ in range(n_steps)])
+        return graph, losses, static
 
     def multi(batch, mask):
-        if not first:
-            first.update(batch=batch, mask=mask)
-            if on_card:
-                capture(batch, mask)
-        elif batch is not first["batch"] or mask is not first["mask"]:
-            raise ValueError("the captured steps read the batch and mask of "
-                             "the first call; pass those same tensors (or "
-                             "make a new multi-step for new ones)")
         if not on_card:
             return torch.stack([train_step(batch, mask) for _ in range(n_steps)])
-        first["graph"].replay()
-        return first["losses"].clone()
+        key = capture_signature(batch, mask)
+        if key not in captures:
+            captures[key] = capture(batch, mask)
+        else:
+            _, _, (sb, sm) = captures[key]
+            with torch.no_grad():
+                for dst, src in zip(sb.tensors(), batch.tensors()):
+                    dst.copy_(src)
+                sm.copy_(mask)
+        graph, losses, _ = captures[key]
+        graph.replay()
+        return losses.clone()
 
+    multi.captures = captures
     return multi
 
 
@@ -238,21 +263,25 @@ def require_capturable(optimizer) -> None:
                          "on the card: torch.optim.Adam(..., capturable=True)")
 
 
-def _state_snapshot(model, optimizer):
-    """Copies of the model's parameters and buffers and of the optimizer's
-    state tensors (per parameter; the keys it holds now)."""
+def _state_snapshot(model, optimizer, gens=()):
+    """Copies of the model's parameters and buffers, of the optimizer's
+    state tensors (per parameter; the keys it holds now) and of the
+    generators' states."""
     with torch.no_grad():
         return ({k: v.clone() for k, v in model.state_dict().items()},
                 {p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
-                 for p, st in optimizer.state.items()})
+                 for p, st in optimizer.state.items()},
+                [g.get_state() for g in gens])
 
 
-def _state_restore(model, optimizer, snapshot):
+def _state_restore(model, optimizer, gens, snapshot):
     """Undo the warm-up in place (the capture reads these very tensors):
-    the model's tensors from the snapshot, the optimizer's state from it or,
-    where the warm-up created it, zeros (Adam's fresh state: step 0 and
-    zero moments)."""
-    weights, opt = snapshot
+    the model's tensors and the generators' states from the snapshot, the
+    optimizer's state from it or, where the warm-up created it, zeros
+    (Adam's fresh state: step 0 and zero moments)."""
+    weights, opt, states = snapshot
+    for g, st in zip(gens, states):
+        g.set_state(st)
     with torch.no_grad():
         for k, v in model.state_dict().items():
             v.copy_(weights[k])

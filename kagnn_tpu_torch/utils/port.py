@@ -44,7 +44,14 @@ layouts), so those arrays pass through unchanged; a linear's kernel is
 `fastkan_from_jax` / `fastkan_to_jax` carry a bare `FastKAN` or
 `FastKANLayer` (params/layers_{i}/... or the layer's own leaves), whose
 layernorm and base leaves may be missing (the layer's flags off), as the JAX
-side's `port_fastkan_layer(use_layernorm, use_base_update)` lays them out.
+side's `port_fastkan_layer(use_layernorm, use_base_update)` lays them out,
+and an `AttentionWithFastKANTransform` (params/linear_{q,k,v,g,o}/... <->
+linear_{q,k,v,g,o}....). A KANLinear without `spline_scaler`
+(enable_standalone_scale_spline off) has no such leaf on either side.
+
+Leaves come in as f32 (a bf16 JAX leaf is widened exactly); loading them
+with `load_state_dict` casts them to each parameter's dtype, so bf16
+parameters (param_dtype) carry bit for bit both ways.
 """
 from __future__ import annotations
 
@@ -68,7 +75,12 @@ _LINEAR_INV = {v: k for k, v in _LINEAR.items()}
 
 
 def _np(v: Any) -> np.ndarray:
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    """A tensor or array as numpy; a bf16 tensor comes out as f32 (exact:
+    numpy has no bf16)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -259,9 +271,11 @@ def fastkan_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     ({"params": {leaves}}) variables -> the port module's state_dict."""
     sd = {}
     for path, v in _leaves(variables["params"]):
-        layer = re.fullmatch(r"layers_(\d+)", path[0])
-        prefix, leaf = ((f"layers.{layer.group(1)}.", path[1:]) if layer
-                        else ("", path))
+        layer = re.fullmatch(r"layers_(\d+)|linear_[a-z]", path[0])
+        prefix, leaf = ("", path)
+        if layer:
+            prefix = (f"layers.{layer.group(1)}." if layer.group(1) else f"{path[0]}.")
+            leaf = path[1:]
         sd[prefix + _FAST[leaf]] = torch.from_numpy(np.array(_np(v), dtype=np.float32))
     return sd
 
@@ -271,8 +285,9 @@ def fastkan_to_jax(state_dict: Mapping[str, Any]) -> dict:
     (numpy)."""
     params: dict = {}
     for key, v in state_dict.items():
-        layer = re.fullmatch(r"layers\.(\d+)\.(.+)", key)
-        d = params.setdefault(f"layers_{layer.group(1)}", {}) if layer else params
+        layer = re.fullmatch(r"(layers\.\d+|linear_[a-z])\.(.+)", key)
+        d = (params.setdefault(layer.group(1).replace("layers.", "layers_"), {})
+             if layer else params)
         *path, name = _FAST_INV[layer.group(2) if layer else key]
         for p in path:
             d = d.setdefault(p, {})

@@ -600,15 +600,17 @@ def test_forwards_route_by_dtype():
 
 
 # (spline order, grid size) of the experiment scripts' search spaces: the smallest and
-# largest orders and grids
-KAN_CORNERS = [(1, 1), (2, 8), (4, 16), (1, 8)]
+# largest orders and grids; then past them, as the JAX kernels take any: order
+# 5 and grid 24 (28 groups a feature: the bf16 dW kernel's basis in 16-feature
+# chunks)
+KAN_CORNERS = [(1, 1), (2, 8), (4, 16), (1, 8), (5, 4), (3, 24)]
 
 
 @pytest.mark.parametrize("corner", KAN_CORNERS, ids=[f"{k}-{g}" for k, g in KAN_CORNERS])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_bspline_kernels_take_the_search_space(dt, corner):
-    """The B-spline forward, backward and gin_fused at spline order 1-4 and
-    grid 1-16 (each a library of its own) against their plain versions, on
+    """The B-spline forward, backward and gin_fused at spline order 1-5 and
+    grid 1-24 (each a library of its own) against their plain versions, on
     a graph with a node of in-degree 301 and N off every tile, with ragged
     widths and two output tiles."""
     k, grid = corner
@@ -644,9 +646,12 @@ def test_bspline_bf16_backward_takes_512_outputs(corner):
 
 # (D, O, centers): 2, 16 and 32 centers (one library each) at ragged widths
 # and at PubMed's 500 features, CiteSeer's 3,703 at 32, and a GAT transform's
-# 512 outputs at 32 (the dx kernels then take the outputs in parts)
+# 512 outputs at 32 (the dx kernels then take the outputs in parts); 48
+# centers, past the experiment scripts' 32 (the forward's chunks of 4
+# features)
 FASTKAN_CORNERS = [(40, 100, 2), (40, 100, 16), (40, 100, 32), (500, 64, 2),
-                   (500, 64, 16), (500, 64, 32), (3703, 64, 32), (64, 512, 32)]
+                   (500, 64, 16), (500, 64, 32), (3703, 64, 32), (64, 512, 32),
+                   (40, 100, 48), (500, 64, 48)]
 
 
 @pytest.mark.parametrize("shape", FASTKAN_CORNERS,
@@ -654,7 +659,7 @@ FASTKAN_CORNERS = [(40, 100, 2), (40, 100, 16), (40, 100, 32), (500, 64, 2),
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_fastkan_kernels_take_the_search_space(dt, shape):
     """The FastKANLayer forward and backward (all six outputs), gin_fastkan
-    and the RBF product (forward, dx, dW) at 2-32 centers and up to 3,703
+    and the RBF product (forward, dx, dW) at 2-48 centers and up to 3,703
     features against their plain versions, on a graph with a node of
     in-degree 301 and N off every tile."""
     D, O, G = shape
@@ -681,8 +686,11 @@ def test_fastkan_kernels_take_the_search_space(dt, shape):
 
 
 # (H, C): the experiment scripts' 4 heads at hidden 2, 37, 96 and 128 (H*C up to
-# 512: two passes of 32 slots), one head of 37, and one head of 512
-GAT_CORNERS = [(4, 2), (4, 37), (4, 96), (4, 128), (1, 37), (1, 512)]
+# 512: two passes of 32 slots), one head of 37, and one head of 512; 8 heads
+# of 512 (512 slots: 16 passes, walked in two groups of 8) and 2 heads of
+# 2,048 (the widest head)
+GAT_CORNERS = [(4, 2), (4, 37), (4, 96), (4, 128), (1, 37), (1, 512), (8, 512),
+               (2, 2048)]
 
 
 @pytest.mark.parametrize("shape", GAT_CORNERS, ids=[f"{h}x{c}" for h, c in GAT_CORNERS])
@@ -713,6 +721,42 @@ def test_gat_kernels_take_any_head_width(dt, shape):
     sa = (g.receivers_by_sender, g.send_row_ptr, g.n_edge, 0.2)
     for a, b in zip(gbw.gat_sender(*ba, *sa), gbw.gat_sender_plain(*ba, *sa)):
         close(a, b, "f32")
+
+
+@pytest.mark.parametrize("kind", ["bspline", "fastkan"])
+def test_layer_kernels_take_bf16_weights_beside_f32_x(kind, no_tf32):
+    """The mixed pair of a layer whose parameters are bf16 and whose input
+    is f32 (param_dtype=bfloat16 without a compute dtype), as the JAX
+    kernels take it: the forward, dx and the GIN fusion point in f32 at the
+    f32 bar, each parameter gradient in bf16, its tiles' f32 partials
+    rounded to bf16 as they are walked (`dw_walk_check`)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    g = _graph(4, n=1100, e=3000, hub=301)  # 9 and 3 row tiles: walked
+    n, mask = g.n_node_pad, g.node_mask
+    x = torch.randn(n, 40, generator=gen, device="cuda")
+    dout = torch.randn(n, 100, generator=gen, device="cuda")
+    if kind == "bspline":
+        layer = tuple(t.bfloat16() for t in _layer(gen, 40, 100, 4, torch.float32))
+        fa = (x, *layer, 3)
+        got = bf.kan_linear_fwd(*fa)
+        assert got.dtype == torch.float32
+        close(got, bf.kan_linear_fwd_plain(*fa), "f32")
+        check_bspline_bwd("bspline_bwd mixed", x, *layer, dout, 3, _closer("f32"),
+                          log=_quiet)
+        ga = (x, g.senders, g.recv_row_ptr, *layer, 3, 0.25)
+        pairs = zip(gf.gin_kan_fwd(*ga), gf.gin_kan_fwd_plain(*ga))
+    else:
+        layer = _fastkan_layer(gen, 40, 100, 8, torch.bfloat16)
+        fa = (x, *layer, -2.0, 2.0)
+        got = fk.fastkan_layer_fwd(*fa)
+        assert got.dtype == torch.float32
+        close(got, fk.fastkan_layer_fwd_plain(*fa), "f32")
+        check_fastkan_bwd("fastkan_bwd mixed", x, *layer[:4], dout, _closer("f32"),
+                          log=_quiet)
+        ga = (x, g.senders, g.recv_row_ptr, *layer, 0.25, -2.0, 2.0)
+        pairs = zip(gfk.gin_fastkan_fwd(*ga), gfk.gin_fastkan_fwd_plain(*ga))
+    for a, b in pairs:
+        close(a[mask], b[mask], "f32")
 
 
 @pytest.mark.parametrize("shape", [(128, 64), (256, 256)], ids=["128x64", "256x256"])
@@ -1008,17 +1052,43 @@ def test_captured_steps_equal_eager_steps(conv, arch, no_tf32):
 
 def test_multi_step_refuses_what_it_cannot_capture():
     """On the card make_node_multi_step raises for an Adam that keeps its
-    step count on the host, and a call with other tensors than the first
-    call's raises instead of replaying a graph that reads the old ones."""
+    step count on the host. What it once refused now runs: a call with
+    other tensors of the captured shapes copies them into the capture's and
+    replays (losses and parameters bit for bit with eager steps on them); a
+    model with dropout 0.5 registers its generator with the graph (the
+    masks eager steps from the same seed draw); a batch with another
+    n_edge takes a capture of its own."""
+    from kagnn_tpu_torch.data import community_node_graph
+
     g = _small_node_graph()
     m = NodeClassifier(conv_type="gcn", fused=True, device="cuda", **MLP_KW)
     with pytest.raises(ValueError, match="capturable=True"):
         make_node_multi_step(m, torch.optim.Adam(m.parameters(), lr=1e-3), 2)
-    multi = make_node_multi_step(
-        m, torch.optim.Adam(m.parameters(), lr=1e-3, capturable=True), 2)
-    assert multi(g, g.node_mask).shape == (2,)
-    with pytest.raises(ValueError, match="same tensors"):
-        multi(g, g.node_mask.clone())
+    d = community_node_graph(n_nodes=300, n_classes=4, num_features=16, seed=0)
+    nodes2 = np.random.default_rng(9).normal(size=d["nodes"].shape).astype(np.float32)
+    g2 = single_graph(d["senders"], d["receivers"], nodes=nodes2, y=d["y"],
+                      device="cuda")
+    g3 = single_graph(d["senders"][:-7], d["receivers"][:-7], nodes=d["nodes"],
+                      y=d["y"], device="cuda")
+    assert g3.n_edge_pad == g.n_edge_pad and g3.n_edge != g.n_edge
+    calls = [(g, g.node_mask), (g, g.node_mask.clone()), (g2, g2.node_mask),
+             (g3, g3.node_mask)]
+    for conv, arch, dropout in (("gcn", "mlp", 0.0), ("gin", "kan", 0.5),
+                                ("gat", "kan", 0.5)):
+        kw = dict(MLP_KW, conv_type=conv, architecture=arch, grid_size=4,
+                  dropout=dropout)
+        m1, m2 = (NodeClassifier(fused=True, compute_dtype=torch.bfloat16,
+                                 device="cuda", **kw) for _ in range(2))
+        multi = make_node_multi_step(m1, torch.optim.Adam(
+            m1.parameters(), lr=1e-3, capturable=True), 2)
+        step, _ = make_node_steps(m2, torch.optim.Adam(
+            m2.parameters(), lr=1e-3, capturable=True))
+        got = torch.cat([multi(*c) for c in calls])
+        want = torch.stack([step(*c) for c in calls for _ in range(2)])
+        assert torch.equal(got, want), (conv, arch, got, want)
+        for (n, a), (_, b) in zip(m1.state_dict().items(), m2.state_dict().items()):
+            assert torch.equal(a, b), (conv, arch, n)
+        assert len(multi.captures) == 2, (conv, arch)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

@@ -204,12 +204,12 @@ def port_runs(graph, jax_steps, tmp_path_factory):
     jobs.append(("node", _node_spec(d, mask, *BF16, jax_steps["bf16"][0], "bfloat16")))
     names.append("bf16")
     x, cot = _entry_inputs(gj.n_node_pad)
-    jobs.append(("exchange", dict(graph=_arrays(d), x=x, seed=3)))
+    jobs.append(("exchange", dict(graph=_arrays(d), x=x, seed=3, device="cpu")))
     names.append("exchange")
     for kind in ENTRIES:
         jobs.append(("entry", dict(graph=_arrays(d), x=x, cot=cot, kind=kind,
                                    weights=_entry_weights(kind), eps=EPS,
-                                   spline_order=3, num_grids=4)))
+                                   spline_order=3, num_grids=4, device="cpu")))
         names.append(("entry", kind))
     ff = dict(_node_spec(d, mask, "gin", "fastkan", False, jax_steps[("gin", "fastkan", False)][0],
                          force_full=True, group_ranks=[0]), opt=("sgd", 1e-2), steps=3,
@@ -300,6 +300,53 @@ def test_exchange_and_backward_replay_the_plan(graph, port_runs):
             np.add.at(dx, plan.send_idx[r, p][keep], res[p]["cot"][r * H:(r + 1) * H][keep])
         np.testing.assert_allclose(res[r]["dx"], dx, rtol=1e-6, atol=1e-6)
     assert plan.boundary_rows > 0
+
+
+def test_exchange_backward_equals_jax_vjp_and_index_add(graph, port_runs):
+    """The exchange's backward sums each rank's returned cotangents over
+    the plan's CSR of the sent slots (`send_csr`, the segment-sum kernel's
+    sorted sum, no float atomics): equal to the VJP of the JAX
+    `halo_exchange` under shard_map on the same cotangents, and to the
+    `index_add_` it replaced, at the f32 gradient bar."""
+    d, gj, _ = graph
+    res = port_runs["exchange"]
+    plan = jhalo.build_halo_plan(gj, D)
+    arrs = jhalo._stack_arrays(plan, gj, np.asarray(gj.node_mask))
+    x, _ = _entry_inputs(gj.n_node_pad)
+    xs = jnp.asarray(plan.shard_nodes(x))
+    cots = jnp.asarray(np.stack([r["cot"] for r in res]))
+
+    def body(loc, x, cot):
+        loc = {k: v[0] for k, v in loc.items()}
+        _, hs = jhalo._local_graph_and_state(plan, loc, "graph")
+
+        def f(x):
+            with jsegment.halo_mode(hs):
+                return jsegment.halo_exchange(x)
+
+        _, vjp = jax.vjp(f, x[0])
+        return vjp(cot[0])[0][None]
+
+    fn = jax.jit(shard_map(body, mesh=_mesh(D),
+                           in_specs=({k: P("graph") for k in arrs}, P("graph"), P("graph")),
+                           out_specs=P("graph"), check_vma=False))
+    want = np.asarray(fn(arrs, xs, cots))
+    tplan = thalo.build_halo_plan(single_graph(**{k: d[k] for k in (
+        "senders", "receivers", "nodes", "y")}, device="cpu"), D)
+    H = tplan.halo
+    for r in range(D):
+        np.testing.assert_allclose(res[r]["dx"], want[r], **GRAD)
+        back = torch.from_numpy(np.concatenate(
+            [res[p]["cot"][r * H:(r + 1) * H] for p in range(D)]))
+        keep = torch.from_numpy(tplan.send_mask[r].reshape(-1, 1))
+        old = torch.zeros(tplan.block, ENTRY_D).index_add_(
+            0, torch.from_numpy(tplan.send_idx[r].reshape(-1)).long(),
+            torch.where(keep, back, torch.zeros(())))
+        np.testing.assert_allclose(res[r]["dx"], old.numpy(), **GRAD)
+        row_ptr, order = thalo.send_csr(tplan.send_idx[r], tplan.send_mask[r],
+                                        tplan.block)
+        assert order.size == int(tplan.send_mask[r].sum())
+        assert row_ptr[-1] == order.size
 
 
 def _jax_entry(gj, kind):

@@ -4,14 +4,17 @@ graph_classification.py, graph_regression.py), which the port's CUDA
 kernels take since they stopped being compiled for a few shapes only:
 
   * the B-spline KANLinear forward and backward at (spline order, grid
-    size) (1, 1), (2, 8) and (4, 16), and its bf16 backward at 512 outputs
+    size) (1, 1), (2, 8) and (4, 16), and past the experiment scripts'
+    search spaces, as the JAX kernels and now the port's take any shape, at
+    (5, 4), (3, 24) and (5, 24); its bf16 backward at 512 outputs
     (a GAT transform of 4 heads x 128); the plan of the card's backward for
     any O up to 4,096 (its output parts);
   * the FastKANLayer forward and its six gradients, and the RBF spline
-    product, at 2, 16 and 32 centers and at 500 features (PubMed's width);
+    product, at 2, 16, 32 and 48 centers and at 500 features (PubMed's
+    width);
   * the GAT attention (forward, dadst and sender kernels) at 4 heads of 2,
-    96 and 128 columns and one head of 37 (4 heads of 37 in the step
-    below);
+    96 and 128 columns, one head of 37 (4 heads of 37 in the step below)
+    and 8 heads of 512 (512 slots of 8 columns a row);
   * one bf16 train step (fused=True) of a small model per kernel family at
     a search-space corner: gin/kan at spline order 1 and grid 8,
     gin/fastkan at 32 centers, gat/kan at hidden width 37 with 4 heads.
@@ -112,7 +115,7 @@ def _bspline(rng, n, d, o, k, g, dt):
 # orders and grids; the widest ladder in f32 (its arithmetic), whose
 # rounding points are those of the others
 BSPLINE_CORNERS = [("f32", 1, 1), ("bf16", 1, 1), ("f32", 2, 8), ("bf16", 2, 8),
-                   ("f32", 4, 16)]
+                   ("f32", 4, 16), ("bf16", 5, 4), ("f32", 3, 24), ("f32", 5, 24)]
 
 
 @pytest.mark.parametrize("dt,k,g", BSPLINE_CORNERS,
@@ -168,7 +171,7 @@ def _fastkan_weights(rng, d, o, G):
 # (rows, D, O, centers): the experiment scripts' fewest and most centers, 16, and
 # PubMed's 500 features
 FASTKAN_SHAPES = [(120, 12, 6, 2), (120, 12, 6, 16), (120, 12, 6, 32),
-                  (64, 500, 8, 8)]
+                  (64, 500, 8, 8), (120, 12, 6, 48)]
 
 
 @pytest.mark.parametrize("shape", FASTKAN_SHAPES,
@@ -227,7 +230,8 @@ def test_rbf_plain_matches_jax_at_search_space_corners(rng, dt, shape):
 # experiment scripts' 4 heads (H*C up to 512) and one head of 37; 4 heads of 37 run in
 # the gat/kan step below. Each shape compiles the JAX kernels anew (about
 # 9 s), so each runs in one dtype.
-GAT_SHAPES = [("bf16", 4, 2), ("f32", 4, 96), ("bf16", 4, 128), ("f32", 1, 37)]
+GAT_SHAPES = [("bf16", 4, 2), ("f32", 4, 96), ("bf16", 4, 128), ("f32", 1, 37),
+              ("bf16", 8, 512)]
 
 
 @pytest.mark.parametrize("dt,heads,c", GAT_SHAPES,
