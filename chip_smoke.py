@@ -99,9 +99,8 @@ Phases (any failure raises, and the script exits non-zero):
      batch_graphs), each through batch_loader(prefetch=2) and
      make_graph_*_steps: host assembly alone, a warm-up epoch, 2 timed
      epochs with the launches checked per step, graphs/s, peak memory, the
-     busy share and top kernels over 3 profiled steps, and a prefetched
-     epoch against the same batches moved synchronously; then
-     `utils/profiling.kernel_report()` at its defaults;
+     device ms and top kernels over 3 profiled steps, and a prefetched
+     epoch against the same batches moved synchronously;
   6. the protocol and data layer (`phase_protocol`), on data written in
      each format's raw layout into a temporary directory: (a) the
      arxiv-sized graph in ogbn-arxiv's layout (gzip CSVs, the time split)
@@ -2030,16 +2029,15 @@ def drive_path(torch, g, name, model, per_step):
             not torch.isfinite(logits[mask]).all():
         raise AssertionError(f"{name}: evaluate gave non-finite or misshapen "
                              f"logits")
-    by_kernel = profile_steps(torch, lambda: train_step(g, mask), ms)
+    by_kernel = profile_steps(torch, lambda: train_step(g, mask))
     return launches, ms, by_kernel
 
 
-def profile_steps(torch, step, step_ms, steps=3):
+def profile_steps(torch, step, steps=3):
     """Device time per step by kernel, from torch.profiler over a few main
     path steps (after the counted run, so its launches are not counted).
-    The busy share compares the summed kernel time with the timed run's
-    ms/step; the profiler's own overhead is outside both. Returns device ms
-    per step by kernel name (empty when the profiler saw none)."""
+    Returns device ms per step by kernel name (empty when the profiler saw
+    none)."""
     from kagnn_tpu_torch.utils.profiling import device_profile
 
     torch.cuda.synchronize()
@@ -2047,8 +2045,7 @@ def profile_steps(torch, step, step_ms, steps=3):
     if prof.ms is None:
         log("profile: the profiler saw no device time (not measured)")
         return {}
-    log(f"profile: {prof.ms:.3f} ms of kernels per step, busy share "
-        f"{prof.ms / step_ms:.3f} of the timed {step_ms:.3f} ms/step")
+    log(f"profile: {prof.ms:.3f} ms of kernels per step")
     for key, t, calls in prof.kernels[:15]:
         log(f"  {t:8.4f} ms/step {calls:4d} calls/step "
             f"{t / prof.ms:6.3f}  {key[:90]}")
@@ -2240,8 +2237,8 @@ def phase_graph_path(torch, task, rows):
     counters set to 0 before and checked after; the loader alone, the
     prefetch worker's staging of a batch alone (pinning it and issuing its
     copies), the steps fed without prefetch, the step alone on one batch
-    already on the card, the host syncs of one step, peak memory, the busy
-    share and top kernels over 3 profiled steps, an evaluation, and a
+    already on the card, the host syncs of one step, peak memory, the
+    device ms and top kernels over 3 profiled steps, an evaluation, and a
     prefetched epoch against the same batches moved synchronously (a train
     step consuming each prefetched batch first). On the first batch the path takes on the card, its
     kernels at the path's widths against their functions summed in f64:
@@ -2363,7 +2360,7 @@ def phase_graph_path(torch, task, rows):
              if "synchroniz" in str(w.message)]
     log(f"graph path {task}: {len(syncs)} host syncs in one step"
         + (": " + "; ".join(sorted(set(syncs))) if syncs else ""))
-    by_kernel = profile_steps(torch, lambda: step(b0), ms)
+    by_kernel = profile_steps(torch, lambda: step(b0))
     n = check_prefetch(graphs, spec, GRAPH_BATCH, native, consume=step)
     log(f"graph path {task}: {n} prefetched batches equal the synchronously "
         f"moved ones field by field")
@@ -2794,7 +2791,7 @@ def drive_flagship_protocol(torch, rows, root):
             torch, f"protocol reordered graph {name}", a, b, dn)
         record_row(rows["spmm"], check_spmm_split(g, 64, dtype, close, gen), False)
         record_row(rows["gin_fused"], check_gin_split(g, 128, 64, dtype, close, gen), False)
-    protocol_epoch_busy(torch, g, d)
+    protocol_epoch_profile(torch, g, d)
     protocol_checkpoint(torch, g, d)
     protocol_adapted_knots(torch, rows, g)
     return [launches, drive_sampled_epoch(torch, rows, dr, g)]
@@ -2808,11 +2805,11 @@ def flagship_model(torch, d, seed):
     return make_node_model(params, seed=seed, device="cuda")
 
 
-def protocol_epoch_busy(torch, g, d, epochs=5):
+def protocol_epoch_profile(torch, g, d, epochs=5):
     """The full-batch epoch of drive (a) as train_node_total runs it (a
     train step, an evaluation, the validation loss read on the host) on
     the reordered graph, unsynchronized between epochs: ms per epoch over
-    `epochs` after one, then the busy share and top kernels over 3 profiled
+    `epochs` after one, then the device ms and top kernels over 3 profiled
     epochs."""
     from kagnn_tpu_torch.train import make_node_steps, masked_softmax_cross_entropy
 
@@ -2834,7 +2831,7 @@ def protocol_epoch_busy(torch, g, d, epochs=5):
     ms = (time.perf_counter() - t0) * 1e3 / epochs
     log(f"protocol (a) epoch on the reordered graph: {ms:.3f} ms (step, evaluation, "
         f"validation loss read), unsynchronized between epochs")
-    profile_steps(torch, epoch, ms)
+    profile_steps(torch, epoch)
 
 
 def protocol_checkpoint(torch, g, d, k=3):
@@ -2975,7 +2972,7 @@ def drive_sampled_epoch(torch, rows, d, g):
                              **SAMPLED)))
     secs = time.perf_counter() - t0
     r = res["r"]
-    profile_steps(torch, lambda: step(b, seed_mask), secs * 1e3 / n_batches)
+    profile_steps(torch, lambda: step(b, seed_mask))
     log(f"protocol sampled epoch: {n_batches} batches in {secs:.1f} s "
         f"({secs * 1e3 / n_batches:.1f} ms a batch); the sampler alone "
         f"{host_ms:.1f} ms a batch on the host, the step alone {step_ms:.2f} ms; "
@@ -3509,15 +3506,6 @@ def phase_dist(torch, g, rows):
     return drives
 
 
-def phase_kernel_report():
-    """utils/profiling.kernel_report() at its defaults, one JSON line a row."""
-    from kagnn_tpu_torch.utils.profiling import kernel_report
-
-    log("kernel_report (n=131072, d=64, o=64, f32, forward):")
-    for row in kernel_report():
-        log("  " + json.dumps(row))
-
-
 def main() -> int:
     import torch
 
@@ -3559,7 +3547,6 @@ def main() -> int:
     for launches in drives:
         for name, n in launches.items():
             rows[name]["launches"] += n
-    phase_kernel_report()
     unused = [n for n, r in rows.items() if r["launches"] == 0]
     if unused:
         raise AssertionError(f"kernels no main path launched: {unused}")

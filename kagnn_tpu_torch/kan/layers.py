@@ -39,6 +39,7 @@ from kagnn_tpu_torch.kernels.gin_fused import gin_kan_fused, gin_kan_fused_halo
 from kagnn_tpu_torch.kernels.rbf_fused import fastkan_fused
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
+from kagnn_tpu_torch.utils.profiling import KAN_LAYER, span
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -154,28 +155,29 @@ class KANLinear(nn.Module):
         KANLinear((1+eps)·x_i + Σ_j x_j) over the GraphBatch, the GIN conv
         fusion point (kernels/gin_fused.py runs it in one launch; under
         `segment.halo_mode` its halo entry over the extended table)."""
-        orig_shape = x.shape
-        grid, wb, ws = self.grid, self.base_weight, self.scaled_spline_weight
-        cd = self.compute_dtype
-        if cd is not None:
-            grid, wb, ws = grid.to(cd), wb.to(cd), ws.to(cd)
-        if gin_graph is not None and self.fused:
-            g, eps = gin_graph
-            x = x.reshape(-1, self.in_features)
-            x = x if cd is None else x.to(cd)
-            fn = _fused_gin_entry(gin_kan_fused, gin_kan_fused_halo)
-            out = fn(x, g, eps, grid, wb, ws, self.spline_order)
-            return out.reshape(*orig_shape[:-1], self.out_features)
-        x = self.kan_input(x, gin_graph)
+        with span(KAN_LAYER):
+            orig_shape = x.shape
+            grid, wb, ws = self.grid, self.base_weight, self.scaled_spline_weight
+            cd = self.compute_dtype
+            if cd is not None:
+                grid, wb, ws = grid.to(cd), wb.to(cd), ws.to(cd)
+            if gin_graph is not None and self.fused:
+                g, eps = gin_graph
+                x = x.reshape(-1, self.in_features)
+                x = x if cd is None else x.to(cd)
+                fn = _fused_gin_entry(gin_kan_fused, gin_kan_fused_halo)
+                out = fn(x, g, eps, grid, wb, ws, self.spline_order)
+                return out.reshape(*orig_shape[:-1], self.out_features)
+            x = self.kan_input(x, gin_graph)
 
-        if self.fused:  # SiLU, whatever base_activation says (as JAX)
-            out = kan_linear_fused(x, grid, wb, ws, self.spline_order)
-        else:
-            base = _matmul(self.base_activation(x), wb.T)
-            bases = bspline.b_splines(x, grid, self.spline_order)
-            out = base + _matmul(bases.reshape(x.shape[0], -1),
-                                 ws.reshape(self.out_features, -1).T)
-        return out.reshape(*orig_shape[:-1], self.out_features)
+            if self.fused:  # SiLU, whatever base_activation says (as JAX)
+                out = kan_linear_fused(x, grid, wb, ws, self.spline_order)
+            else:
+                base = _matmul(self.base_activation(x), wb.T)
+                bases = bspline.b_splines(x, grid, self.spline_order)
+                out = base + _matmul(bases.reshape(x.shape[0], -1),
+                                     ws.reshape(self.out_features, -1).T)
+            return out.reshape(*orig_shape[:-1], self.out_features)
 
     def regularization_loss(self, regularize_activation: float = 1.0,
                             regularize_entropy: float = 1.0) -> torch.Tensor:
@@ -290,45 +292,46 @@ class FastKANLayer(nn.Module):
         layernorm if both flags are on, the basis product
         (kernels/rbf_fused.py when `fused`) and the base update, through
         base_activation, if it is on."""
-        orig_shape = x.shape
-        x = x.reshape(-1, self.input_dim)
-        x, sw = self._cast(x, self.spline_linear.weight)
-        grid = (self.grid_min, self.grid_max, self.num_grids)
-        ln = self.use_layernorm and use_layernorm
-        whole = self.fused and self.use_base_update and ln
-        if whole:
-            lng, lnb, wb, bb = self._cast(
-                self.layernorm.weight, self.layernorm.bias,
-                self.base_linear.weight, self.base_linear.bias)
-        if gin_graph is not None:
-            g, eps = gin_graph
+        with span(KAN_LAYER):
+            orig_shape = x.shape
+            x = x.reshape(-1, self.input_dim)
+            x, sw = self._cast(x, self.spline_linear.weight)
+            grid = (self.grid_min, self.grid_max, self.num_grids)
+            ln = self.use_layernorm and use_layernorm
+            whole = self.fused and self.use_base_update and ln
             if whole:
-                fn = _fused_gin_entry(gin_fastkan_fused, gin_fastkan_fused_halo)
-                out = fn(x, g, eps, lng, lnb, sw, wb, bb, *grid)
+                lng, lnb, wb, bb = self._cast(
+                    self.layernorm.weight, self.layernorm.bias,
+                    self.base_linear.weight, self.base_linear.bias)
+            if gin_graph is not None:
+                g, eps = gin_graph
+                if whole:
+                    fn = _fused_gin_entry(gin_fastkan_fused, gin_fastkan_fused_halo)
+                    out = fn(x, g, eps, lng, lnb, sw, wb, bb, *grid)
+                    return out.reshape(*orig_shape[:-1], self.output_dim)
+                agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
+                x = (1.0 + eps) * x + agg
+            if whole:
+                out = fastkan_layer_fused(x, lng, lnb, sw, wb, bb, *grid)
                 return out.reshape(*orig_shape[:-1], self.output_dim)
-            agg = segment.neighbor_sum(x, g, edge_weight=g.edge_mask.to(x.dtype))
-            x = (1.0 + eps) * x + agg
-        if whole:
-            out = fastkan_layer_fused(x, lng, lnb, sw, wb, bb, *grid)
-            return out.reshape(*orig_shape[:-1], self.output_dim)
-        # the JAX LayerNorm computes in f32 and returns f32 (its f32 scale
-        # promotes a bf16 input; bf16 parameters meet an f32 input promoted),
-        # and the basis meets the cast spline weight in f32; without it the
-        # basis stays in x's dtype
-        xs = (F.layer_norm(x.float(), (self.input_dim,),
-                           self.layernorm.weight.float(),
-                           self.layernorm.bias.float(), 1e-5) if ln else x)
-        if self.fused:
-            ret = fastkan_fused(xs, sw, *grid)
-        else:
-            centers = rbf.make_rbf_grid(*grid, device=x.device).to(xs.dtype)
-            basis = rbf.rbf_basis(xs, centers, self.denominator)
-            ret = _matmul(basis.reshape(x.shape[0], -1), sw.T)
-        if self.use_base_update:
-            wb, bb = self._cast(self.base_linear.weight, self.base_linear.bias)
-            base = _matmul(self.base_activation(x), wb.T)
-            ret = ret + base + bb.to(base.dtype)
-        return ret.reshape(*orig_shape[:-1], self.output_dim)
+            # the JAX LayerNorm computes in f32 and returns f32 (its f32 scale
+            # promotes a bf16 input; bf16 parameters meet an f32 input promoted),
+            # and the basis meets the cast spline weight in f32; without it the
+            # basis stays in x's dtype
+            xs = (F.layer_norm(x.float(), (self.input_dim,),
+                               self.layernorm.weight.float(),
+                               self.layernorm.bias.float(), 1e-5) if ln else x)
+            if self.fused:
+                ret = fastkan_fused(xs, sw, *grid)
+            else:
+                centers = rbf.make_rbf_grid(*grid, device=x.device).to(xs.dtype)
+                basis = rbf.rbf_basis(xs, centers, self.denominator)
+                ret = _matmul(basis.reshape(x.shape[0], -1), sw.T)
+            if self.use_base_update:
+                wb, bb = self._cast(self.base_linear.weight, self.base_linear.bias)
+                base = _matmul(self.base_activation(x), wb.T)
+                ret = ret + base + bb.to(base.dtype)
+            return ret.reshape(*orig_shape[:-1], self.output_dim)
 
     @torch.no_grad()
     def plot_curve(self, input_index: int, output_index: int,

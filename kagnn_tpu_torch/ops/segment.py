@@ -50,6 +50,7 @@ from kagnn_tpu_torch.kernels._common import leaky
 from kagnn_tpu_torch.kernels.gat_fused import gat_attention_fused
 from kagnn_tpu_torch.kernels.gcn_agg import gcn_aggregate_fused
 from kagnn_tpu_torch.kernels.spmm import SortedSegmentSum, sorted_segment_sum
+from kagnn_tpu_torch.utils.profiling import MESSAGE_PASSING, span
 
 NEG = -1e30  # the logit of a masked edge, and the floor of an empty max
 
@@ -326,19 +327,20 @@ def neighbor_sum(x: torch.Tensor, g, edge_weight: Optional[torch.Tensor] = None,
     takes no edge weight: see its docstring for why the pad rows make the
     mask weight unnecessary. Under `edge_axis` the sum is all-reduced, under
     `halo_mode` it is `_halo_neighbor_sum`."""
-    hs = halo_state()
-    if hs is not None:
-        return _halo_neighbor_sum(x, g, edge_weight, hs, fused)
-    if fused:
+    with span(MESSAGE_PASSING):
+        hs = halo_state()
+        if hs is not None:
+            return _halo_neighbor_sum(x, g, edge_weight, hs, fused)
+        if fused:
+            if edge_weight is not None:
+                raise ValueError("the fused neighbor sum takes no edge weight")
+            out = NeighborSum.apply(x.contiguous(), g)
+            axis = current_edge_axis()
+            return out if axis is None else all_reduce_sum(out, axis)
+        msgs = gather(x, g.senders)
         if edge_weight is not None:
-            raise ValueError("the fused neighbor sum takes no edge weight")
-        out = NeighborSum.apply(x.contiguous(), g)
-        axis = current_edge_axis()
-        return out if axis is None else all_reduce_sum(out, axis)
-    msgs = gather(x, g.senders)
-    if edge_weight is not None:
-        msgs = msgs * edge_weight.detach()[:, None]
-    return segment_sum(msgs, g.receivers, g.n_node_pad)
+            msgs = msgs * edge_weight.detach()[:, None]
+        return segment_sum(msgs, g.receivers, g.n_node_pad)
 
 
 def _halo_neighbor_sum(x: torch.Tensor, g, edge_weight, hs: HaloState,
@@ -375,10 +377,11 @@ def gcn_aggregate(hs: torch.Tensor, g, dinv: torch.Tensor,
     dtype, as the JAX fallback does. Under `edge_axis` no fused kernel runs,
     as in the JAX package: the aggregate is the all-reduced neighbor sum
     (through the segment-sum kernel on the shard when `fused`)."""
-    dinv = dinv.detach()
-    if fused and current_edge_axis() is None:
-        return gcn_aggregate_fused(hs, g, dinv)
-    return (neighbor_sum(hs, g, fused=fused) + hs) * dinv[:, None].to(hs.dtype)
+    with span(MESSAGE_PASSING):
+        dinv = dinv.detach()
+        if fused and current_edge_axis() is None:
+            return gcn_aggregate_fused(hs, g, dinv)
+        return (neighbor_sum(hs, g, fused=fused) + hs) * dinv[:, None].to(hs.dtype)
 
 
 def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -462,18 +465,19 @@ def gat_attention(h: torch.Tensor, asrc: torch.Tensor, adst: torch.Tensor,
     rounds to h's dtype. The plain path is the JAX fallback's composition
     (segment_softmax + neighbor_sum_attn) and ignores it; it is the path
     under `edge_axis`, where no fused kernel runs."""
-    if fused and current_edge_axis() is None:
-        return gat_attention_fused(h, asrc, adst, g, negative_slope,
-                                   att_src_matrix=att_src_matrix)
-    heads = asrc.shape[1]
-    logits = gather(asrc, g.senders) + gather(adst, g.receivers)
-    logits = leaky(logits, negative_slope)
-    self_logits = leaky(asrc + adst, negative_slope)
-    w_edge, w_self = segment_softmax(logits, g.receivers, g.n_node_pad,
-                                     mask=g.edge_mask,
-                                     extra_logits=self_logits)
-    out = neighbor_sum_attn(h, g, w_edge)
-    n, c = h.shape[0], h.shape[1] // heads
-    out = (out.reshape(n, heads, c)
-           + h.reshape(n, heads, c) * w_self[..., None])
-    return out.reshape(n, heads * c)
+    with span(MESSAGE_PASSING):
+        if fused and current_edge_axis() is None:
+            return gat_attention_fused(h, asrc, adst, g, negative_slope,
+                                       att_src_matrix=att_src_matrix)
+        heads = asrc.shape[1]
+        logits = gather(asrc, g.senders) + gather(adst, g.receivers)
+        logits = leaky(logits, negative_slope)
+        self_logits = leaky(asrc + adst, negative_slope)
+        w_edge, w_self = segment_softmax(logits, g.receivers, g.n_node_pad,
+                                         mask=g.edge_mask,
+                                         extra_logits=self_logits)
+        out = neighbor_sum_attn(h, g, w_edge)
+        n, c = h.shape[0], h.shape[1] // heads
+        out = (out.reshape(n, heads, c)
+               + h.reshape(n, heads, c) * w_self[..., None])
+        return out.reshape(n, heads * c)

@@ -6,6 +6,11 @@ The JAX steps thread a TrainState through a jitted function; here the
 model and the optimizer hold the state and are updated in place. With
 `torch.optim.Adam(params, lr=1e-3)` (betas 0.9/0.999, eps 1e-8) the update
 is that of `optax.adam(1e-3)`.
+
+While a profiler runs, each train step records the spans of
+`utils/profiling.py`: STEP around it, STEP_FORWARD (the model and the loss)
+and STEP_BACKWARD inside it; each call of `make_node_multi_step`'s entry
+records MULTI_STEP and, on the card, its capture, copy-in and replay parts.
 """
 from __future__ import annotations
 
@@ -15,6 +20,9 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from kagnn_tpu_torch.train import losses
+from kagnn_tpu_torch.utils.profiling import (MULTI_STEP, MULTI_STEP_CAPTURE,
+                                             MULTI_STEP_COPY_IN, MULTI_STEP_REPLAY,
+                                             STEP, STEP_BACKWARD, STEP_FORWARD, span)
 
 
 class EarlyStopper:
@@ -45,12 +53,15 @@ def make_node_steps(model, optimizer):
     Returns (train_step(batch, mask) -> loss, evaluate(batch) -> logits)."""
 
     def train_step(batch, mask):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = losses.masked_softmax_cross_entropy(model(batch), batch.y, mask)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with span(STEP):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with span(STEP_FORWARD):
+                loss = losses.masked_softmax_cross_entropy(model(batch), batch.y, mask)
+            with span(STEP_BACKWARD):
+                loss.backward()
+            optimizer.step()
+            return loss.detach()
 
     def evaluate(batch):
         """Logits of one forward in eval mode (running BN statistics)."""
@@ -66,12 +77,15 @@ def _graph_steps(model, optimizer, loss_of_output: Callable):
     backward, optimizer.step; returns the loss (not synchronised)."""
 
     def train_step(batch):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_of_output(model(batch), batch)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with span(STEP):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with span(STEP_FORWARD):
+                loss = loss_of_output(model(batch), batch)
+            with span(STEP_BACKWARD):
+                loss.backward()
+            optimizer.step()
+            return loss.detach()
 
     return train_step
 
@@ -234,20 +248,23 @@ def make_node_multi_step(model, optimizer, n_steps: int):
         return graph, losses, static
 
     def multi(batch, mask):
-        if not on_card:
-            return torch.stack([train_step(batch, mask) for _ in range(n_steps)])
-        key = capture_signature(batch, mask)
-        if key not in captures:
-            captures[key] = capture(batch, mask)
-        else:
-            _, _, (sb, sm) = captures[key]
-            with torch.no_grad():
-                for dst, src in zip(sb.tensors(), batch.tensors()):
-                    dst.copy_(src)
-                sm.copy_(mask)
-        graph, losses, _ = captures[key]
-        graph.replay()
-        return losses.clone()
+        with span(MULTI_STEP):
+            if not on_card:
+                return torch.stack([train_step(batch, mask) for _ in range(n_steps)])
+            key = capture_signature(batch, mask)
+            if key not in captures:
+                with span(MULTI_STEP_CAPTURE):
+                    captures[key] = capture(batch, mask)
+            else:
+                _, _, (sb, sm) = captures[key]
+                with span(MULTI_STEP_COPY_IN), torch.no_grad():
+                    for dst, src in zip(sb.tensors(), batch.tensors()):
+                        dst.copy_(src)
+                    sm.copy_(mask)
+            graph, losses, _ = captures[key]
+            with span(MULTI_STEP_REPLAY):
+                graph.replay()
+            return losses.clone()
 
     multi.captures = captures
     return multi

@@ -1,35 +1,80 @@
-"""Profiling and roofline reporting on the card, the port of
-`kagnn_tpu/utils/profiling.py`:
+"""Profiling on the card, the port of `kagnn_tpu/utils/profiling.py`:
 
   * `trace(logdir)` — a torch.profiler trace of the host and the card,
     written as a Chrome trace (`logdir/trace.json`, for Perfetto);
+  * `span(name)` — a named span of the program on the profiler's clock,
+    recorded only while a profiler runs, and the names of the program's
+    spans (`STEP`, `STEP_FORWARD`, ...);
+  * `span_report(trace_json)` — host and device ms by span from a trace
+    that `trace` wrote;
   * `HardwarePeaks`, `H100` — published peaks, and `bound_ms`, the least
     time a card could take for some bytes and operations;
-  * `Roofline` — analytic FLOP/byte model against the peaks, reporting
-    compute and bandwidth utilization and the bound resource;
   * `time_ms(fn)` — a function's time on the card from CUDA events;
-  * `kernel_report(...)` — the fused KAN kernels and their eager torch paths
-    at given shapes, one roofline row each;
   * `device_profile(run, n_calls)` — device kernel time per call, in all
     and by kernel, and the host operators' self time, from torch.profiler;
   * `kernel_row_of(key, launches)` — the kernel row (PERF.md §6) of a
     profiled CUDA kernel name.
 
-Nothing here times the CPU: `time_ms` and `kernel_report` raise without a
-CUDA device, where there is no kernel to time.
+Nothing here times the CPU: `time_ms` raises without a CUDA device, where
+there is no kernel to time.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 from pathlib import Path
 from typing import Callable, Optional
 
-import numpy as np
 import torch
-import torch.nn.functional as F
+import torch.autograd.profiler as _autograd_profiler
 
-from kagnn_tpu_torch.utils.device import resolve_device
+# The program's spans, `kagnn.<layer>[.<part>]`. An eager train step
+# (`train/loops.py`: `make_node_steps`, the graph steps) is STEP, holding
+# STEP_FORWARD (the model and the loss), STEP_BACKWARD and torch's own
+# `Optimizer.zero_grad#...` and `Optimizer.step#...` spans; a call of
+# `make_node_multi_step`'s entry is MULTI_STEP, holding on the card
+# MULTI_STEP_CAPTURE (a signature's first call: warm-up and capture),
+# MULTI_STEP_COPY_IN (the batch copied into the capture's inputs) and
+# MULTI_STEP_REPLAY. The layer spans cover forwards only: KAN_LAYER a
+# `KANLinear` or `FastKANLayer` (a fused GIN entry, aggregation included),
+# MESSAGE_PASSING `ops/segment.py`'s neighbor_sum, gcn_aggregate and
+# gat_attention.
+STEP = "kagnn.step"
+STEP_FORWARD = "kagnn.step.forward"
+STEP_BACKWARD = "kagnn.step.backward"
+MULTI_STEP = "kagnn.multi_step"
+MULTI_STEP_CAPTURE = "kagnn.multi_step.capture"
+MULTI_STEP_COPY_IN = "kagnn.multi_step.copy_in"
+MULTI_STEP_REPLAY = "kagnn.multi_step.replay"
+KAN_LAYER = "kagnn.kan_layer"
+MESSAGE_PASSING = "kagnn.message_passing"
+# torch.optim's own spans, `Optimizer.step#Adam.step` and the like
+OPTIMIZER_SPANS = ("Optimizer.step", "Optimizer.zero_grad")
+# the spans `span_report` reads, by name prefix
+SPAN_PREFIXES = ("kagnn.",) + OPTIMIZER_SPANS
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A context manager: `torch.profiler.record_function(name)` while a
+    profiler runs, else one that does nothing (no call into the profiler,
+    nothing recorded, nothing captured into a CUDA graph)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _activities():
@@ -51,6 +96,102 @@ def trace(logdir: str):
     with profile(activities=_activities()) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+# a device activity's chrome-trace categories, and its launch's
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# span_report's rows for the device work that no span encloses, and for all
+# of it
+OUTSIDE, ALL = "(outside spans)", "(all)"
+
+
+def _union_ms(intervals) -> float:
+    """The length of the union of (start, end) µs intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total * 1e-3
+
+
+def _summed_ms(intervals) -> float:
+    return sum(b - a for a, b in intervals) * 1e-3
+
+
+def span_report(trace_json: str, keep: Optional[Callable[[str], bool]] = None) -> dict:
+    """Host and device ms by span, from a Chrome trace that `trace` wrote:
+    {name: {"count", "host_ms", "device_ms", "self_device_ms",
+    "summed_device_ms"}} for every span whose name starts with one of
+    SPAN_PREFIXES, plus the rows OUTSIDE (device work no span encloses) and ALL
+    (every device interval; its `count` the intervals).
+
+    `host_ms` is the union of the name's intervals. Each kernel, copy or
+    fill goes, by its correlation id, to the innermost span that encloses
+    its launch on the launching thread; a launch that no span of its thread
+    encloses (autograd's backward thread on the card) to the innermost span
+    of the main thread (the thread of the longest span) open at that
+    moment. `self_device_ms` is the union of the device intervals given to
+    the name itself, `device_ms` of those given to it or to a span nested in
+    it, `summed_device_ms` the summed durations of the latter. Each device
+    interval goes to one innermost span, so the rows of disjoint spans add
+    up: their `summed_device_ms` to ALL's, their `device_ms`, in which
+    kernels that overlap (two streams, a CUDA graph's concurrent nodes)
+    count once, to ALL's unless kernels of two of them overlap. With
+    `keep`, only the device activities whose name it accepts are read."""
+    with open(trace_json) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+    spans: dict = {}  # thread -> [(start, end, name)]
+    launches, device = {}, []
+    for e in events:
+        cat, ts, dur = e.get("cat"), float(e["ts"]), float(e["dur"])
+        thread = (e.get("pid"), e.get("tid"))
+        corr = e.get("args", {}).get("correlation")
+        if cat == "user_annotation" and e.get("name", "").startswith(SPAN_PREFIXES):
+            spans.setdefault(thread, []).append((ts, ts + dur, e["name"]))
+        elif cat in _LAUNCH_CATS and corr is not None:
+            launches[corr] = (thread, ts)
+        elif cat in _DEVICE_CATS and (keep is None or keep(e.get("name", ""))):
+            device.append((corr, ts, ts + dur))
+    main = max(((b - a, t) for t, ss in spans.items() for a, b, _ in ss),
+               default=(0.0, None))[1]
+
+    def enclosing(thread, t):
+        """The names of the spans of `thread` open at t, innermost first."""
+        open_ = [(b - a, n) for a, b, n in spans.get(thread, ()) if a <= t < b]
+        return [n for _, n in sorted(open_)]
+
+    self_iv: dict = {}
+    incl_iv: dict = {}
+    for corr, a, b in device:
+        names = []
+        if corr in launches:
+            thread, t = launches[corr]
+            names = enclosing(thread, t) or (enclosing(main, t) if thread != main else [])
+        self_iv.setdefault(names[0] if names else OUTSIDE, []).append((a, b))
+        for n in set(names):
+            incl_iv.setdefault(n, []).append((a, b))
+    report = {}
+    for ss in spans.values():
+        for a, b, n in ss:
+            report.setdefault(n, {"count": 0, "host": []})
+            report[n]["count"] += 1
+            report[n]["host"].append((a, b))
+    for n, row in report.items():
+        report[n] = {"count": row["count"], "host_ms": _union_ms(row["host"]),
+                     "device_ms": _union_ms(incl_iv.get(n, ())),
+                     "self_device_ms": _union_ms(self_iv.get(n, ())),
+                     "summed_device_ms": _summed_ms(incl_iv.get(n, ()))}
+    outside = self_iv.get(OUTSIDE, ())
+    report[OUTSIDE] = {"count": 0, "host_ms": 0.0, "device_ms": _union_ms(outside),
+                       "self_device_ms": _union_ms(outside),
+                       "summed_device_ms": _summed_ms(outside)}
+    every = [(a, b) for _, a, b in device]
+    report[ALL] = {"count": len(every), "host_ms": 0.0, "device_ms": _union_ms(every),
+                   "self_device_ms": _union_ms(every), "summed_device_ms": _summed_ms(every)}
+    return report
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,51 +217,6 @@ class HardwarePeaks:
 H100 = HardwarePeaks("h100-sxm", 989e12, 67e12, 3.35e12)
 
 
-@dataclasses.dataclass
-class Roofline:
-    label: str
-    flops: float
-    bytes_accessed: float
-    seconds: float
-    peaks: HardwarePeaks = H100
-    dtype: str = "f32"
-
-    @property
-    def achieved_flops(self) -> float:
-        return self.flops / self.seconds
-
-    @property
-    def achieved_gbps(self) -> float:
-        return self.bytes_accessed / self.seconds
-
-    @property
-    def compute_util(self) -> float:
-        peak = (self.peaks.flops_bf16 if self.dtype == "bf16"
-                else self.peaks.flops_f32)
-        return self.achieved_flops / peak
-
-    @property
-    def bandwidth_util(self) -> float:
-        return self.achieved_gbps / self.peaks.hbm_gbps
-
-    @property
-    def bound(self) -> str:
-        # the resource closer to its peak is the binding one
-        return "compute" if self.compute_util >= self.bandwidth_util else "hbm"
-
-    def row(self) -> dict:
-        return {
-            "kernel": self.label,
-            "seconds": round(self.seconds, 6),
-            "tflops": round(self.achieved_flops / 1e12, 2),
-            "gbps": round(self.achieved_gbps / 1e9, 1),
-            "compute_util": round(self.compute_util, 4),
-            "bandwidth_util": round(self.bandwidth_util, 4),
-            "bound": self.bound,
-            "hw": self.peaks.name,
-        }
-
-
 def time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float:
     """ms per call of fn() on the card: CUDA events around `iters` calls
     after `warmup` calls, then a synchronize."""
@@ -137,89 +233,6 @@ def time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def kernel_report(n: int = 131072, d: int = 64, o: int = 64,
-                  grid_size: int = 4, spline_order: int = 3,
-                  num_grids: int = 8, iters: int = 20,
-                  peaks: HardwarePeaks = H100, device=None) -> list[dict]:
-    """Roofline rows (f32) for the fused B-spline, RBF and FastKANLayer
-    kernels and their eager torch paths at the given shapes, forward only.
-    Raises on a CPU device."""
-    from kagnn_tpu_torch.kan import bspline, rbf
-    from kagnn_tpu_torch.kernels.bspline_fused import kan_linear_fused
-    from kagnn_tpu_torch.kernels.fastkan_layer import fastkan_layer_fused
-    from kagnn_tpu_torch.kernels.rbf_fused import fastkan_fused
-
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"kernel_report times the CUDA kernels; on {dev} "
-                         f"there is no kernel to time")
-    rng = np.random.default_rng(0)
-
-    def normal(*shape, scale=1.0):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
-                                * scale).to(dev)
-
-    x = normal(n, d)
-    rows = []
-
-    def add(label, fn, flops, nbytes):
-        with torch.no_grad():
-            sec = time_ms(fn, iters=iters) / 1e3
-        rows.append(Roofline(label, flops, nbytes, sec, peaks).row())
-
-    # ---- B-spline
-    nb = grid_size + spline_order
-    grid = bspline.make_grid(d, grid_size, spline_order, device=dev)
-    wb = normal(o, d, scale=0.1)
-    ws = normal(o, d, nb, scale=0.1)
-    flops_bs = 2 * n * d * o * (nb + 1)
-    bytes_fused = 4 * (n * d + n * o + d * o * (nb + 1))
-    add("bspline_fused", lambda: kan_linear_fused(x, grid, wb, ws, spline_order),
-        flops_bs, bytes_fused)
-
-    def bs_eager():
-        base = F.silu(x) @ wb.T
-        bases = bspline.b_splines(x, grid, spline_order)
-        return base + bases.reshape(n, -1) @ ws.reshape(o, -1).T
-
-    add("bspline_eager", bs_eager, flops_bs,
-        bytes_fused + 2 * 4 * n * d * nb)  # the basis round-trips HBM
-
-    # ---- RBF
-    w = normal(o, d * num_grids, scale=0.1)
-    h = 4.0 / (num_grids - 1)
-    centers = rbf.make_rbf_grid(-2.0, 2.0, num_grids, device=dev)
-    flops_rbf = 2 * n * d * o * num_grids
-    bytes_rbf_fused = 4 * (n * d + n * o + d * o * num_grids)
-    add("rbf_fused", lambda: fastkan_fused(x, w, -2.0, 2.0, num_grids),
-        flops_rbf, bytes_rbf_fused)
-    add("rbf_eager", lambda: rbf.rbf_basis(x, centers, h).reshape(n, -1) @ w.T,
-        flops_rbf, bytes_rbf_fused + 2 * 4 * n * d * num_grids)
-
-    # ---- full FastKAN layer (layernorm + RBF + spline GEMM + base GEMM)
-    lng = torch.ones(d, device=dev)
-    lnb = torch.zeros(d, device=dev)
-    wbase = normal(o, d, scale=0.1)
-    bbase = torch.zeros(o, device=dev)
-    flops_layer = flops_rbf + 2 * n * d * o + 10 * n * d
-    bytes_layer_fused = 4 * (n * d + n * o + d * o * (num_grids + 1))
-    add("fastkan_layer_fused",
-        lambda: fastkan_layer_fused(x, lng, lnb, w, wbase, bbase, -2.0, 2.0,
-                                    num_grids),
-        flops_layer, bytes_layer_fused)
-
-    def layer_eager():
-        mu = x.mean(1, keepdim=True)
-        var = ((x - mu) ** 2).mean(1, keepdim=True)
-        xs = (x - mu) * torch.rsqrt(var + 1e-5) * lng + lnb
-        basis = rbf.rbf_basis(xs, centers, h)
-        return basis.reshape(n, -1) @ w.T + F.silu(x) @ wbase.T + bbase
-
-    add("fastkan_layer_eager", layer_eager, flops_layer,
-        bytes_layer_fused + 2 * 4 * n * d * (num_grids + 1))
-    return rows
 
 
 @dataclasses.dataclass

@@ -18,6 +18,8 @@ over one tile; over more it is held to
 `kernels/selfcheck.py::dw_walk_check`: 8 ulps of each element's
 running-sum peak up to 331 tiles (growing with the square root of the
 tiles past it), at most 1 % of the elements (or 2) differing."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -60,6 +62,7 @@ from kagnn_tpu_torch.ops.segment import gcn_aggregate
 from kagnn_tpu_torch.train import (make_node_multi_step, make_node_steps,
                                    masked_softmax_cross_entropy)
 from kagnn_tpu_torch.train.loops import WARMUP_STEPS
+from kagnn_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.usefixtures("card")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -1048,6 +1051,59 @@ def test_captured_steps_equal_eager_steps(conv, arch, no_tf32):
     step3, _ = make_node_steps(m3, adam(m3, False))
     default = torch.stack([step3(g, g.node_mask) for _ in range(6)])
     assert ((captured - default).abs() <= 4 * 2.0 ** -8 * default.abs()).all()
+
+
+def test_multi_step_spans_around_a_real_capture_and_replay(tmp_path):
+    """Two profiled calls of make_node_multi_step on the card: the first
+    records MULTI_STEP_CAPTURE then MULTI_STEP_REPLAY inside its MULTI_STEP,
+    the second MULTI_STEP_COPY_IN then MULTI_STEP_REPLAY; span_report gives
+    the replays' kernels (launched by cudaGraphLaunch) to the replay span."""
+    g = _small_node_graph()
+    m = NodeClassifier(conv_type="gin", fused=True, device="cuda",
+                       **dict(MLP_KW, architecture="kan"))
+    multi = make_node_multi_step(m, torch.optim.Adam(m.parameters(), lr=1e-3,
+                                                     capturable=True), 2)
+    with profiling.trace(str(tmp_path / "t")):
+        multi(g, g.node_mask)
+        multi(g, g.node_mask)
+        torch.cuda.synchronize()
+    path = tmp_path / "t" / "trace.json"
+    spans = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e["name"].startswith("kagnn.multi_step")), key=lambda e: e["ts"])
+    calls = [e for e in spans if e["name"] == profiling.MULTI_STEP]
+    assert len(calls) == 2
+    parts = [[e["name"] for e in spans if e["name"] != profiling.MULTI_STEP
+              and c["ts"] <= e["ts"] < c["ts"] + c["dur"]] for c in calls]
+    assert parts == [[profiling.MULTI_STEP_CAPTURE, profiling.MULTI_STEP_REPLAY],
+                     [profiling.MULTI_STEP_COPY_IN, profiling.MULTI_STEP_REPLAY]]
+    report = profiling.span_report(str(path))
+    assert report[profiling.MULTI_STEP_REPLAY]["count"] == 2
+    assert report[profiling.MULTI_STEP_REPLAY]["self_device_ms"] > 0
+    assert report[profiling.MULTI_STEP_CAPTURE]["device_ms"] > 0  # the warm-up step
+
+
+def test_eager_step_backward_kernels_reach_the_backward_span(tmp_path):
+    """On the card autograd launches the backward's kernels from its own
+    thread: span_report gives them to the main thread's STEP_BACKWARD, and
+    the step's phases hold all of its device time."""
+    g = _small_node_graph()
+    m = NodeClassifier(conv_type="gat", fused=True, device="cuda",
+                       compute_dtype=torch.bfloat16, **dict(MLP_KW, architecture="kan"))
+    step, _ = make_node_steps(m, torch.optim.Adam(m.parameters(), lr=1e-3))
+    step(g, g.node_mask)
+    with profiling.trace(str(tmp_path / "t")):
+        step(g, g.node_mask)
+        torch.cuda.synchronize()
+    r = profiling.span_report(str(tmp_path / "t" / "trace.json"))
+    assert r[profiling.STEP_BACKWARD]["self_device_ms"] > 0
+    assert r[profiling.KAN_LAYER]["device_ms"] > 0
+    assert r[profiling.MESSAGE_PASSING]["device_ms"] > 0
+    phases = sum(v["device_ms"] for k, v in r.items()
+                 if k in (profiling.STEP_FORWARD, profiling.STEP_BACKWARD)
+                 or k.startswith(profiling.OPTIMIZER_SPANS))
+    assert phases + r[profiling.STEP]["self_device_ms"] == pytest.approx(
+        r[profiling.STEP]["device_ms"], rel=0.05)
 
 
 def test_multi_step_refuses_what_it_cannot_capture():
