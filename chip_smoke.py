@@ -63,7 +63,11 @@ Phases (any failure raises, and the script exits non-zero):
      spline order 1-4 and grid 1-16, 2-32 centers, 500 and 3,703
      features, GAT heads of 2-128 columns, 512 outputs; the layer forwards
      also at 1, 7, 40 and 512 outputs, the RBF and B-spline backwards at
-     2,048, in output parts) against its plain version;
+     2,048, in output parts) against its plain version; then the fused
+     masked BatchNorm (`phase_masked_bn`, no TPU kernel) against the
+     module's plain version and its f64 function at 7 and 4,096 rows and
+     at the two benchmark cells' shapes, whose forward and backward it times
+     beside the plain version's and the bound, and by kernel;
   4. whole step, small graph, per node path (gin/kan, gcn/kan,
      gcn/fastkan, gin/fastkan, gat/kan, gat/fastkan, gin/mlp, gcn/mlp,
      gat/mlp), at five search-space
@@ -139,7 +143,7 @@ Phases (any failure raises, and the script exits non-zero):
      ranks) and the DP graph-classification step (G's model, 2 gloo ranks,
      batches of 256 molecules) against their single-card counterparts;
      (e) one nccl rank: the halo flagship with force_full=True against the
-     one-shard specialisation; the plan's boundary rows, rows exchanged and
+     one-shard specialisation, both with the plain BatchNorm; the plan's boundary rows, rows exchanged and
      shard edges with and without rcm, what gloo does with tensors on the
      card, and the scaling driver's rows;
   8. prints the kernel list as one JSON line, then the result line.
@@ -658,6 +662,76 @@ def phase_gin_split(torch, rows):
             for G in GIN_FASTKAN_SPLIT_G:
                 record_row(rows["gin_fastkan"], check_gin_fastkan_split(
                     sg, D, 64, dtype, close, gen, G), False)
+
+
+# the fused BatchNorm at the benchmark cells' shapes: kagat's (169,344, 256)
+# in f32 (the GAT bias promotes the conv's output), kagin's (169,344, 64) in
+# bf16; then the checks' smaller cases
+MASKED_BN_SHAPES = ((169344, 256, "float32"), (169344, 64, "bfloat16"))
+MASKED_BN_SMALL = ((7, 40, "float32"), (4096, 300, "bfloat16"))
+
+
+def phase_masked_bn(torch, rows):
+    """The fused masked BatchNorm (kernels/masked_bn.py) against its plain
+    version (`selfcheck.check_masked_bn`, with no mask, a random mask and
+    every row masked), then at the cells' shapes, with the cells' mask (the
+    pad row masked), the forward and backward together by CUDA events,
+    replayed in a CUDA graph (the device's time, as kagin's cell runs it)
+    and eager, beside the plain version's and the bound (x read and y
+    written forward; x and dy read and dx written backward), the forward
+    alone, and by kernel. The row's error is the worst of every check, its
+    times kagat's shape's replays."""
+    from kagnn_tpu_torch.kernels.selfcheck import check_masked_bn, masked_bn_case
+
+    r = rows["masked_bn"] = kernel_row("masked_bn", "csrc/masked_bn.cu",
+                                       "none (XLA fuses kagnn_tpu/ops/norm.py)")
+    for n, c, dt in MASKED_BN_SHAPES + MASKED_BN_SMALL:
+        for kind in ("none", "random", "all_false"):
+            gen = torch.Generator(device="cuda").manual_seed(n + c)
+            ratios, err = check_masked_bn(n, c, getattr(torch, dt), kind, gen)
+            log(f"  masked_bn ({n}, {c}) {dt} mask {kind}: max_abs_err {err:.3e}, "
+                "worst err/tol " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+            record_row(r, err, False)
+    for i, (n, c, dt) in enumerate(MASKED_BN_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(c)
+        bn, x, dy, _ = masked_bn_case(n, c, getattr(torch, dt), "none", gen)
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        mask[-1] = False
+        x.requires_grad_(True)
+        wrt = (x, bn.weight, bn.bias)
+
+        def fused():
+            torch.autograd.grad(bn(x, mask), wrt, dy)
+
+        def plain():
+            torch.autograd.grad(bn.plain(x, mask, False), wrt, dy)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: bn(x, mask))
+        eager_ms, eager_plain_ms = time_ms(fused), time_ms(plain)
+        ms, plain_ms = time_ms(replay_of(torch, fused)), time_ms(replay_of(torch, plain))
+        bms, by = H100.bound_ms(5 * x.numel() * x.element_size(), 0, dt)
+        log(f"  masked_bn ({n}, {c}) {dt} forward and backward replayed in a CUDA graph: "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}); eager "
+            f"(with the host's enqueue) {eager_ms:.4f}, plain {eager_plain_ms:.4f}, "
+            f"the forward alone {fwd_ms:.4f}")
+        log_kernel_split(torch, f"masked_bn ({n}, {c}) {dt}", fused, row="masked_bn")
+        if i == 0:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def replay_of(torch, fn):
+    """fn() captured in a CUDA graph after a warm-up call on a side stream:
+    the graph's replay, whose time by CUDA events is the device's alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
 
 
 def ragged_graph(torch):
@@ -1535,6 +1609,9 @@ MAIN_PATHS = {
     ("gcn", "mlp"): {"gcn_agg": 3, "spmm": 3},
     ("gat", "mlp"): {"gat_fwd": 3, "gat_dadst": 3, "gat_sender": 3},
 }
+# every node path's three BatchNorms, each forward and backward fused
+for _launches in MAIN_PATHS.values():
+    _launches["masked_bn"] = 6
 # the fusion point FastKAN([128, 64, 64])(x, gin_graph=(g, 0)), forward and
 # backward once: the fused GIN+FastKAN layer, the second layer, both layer
 # backwards and A^T dz (x needs a gradient)
@@ -2156,10 +2233,11 @@ def phase_narrow_drive(torch, g):
 # forward, every layer the backward; the segment sum computes A^T dz at
 # convs 1 and 2 and the pool. R's GINE convs each sum their f32 messages and
 # the gradient to x (the encoder's output needs one; bf16, x's dtype), the
-# pool (bf16) once more.
+# pool (bf16) once more. The fused BatchNorm after each GIN or GINE conv,
+# forward and backward.
 GRAPH_PATHS = {
-    "G": {"gin_fused": 3, "bspline_fwd": 5, "bspline_bwd": 8, "spmm": 3},
-    "R": {"bspline_fwd": 10, "bspline_bwd": 10, "spmm": 9},
+    "G": {"gin_fused": 3, "bspline_fwd": 5, "bspline_bwd": 8, "spmm": 3, "masked_bn": 6},
+    "R": {"bspline_fwd": 10, "bspline_bwd": 10, "spmm": 9, "masked_bn": 8},
 }
 GRAPH_BATCH = 256
 GRAPH_TIMED_EPOCHS = 2
@@ -2456,11 +2534,12 @@ PROTOCOL_SPLITS = 2
 # a train step launches MAIN_PATHS[("gin", "kan")]
 FLAGSHIP_EVAL = {"gin_fused": 3, "bspline_fwd": 4}
 SAMPLED = dict(fanouts=[10, 5], batch_size=512)
-# the kernels each driver of (b)-(d) launches (every other stays at 0)
+# the kernels each driver of (b)-(d) launches (every other stays at 0); the
+# graph classifier's GAT convs have no BatchNorm
 DRIVER_KERNELS = {
-    "b": {"gcn_agg", "spmm", "fastkan_fwd", "fastkan_bwd"},
+    "b": {"gcn_agg", "spmm", "fastkan_fwd", "fastkan_bwd", "masked_bn"},
     "c": {"gat_fwd", "gat_dadst", "gat_sender", "bspline_fwd", "bspline_bwd", "spmm"},
-    "d": {"spmm", "fastkan_fwd", "fastkan_bwd"},
+    "d": {"spmm", "fastkan_fwd", "fastkan_bwd", "masked_bn"},
 }
 
 
@@ -3063,12 +3142,14 @@ HALO_ENTRY_SHARDS = (0, 2)  # shard 0 and an interior shard of the D=4 plan
 # segment sum for each exchange whose input needs a gradient (its backward
 # sums the returned rows over the plan's CSR of the sent slots): the
 # flagship's convs 1 and 2 (conv 0's input is the features), the one-conv
-# gcn and gat steps' transformed rows, the fusion point's x
-HALO_FLAGSHIP = dict(MAIN_PATHS[("gin", "kan")], spmm=4)
+# gcn and gat steps' transformed rows, the fusion point's x; halo mode keeps
+# the plain BatchNorm (its statistics are all-reduced), the edge partition
+# and the DP step the fused one
+HALO_FLAGSHIP = dict(MAIN_PATHS[("gin", "kan")], spmm=4, masked_bn=0)
 HALO_SMALL = {"gcn": {"spmm": 3, "bspline_fwd": 2, "bspline_bwd": 2},
               "gat": {"spmm": 1, "bspline_fwd": 2, "bspline_bwd": 2}}
 HALO_FUSION_POINT = dict(FUSION_POINT, spmm=2)
-EDGE_PATH = {"spmm": 4, "bspline_fwd": 3, "bspline_bwd": 3}
+EDGE_PATH = {"spmm": 4, "bspline_fwd": 3, "bspline_bwd": 3, "masked_bn": 4}
 DP_PATH = GRAPH_PATHS["G"]
 DIST_STEPS = 2  # steps of the small halo, edge and DP drives
 
@@ -3421,19 +3502,31 @@ def dist_edge_dp(torch):
     return total
 
 
+def plain_norm_rank(rank, world, jobs):
+    """`runs.many_rank` with MaskedBatchNorm's plain version everywhere:
+    force_full runs it (halo mode keeps it), so the one-shard
+    specialisation beside it does too, and the two differ by the
+    collectives alone (the fused norm moves bf16 gradients by more than
+    (e)'s bar; it is held to the plain version by `phase_masked_bn`)."""
+    from kagnn_tpu_torch.dist import runs
+    from kagnn_tpu_torch.ops import norm
+
+    norm.fused_route = lambda x, batch_stats: False
+    return runs.many_rank(rank, world, jobs)
+
+
 def dist_nccl(torch):
     """(e) one nccl rank: the halo flagship with force_full=True (the whole
     machinery over a one-rank group: all_to_all_single and all_reduce on
     the card through NCCL) against the one-shard specialisation (no
-    exchange, no collective), both in the rank's process, in turns.
-    Returns the launches."""
-    from kagnn_tpu_torch.dist import runs
+    exchange, no collective), both in the rank's process, in turns, with
+    the plain BatchNorm (`plain_norm_rank`). Returns the launches."""
     from kagnn_tpu_torch.dist.launch import launch
 
     full = dist_spec(torch, force_full=True, profile=True)
     single = dist_spec(torch, profile=True)
     # in the rank's process, in turns: force_full, the specialisation, again
-    res = launch(runs.many_rank, 1, ([("node", full), ("node", single)] * 2,),
+    res = launch(plain_norm_rank, 1, ([("node", full), ("node", single)] * 2,),
                  backend="nccl", device="cuda", timeout=600)
     fulls, singles = res[0][0::2], res[0][1::2]
     log_rank_profile("nccl force_full", fulls[1], fulls[1]["ms"])
@@ -3514,6 +3607,8 @@ def main() -> int:
     g = main_graph(torch)
     log("kernels against their plain versions:")
     rows = phase_kernels(torch, g)
+    log("the fused masked BatchNorm against its plain version:")
+    phase_masked_bn(torch, rows)
     log("kernels at the search-space corners against their plain versions:")
     phase_corners(torch, rows)
     log("kernels past their old limits against their plain versions:")

@@ -5,7 +5,8 @@ counter. Sources: `kagnn_tpu_torch/csrc/`; build: `_build.py`."""
 
 def launch_counters() -> dict:
     """Every kernel wrapper by its kernel row (PERF.md §6): its `launches`
-    counts the calls that launched its kernel."""
+    counts the calls that launched its kernel (`masked_bn`, which has no
+    TPU row: its forwards and its backwards)."""
     from kagnn_tpu_torch.kernels import bspline_fused as bf
     from kagnn_tpu_torch.kernels import fastkan_layer as fk
     from kagnn_tpu_torch.kernels import gat_bwd as gbw
@@ -13,6 +14,7 @@ def launch_counters() -> dict:
     from kagnn_tpu_torch.kernels import gcn_agg as ga
     from kagnn_tpu_torch.kernels import gin_fastkan as gfk
     from kagnn_tpu_torch.kernels import gin_fused as gf
+    from kagnn_tpu_torch.kernels import masked_bn as bn
     from kagnn_tpu_torch.kernels import rbf_fused as rf
     from kagnn_tpu_torch.kernels import spmm
 
@@ -23,4 +25,5 @@ def launch_counters() -> dict:
             "gin_fastkan": gfk.gin_fastkan_fwd, "gat_fwd": gfu.gat_fwd,
             "gat_dadst": gbw.gat_dadst, "gat_sender": gbw.gat_sender,
             "rbf_fwd": rf.rbf_spline_fwd, "rbf_bwd": rf.rbf_spline_bwd,
-            "spmm_narrow": spmm.sorted_segment_sum_narrow}
+            "spmm_narrow": spmm.sorted_segment_sum_narrow,
+            "masked_bn": bn.masked_bn}

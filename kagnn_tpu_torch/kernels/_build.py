@@ -35,7 +35,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("spmm", "bspline_fused", "gin_fused", "gcn_agg", "fastkan_layer",
-           "gin_fastkan", "gat_fused", "gat_bwd", "rbf_fused", "spmm_narrow")
+           "gin_fastkan", "gat_fused", "gat_bwd", "rbf_fused", "spmm_narrow",
+           "masked_bn")
 # the sources built per shape, with the names of their shape's defines
 SHAPED = {"bspline_fused": ("KAN_ORDER", "KAN_GRID"),
           "gin_fused": ("KAN_ORDER", "KAN_GRID"),
@@ -46,7 +47,7 @@ SHAPED = {"bspline_fused": ("KAN_ORDER", "KAN_GRID"),
 MAIN = (("spmm", ()), ("bspline_fused", (3, 4)), ("gin_fused", (3, 4)),
         ("gcn_agg", ()), ("fastkan_layer", (4,)), ("gin_fastkan", (4,)),
         ("gat_fused", ()), ("gat_bwd", ()), ("rbf_fused", (8,)),
-        ("spmm_narrow", ()))
+        ("spmm_narrow", ()), ("masked_bn", ()))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -24,7 +24,9 @@ kernels on adapted knots (`adapted_knots`, `check_adapted_layer`),
 including knots whose narrowest span bf16 rounds to zero
 (`degenerate_knots`, `close_nonfinite`), and the two halo entries of the
 fused GIN kernels on one shard of a halo plan, with no process group
-(`halo_entry_graph`, `halo_shard`, `check_halo_entry`)."""
+(`halo_entry_graph`, `halo_shard`, `check_halo_entry`), and the fused
+masked BatchNorm against the module's plain version and its f64 function
+(`masked_bn_case`, `masked_bn_f64`, `check_masked_bn`)."""
 from __future__ import annotations
 
 import torch
@@ -40,11 +42,13 @@ from kagnn_tpu_torch.kernels import gat_fused as gfu
 from kagnn_tpu_torch.kernels import gcn_agg as ga
 from kagnn_tpu_torch.kernels import gin_fastkan as gfk
 from kagnn_tpu_torch.kernels import gin_fused as gf
+from kagnn_tpu_torch.kernels import masked_bn as mbn
 from kagnn_tpu_torch.kernels import rbf_fused as rf
 from kagnn_tpu_torch.kernels import spmm
 from kagnn_tpu_torch.kernels._common import (GAT_PIECE, dleaky, dw_tile,
                                              gat_edges, leaky, round_to,
                                              segment_ids, tile_partials)
+from kagnn_tpu_torch.ops.norm import MaskedBatchNorm
 
 BF16_ULP = 2.0 ** -8  # relative spacing of bf16 values
 # A bf16 model's gradient, in bf16 ulps of the gradient's scale: the bar
@@ -1121,3 +1125,124 @@ def check_halo_entry(kind: str, g, n_ext: int, d: int, o: int, dtype, close, gen
             "layer_bwd": max(err, close(f"{name} dx", dx, (1.0 + eps) * dz_plain)),
             "dext": close(f"{name} dext", dext,
                           spmm_f64(dz, g.send_row_ptr, g.receivers_by_sender))}
+
+
+# --- the fused masked BatchNorm (kernels/masked_bn.py) -----------------------
+
+def bar_ratio(got, want, dtype, scale=None) -> float:
+    """max |got - want| / (c * scale), c 1e-4 in f32 and 4 bf16 ulps in
+    bf16, scale |want| (or the given scale) floored by its mean: the card
+    tests' `close` as a ratio, 1 at the bar."""
+    got, want = got.float(), want.float()
+    scale = (want.abs() if scale is None else scale.float()).expand_as(want)
+    scale = scale.clamp_min(max(scale.mean().item(), 1e-30))
+    c = 1e-4 if dtype == torch.float32 else 4 * BF16_ULP
+    return ((got - want).abs() / (c * scale)).max().item()
+
+
+def masked_bn_case(n: int, c: int, dtype, kind: str, gen, device="cuda"):
+    """x (n, c) scaled and shifted (mean 3, spread 2), dy (n, c) in dtype,
+    the mask (None, random with 70 % set, or all False) and a module with
+    random weight, bias and running buffers, in training mode."""
+    x = (torch.randn(n, c, generator=gen, device=device) * 2.0 + 3.0).to(dtype)
+    dy = torch.randn(n, c, generator=gen, device=device).to(dtype)
+    mask = {"none": None,
+            "random": torch.rand(n, generator=gen, device=device) < 0.7,
+            "all_false": torch.zeros(n, dtype=torch.bool, device=device)}[kind]
+    bn = MaskedBatchNorm(c, device=device)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(c, generator=gen, device=device) * 0.3 + 1.0)
+        bn.bias.copy_(torch.randn(c, generator=gen, device=device) * 0.2)
+        bn.running_mean.copy_(torch.randn(c, generator=gen, device=device))
+        bn.running_var.copy_(torch.rand(c, generator=gen, device=device) + 0.5)
+    return bn.train(), x, dy, mask
+
+
+def masked_bn_f64(x, dy, mask, weight, eps: float) -> dict:
+    """The training forward's statistics and the backward of
+    MaskedBatchNorm in f64 from the same (rounded) inputs: mean, var, dx,
+    dweight, dbias."""
+    xd, g = x.double(), dy.double()
+    m = (torch.ones_like(xd[:, :1]) if mask is None else mask.double()[:, None])
+    n = m.sum().clamp_min(1.0)
+    mean = (xd * m).sum(0) / n
+    var = (((xd - mean) ** 2) * m).sum(0) / n
+    rstd = torch.rsqrt(var + eps)
+    xh = (xd - mean) * rstd
+    w = weight.double()
+    g = g * m
+    db, dw = g.sum(0), (g * xh).sum(0)
+    return {"mean": mean, "var": var, "dx": m * w * rstd * (g - db / n - xh * dw / n),
+            "dweight": dw, "dbias": db}
+
+
+def check_masked_bn(n: int, c: int, dtype, kind: str, gen) -> dict:
+    """The fused forward and backward (MaskedBatchNorm on the card in
+    training) against the plain version and the f64 function, raising past
+    a bar (`bar_ratio`):
+      * the running buffers against the plain version's, f32 bar;
+      * y against the plain version's, x's bar over |x a| + |b| (a and b
+        are rounded to x's dtype, so their last bit moves y by an ulp of
+        x a); y bit for bit against x * a + b in PyTorch, given the fused
+        forward's own a and b (the apply pass's rounding points);
+      * dx against the f64 dx, x's bar (and the plain version's, n >= 4096:
+        at fewer rows the plain dx is left with the cancellation of its
+        terms); dweight and dbias against the f64 ones, f32 bar;
+      * masked rows zero in y and dx; two calls equal bit for bit; two
+        launches counted a call.
+    Returns the ratios to the bars by name, and the largest absolute error
+    of y against the plain version's and of dx, dweight and dbias against
+    the f64 ones."""
+    bn, x, dy, mask = masked_bn_case(n, c, dtype, kind, gen)
+    state = {k: v.clone() for k, v in bn.state_dict().items()}
+
+    def fused():
+        bn.load_state_dict(state)
+        xr = x.clone().requires_grad_(True)
+        before = mbn.masked_bn.launches
+        y = bn(xr, mask)
+        # MaskedBatchNormFn saves (x, mask, weight, stats): a, b first
+        stats = y.grad_fn.saved_tensors[3]
+        y.backward(dy)
+        if mbn.masked_bn.launches != before + 2:
+            raise AssertionError("masked_bn: a forward and a backward did not count 2")
+        out = {"y": y.detach(), "dx": xr.grad, "dweight": bn.weight.grad,
+               "dbias": bn.bias.grad, "running_mean": bn.running_mean.clone(),
+               "running_var": bn.running_var.clone(), "a": stats[:c].clone(),
+               "b": stats[c:2 * c].clone()}
+        bn.weight.grad = bn.bias.grad = None
+        return out
+
+    got = fused()
+    again = fused()
+    for k, v in got.items():
+        if not torch.equal(v, again[k]):
+            raise AssertionError(f"masked_bn: {k} differs between two calls")
+    bn.load_state_dict(state)
+    xp = x.clone().requires_grad_(True)
+    yp = bn.plain(xp, mask, False)
+    yp.backward(dy)
+    ref = masked_bn_f64(x, dy, mask, bn.weight.detach(), bn.epsilon)
+    a, bb = got["a"], got["b"]
+    want = x * a.to(dtype) + bb.to(dtype)
+    if mask is not None:
+        want = torch.where(mask[:, None], want, torch.zeros((), dtype=dtype, device=x.device))
+    if not torch.equal(got["y"], want):
+        raise AssertionError("masked_bn: y differs from x * a + b given its own a and b")
+    r = {"running_mean": bar_ratio(got["running_mean"], bn.running_mean, torch.float32),
+         "running_var": bar_ratio(got["running_var"], bn.running_var, torch.float32),
+         "y": bar_ratio(got["y"], yp, dtype, x.float().abs() * a.abs() + bb.abs()),
+         "dx_f64": bar_ratio(got["dx"], ref["dx"], dtype),
+         "dweight": bar_ratio(got["dweight"], ref["dweight"], torch.float32),
+         "dbias": bar_ratio(got["dbias"], ref["dbias"], torch.float32)}
+    if n >= 4096:
+        r["dx_plain"] = bar_ratio(got["dx"], xp.grad, dtype)
+    bad = {k: v for k, v in r.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"masked_bn ({n}, {c}) {dtype} {kind}: past the bar {bad}")
+    if mask is not None and (got["y"][~mask].any() or got["dx"][~mask].any()):
+        raise AssertionError("masked_bn: a masked row is not zero")
+    err = max((got["y"].float() - yp.float()).abs().max().item(),
+              *((got[k].double() - ref[k]).abs().max().item()
+                for k in ("dx", "dweight", "dbias")))
+    return r, err

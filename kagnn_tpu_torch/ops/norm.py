@@ -6,6 +6,12 @@ the normalisation and the unbiased one for the running update. Normalise
 and affine fold into one FMA in the input dtype; masked rows come out zero.
 Under `ops.segment.halo_mode` the statistics are all-reduced over the
 ranks, whose cotangents the all-reduce's backward carries back.
+
+A training forward on the card (`fused_route`) runs the same arithmetic
+through the hand-written kernels of `kernels/masked_bn.py`, three launches
+each way; everything else (CPU tensors, other dtypes, the running averages,
+halo mode) runs `MaskedBatchNorm.plain`, which is also the yardstick of the
+kernels' tests.
 """
 from __future__ import annotations
 
@@ -14,8 +20,19 @@ from typing import Optional
 import torch
 from torch import nn
 
+from kagnn_tpu_torch.kernels.masked_bn import masked_bn
 from kagnn_tpu_torch.ops import segment
 from kagnn_tpu_torch.utils.device import resolve_device
+from kagnn_tpu_torch.utils.profiling import NORM, span
+
+
+def fused_route(x: torch.Tensor, batch_stats: bool) -> bool:
+    """Whether a forward takes the fused kernels: batch statistics (not the
+    running averages) of an f32 or bf16 x on the card, outside halo mode
+    (whose statistics are all-reduced over the ranks)."""
+    return (batch_stats and x.device.type == "cuda"
+            and x.dtype in (torch.float32, torch.bfloat16)
+            and segment.node_stats_axis() is None)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -33,9 +50,18 @@ class MaskedBatchNorm(nn.Module):
                 use_running_average: Optional[bool] = None) -> torch.Tensor:
         """`use_running_average` as the JAX layer's (None: not
         self.training)."""
+        with span(NORM):
+            if use_running_average is None:
+                use_running_average = not self.training
+            if fused_route(x, not use_running_average):
+                return masked_bn(x, mask, self.weight, self.bias, self.running_mean,
+                                 self.running_var, self.momentum, self.epsilon)
+            return self.plain(x, mask, use_running_average)
+
+    def plain(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+              use_running_average: bool) -> torch.Tensor:
+        """The forward in PyTorch operations."""
         xf = x.float()
-        if use_running_average is None:
-            use_running_average = not self.training
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:

@@ -39,7 +39,7 @@ import torch.autograd.profiler as _autograd_profiler
 # MULTI_STEP_REPLAY. The layer spans cover forwards only: KAN_LAYER a
 # `KANLinear` or `FastKANLayer` (a fused GIN entry, aggregation included),
 # MESSAGE_PASSING `ops/segment.py`'s neighbor_sum, gcn_aggregate and
-# gat_attention.
+# gat_attention, NORM a `MaskedBatchNorm`.
 STEP = "kagnn.step"
 STEP_FORWARD = "kagnn.step.forward"
 STEP_BACKWARD = "kagnn.step.backward"
@@ -49,6 +49,7 @@ MULTI_STEP_COPY_IN = "kagnn.multi_step.copy_in"
 MULTI_STEP_REPLAY = "kagnn.multi_step.replay"
 KAN_LAYER = "kagnn.kan_layer"
 MESSAGE_PASSING = "kagnn.message_passing"
+NORM = "kagnn.norm"
 # torch.optim's own spans, `Optimizer.step#Adam.step` and the like
 OPTIMIZER_SPANS = ("Optimizer.step", "Optimizer.zero_grad")
 # the spans `span_report` reads, by name prefix
@@ -301,7 +302,8 @@ def launch_resources(run: Callable[[], None]) -> dict:
 # or the tensor cores) the stem `<prefix>_fwd`, and each GAT kernel's
 # launches (the split rows' piece and combine kernels too) its row's stem;
 # gin_fused's four kernels (the split aggregate's two, the forwards on the
-# tensor cores and the CUDA cores) carry `gin_`, after gin_fastkan's.
+# tensor cores and the CUDA cores) carry `gin_`, after gin_fastkan's;
+# the fused BatchNorm's six carry `masked_bn_` (a row with no TPU kernel).
 # The first prefix a profiled name starts with decides its row. The tile walk (kan::walk_tiles_kernel)
 # is shared by the three layer backwards and goes to the one the path
 # launched.
@@ -311,7 +313,8 @@ KERNEL_NAMES = (("bspline_fwd", "bspline_fwd"), ("bspline_", "bspline_bwd"),
                 ("rbf_fwd", "rbf_fwd"), ("rbf_", "rbf_bwd"),
                 ("gat_fwd", "gat_fwd"), ("gat_dadst", "gat_dadst"),
                 ("gat_sender", "gat_sender"), ("gcn_", "gcn_agg"),
-                ("spmm_csr", "spmm"), ("narrow_", "spmm_narrow"))
+                ("spmm_csr", "spmm"), ("narrow_", "spmm_narrow"),
+                ("masked_bn_", "masked_bn"))
 
 
 def kernel_base_name(key: str) -> str:

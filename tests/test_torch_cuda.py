@@ -44,6 +44,7 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                check_gat_split,
                                                check_gin_fastkan_split,
                                                check_gin_split,
+                                               check_masked_bn,
                                                check_spmm_split,
                                                fastkan_gcn_chain,
                                                gat_attention_chain,
@@ -53,6 +54,7 @@ from kagnn_tpu_torch.kernels.selfcheck import (GAT_SPLIT_CASES,
                                                gcn_agg_f64, gcn_split_graph,
                                                graph_sum_batch,
                                                halo_entry_graph, halo_shard,
+                                               masked_bn_case,
                                                narrow_cases,
                                                rbf_bwd_expected,
                                                rbf_bwd_kernels, rbf_chain,
@@ -1188,8 +1190,9 @@ def test_graph_prefetch_matches_sync_batches(native):
 
 def test_graph_step_launches_per_step():
     """One bf16 step of graph classification gin/kan (3 convs) launches
-    gin_fused 3, the layer forward 5 and backward 8 times and the segment
-    sum 3 times (A^T dz at convs 1 and 2, the pool)."""
+    gin_fused 3, the layer forward 5 and backward 8 times, the segment
+    sum 3 times (A^T dz at convs 1 and 2, the pool) and the fused
+    BatchNorm 6 times (each conv's norm forward and backward)."""
     from kagnn_tpu_torch.graphs import batch_graphs, pad_spec_for
     from kagnn_tpu_torch.models import GraphClassifier
     from kagnn_tpu_torch.train import make_graph_cls_steps
@@ -1205,7 +1208,8 @@ def test_graph_step_launches_per_step():
     torch.cuda.synchronize()
     assert {k: f.launches - before[k] for k, f in fns.items()
             if f.launches != before[k]} == {"gin_fused": 3, "bspline_fwd": 5,
-                                            "bspline_bwd": 8, "spmm": 3}
+                                            "bspline_bwd": 8, "spmm": 3,
+                                            "masked_bn": 6}
 
 
 # ------------------------------------------------------ the protocol layer
@@ -1332,3 +1336,63 @@ def test_dist_halo_entries_match_plain(dt, kind, case, no_tf32):
         assert bool(g.node_mask[-1])
     gen = torch.Generator(device="cuda").manual_seed(shard * 100 + d)
     check_halo_entry(kind, g, n_ext, d, o, DTYPES[dt], _closer(dt), gen, log=_quiet)
+
+
+# ------------------------------------------------------ the fused BatchNorm
+
+BN_ROWS = [1, 7, 4096, 169344]
+BN_COLS = [1, 40, 64, 256, 300]
+
+
+@pytest.mark.parametrize("kind", ["none", "random", "all_false"])
+@pytest.mark.parametrize("c", BN_COLS)
+@pytest.mark.parametrize("n", BN_ROWS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_masked_bn_matches_plain(dt, n, c, kind):
+    """MaskedBatchNorm's fused training forward and backward against its
+    plain version and its f64 function (`selfcheck.check_masked_bn`): the
+    running buffers, y, dx, dweight and dbias within their bars, y bit for
+    bit against x * a + b given the forward's own a and b, masked rows zero,
+    two calls equal bit for bit, two launches counted a call; from one row
+    to the arxiv-sized graph's rows, at widths of one column, widths that
+    no 16-byte vector fills (40 in bf16, 300) and the cells' widths."""
+    gen = torch.Generator(device="cuda").manual_seed(n * 1000 + c)
+    check_masked_bn(n, c, DTYPES[dt], kind, gen)
+
+
+@pytest.mark.parametrize("dt,c", [("bf16", 64), ("f32", 256)])
+def test_masked_bn_cuda_graph_equals_eager(dt, c):
+    """The fused forward and backward at the two cells' shapes, captured in
+    a CUDA graph and replayed twice, equal two eager calls bit for bit, the
+    running buffers included; the eager calls never sync with the host."""
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    bn, x, dy, mask = masked_bn_case(169344, c, DTYPES[dt], "random", gen)
+    x.requires_grad_(True)
+    state = {k: v.clone() for k, v in bn.state_dict().items()}
+
+    def call():
+        y = bn(x, mask)
+        return (y.detach(),) + torch.autograd.grad(y, (x, bn.weight, bn.bias), dy)
+
+    def buffers():
+        return [bn.running_mean.clone(), bn.running_var.clone()]
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = [[t.clone() for t in call()] + buffers() for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bn.load_state_dict(state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    bn.load_state_dict(state)
+    for want in eager:
+        graph.replay()
+        got = [t.clone() for t in out] + buffers()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

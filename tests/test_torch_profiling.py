@@ -52,7 +52,10 @@ KERNEL_ROWS = {
     "gcn_combine_kernel": "gcn_agg", "spmm_csr_kernel": "spmm",
     "spmm_csr_combine_kernel": "spmm",
     "narrow_row_ptr_kernel": "spmm_narrow", "narrow_sum_kernel": "spmm_narrow",
-    "narrow_combine_kernel": "spmm_narrow", "walk_tiles_kernel": None}
+    "narrow_combine_kernel": "spmm_narrow", "walk_tiles_kernel": None,
+    "masked_bn_stats_kernel": "masked_bn", "masked_bn_stats_final_kernel": "masked_bn",
+    "masked_bn_apply_kernel": "masked_bn", "masked_bn_grad_stats_kernel": "masked_bn",
+    "masked_bn_grad_final_kernel": "masked_bn", "masked_bn_dx_kernel": "masked_bn"}
 
 
 def test_h100_peaks_and_bound():
