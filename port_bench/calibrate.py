@@ -10,7 +10,8 @@ For each seed, each number of `check.py` for:
   * `control_fp8`: the reference computed in float8 e4m3 (the precision
     below the configuration's bf16) in the program's place;
   * `half_batch`: the reference with the loss's mean taken over half of the
-    training nodes in the program's place (a fault the check must catch).
+    training nodes (of a graph-level task, half of the graphs) in the
+    program's place (a fault the check must catch).
 A step that leaves the state unchanged reads 1 on `change_gap` and needs no
 run. One JSON object a seed goes to standard output.
 """
@@ -41,7 +42,7 @@ def readings(resolved: dict, seed: int, device, kinds=KINDS, graph=None) -> dict
     graph = graph or traffic["graph"]
     ref = importlib.import_module(f"port_bench.reference.{config['reference']}")
     gen = inputs.generator(seed, device)
-    data = inputs.make_graph(graph, seed, gen, device)
+    data = inputs.make_inputs(graph, seed, gen, device)
     weights = inputs.make_weights(
         ref.param_specs(config, data.num_features, data.num_classes), gen, device)
     units, unit_steps = int(traffic["check_units"]), int(traffic["unit_steps"])
@@ -53,9 +54,7 @@ def readings(resolved: dict, seed: int, device, kinds=KINDS, graph=None) -> dict
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    rdata = {"senders": torch.from_numpy(data.senders).long().to(device),
-             "receivers": torch.from_numpy(data.receivers).long().to(device),
-             "nodes": data.nodes, "labels": data.labels, "train_mask": data.train_mask}
+    rdata = inputs.reference_inputs(ref, data, device)
     lr, steps = traffic["optimizer"]["lr"], units * unit_steps
 
     def side(**kw):
@@ -65,7 +64,7 @@ def readings(resolved: dict, seed: int, device, kinds=KINDS, graph=None) -> dict
     truth = side()
     others = {"program": lambda: first,
               "control_fp8": lambda: side(rounding=ref.rounding_to(torch.float8_e4m3fn)),
-              "half_batch": lambda: side(loss_mask=half_mask(data.train_mask))}
+              "half_batch": lambda: side(loss_mask=half_mask(rdata["train_mask"]))}
     for kind in kinds:
         g = check.gaps(others[kind](), truth, weights)
         out[kind] = {k: g[k] for k in (*check.NUMBERS, "grad_leaf", "change_leaf")}

@@ -6,8 +6,17 @@ harness finds
   * the traffic at `port_bench/traffic/<traffic>.json`,
   * the cell's correctness limits at `port_bench/cells/<cell>.json`,
   * each per-layer metric's reader at `port_bench/metrics/<metric>.py`,
-so a later change adds a cell, a configuration, a traffic mix or a metric
-with new files and new entries alone.
+and, by the names the configuration and the traffic give,
+  * the program's builder: `port_bench/programs/<model>.py`, or the
+    built-in `NodeClassifier` one (`program.build`),
+  * the inputs' generator: built in, or `port_bench/generators/<name>.py`
+    (`inputs.make_inputs`),
+  * the plain reference, `port_bench/reference/<reference>.py`, which may
+    also define the step's counts (`work.py`) and what it trains on
+    (`inputs.reference_inputs`),
+so a later change adds a cell, a configuration of any of the port's models,
+a traffic mix or a metric with new files and new entries alone
+(`port_bench/tests/new_config/` holds two such configurations).
 """
 from __future__ import annotations
 

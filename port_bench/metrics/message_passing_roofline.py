@@ -11,9 +11,9 @@ KERNELS = ("gin_sum", "gin_fastkan_sum", "spmm_csr", "gat_fwd", "gat_dadst",
 
 
 def read(ctx):
+    items = work.message_passing(ctx.config, ctx.graph)
     spent = trace.group_s(ctx.trace, KERNELS) / ctx.steps_traced
-    if spent <= 0:
+    if items is None or spent <= 0:
         return None
-    least = work.least_ms(work.message_passing(ctx.config, ctx.graph),
-                          ctx.config["compute_dtype"]) * 1e-3
+    least = work.least_ms(items, ctx.config["compute_dtype"]) * 1e-3
     return 100.0 * least / spent

@@ -6,4 +6,6 @@ from port_bench import work
 
 def read(ctx):
     flops = work.model_flops(ctx.config, ctx.graph)
+    if flops is None:
+        return None
     return 100.0 * flops / (ctx.step_ms * 1e-3) / work.PEAK_FLOPS[ctx.config["compute_dtype"]]

@@ -15,6 +15,15 @@ Departures from the published reference, each also the program's: GIN's eps
 is 0 and not trained; BatchNorm's running statistics are not kept (a train
 step never reads them); dropout is 0.
 
+At any size it holds a bounded amount at a time: the gathers and scatters
+over the edges run in blocks of at most `EDGE_BLOCK_BYTES` of gathered rows,
+in edge order, forward and backward (`_NeighborSum`, `_WeightedNeighborSum`);
+a KAN layer whose B-spline basis would pass `BASIS_BLOCK_BYTES` is computed
+in blocks of rows, each recomputed in the backward. The arithmetic and its
+rounding points are those of the one-shot form; two sums add in another
+order: the blocked KAN layer's weight gradients (its blocks' partial sums)
+and GAT's senders' gradient (`_WeightedNeighborSum`).
+
 `rounding` puts a lower precision in the reference's place, for the
 control: a function applied where the program rounds to its compute dtype
 (the features, each KAN layer's input, weights and output, the attention's
@@ -32,6 +41,17 @@ from torch.utils.checkpoint import checkpoint
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 BN_EPS = 1e-5
 GAT_SLOPE = 0.2
+# the most bytes of gathered edge rows, and of a KAN layer's knot-wide basis,
+# held at a time; the arxiv-sized cells take one block of each
+EDGE_BLOCK_BYTES = 2 ** 31
+BASIS_BLOCK_BYTES = 2 ** 31
+
+
+def blocks(n: int, row_bytes: int, budget: int) -> list[tuple[int, int]]:
+    """[start, end) ranges covering n rows, in order, of at most `budget`
+    bytes at `row_bytes` a row (at least one row each)."""
+    step = max(1, budget // max(1, row_bytes))
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
 
 
 def kan_layers(config: dict, num_features: int, num_classes: int):
@@ -98,17 +118,21 @@ def b_splines(x: torch.Tensor, grid: torch.Tensor, order: int) -> torch.Tensor:
 
 def kan_linear(x, p: dict, prefix: str, grid, order: int, rnd: Callable):
     """SiLU(x) Wbᵀ + B(x) (Ws ⊙ scaler)ᵀ, recomputed in the backward (the
-    basis of a 169k x 256 input and its ladder would not fit otherwise)."""
+    basis of a 169k x 256 input and its ladder would not fit otherwise), in
+    blocks of rows where the basis would pass `BASIS_BLOCK_BYTES`; the
+    roundings apply to whole tensors (a float8 control's scale is the
+    tensor's)."""
     wb, ws, sc = (p[f"{prefix}.{n}"] for n in ("base_weight", "spline_weight", "spline_scaler"))
+    rows = blocks(x.shape[0], x.shape[1] * grid.shape[1] * 4, BASIS_BLOCK_BYTES)
+    x, w_base, w_spline = rnd(x), rnd(wb), rnd(ws * sc[..., None])
 
-    def f(x, wb, ws, sc):
-        x = rnd(x)
-        w_spline = rnd(ws * sc[..., None])
-        out = F.silu(x) @ rnd(wb).T + (b_splines(x, grid, order).reshape(x.shape[0], -1)
+    def f(x, w_base, w_spline):
+        return F.silu(x) @ w_base.T + (b_splines(x, grid, order).reshape(x.shape[0], -1)
                                        @ w_spline.reshape(w_spline.shape[0], -1).T)
-        return rnd(out)
 
-    return checkpoint(f, x, wb, ws, sc, use_reentrant=False)
+    parts = x.split([b - a for a, b in rows])
+    return rnd(torch.cat([checkpoint(f, xb, w_base, w_spline, use_reentrant=False)
+                          for xb in parts]))
 
 
 def batch_norm(x, w, b):
@@ -118,9 +142,59 @@ def batch_norm(x, w, b):
     return (x - mean) * torch.rsqrt(var + BN_EPS) * w + b
 
 
+class _NeighborSum(torch.autograd.Function):
+    """x + Σ_{edges j→i} x_j into row i: `x.index_add(0, rcv,
+    x.index_select(0, snd))` and its autograd backward (the gradient plus
+    its gather by receiver summed into the senders' rows), in blocks of
+    edges."""
+
+    @staticmethod
+    def forward(ctx, x, snd, rcv):
+        ctx.save_for_backward(snd, rcv)
+        out = x.clone()
+        for a, b in blocks(snd.shape[0], x.shape[1] * x.element_size(), EDGE_BLOCK_BYTES):
+            out.index_add_(0, rcv[a:b], x.index_select(0, snd[a:b]))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        snd, rcv = ctx.saved_tensors
+        s = torch.zeros_like(g)
+        for a, b in blocks(snd.shape[0], g.shape[1] * g.element_size(), EDGE_BLOCK_BYTES):
+            s.index_add_(0, snd[a:b], g.index_select(0, rcv[a:b]))
+        return g + s, None, None
+
+
+class _WeightedNeighborSum(torch.autograd.Function):
+    """base + Σ_{edges j→i} alpha_e ⊙ h_j into row i, for h (N, heads, C)
+    and alpha (E, heads): `base.index_add(0, rcv, h[snd] * alpha[..., None])`
+    and its autograd backward, in blocks of edges. The senders' gradient is
+    summed by `index_add_` in edge order, where autograd's backward of
+    `h[snd]` sums in an order of its own: the one difference in rounding."""
+
+    @staticmethod
+    def forward(ctx, h, alpha, base, snd, rcv):
+        ctx.save_for_backward(h, alpha, snd, rcv)
+        out = base.clone()
+        row = h[0].numel() * h.element_size()
+        for a, b in blocks(snd.shape[0], row, EDGE_BLOCK_BYTES):
+            out.index_add_(0, rcv[a:b], h[snd[a:b]] * alpha[a:b, :, None])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, alpha, snd, rcv = ctx.saved_tensors
+        gh, galpha = torch.zeros_like(h), torch.empty_like(alpha)
+        for a, b in blocks(snd.shape[0], h[0].numel() * h.element_size(), EDGE_BLOCK_BYTES):
+            gm = g.index_select(0, rcv[a:b])
+            galpha[a:b] = (gm * h[snd[a:b]]).sum(-1)
+            gh.index_add_(0, snd[a:b], gm * alpha[a:b, :, None])
+        return gh, galpha, g, None, None
+
+
 def gin_sum(x, snd, rcv):
     """(1 + 0)·x_i + Σ_{edges j→i} x_j."""
-    return x.index_add(0, rcv, x.index_select(0, snd))
+    return _NeighborSum.apply(x, snd, rcv)
 
 
 def gat_attention(h, att_src, att_dst, snd, rcv, heads: int):
@@ -136,8 +210,8 @@ def gat_attention(h, att_src, att_dst, snd, rcv, heads: int):
         top = s_logit.scatter_reduce(0, rcv[:, None].expand_as(e_logit), e_logit, "amax")
     e_exp, s_exp = torch.exp(e_logit - top[rcv]), torch.exp(s_logit - top)
     denom = s_exp.index_add(0, rcv, e_exp)
-    msgs = h3[snd] * (e_exp / denom[rcv])[..., None]
-    out = (h3 * (s_exp / denom)[..., None]).index_add(0, rcv, msgs)
+    alpha = e_exp / denom[rcv]
+    out = _WeightedNeighborSum.apply(h3, alpha, h3 * (s_exp / denom)[..., None], snd, rcv)
     return out.reshape(n, -1)
 
 
@@ -173,29 +247,36 @@ def masked_cross_entropy(out, labels, mask):
 
 def train(weights: dict, data: dict, config: dict, lr: float, steps: int,
           grad_step: int, rounding: Optional[Callable] = None,
-          loss_mask: Optional[torch.Tensor] = None):
+          loss_mask: Optional[torch.Tensor] = None, loss: Optional[Callable] = None):
     """`steps` full-batch Adam steps from `weights`. Returns (the losses,
     the gradient of step `grad_step` by parameter, the parameters after the
-    last step). `loss_mask` replaces the training mask in the loss (a fault
-    the check must catch)."""
+    last step). `loss_mask` replaces `data["train_mask"]` in the loss (a
+    fault the check must catch); `loss(params, data, config, rnd, mask)`,
+    the loss of another model (by default `logits`' masked cross-entropy),
+    lets another reference module train through this loop."""
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         return _train(weights, data, config, lr, steps, grad_step,
                       rounding or (lambda t: t),
-                      data["train_mask"] if loss_mask is None else loss_mask)
+                      data["train_mask"] if loss_mask is None else loss_mask,
+                      loss or node_loss)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
-def _train(weights, data, config, lr, steps, grad_step, rnd, mask):
+def node_loss(p: dict, data: dict, config: dict, rnd: Callable, mask) -> torch.Tensor:
+    return masked_cross_entropy(logits(p, data, config, rnd), data["labels"], mask)
+
+
+def _train(weights, data, config, lr, steps, grad_step, rnd, mask, loss_of):
     names = list(weights)
     params = {n: weights[n].detach().float().clone().requires_grad_() for n in names}
     m1 = {n: torch.zeros_like(v) for n, v in params.items()}
     m2 = {n: torch.zeros_like(v) for n, v in params.items()}
     (b1, b2), losses, grads = ADAM_BETAS, [], None
     for t in range(1, steps + 1):
-        loss = masked_cross_entropy(logits(params, data, config, rnd), data["labels"], mask)
+        loss = loss_of(params, data, config, rnd, mask)
         gs = torch.autograd.grad(loss, [params[n] for n in names])
         losses.append(float(loss.detach()))
         if t == grad_step:

@@ -5,17 +5,19 @@
 From the root of a checkout that holds `BENCHMARK.json`, `port_bench/` and
 `kagnn_tpu_torch/`, on a machine with the CUDA cards the cell asks for.
 
-Set-up (counted from process start to the first timed step): the graph,
-features, labels, training mask and weights from `--seed`, the port's model
-and optimizer with those weights, then the cell's first units of work, which
+Set-up (counted from process start to the first timed step): the inputs
+(the traffic's generator: a graph, its features, labels and training mask)
+and weights from `--seed`, the port's model and optimizer with those
+weights (the configuration's builder), then the cell's first units of work, which
 build and load the kernels, capture a CUDA graph where the traffic captures,
 and give the steps the check compares. The window then issues units back to
 back for `--seconds`, reading each unit's loss on the host, and ends with a
 synchronize. With `--trace 1` a short sub-window after it is profiled.
 After the window the program is freed and the plain reference follows the
 checked steps from the same weights; the run prints the comparison's
-numbers beside their limits as its last lines on standard error, and one
-JSON object as the last line of standard output.
+numbers beside their limits as its last lines on standard error (before
+them, each phase's seconds and the reference's peak memory), and one JSON
+object as the last line of standard output.
 
 Exit codes: 0 with a result; 3 without the cards the cell asks for; 4 when
 a module of JAX or of the JAX package was loaded; any other failure raises.
@@ -181,7 +183,7 @@ def main(argv=None, require_chip: bool = True, device: str = "cuda",
 
     t = time.perf_counter()
     gen = inputs.generator(args.seed, dev)
-    data = inputs.make_graph(graph, args.seed, gen, dev)
+    data = inputs.make_inputs(graph, args.seed, gen, dev)
     weights = inputs.make_weights(
         ref.param_specs(config, data.num_features, data.num_classes), gen, dev)
     sync()
@@ -202,25 +204,28 @@ def main(argv=None, require_chip: bool = True, device: str = "cuda",
     phases["first_units"] = time.perf_counter() - t
     setup_s = time.perf_counter() - T0
 
+    t = time.perf_counter()
     win = timed_window(prog.unit, args.seconds, sync)
     program_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    phases["window"], t = time.perf_counter() - t, time.perf_counter()
     traced = None
     if args.trace:
         traced = traced_window(prog.unit, int(traffic["trace_units"]), cuda, sync)
+        phases["traced"] = time.perf_counter() - t
     unit_steps, steps_checked = prog.unit_steps, len(first["losses"])
     del prog
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
 
     t = time.perf_counter()
-    rdata = {"senders": torch.from_numpy(data.senders).long().to(dev),
-             "receivers": torch.from_numpy(data.receivers).long().to(dev),
-             "nodes": data.nodes, "labels": data.labels, "train_mask": data.train_mask}
+    rdata = inputs.reference_inputs(ref, data, dev)
     losses, grads, params = ref.train(weights, rdata, config, traffic["optimizer"]["lr"],
                                       steps_checked, unit_steps)
     sync()
-    reference_s = time.perf_counter() - t
+    phases["reference"] = time.perf_counter() - t
+    reference_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     numbers = check.gaps(first, {"losses": losses, "grads": grads, "params": params}, weights)
     limits = overrides.get("limits", r["limits"]["limits"])
     correct = check.judge(numbers, limits) and win.failed == 0
@@ -264,8 +269,9 @@ def main(argv=None, require_chip: bool = True, device: str = "cuda",
                             "limit": v} for k, v in limits.items()}
     unit_quartiles = ([round(q * 1e3, 4) for q in statistics.quantiles(win.unit_s, n=4)]
                       if len(win.unit_s) > 1 else None)
-    print(f"port_bench: setup phases s {json.dumps({k: round(v, 3) for k, v in phases.items()})}; "
-          f"reference {reference_s:.3f} s over {steps_checked} steps; window {win.steps} steps "
+    print(f"port_bench: phases s {json.dumps({k: round(v, 3) for k, v in phases.items()})} "
+          f"(set-up: imports to first_units); reference over {steps_checked} steps, its peak "
+          f"{reference_peak / GIB:.4f} GiB with the inputs; window {win.steps} steps "
           f"in {win.seconds:.3f} s (a unit's ms: quartiles {unit_quartiles}, extremes "
           f"{min(win.unit_s) * 1e3:.4f} {max(win.unit_s) * 1e3:.4f}); not compared: "
           f"{ {k: numbers[k] for k in check.NUMBERS if k not in limits} }; worst leaves: grad "

@@ -110,7 +110,7 @@ def main(argv=None, device: str = "cuda", graph: dict | None = None) -> int:
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
     ref = importlib.import_module(f"port_bench.reference.{config['reference']}")
     gen = inputs.generator(args.seed, dev)
-    data = inputs.make_graph({**traffic["graph"], **(graph or {})}, args.seed, gen, dev)
+    data = inputs.make_inputs({**traffic["graph"], **(graph or {})}, args.seed, gen, dev)
     weights = inputs.make_weights(
         ref.param_specs(config, data.num_features, data.num_classes), gen, dev)
     prog = program.build(config, traffic, data, weights, dev)

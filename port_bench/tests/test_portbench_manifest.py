@@ -2,8 +2,11 @@
 configuration, traffic, limits and metric readers by name; a new cell is
 taken from new files and entries alone."""
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -130,6 +133,119 @@ def test_new_cell_from_new_files_alone(tmp_path):
     # every per-layer metric reaches the new cell without an edit to its entry
     assert [m["name"] for m in r["per_layer"]] == [m["name"] for m in bench["per_layer"]]
     assert problems(manifest.load(tmp_path)) == []
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+NEW_CONFIG = manifest.HERE / "tests" / "new_config"
+# the samples of new_config/: (cell, configuration, traffic, the model's
+# class, its first conv's class, the builder module it brings or None for
+# the built-in one, whether its reference brings the step's counts)
+SAMPLES = {
+    "kagcn": ("kagcn.tiny-eager", "kagcn", "tiny-eager", "NodeClassifier", "GCNConv", None, True),
+    "kagine": ("kagine.molecules-tiny", "kagine", "molecules-tiny", "GraphRegressor",
+               "GINEConv", "port_bench.programs.GraphRegressor", False),
+}
+
+
+def _drive(root, cell, capture_path):
+    """Run `cell` in the copy at `root`, untraced and traced, in a process of
+    its own (so that `port_bench` there is the copy), then every per-layer
+    reader on a synthetic trace written to `capture_path`, then
+    `calibrate.readings` on one seed; returns the last line of that
+    process's standard output (what was built and read) and its standard
+    error."""
+    script = f"""
+import json, sys, types
+from pathlib import Path
+import torch
+from port_bench import calibrate, manifest, run, trace
+bench = manifest.load()
+results = []
+for t in (0, 1):
+    built = []
+    rc = run.main(["--workload", {cell!r}, "--seed", str(2 ** 33 + 1),
+                   "--seconds", "0.3", "--trace", str(t)], require_chip=False, device="cpu",
+                  program_hook=lambda prog: built.append(
+                      (type(prog.model).__name__, type(prog.model.convs[0]).__name__,
+                       sorted(m for m in sys.modules if m.startswith("port_bench.programs.")))))
+    results.append({{"rc": rc, "built": built}})
+events = [{{"ph": "X", "cat": "user_annotation", "name": "w", "ts": 0, "dur": 1000,
+            "tid": 1, "pid": 1}}] + [
+    {{"ph": "X", "cat": "kernel", "name": k, "ts": 100 * i, "dur": 50, "tid": 7, "pid": 1}}
+    for i, k in enumerate(["bspline_fwd_mma_kernel", "gcn_agg_kernel", "bspline_dw_mma_kernel",
+                           "vectorized_elementwise_kernel"])]
+path = Path({str(capture_path)!r})
+path.write_text(json.dumps({{"traceEvents": events}}))
+r = manifest.resolve(bench, {cell!r})
+ctx = types.SimpleNamespace(trace=trace.load(str(path), "w"), steps_traced=1,
+                            enqueue_s=1e-3, steps_timed=1, step_ms=1.0,
+                            config=r["config"], graph=r["traffic"]["graph"])
+read = {{m["name"]: manifest.reader(m["name"], bench)(ctx) for m in r["per_layer"]}}
+readings = calibrate.readings(r, 2 ** 33 + 3, torch.device("cpu"))
+print(json.dumps({{"runs": results, "read": read, "readings": readings}}))
+"""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(manifest.REPO)])}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=root, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout.strip().splitlines(), out.stderr
+
+
+@pytest.mark.parametrize("sample", sorted(SAMPLES))
+def test_new_model_from_new_files_alone(tmp_path, sample):
+    """A configuration that no cell runs brings its reference (and, where
+    the built-in pieces do not cover it, its builder, its inputs' generator
+    and its step's counts) as new files, with its traffic, limits and new
+    BENCHMARK.json entries: KAGCN, a conv type no cell runs, on the built-in
+    builder and generator with counts of its own; KAGINE, a graph-level
+    model with edge features (`GraphRegressor`), with its own builder and
+    batches of molecules and no counts. In a copy of the benchmark it runs
+    end to end through `run.main` on the CPU, correct, with every end-to-end
+    metric; its model is built by the builder it names; every per-layer
+    metric reads a number or nothing, the count-based ones a number only
+    where the reference brings counts; `calibrate.readings` reads the
+    program within the cell's limits and the float8 control and the
+    half-batch fault outside them; no module it brings but the builder
+    imports the port; no file that was there changes."""
+    cell, config, traffic, model, conv, builder, counted = SAMPLES[sample]
+    shutil.copy(manifest.REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(manifest.HERE, tmp_path / "port_bench",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache", "out", "tests"))
+    before = {p: p.read_bytes() for p in (tmp_path / "port_bench").rglob("*") if p.is_file()}
+    added = [p for p in NEW_CONFIG.rglob("*") if p.is_file() and p.suffix in (".py", ".json")]
+    for src in added:
+        dst = tmp_path / "port_bench" / src.relative_to(NEW_CONFIG)
+        assert not dst.exists(), dst
+        shutil.copy(src, dst)
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": config, "source": "https://arxiv.org/abs/2406.18380",
+                             "file": f"port_bench/configs/{config}.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": cell, "config": config, "traffic": traffic,
+                               "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert problems(manifest.load(tmp_path)) == []
+
+    lines, err = _drive(tmp_path, cell, tmp_path / "trace.json")
+    untraced, traced, drive = (json.loads(lines[i]) for i in (-3, -2, -1))
+    assert [r["rc"] for r in drive["runs"]] == [0, 0]
+    assert all(r["built"] == [[model, conv, [builder] if builder else []]]
+               for r in drive["runs"]), drive["runs"]
+    assert untraced["correct"] and traced["correct"], err
+    assert set(untraced["metrics"]) == {m["name"] for m in bench["end_to_end"]}
+    assert set(drive["read"]) == {m["name"] for m in bench["per_layer"]}
+    assert all(v is None or isinstance(v, float) for v in drive["read"].values()), drive
+    # the reference's counts, where it brings them, reach the rooflines and
+    # the step's share of the peak; without them those read nothing
+    for name in ("kan_layer_roofline", "message_passing_roofline", "step_mfu"):
+        assert (drive["read"][name] > 0) if counted else (drive["read"][name] is None), name
+    limits = json.loads((NEW_CONFIG / "cells" / f"{cell}.json").read_text())["limits"]
+    readings = drive["readings"]
+    assert all(readings["program"][k] <= v for k, v in limits.items()), readings
+    for kind in ("control_fp8", "half_batch"):
+        assert any(readings[kind][k] > v for k, v in limits.items()), (kind, readings)
+    from port_bench.tests.test_portbench_reference import imports_of_the_program
+    assert imports_of_the_program(tmp_path) == []
     assert all(p.read_bytes() == b for p, b in before.items())
 
 

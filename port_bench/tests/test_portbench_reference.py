@@ -1,5 +1,7 @@
 """The plain reference agrees with the port's CPU path (its kernels' plain
 versions) in float32 at a small size, and imports nothing of the program."""
+import json
+import os
 import subprocess
 import sys
 
@@ -21,14 +23,12 @@ def test_reference_follows_the_port_in_f32(cell, tiny):
                "optimizer": {**r["traffic"]["optimizer"], "capturable": False}}
     dev = torch.device("cpu")
     gen = inputs.generator(2 ** 40 + 7, dev)
-    data = inputs.make_graph({**traffic["graph"], **tiny}, 2 ** 40 + 7, gen, dev)
+    data = inputs.make_inputs({**traffic["graph"], **tiny}, 2 ** 40 + 7, gen, dev)
     weights = inputs.make_weights(
         kan_node.param_specs(config, data.num_features, data.num_classes), gen, dev)
     prog = program.build(config, traffic, data, weights, dev)
     first = run.first_units(prog, 3)
-    rdata = {"senders": torch.from_numpy(data.senders).long(),
-             "receivers": torch.from_numpy(data.receivers).long(),
-             "nodes": data.nodes, "labels": data.labels, "train_mask": data.train_mask}
+    rdata = inputs.reference_inputs(kan_node, data, dev)
     losses, grads, params = kan_node.train(weights, rdata, config, 1e-3, 3, 1)
     torch.testing.assert_close(torch.tensor(first["losses"]), torch.tensor(losses),
                                rtol=1e-5, atol=0)
@@ -40,15 +40,33 @@ def test_reference_follows_the_port_in_f32(cell, tiny):
     assert g["loss_gap"] < 1e-5 and g["grad_gap"] < 1e-3 and g["change_gap"] < 1e-3, g
 
 
-def test_reference_imports_nothing_of_the_program():
-    code = ("import sys, port_bench.reference.kan_node, port_bench.inputs, port_bench.work; "
-            "print(sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'kagnn_tpu_torch', 'kagnn_tpu', 'jax', 'jaxlib', 'flax'}))")
+def imports_of_the_program(root=manifest.REPO) -> list[str]:
+    """What of the port, of JAX or of the JAX package a process loads that
+    imports every reference module and input generator under `root`'s
+    `port_bench/`, with the inputs, the counts and every metric reader."""
+    here = root / "port_bench"
+    mods = ["port_bench.inputs", "port_bench.work", "port_bench.check"] + [
+        f"port_bench.{d}.{p.stem}" for d in ("reference", "generators")
+        for p in sorted((here / d).glob("*.py")) if p.stem != "__init__"]
+    code = (f"import importlib, json, runpy, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"for p in {[str(p) for p in sorted((here / 'metrics').glob('*.py'))]!r}: "
+            f"runpy.run_path(p)\n"
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'kagnn_tpu_torch', 'kagnn_tpu', 'jax', 'jaxlib', 'flax'})))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, cwd=manifest.REPO)
-    assert out.stdout.strip() == "[]"
-    for path in (manifest.HERE / "reference").glob("*.py"):
-        assert "kagnn_tpu" not in path.read_text(), path
+                         check=True, cwd=root, env={**os.environ, "PYTHONPATH": str(root)})
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_reference_imports_nothing_of_the_program():
+    """Every reference module and input generator, the counts and the metric
+    readers import nothing of the port; only `program.py` and
+    `programs/*.py` name it."""
+    assert imports_of_the_program() == []
+    for d in ("reference", "generators"):
+        for path in (manifest.HERE / d).glob("*.py"):
+            assert "kagnn_tpu" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -43,3 +43,49 @@ def test_least_time_and_flops():
     kan = sum(o for _, o in work.kan_layer(GAT, GRAPH))
     mp = sum(o for _, o in work.message_passing(GAT, GRAPH))
     assert work.model_flops(GAT, GRAPH) == kan + mp + 2 * 3 * 4 * 10 * 8
+
+
+ARXIV = {"n_nodes": 169343, "n_edges": 1166243, "num_features": 128, "num_classes": 40}
+PRODUCTS = {"n_nodes": 2449029, "n_edges": 123718280, "num_features": 100, "num_classes": 47}
+# (items, bytes, operations) of kan_layer and of message_passing, and
+# model_flops, as the counts read before a configuration could bring its own
+PINNED = {
+    ("kagin", "arxiv"): ((14, 765597280, 231672061952), (5, 286822588, 447837312),
+                         232119899264.0),
+    ("kagin", "products"): ((14, 10845756332, 3262655210496), (5, 6010763496, 44043707680),
+                            3306698918176.0),
+    ("kagat", "arxiv"): ((8, 1422748000, 1326218510336), (6, 1381379112, 5541986736),
+                         1333321162160.0),
+    ("kagat", "products"): ((8, 20256707756, 18828605165568), (6, 22541878512, 587909266560),
+                            19439084683392.0),
+}
+
+
+def _totals(items):
+    return (len(items), sum(b for b, _ in items), sum(o for _, o in items))
+
+
+@pytest.mark.parametrize("config,graph", sorted(PINNED))
+def test_counts_of_the_cells_are_pinned(config, graph):
+    import json
+
+    from port_bench import manifest
+
+    conf = json.loads((manifest.HERE / "configs" / f"{config}.json").read_text())
+    g = {"arxiv": ARXIV, "products": PRODUCTS}[graph]
+    kan, mp, flops = PINNED[(config, graph)]
+    assert _totals(work.kan_layer(conf, g)) == kan
+    assert _totals(work.message_passing(conf, g)) == mp
+    assert work.model_flops(conf, g) == flops
+
+
+@pytest.mark.parametrize("change", [{"conv_type": "gcn"}, {"architecture": "fastkan"},
+                                    {"architecture": "mlp"}, {"model": "GraphRegressor"}])
+def test_a_count_that_does_not_apply_is_none(change):
+    """The built-in counts cover B-spline GIN and GAT node classifiers;
+    another model, conv or update, without counts of its own, gets None
+    and no error (a FastKAN layer is never counted as B-spline products)."""
+    conf = {**GAT, "architecture": "kan", **change}
+    assert work.kan_layer(conf, GRAPH) is None
+    assert work.message_passing(conf, GRAPH) is None
+    assert work.model_flops(conf, GRAPH) is None

@@ -10,8 +10,17 @@ weight and row (SiLU's base term and the 7 B-spline bases at grid 4, order
 3), two each; its backward makes them twice (dW and dx), once when its input
 needs no gradient (the node features). The aggregations count one add an
 edge and column. The bound arithmetic is `chip_smoke.py`'s, copied.
+
+These counts are those of the built-in `NodeClassifier` with GIN or GAT
+convs and B-spline KAN layers. A configuration's reference module (the
+`"reference"` its file names) may define `kan_layer_work`,
+`message_passing_work` and `model_flops`, each `(config, graph)`, in their
+place; a count that neither covers is None, and a metric that needs it then
+reads nothing.
 """
 from __future__ import annotations
+
+import importlib
 
 from port_bench.reference.kan_node import kan_layers
 
@@ -33,8 +42,29 @@ def _needs_dx(prefix: str) -> bool:
     return prefix not in ("convs.0.update.layers.0", "convs.0.transform")
 
 
-def kan_layer(config: dict, graph: dict) -> list[tuple[float, float]]:
-    """(bytes, operations) of every KANLinear forward and backward a step."""
+def _counted(config: dict, hook: str):
+    """The reference module's count `hook`, or None where it defines none."""
+    name = config.get("reference")
+    if not name:
+        return None
+    return getattr(importlib.import_module(f"port_bench.reference.{name}"), hook, None)
+
+
+def _node_kan(config: dict) -> bool:
+    """Whether the built-in counts below apply: a NodeClassifier of GIN or
+    GAT convs with B-spline KAN layers."""
+    return (config.get("model", "NodeClassifier") == "NodeClassifier"
+            and config.get("architecture", "kan") == "kan"
+            and config["conv_type"] in ("gin", "gat"))
+
+
+def kan_layer(config: dict, graph: dict) -> list[tuple[float, float]] | None:
+    """(bytes, operations) of every KAN layer forward and backward a step."""
+    hook = _counted(config, "kan_layer_work")
+    if hook is not None:
+        return hook(config, graph)
+    if not _node_kan(config):
+        return None
     s = ITEMSIZE[config["compute_dtype"]]
     n = graph["n_nodes"]
     nb1 = config["grid_size"] + config["spline_order"] + 1
@@ -49,10 +79,15 @@ def kan_layer(config: dict, graph: dict) -> list[tuple[float, float]]:
     return items
 
 
-def message_passing(config: dict, graph: dict) -> list[tuple[float, float]]:
+def message_passing(config: dict, graph: dict) -> list[tuple[float, float]] | None:
     """(bytes, operations) of every aggregation forward and backward a step:
     GIN's neighbour sum, GAT's attention (logits, softmax per receiver,
     weighted sum)."""
+    hook = _counted(config, "message_passing_work")
+    if hook is not None:
+        return hook(config, graph)
+    if not _node_kan(config):
+        return None
     s = ITEMSIZE[config["compute_dtype"]]
     n, e = graph["n_nodes"], graph["n_edges"]
     csr = 4 * e + 4 * (n + 1)
@@ -64,23 +99,26 @@ def message_passing(config: dict, graph: dict) -> list[tuple[float, float]]:
             items.append((s * 2 * n * d + csr, e * d))
             if i > 0:
                 items.append((s * 2 * n * d + csr, e * d))
-        elif config["conv_type"] == "gat":
+        else:
             hc = H * heads
             items.append((s * 2 * n * hc + 4 * 2 * n * heads + csr,
                           2 * e * hc + 4 * e * heads))
             items.append((s * 3 * n * hc + 4 * 4 * n * heads + csr,
                           4 * e * hc + 8 * e * heads))
-        else:
-            raise ValueError(f"no count for conv_type {config['conv_type']!r}")
     return items
 
 
-def model_flops(config: dict, graph: dict) -> float:
+def model_flops(config: dict, graph: dict) -> float | None:
     """The operations of a train step: the KAN layers' products, the
     aggregations, GAT's attention-logit products (2 a row, head and column,
     for each of a_src and a_dst, forward; twice that backward)."""
-    ops = sum(o for _, o in kan_layer(config, graph))
-    ops += sum(o for _, o in message_passing(config, graph))
+    hook = _counted(config, "model_flops")
+    if hook is not None:
+        return hook(config, graph)
+    kan, mp = kan_layer(config, graph), message_passing(config, graph)
+    if kan is None or mp is None:
+        return None
+    ops = sum(o for _, o in kan) + sum(o for _, o in mp)
     if config["conv_type"] == "gat":
         hc = config["hidden_channels"] * config["heads"]
         ops += config["mp_layers"] * 3 * (2 * 2 * graph["n_nodes"] * hc)
