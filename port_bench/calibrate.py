@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib
 import json
 import sys
 import time
@@ -40,7 +39,7 @@ def readings(resolved: dict, seed: int, device, kinds=KINDS, graph=None) -> dict
     """{kind: check.gaps(...)} for one seed."""
     config, traffic = resolved["config"], resolved["traffic"]
     graph = graph or traffic["graph"]
-    ref = importlib.import_module(f"port_bench.reference.{config['reference']}")
+    ref = manifest.reference(config)
     gen = inputs.generator(seed, device)
     data = inputs.make_inputs(graph, seed, gen, device)
     weights = inputs.make_weights(

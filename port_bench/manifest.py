@@ -11,15 +11,18 @@ and, by the names the configuration and the traffic give,
     built-in `NodeClassifier` one (`program.build`),
   * the inputs' generator: built in, or `port_bench/generators/<name>.py`
     (`inputs.make_inputs`),
-  * the plain reference, `port_bench/reference/<reference>.py`, which may
-    also define the step's counts (`work.py`) and what it trains on
-    (`inputs.reference_inputs`),
+  * the plain reference, `port_bench/reference/<reference>.py`
+    (`reference`), which may also define the step's counts (`work.py`) and
+    what it trains on (`inputs.reference_inputs`),
 so a later change adds a cell, a configuration of any of the port's models,
-a traffic mix or a metric with new files and new entries alone
-(`port_bench/tests/new_config/` holds two such configurations).
+a traffic mix or a metric with new files and new entries alone, which
+the harness's own per-cell tests take by the same names
+(`port_bench/tests/new_config/` holds two such configurations, and
+`tests/test_portbench_any_model.py` runs those tests on them).
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import re
@@ -60,6 +63,12 @@ def resolve(bench: dict, cell_name: str, root: Path = REPO) -> dict:
             "limits": _json(here / "cells" / f"{cell_name}.json"),
             "end_to_end": [m for m in bench["end_to_end"] if reports(m)],
             "per_layer": [m for m in bench["per_layer"] if reports(m)]}
+
+
+def reference(config: dict):
+    """The plain reference module that the configuration's `"reference"`
+    names: `port_bench/reference/<reference>.py`."""
+    return importlib.import_module(f"port_bench.reference.{config['reference']}")
 
 
 def reader(name: str, bench: dict, root: Path = REPO):

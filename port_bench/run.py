@@ -31,7 +31,6 @@ T0 = time.perf_counter()  # set-up is counted from here, before torch is importe
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -178,7 +177,7 @@ def main(argv=None, require_chip: bool = True, device: str = "cuda",
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    ref = importlib.import_module(f"port_bench.reference.{config['reference']}")
+    ref = manifest.reference(config)
     phases = {"imports": time.perf_counter() - T0}
 
     t = time.perf_counter()

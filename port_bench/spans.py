@@ -17,7 +17,6 @@ object as its last line of standard output and a table before it.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import runpy
 import sys
@@ -108,7 +107,7 @@ def main(argv=None, device: str = "cuda", graph: dict | None = None) -> int:
     r = manifest.resolve(manifest.load(), args.workload)
     config, traffic = r["config"], r["traffic"]
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    ref = importlib.import_module(f"port_bench.reference.{config['reference']}")
+    ref = manifest.reference(config)
     gen = inputs.generator(args.seed, dev)
     data = inputs.make_inputs({**traffic["graph"], **(graph or {})}, args.seed, gen, dev)
     weights = inputs.make_weights(

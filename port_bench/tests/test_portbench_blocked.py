@@ -36,6 +36,9 @@ def _gat_attention_one_shot(h, att_src, att_dst, snd, rcv, heads):
 
 
 def _train(config, monkeypatch, edge_bytes=WHOLE, basis_bytes=WHOLE, one_shot=False):
+    """3 steps of the configuration's reference (the module its
+    `"reference"` names, built on `kan_node`'s blocked primitives) with
+    `kan_node`'s block sizes, or its one-shot expressions, in place."""
     monkeypatch.setattr(kan_node, "EDGE_BLOCK_BYTES", edge_bytes)
     monkeypatch.setattr(kan_node, "BASIS_BLOCK_BYTES", basis_bytes)
     if one_shot:
@@ -45,10 +48,12 @@ def _train(config, monkeypatch, edge_bytes=WHOLE, basis_bytes=WHOLE, one_shot=Fa
     graph = {**config["traffic"]["graph"], **GRAPH}
     gen = inputs.generator(2 ** 35 + 3, dev)
     data = inputs.make_inputs(graph, 2 ** 35 + 3, gen, dev)
+    ref = manifest.reference(config["config"])
     weights = inputs.make_weights(
-        kan_node.param_specs(config["config"], data.num_features, data.num_classes), gen, dev)
-    rdata = inputs.reference_inputs(kan_node, data, dev)
-    losses, grads, params = kan_node.train(weights, rdata, config["config"], 1e-3, 3, 2)
+        ref.param_specs(config["config"], data.num_features, data.num_classes), gen, dev)
+    rdata = inputs.reference_inputs(ref, data, dev)
+    losses, grads, params = ref.train(weights, rdata, config["config"],
+                                      config["traffic"]["optimizer"]["lr"], 3, 2)
     monkeypatch.undo()
     return {"losses": losses, "grads": grads, "params": params, "weights": weights}
 
@@ -67,9 +72,11 @@ def _gaps(a, b) -> dict:
 
 
 def _edge_width(c):
+    """The width of the rows the first conv gathers: GIN sums the features,
+    the other convs their transform's output."""
     conf = c["config"]
     return GRAPH["num_features"] if conf["conv_type"] == "gin" else (
-        conf["hidden_channels"] * conf["heads"])
+        conf["hidden_channels"] * conf.get("heads", 1))
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
@@ -119,7 +126,8 @@ def test_kan_row_blocks_within_round_off(config, monkeypatch):
     leaf's gradient and change): losses within 1e-6, leaves within 1e-5."""
     c = CONFIGS[config]
     whole = _train(c, monkeypatch)
-    widest = max(d for _, d, _ in kan_node.kan_layers(c["config"], GRAPH["num_features"], 47))
+    # the widest fan-in, from the reference's `param_specs`
+    widest = max(w.shape[1] for k, w in whole["weights"].items() if k.endswith(".base_weight"))
     grid = c["config"]["grid_size"] + 2 * c["config"]["spline_order"] + 1
     rows = _train(c, monkeypatch, edge_bytes=64 * 4, basis_bytes=50 * widest * grid * 4)
     g = _gaps(rows, whole)

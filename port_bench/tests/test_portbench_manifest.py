@@ -4,13 +4,13 @@ taken from new files and entries alone."""
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 
 import pytest
 
 from port_bench import manifest
+from port_bench.tests.samples import NEW_CONFIG, SAMPLES, add_samples, copy_benchmark
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -106,9 +106,7 @@ def test_cell_finds_its_files_by_name(cell):
 def test_new_cell_from_new_files_alone(tmp_path):
     """A configuration, a traffic mix and a cell added as new files and new
     entries are found; no file that was there changes."""
-    shutil.copy(manifest.REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    shutil.copytree(manifest.HERE, tmp_path / "port_bench",
-                    ignore=shutil.ignore_patterns("__pycache__", ".cache", "out"))
+    copy_benchmark(tmp_path, tests=True)
     before = {p: p.read_bytes() for p in (tmp_path / "port_bench").rglob("*") if p.is_file()}
     here = tmp_path / "port_bench"
     conf = json.loads((here / "configs" / "kagin.json").read_text())
@@ -134,17 +132,6 @@ def test_new_cell_from_new_files_alone(tmp_path):
     assert [m["name"] for m in r["per_layer"]] == [m["name"] for m in bench["per_layer"]]
     assert problems(manifest.load(tmp_path)) == []
     assert all(p.read_bytes() == b for p, b in before.items())
-
-
-NEW_CONFIG = manifest.HERE / "tests" / "new_config"
-# the samples of new_config/: (cell, configuration, traffic, the model's
-# class, its first conv's class, the builder module it brings or None for
-# the built-in one, whether its reference brings the step's counts)
-SAMPLES = {
-    "kagcn": ("kagcn.tiny-eager", "kagcn", "tiny-eager", "NodeClassifier", "GCNConv", None, True),
-    "kagine": ("kagine.molecules-tiny", "kagine", "molecules-tiny", "GraphRegressor",
-               "GINEConv", "port_bench.programs.GraphRegressor", False),
-}
 
 
 def _drive(root, cell, capture_path):
@@ -207,23 +194,11 @@ def test_new_model_from_new_files_alone(tmp_path, sample):
     program within the cell's limits and the float8 control and the
     half-batch fault outside them; no module it brings but the builder
     imports the port; no file that was there changes."""
-    cell, config, traffic, model, conv, builder, counted = SAMPLES[sample]
-    shutil.copy(manifest.REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    shutil.copytree(manifest.HERE, tmp_path / "port_bench",
-                    ignore=shutil.ignore_patterns("__pycache__", ".cache", "out", "tests"))
+    cell, _, model, conv, builder, counted = SAMPLES[sample]
+    copy_benchmark(tmp_path)
     before = {p: p.read_bytes() for p in (tmp_path / "port_bench").rglob("*") if p.is_file()}
-    added = [p for p in NEW_CONFIG.rglob("*") if p.is_file() and p.suffix in (".py", ".json")]
-    for src in added:
-        dst = tmp_path / "port_bench" / src.relative_to(NEW_CONFIG)
-        assert not dst.exists(), dst
-        shutil.copy(src, dst)
+    add_samples(tmp_path, [sample])
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": config, "source": "https://arxiv.org/abs/2406.18380",
-                             "file": f"port_bench/configs/{config}.json", "reduced": [],
-                             "why": "a test"})
-    bench["workloads"].append({"name": cell, "config": config, "traffic": traffic,
-                               "chips": 1, "why": "a test"})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     assert problems(manifest.load(tmp_path)) == []
 
     lines, err = _drive(tmp_path, cell, tmp_path / "trace.json")

@@ -9,27 +9,36 @@ import pytest
 import torch
 
 from port_bench import calibrate, check, inputs, manifest, program, run
-from port_bench.reference import kan_node
 
 BENCH = manifest.load()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
+# the captured entry's steps are eager steps replayed: the test runs those
+EAGER = {"make_node_multi_step": "make_node_steps"}
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_reference_follows_the_port_in_f32(cell, tiny):
+    """The configuration's reference (the module its `"reference"` names)
+    and the port's step entry, as the traffic names it, at the traffic's
+    learning rate: 3 units from the same weights."""
     r = manifest.resolve(BENCH, cell)
+    ref = manifest.reference(r["config"])
     config = {**r["config"], "compute_dtype": "float32"}
-    traffic = {**r["traffic"], "entry": "make_node_steps", "unit_steps": 1,
-               "optimizer": {**r["traffic"]["optimizer"], "capturable": False}}
+    traffic = {**r["traffic"], "optimizer": {**r["traffic"]["optimizer"], "capturable": False}}
+    if traffic["entry"] in EAGER:
+        traffic.update(entry=EAGER[traffic["entry"]], unit_steps=1)
     dev = torch.device("cpu")
     gen = inputs.generator(2 ** 40 + 7, dev)
     data = inputs.make_inputs({**traffic["graph"], **tiny}, 2 ** 40 + 7, gen, dev)
     weights = inputs.make_weights(
-        kan_node.param_specs(config, data.num_features, data.num_classes), gen, dev)
+        ref.param_specs(config, data.num_features, data.num_classes), gen, dev)
     prog = program.build(config, traffic, data, weights, dev)
     first = run.first_units(prog, 3)
-    rdata = inputs.reference_inputs(kan_node, data, dev)
-    losses, grads, params = kan_node.train(weights, rdata, config, 1e-3, 3, 1)
+    rdata = inputs.reference_inputs(ref, data, dev)
+    losses, grads, params = ref.train(weights, rdata, config, traffic["optimizer"]["lr"],
+                                      len(first["losses"]), prog.unit_steps)
     torch.testing.assert_close(torch.tensor(first["losses"]), torch.tensor(losses),
                                rtol=1e-5, atol=0)
     for k in grads:

@@ -34,16 +34,27 @@ def _state_unchanged(prog):
     prog.optimizer.step = lambda *a, **k: None
 
 
-def _half_batch(monkeypatch):
+# the loss that each step entry of the port's train loops trains on, a
+# function of (output, target, mask) in `kagnn_tpu_torch/train/losses.py`
+LOSS_OF_ENTRY = {"make_node_steps": "masked_softmax_cross_entropy",
+                 "make_node_multi_step": "masked_softmax_cross_entropy",
+                 "make_graph_cls_steps": "masked_nll",
+                 "make_graph_reg_steps": "masked_l1"}
+
+
+def _half_batch(monkeypatch, entry):
+    """The loss of the step `entry` taken over the first half of its mask's
+    rows (training nodes, or graphs)."""
     from kagnn_tpu_torch.train import losses
 
-    real = losses.masked_softmax_cross_entropy
+    name = LOSS_OF_ENTRY[entry]
+    real = getattr(losses, name)
 
-    def half(logits, labels, mask):
+    def half(out, target, mask):
         keep = mask & (mask.long().cumsum(0) <= int(mask.sum()) // 2)
-        return real(logits, labels, keep)
+        return real(out, target, keep)
 
-    monkeypatch.setattr(losses, "masked_softmax_cross_entropy", half)
+    monkeypatch.setattr(losses, name, half)
 
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch"])
@@ -53,7 +64,7 @@ def test_broken_step_is_not_correct(capsys, monkeypatch, cell, fault, tiny, tiny
     if fault == "state_unchanged":
         hook = _state_unchanged
     else:
-        _half_batch(monkeypatch)
+        _half_batch(monkeypatch, manifest.resolve(manifest.load(), cell)["traffic"]["entry"])
     rc, out, err = _run(capsys, cell, tiny, tiny_limits, program_hook=hook)
     assert rc == 0
     assert json.loads(out.strip().splitlines()[-1])["correct"] is False

@@ -20,8 +20,7 @@ reads nothing.
 """
 from __future__ import annotations
 
-import importlib
-
+from port_bench import manifest
 from port_bench.reference.kan_node import kan_layers
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
@@ -44,10 +43,9 @@ def _needs_dx(prefix: str) -> bool:
 
 def _counted(config: dict, hook: str):
     """The reference module's count `hook`, or None where it defines none."""
-    name = config.get("reference")
-    if not name:
+    if not config.get("reference"):
         return None
-    return getattr(importlib.import_module(f"port_bench.reference.{name}"), hook, None)
+    return getattr(manifest.reference(config), hook, None)
 
 
 def _node_kan(config: dict) -> bool:
